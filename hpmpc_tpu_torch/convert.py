@@ -1,0 +1,63 @@
+"""Parameter carry-over between the JAX package and the port.
+
+A JAX :class:`hpmpc_tpu.ocp.OCPQP`'s leaves, handed over as numpy arrays
+keyed by field name, become the port's :class:`~.ocp.OCPQP` (batched or
+not); warm-start state (``z0``/``pi0``) rides along the same way.  Numpy is
+the only currency, so neither package imports the other.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .ocp import OCPDims, OCPQP
+
+QP_FIELDS = tuple(f.name for f in dataclasses.fields(OCPQP))
+
+
+def qp_from_numpy(dims: OCPDims, arrays: dict, device="cpu",
+                  dtype=torch.float64) -> OCPQP:
+    """``arrays[name]`` for every :class:`OCPQP` field -> the port's QP on
+    ``device``; float leaves are cast to ``dtype``, ``idxb`` stays int32.
+    Each leaf is ``(stage, ...)`` or ``(B, stage, ...)``; the stage axis
+    must match ``dims``."""
+    missing = [f for f in QP_FIELDS if f not in arrays]
+    if missing:
+        raise KeyError(f"qp_from_numpy: missing fields {missing}")
+    out = {}
+    for name in QP_FIELDS:
+        a = np.asarray(arrays[name])
+        if name == "idxb":
+            t = torch.tensor(a.astype(np.int32), device=device)
+        else:
+            t = torch.tensor(a, device=device, dtype=dtype)
+        out[name] = t
+    qp = OCPQP(**out)
+    Np1 = qp.H.shape[-3]
+    if Np1 != dims.N + 1 or qp.H.shape[-1] != dims.NZ:
+        raise ValueError(
+            f"qp_from_numpy: H has shape {tuple(qp.H.shape)}, dims expect "
+            f"(..., {dims.N + 1}, {dims.NZ}, {dims.NZ})")
+    return qp
+
+
+def warm_from_numpy(arrays: dict, device="cpu", dtype=torch.float64):
+    """Warm-start state ``(z0, pi0)`` from ``arrays`` (each entry optional:
+    a missing key gives None) — the iterate a previous solve returned,
+    (B, N+1, NZ) and (B, N, NX)."""
+    def one(key):
+        if arrays.get(key) is None:
+            return None
+        return torch.tensor(np.asarray(arrays[key]), device=device,
+                            dtype=dtype)
+
+    return one("z0"), one("pi0")
+
+
+def qp_to_numpy(qp: OCPQP) -> dict:
+    """Inverse of :func:`qp_from_numpy`: field name -> numpy array."""
+    return {name: getattr(qp, name).detach().cpu().numpy()
+            for name in QP_FIELDS}

@@ -1,0 +1,421 @@
+// Per-stage IPM math as __device__ functions, one CUDA thread per instance.
+//
+// CUDA twin of the in-kernel helpers of the JAX package's TPU kernels:
+// the Riccati stage algebra of hpmpc_tpu/ops/stage_kernel.py (_chol,
+// _tril_solve, _triu_solve_t, _dinv_ll, _pb_of, _trs_stage, _root_x0,
+// _u_of_x, _pi_of_x, _x_next_of, _folded_bwd_core_fb) and the box step
+// primitives of hpmpc_tpu/ops/step_kernel.py (_t_inv_lamt, _qx_fold,
+// _gather_box, _scatter_add_box, _dt_dlam, _alpha_cands, _corr_co_qx).
+// The plain PyTorch versions are hpmpc_tpu_torch/ops/stage_math.py.
+//
+// Where the TPU helpers work on lists of (8, 128) tiles -- one tile per
+// scalar, 1024 instances in the lanes -- these work on fixed-size
+// per-thread arrays: the dimensions are compile-time constants, so every
+// loop unrolls and every index is static.  Triangular factors are lower;
+// only their lower triangles are read.
+//
+// Numerics follow the JAX kernels exactly: IEEE sqrt/division (never
+// --use_fast_math), pivots clamped at 1e-20 before the rsqrt and at 1e-30
+// before a reciprocal, and NaN-propagating min/max (jnp.minimum /
+// jnp.maximum semantics), so a numerical breakdown still reaches the
+// solver's NaN guard instead of being clamped away.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace hp {
+
+// One instance's column of a batch-last (rows, B) stream: element `row`
+// of instance b lives at p[row * B + b]; p is pre-offset by b, so
+// neighbouring threads touch neighbouring addresses (coalesced).
+template <typename T>
+struct Col {
+  T* p;
+  int64_t B;
+  __device__ __forceinline__ T& operator()(int64_t row) const {
+    return p[row * B];
+  }
+};
+
+template <typename T>
+__device__ __forceinline__ T nmax(T a, T b) {
+  return (a > b || a != a) ? a : b;
+}
+
+template <typename T>
+__device__ __forceinline__ T nmin(T a, T b) {
+  return (a < b || a != a) ? a : b;
+}
+
+__host__ __device__ constexpr int sym_idx(int i, int j) {
+  return i * (i + 1) / 2 + j;
+}
+
+template <typename T, int n, typename C>
+__device__ __forceinline__ void load(T (&v)[n], const C& c, int64_t row0) {
+#pragma unroll
+  for (int i = 0; i < n; ++i) v[i] = c(row0 + i);
+}
+
+template <typename T, int n>
+__device__ __forceinline__ void store(const Col<T>& c, int64_t row0,
+                                      const T (&v)[n]) {
+#pragma unroll
+  for (int i = 0; i < n; ++i) c(row0 + i) = v[i];
+}
+
+// ---------------------------------------------------------------------------
+// Riccati stage algebra
+// ---------------------------------------------------------------------------
+
+// In-place lower Cholesky on the lower triangle of A (stage_kernel._chol):
+// pivot d = rsqrt(max(a_jj, 1e-20)), L_ij = a_ij * d; Dinv = the pivots.
+template <typename T, int n>
+__device__ __forceinline__ void chol(T (&A)[n][n], T (&Dinv)[n]) {
+#pragma unroll
+  for (int j = 0; j < n; ++j) {
+    const T d = T(1) / sqrt(nmax(A[j][j], T(1e-20)));
+    Dinv[j] = d;
+#pragma unroll
+    for (int i = j; i < n; ++i) A[i][j] = A[i][j] * d;
+#pragma unroll
+    for (int jj = j + 1; jj < n; ++jj) {
+#pragma unroll
+      for (int i = jj; i < n; ++i) A[i][jj] = A[i][jj] - A[i][j] * A[jj][j];
+    }
+  }
+}
+
+// y = L^{-1} b on the leading n x n block of L (forward substitution).
+template <typename T, int n, int R, int C>
+__device__ __forceinline__ void tril_solve(const T (&L)[R][C],
+                                           const T (&Dinv)[n],
+                                           const T (&b)[n], T (&y)[n]) {
+#pragma unroll
+  for (int i = 0; i < n; ++i) {
+    T acc = b[i];
+#pragma unroll
+    for (int j = 0; j < i; ++j) acc = acc - L[i][j] * y[j];
+    y[i] = acc * Dinv[i];
+  }
+}
+
+// y = L^{-T} b on the leading n x n block of L (backward substitution).
+template <typename T, int n, int R, int C>
+__device__ __forceinline__ void triu_solve_t(const T (&L)[R][C],
+                                             const T (&Dinv)[n],
+                                             const T (&b)[n], T (&y)[n]) {
+#pragma unroll
+  for (int i = n - 1; i >= 0; --i) {
+    T acc = b[i];
+#pragma unroll
+    for (int j = i + 1; j < n; ++j) acc = acc - L[j][i] * y[j];
+    y[i] = acc * Dinv[i];
+  }
+}
+
+// Reciprocal diagonal of the leading n x n block, clamped at 1e-30.
+template <typename T, int n, int R, int C>
+__device__ __forceinline__ void dinv_diag(const T (&L)[R][C], T (&D)[n]) {
+#pragma unroll
+  for (int i = 0; i < n; ++i) D[i] = T(1) / nmax(L[i][i], T(1e-30));
+}
+
+// Pb = Lxx (Lxx' b).
+template <typename T, int NX>
+__device__ __forceinline__ void pb_of(const T (&Lxx)[NX][NX],
+                                      const T (&bb)[NX], T (&Pb)[NX]) {
+  T t1[NX];
+#pragma unroll
+  for (int i = 0; i < NX; ++i) {
+    T acc = Lxx[i][i] * bb[i];
+#pragma unroll
+    for (int k = i + 1; k < NX; ++k) acc = acc + Lxx[k][i] * bb[k];
+    t1[i] = acc;
+  }
+#pragma unroll
+  for (int i = 0; i < NX; ++i) {
+    T acc = Lxx[i][0] * t1[0];
+#pragma unroll
+    for (int k = 1; k <= i; ++k) acc = acc + Lxx[i][k] * t1[k];
+    Pb[i] = acc;
+  }
+}
+
+// x0 = -(Lxx Lxx')^{-1} px.
+template <typename T, int NX>
+__device__ __forceinline__ void root_x0(const T (&Lxx)[NX][NX],
+                                        const T (&px)[NX], T (&x)[NX]) {
+  T D[NX], mpx[NX], t[NX];
+  dinv_diag<T, NX>(Lxx, D);
+#pragma unroll
+  for (int i = 0; i < NX; ++i) mpx[i] = -px[i];
+  tril_solve<T, NX>(Lxx, D, mpx, t);
+  triu_solve_t<T, NX>(Lxx, D, t, x);
+}
+
+// u = -Luu^{-T} (eu + Lxu' x), with Ll = [Luu; Lxu] (NZ x NU).
+template <typename T, int NU, int NX>
+__device__ __forceinline__ void u_of_x(const T (&Ll)[NU + NX][NU],
+                                       const T (&Dinv_u)[NU],
+                                       const T (&eu)[NU], const T (&x)[NX],
+                                       T (&u)[NU]) {
+  T rhs[NU], y[NU];
+#pragma unroll
+  for (int i = 0; i < NU; ++i) {
+    T acc = eu[i];
+#pragma unroll
+    for (int k = 0; k < NX; ++k) acc = acc + Ll[NU + k][i] * x[k];
+    rhs[i] = acc;
+  }
+  triu_solve_t<T, NU>(Ll, Dinv_u, rhs, y);
+#pragma unroll
+  for (int i = 0; i < NU; ++i) u[i] = -y[i];
+}
+
+// pi = Lxx (Lxx' x) + px.
+template <typename T, int NX>
+__device__ __forceinline__ void pi_of_x(const T (&Lxx)[NX][NX],
+                                        const T (&px)[NX], const T (&x)[NX],
+                                        T (&pi)[NX]) {
+  T t1[NX];
+#pragma unroll
+  for (int i = 0; i < NX; ++i) {
+    T acc = Lxx[i][i] * x[i];
+#pragma unroll
+    for (int k = i + 1; k < NX; ++k) acc = acc + Lxx[k][i] * x[k];
+    t1[i] = acc;
+  }
+#pragma unroll
+  for (int i = 0; i < NX; ++i) {
+    T acc = px[i];
+#pragma unroll
+    for (int k = 0; k <= i; ++k) acc = acc + Lxx[i][k] * t1[k];
+    pi[i] = acc;
+  }
+}
+
+// x_{s+1} = b_s + F_s' z_s, F read straight from its (NZ, NX) stream rows.
+template <typename T, int NZ, int NX, typename C>
+__device__ __forceinline__ void x_next_of(const C& F, int64_t f0,
+                                          const C& b, int64_t b0,
+                                          const T (&z)[NZ], T (&xn)[NX]) {
+#pragma unroll
+  for (int j = 0; j < NX; ++j) {
+    T acc = b(b0 + j);
+#pragma unroll
+    for (int i = 0; i < NZ; ++i) acc = acc + F(f0 + i * NX + j) * z[i];
+    xn[j] = acc;
+  }
+}
+
+// Folded backward Riccati stage (stage_kernel._folded_bwd_core_fb) on an
+// assembled effective Hessian M (lower triangle filled) and gradient g:
+//   W = F Lxx_c, Pb = Lxx_c (Lxx_c' b), m = g + F (Pb + px_c),
+//   M += W W', M = chol(M), eu = Luu^{-1} m_u, px = m_x - Lxu eu.
+// On return M holds the factor; the carry becomes (Lxx block, px).  A zero
+// carry (terminal stage) collapses this exactly to M = H, Pb = 0, m = g.
+template <typename T, int NU, int NX>
+__device__ __forceinline__ void folded_bwd_core(
+    T (&M)[NU + NX][NU + NX], const T (&g)[NU + NX],
+    const T (&F)[NU + NX][NX], const T (&bb)[NX], T (&Lxx_c)[NX][NX],
+    T (&px_c)[NX], T (&eu)[NU], T (&px)[NX], T (&Pb)[NX]) {
+  constexpr int NZ = NU + NX;
+  T W[NZ][NX];
+#pragma unroll
+  for (int i = 0; i < NZ; ++i) {
+#pragma unroll
+    for (int j = 0; j < NX; ++j) {
+      T acc = F[i][j] * Lxx_c[j][j];
+#pragma unroll
+      for (int k = j + 1; k < NX; ++k) acc = acc + F[i][k] * Lxx_c[k][j];
+      W[i][j] = acc;
+    }
+  }
+  pb_of<T, NX>(Lxx_c, bb, Pb);
+  T m[NZ];
+#pragma unroll
+  for (int i = 0; i < NZ; ++i) {
+    T acc = g[i];
+#pragma unroll
+    for (int k = 0; k < NX; ++k) acc = acc + F[i][k] * (Pb[k] + px_c[k]);
+    m[i] = acc;
+  }
+#pragma unroll
+  for (int i = 0; i < NZ; ++i) {
+#pragma unroll
+    for (int j = 0; j <= i; ++j) {
+      T acc = M[i][j];
+#pragma unroll
+      for (int k = 0; k < NX; ++k) acc = acc + W[i][k] * W[j][k];
+      M[i][j] = acc;
+    }
+  }
+  T Dinv[NZ];
+  chol<T, NZ>(M, Dinv);
+  T Dinv_u[NU], mu_[NU];
+#pragma unroll
+  for (int i = 0; i < NU; ++i) {
+    Dinv_u[i] = Dinv[i];
+    mu_[i] = m[i];
+  }
+  tril_solve<T, NU>(M, Dinv_u, mu_, eu);
+#pragma unroll
+  for (int i = 0; i < NX; ++i) {
+    T acc = m[NU + i];
+#pragma unroll
+    for (int k = 0; k < NU; ++k) acc = acc - M[NU + i][k] * eu[k];
+    px[i] = acc;
+  }
+#pragma unroll
+  for (int i = 0; i < NX; ++i) {
+    px_c[i] = px[i];
+#pragma unroll
+    for (int j = 0; j < NX; ++j)
+      Lxx_c[i][j] = (j <= i) ? M[NU + i][NU + j] : T(0);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// box step primitives, phase-1 forms; a box vector holds 2K slots:
+// [0, K) lower bounds, [K, 2K) upper bounds
+// ---------------------------------------------------------------------------
+
+template <typename T>
+__device__ __forceinline__ void t_inv_lamt(T lam, T t, T mb, T& t_inv,
+                                           T& lamt) {
+  const T rec = T(1) / (mb > T(0) ? t : T(1));
+  t_inv = rec * mb;
+  lamt = lam * t_inv;
+}
+
+// Qx = fold(lam/t), qx = fold(-sgn*lam - lam/t*A), masked; fold = lo + up.
+template <typename T, int K>
+__device__ __forceinline__ void qx_fold(const T (&lam)[2 * K],
+                                        const T (&t)[2 * K],
+                                        const T (&mb)[2 * K],
+                                        const T (&A)[2 * K], T (&Qx)[K],
+                                        T (&qx)[K]) {
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
+    T ti_lo, lt_lo, ti_up, lt_up;
+    t_inv_lamt(lam[i], t[i], mb[i], ti_lo, lt_lo);
+    t_inv_lamt(lam[K + i], t[K + i], mb[K + i], ti_up, lt_up);
+    const T q_lo = -lam[i] - lt_lo * A[i];
+    const T q_up = lam[K + i] - lt_up * A[K + i];
+    Qx[i] = (lt_lo + lt_up) * mb[i];
+    qx[i] = (q_lo + q_up) * mb[i];
+  }
+}
+
+// zb[k] = z[idx[k]] as a select chain over the NZ slots (keeps z in
+// registers; padded slots point at 0 and are masked by the caller).
+template <typename T, int K, int NZ>
+__device__ __forceinline__ void gather_box(const T (&z)[NZ], const int* idx,
+                                           T (&zb)[K]) {
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int j = idx[k];
+    T v = z[0];
+#pragma unroll
+    for (int c = 1; c < NZ; ++c) v = (j == c) ? z[c] : v;
+    zb[k] = v;
+  }
+}
+
+// base[idx[k]] += v[k] (padded slots carry v == 0).
+template <typename T, int K, int NZ>
+__device__ __forceinline__ void scatter_add_box(T (&base)[NZ],
+                                                const int* idx,
+                                                const T (&v)[K]) {
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int j = idx[k];
+#pragma unroll
+    for (int c = 0; c < NZ; ++c)
+      if (j == c) base[c] = base[c] + v[k];
+  }
+}
+
+// dt = (sgn*(zb2 - A) - t) * mb; dlam = (dl0 - lam/t*dt - lam) * mb.
+template <typename T, int K>
+__device__ __forceinline__ void dt_dlam(const T (&lam)[2 * K],
+                                        const T (&t)[2 * K],
+                                        const T (&mb)[2 * K],
+                                        const T (&A)[2 * K],
+                                        const T (&zb)[K],
+                                        const T (&dl0)[2 * K],
+                                        T (&dt)[2 * K], T (&dl)[2 * K]) {
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
+    dt[i] = ((zb[i] - A[i]) - t[i]) * mb[i];
+    dt[K + i] = ((A[K + i] - zb[i]) - t[K + i]) * mb[K + i];
+  }
+#pragma unroll
+  for (int i = 0; i < 2 * K; ++i) {
+    T t_inv, lamt;
+    t_inv_lamt(lam[i], t[i], mb[i], t_inv, lamt);
+    dl[i] = (dl0[i] - lamt * dt[i] - lam[i]) * mb[i];
+  }
+}
+
+// -v/dv where dv < 0 (masked), +inf elsewhere.
+template <typename T>
+__device__ __forceinline__ T alpha_cand(T v, T dv, T mb) {
+  return (dv < T(0) && mb > T(0)) ? -v / dv : T(INFINITY);
+}
+
+// Fraction-to-boundary minimum and the mu(alpha) sum partials of one box
+// vector: amin = min(amin, min_i cand), s0 += sum lam t mb,
+// s1 += sum(lam dt + t dl), s2 += sum(dl dt).
+template <typename T, int K2>
+__device__ __forceinline__ void alpha_sums(const T (&lam)[K2],
+                                           const T (&t)[K2],
+                                           const T (&mb)[K2],
+                                           const T (&dt)[K2],
+                                           const T (&dl)[K2], T& amin, T& s0,
+                                           T& s1, T& s2) {
+  T cmin = nmin(alpha_cand(lam[0], dl[0], mb[0]),
+                alpha_cand(t[0], dt[0], mb[0]));
+  T e0 = lam[0] * t[0] * mb[0];
+  T e1 = lam[0] * dt[0] + t[0] * dl[0];
+  T e2 = dl[0] * dt[0];
+#pragma unroll
+  for (int i = 1; i < K2; ++i) {
+    cmin = nmin(cmin, nmin(alpha_cand(lam[i], dl[i], mb[i]),
+                           alpha_cand(t[i], dt[i], mb[i])));
+    e0 = e0 + lam[i] * t[i] * mb[i];
+    e1 = e1 + (lam[i] * dt[i] + t[i] * dl[i]);
+    e2 = e2 + dl[i] * dt[i];
+  }
+  amin = nmin(amin, cmin);
+  s0 = s0 + e0;
+  s1 = s1 + e1;
+  s2 = s2 + e2;
+}
+
+// co = t_inv (sigma mu - dl dt) mb and the corrected gradient fold
+// qx = fold(-sgn*lam - lam/t*A) + fold(-sgn*co).
+template <typename T, int K>
+__device__ __forceinline__ void corr_co_qx(const T (&lam)[2 * K],
+                                           const T (&t)[2 * K],
+                                           const T (&mb)[2 * K],
+                                           const T (&A)[2 * K],
+                                           const T (&dtb)[2 * K],
+                                           const T (&dlb)[2 * K], T sm,
+                                           T (&co)[2 * K], T (&qx)[K]) {
+#pragma unroll
+  for (int i = 0; i < 2 * K; ++i) {
+    T t_inv, lamt;
+    t_inv_lamt(lam[i], t[i], mb[i], t_inv, lamt);
+    co[i] = t_inv * (sm - dlb[i] * dtb[i]) * mb[i];
+  }
+  T Qx[K], qx0[K];
+  qx_fold<T, K>(lam, t, mb, A, Qx, qx0);
+#pragma unroll
+  for (int i = 0; i < K; ++i) qx[i] = qx0[i] + (co[K + i] - co[i]) * mb[i];
+}
+
+}  // namespace hp

@@ -1,0 +1,142 @@
+"""Build and load the hand-written CUDA kernels.
+
+``nvcc`` compiles each ``csrc/<kernel>.cu`` into its own shared library with
+a plain C interface (no PyTorch headers: a build takes seconds, not
+minutes), for ``sm_90a``, once per problem shape.  The stage dimensions
+are compile-time ``-D`` defines (``HP_NU``, ``HP_NX``, ``HP_NB``,
+``HP_NG``) — the CUDA form of the JAX kernels' ``static_argnames`` — so
+the per-thread arrays are fixed-size and the stage loops unroll.  The
+library name carries the dimensions and a hash of the sources and flags,
+so an edited source is never served from a stale build.
+
+The library lands in ``hpmpc_tpu_torch/_build/`` (git-ignored) at first
+use and is loaded with ``ctypes``; nothing is built at import.
+``--use_fast_math`` is deliberately absent: the kernels reproduce the JAX
+kernels' exact ``rsqrt``/reciprocal with clamped pivots.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import tempfile
+
+import torch
+
+_PKG = pathlib.Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_LIBS: dict = {}
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if home and (pathlib.Path(home) / "bin" / "nvcc").exists():
+        return str(pathlib.Path(home) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = pathlib.Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def _key(kernel: str, dims: dict) -> str:
+    h = hashlib.sha1()
+    for p in [CSRC / f"{kernel}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    tag = "_".join(f"{k}{v}" for k, v in sorted(dims.items()))
+    return f"{kernel}_{tag}_{h.hexdigest()[:12]}"
+
+
+def build(kernel: str, dims: dict) -> pathlib.Path:
+    """Compile ``csrc/<kernel>.cu`` for ``dims`` (e.g. ``{"NU": 3, "NX": 8,
+    "NB": 7}``) unless a build of the same sources exists; returns the
+    library path."""
+    out = BUILD_DIR / f"lib{_key(kernel, dims)}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    defs = [f"-DHP_{k}={int(v)}" for k, v in sorted(dims.items())]
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, *defs, "-I", str(CSRC), "-o", tmp,
+           str(CSRC / f"{kernel}.cu")]
+    try:
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
+                f"{res.stdout}\n{res.stderr}")
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return out
+
+
+def load(kernel: str, **dims) -> ctypes.CDLL:
+    """The library of ``csrc/<kernel>.cu`` for these stage dimensions
+    (built on first use, then cached for the process).  Every library
+    exports ``hp_<kernel>(const Args*, int dtype_code, cudaStream_t)``
+    returning ``cudaGetLastError()`` after the launch, and
+    ``hp_error_string``."""
+    key = (kernel,) + tuple(sorted(dims.items()))
+    lib = _LIBS.get(key)
+    if lib is None:
+        lib = ctypes.CDLL(str(build(kernel, dims)))
+        f = getattr(lib, f"hp_{kernel}")
+        f.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+        f.restype = ctypes.c_int
+        lib.hp_error_string.argtypes = [ctypes.c_int]
+        lib.hp_error_string.restype = ctypes.c_char_p
+        _LIBS[key] = lib
+    return lib
+
+
+def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    """Raise if a launch returned a CUDA error code."""
+    if rc != 0:
+        msg = lib.hp_error_string(rc).decode()
+        raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
+
+
+def dtype_code(dt) -> int:
+    """The C entry points' dtype switch: 0 float32, 1 float64."""
+    if dt == torch.float32:
+        return 0
+    if dt == torch.float64:
+        return 1
+    raise TypeError(f"kernels take float32 or float64, got {dt}")
+
+
+def check_tensors(dev, dt, named: dict, shapes: dict) -> None:
+    """Raise unless every tensor in ``named`` lies on ``dev``, has dtype
+    ``dt`` (``idx_tab``: int32), is contiguous and has ``shapes[name]``."""
+    for name, x in named.items():
+        if x.device != dev:
+            raise ValueError(f"{name} is on {x.device}, expected {dev}")
+        want_dt = torch.int32 if name == "idx_tab" else dt
+        if x.dtype != want_dt:
+            raise TypeError(f"{name} has dtype {x.dtype}, expected {want_dt}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if tuple(x.shape) != shapes[name]:
+            raise ValueError(f"{name} has shape {tuple(x.shape)}, "
+                             f"expected {shapes[name]}")
+
+
+def ptr(t) -> int:
+    """Device pointer of a tensor as an int (None -> NULL)."""
+    return 0 if t is None else t.data_ptr()

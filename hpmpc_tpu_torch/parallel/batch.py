@@ -1,0 +1,99 @@
+"""Batched QP solving (PyTorch twin of the dispatch half of
+:mod:`hpmpc_tpu.parallel.batch`).
+
+The batch is a first-class leading axis on every QP leaf.
+:func:`select_engine` keeps the JAX package's rule and engine names, minus
+the gates that are TPU measurements (the ``B % 1024`` block, the VMEM fit
+gates, the NZ 19..22 mega fence; nothing here chunks at 4096 either).
+Only the ``"resident"`` engine is ported; every other engine raises
+``NotImplementedError`` naming its ROADMAP item instead of quietly running
+something else.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+
+import torch
+
+from ..models import ipm
+from ..ocp import OCPDims, OCPQP
+
+#: ROADMAP.md Queue 1 item that ports each engine not available yet
+_NOT_PORTED = {
+    "structured": "Queue 1 #5 (structured ipm.solve)",
+    "lanes": "Queue 1 #7 (lanes engine)",
+    "flat": "Queue 1 #7 (lanes engine; the flat engine folds into it)",
+    "two_stage_resident": "Queue 1 #7 (lanes engine, stage 2 of the "
+                          "two-stage route)",
+    "two_stage_lanes": "Queue 1 #7 (lanes engine)",
+}
+
+
+def broadcast_qp(qp: OCPQP, batch: int) -> OCPQP:
+    """Tile a single QP into a batch (leading axis; views, no copies)."""
+    return OCPQP(**{
+        f.name: getattr(qp, f.name).expand(
+            (batch,) + tuple(getattr(qp, f.name).shape))
+        for f in dataclasses.fields(qp)})
+
+
+def select_engine(dims: OCPDims, cfg: ipm.IPMConfig, B: int, dtype) -> str:
+    """The hard-path dispatch rule: ``"resident"``, ``"lanes"``,
+    ``"flat"``, ``"two_stage_resident"``, ``"two_stage_lanes"`` or
+    ``"structured"``, as in :func:`hpmpc_tpu.parallel.batch.select_engine`.
+
+    Env knobs as in the JAX package: ``HPMPC_RESIDENT=0`` disables the
+    resident engine, ``HPMPC_LANES_LOOP=0`` the lanes engine."""
+    if not (cfg.use_pallas and dims.n_constr > 0 and dims.idxb is not None):
+        return "structured"
+    f32 = dtype == torch.float32
+    iter_ref = int(cfg.iter_ref)
+    ref_thr = float(cfg.iter_ref_mu_thr)
+
+    def resident_ok(stage1_mu_tol: float) -> bool:
+        # exact only where the legacy phase-1-to-mu_tol semantics coincide
+        # with the requested config: mu_switch <= the target tolerance
+        return (
+            os.environ.get("HPMPC_RESIDENT", "1") == "1"
+            and dims.NB > 0
+            and f32
+            and float(cfg.mu_switch) <= stage1_mu_tol
+        )
+
+    lanes_ok = (
+        (os.environ.get("HPMPC_LANES_LOOP", "1") == "1"
+         or os.environ.get("HPMPC_MEGA_SWEEPS", "0") == "1")
+        and dims.NB > 0
+        and f32
+    )
+    if iter_ref == 0:
+        if resident_ok(float(cfg.mu_tol)):
+            return "resident"
+        return "lanes" if lanes_ok else "flat"
+    if ref_thr > 0 and lanes_ok:
+        if resident_ok(max(float(cfg.mu_tol), ref_thr)):
+            return "two_stage_resident"
+        return "two_stage_lanes"
+    return "flat"
+
+
+def solve_batched(dims: OCPDims, qp: OCPQP, cfg: ipm.IPMConfig,
+                  z0=None, pi0=None) -> ipm.IPMSolution:
+    """Solve a batch of QPs (leading instance axis on every leaf) with the
+    engine :func:`select_engine` picks.  ``z0`` (B, N+1, NZ) / ``pi0``
+    (B, N, NX) with ``cfg.warm_start`` seed the iterate."""
+    if cfg.escalate_stalled and qp.dtype == torch.float32:
+        raise NotImplementedError(
+            "escalate_stalled re-solves through the structured engine: "
+            f"ROADMAP {_NOT_PORTED['structured']}")
+    B = qp.b.shape[0]
+    engine = select_engine(dims, cfg, B, qp.dtype)
+    if engine == "resident":
+        from ..models import ipm_resident
+
+        return ipm_resident.solve_batched_resident(dims, qp, cfg,
+                                                   z0=z0, pi0=pi0)
+    raise NotImplementedError(
+        f"engine {engine!r} is not ported yet: ROADMAP {_NOT_PORTED[engine]}")

@@ -1,0 +1,123 @@
+"""The port's slice as a whole: ``parallel.batch.solve_batched`` of the
+PyTorch port vs the JAX package's ``solve_batched`` on the resident route
+(``HPMPC_RESIDENT=1``, Pallas in interpret mode), plus the dispatch rule
+and the not-yet-ported engines."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+from jax.experimental import pallas as pl  # noqa: E402
+
+from hpmpc_tpu.models import ipm as jipm  # noqa: E402
+from hpmpc_tpu.parallel import batch as jbatch  # noqa: E402
+from hpmpc_tpu.utils.mass_spring import mass_spring_qp as j_mass_spring  # noqa: E402
+from hpmpc_tpu_torch.convert import QP_FIELDS, qp_from_numpy  # noqa: E402
+from hpmpc_tpu_torch.models.ipm import IPMConfig  # noqa: E402
+from hpmpc_tpu_torch.parallel import batch as tbatch  # noqa: E402
+from hpmpc_tpu_torch.utils.mass_spring import mass_spring_qp  # noqa: E402
+
+torch.set_num_threads(1)
+
+
+@pytest.fixture
+def interpret_pallas(monkeypatch):
+    orig = pl.pallas_call
+
+    def patched(*a, **k):
+        k["interpret"] = True
+        return orig(*a, **k)
+
+    monkeypatch.setattr(pl, "pallas_call", patched)
+    yield
+
+
+def _np(x):
+    return x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def test_solve_batched_matches_jax(interpret_pallas, monkeypatch):
+    """f32 box-only N=4: both packages' library entry point on the
+    resident route, at tests/test_resident.py's tolerances."""
+    monkeypatch.setenv("HPMPC_RESIDENT", "1")
+    B = 1024
+    dims, qp_j = j_mass_spring(8, 3, 4, dtype=jnp.float32)
+    qpb = jbatch.broadcast_qp(qp_j, B)
+    rng = np.random.default_rng(0)
+    qpb = dataclasses.replace(
+        qpb, b=qpb.b * jnp.asarray(1 + 0.02 * rng.standard_normal(B),
+                                   jnp.float32)[:, None, None])
+    qp_t = qp_from_numpy(dims, {f: np.asarray(getattr(qpb, f))
+                                for f in QP_FIELDS}, dtype=torch.float32)
+    kw = dict(k_max=3, mu_tol=1e-4, mu_switch=0.0, use_pallas=True)
+    cfg_j, cfg_t = jipm.IPMConfig(**kw), IPMConfig(**kw)
+    assert jbatch.select_engine(dims, cfg_j, B, jnp.float32) == "resident"
+    assert tbatch.select_engine(dims, cfg_t, B, torch.float32) == "resident"
+    sol_j = jax.jit(lambda q: jbatch.solve_batched(dims, q, cfg_j))(qpb)
+    sol_t = tbatch.solve_batched(dims, qp_t, cfg_t)
+
+    np.testing.assert_array_equal(_np(sol_t.kk), _np(sol_j.kk))
+    np.testing.assert_array_equal(_np(sol_t.status), _np(sol_j.status))
+    np.testing.assert_allclose(_np(sol_t.z), _np(sol_j.z), atol=2e-3)
+    np.testing.assert_allclose(_np(sol_t.pi), _np(sol_j.pi), atol=5e-3)
+    np.testing.assert_allclose(_np(sol_t.lam_b), _np(sol_j.lam_b),
+                               rtol=5e-3, atol=5e-3)
+    np.testing.assert_allclose(_np(sol_t.t_b), _np(sol_j.t_b),
+                               rtol=5e-3, atol=5e-3)
+    np.testing.assert_allclose(_np(sol_t.stat), _np(sol_j.stat),
+                               rtol=2e-2, atol=2e-4)
+    np.testing.assert_allclose(_np(sol_t.inf_norm_res),
+                               _np(sol_j.inf_norm_res), rtol=5e-2, atol=5e-3)
+    for f in sol_t._fields:
+        assert _np(getattr(sol_t, f)).shape == _np(getattr(sol_j, f)).shape, f
+
+
+_CFGS = [
+    dict(mu_tol=0.0, mu_switch=0.0),                   # bench headline
+    dict(mu_tol=1e-8, mu_switch=1e-5),                 # library default
+    dict(mu_tol=1e-8, mu_switch=1e-8),
+    dict(mu_tol=0.0, iter_ref=1, iter_ref_mu_thr=1e-3),  # bench parity
+    dict(mu_tol=0.0, iter_ref=1, iter_ref_mu_thr=1e-3, mu_switch=1e-2),
+    dict(mu_tol=0.0, iter_ref=1),
+    dict(mu_tol=1e-8, use_pallas=False),
+]
+
+
+@pytest.mark.parametrize("env", [{}, {"HPMPC_RESIDENT": "0"},
+                                 {"HPMPC_LANES_LOOP": "0"}])
+@pytest.mark.parametrize("f32", [True, False])
+@pytest.mark.parametrize("ci", range(len(_CFGS)))
+def test_select_engine_agrees_with_jax(monkeypatch, ci, f32, env):
+    for k in ("HPMPC_RESIDENT", "HPMPC_LANES_LOOP", "HPMPC_MEGA_SWEEPS"):
+        monkeypatch.delenv(k, raising=False)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    kw = dict(k_max=8, use_pallas=True)
+    kw.update(_CFGS[ci])
+    dims, _ = mass_spring_qp(8, 3, 30, ngN=8)
+    jdt, tdt = ((jnp.float32, torch.float32) if f32
+                else (jnp.float64, torch.float64))
+    e_j = jbatch.select_engine(dims, jipm.IPMConfig(**kw), 4096, jdt)
+    e_t = tbatch.select_engine(dims, IPMConfig(**kw), 4096, tdt)
+    assert e_t == e_j
+
+
+@pytest.mark.parametrize("kw", [
+    dict(mu_tol=1e-8, mu_switch=1e-5, use_pallas=True),     # -> lanes
+    dict(mu_tol=1e-8, use_pallas=False),                    # -> structured
+    dict(mu_tol=0.0, iter_ref=1, iter_ref_mu_thr=1e-3,
+         use_pallas=True),                                  # -> two-stage
+    dict(mu_tol=0.0, mu_switch=0.0, use_pallas=True,
+         escalate_stalled=True),                            # -> structured
+])
+def test_unported_engines_raise(monkeypatch, kw):
+    monkeypatch.delenv("HPMPC_RESIDENT", raising=False)
+    dims, qp = mass_spring_qp(8, 3, 4, dtype=torch.float32)
+    qpb = tbatch.broadcast_qp(qp, 8)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tbatch.solve_batched(dims, qpb, IPMConfig(k_max=2, **kw))

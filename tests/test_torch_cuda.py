@@ -1,0 +1,129 @@
+"""Hand-written CUDA kernels of the PyTorch port vs their plain PyTorch
+versions, on the card, at small shapes; and the wrappers' input checks.
+
+Needs a CUDA card and nvcc: skipped where torch sees no card.  Imports no
+JAX, so it also runs on a machine without it:
+
+    python -m pytest tests/test_torch_cuda.py --noconftest -q
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from hpmpc_tpu_torch.models import ipm_resident  # noqa: E402
+from hpmpc_tpu_torch.models.ipm import IPMConfig  # noqa: E402
+from hpmpc_tpu_torch.ops import resident_kernel as rk  # noqa: E402
+from hpmpc_tpu_torch.ops import step_kernel as stk  # noqa: E402
+from hpmpc_tpu_torch.parallel import batch as pbatch  # noqa: E402
+from hpmpc_tpu_torch.utils.mass_spring import mass_spring_qp  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+
+# f64: same algorithm, other summation order, shallow budget -> roundoff.
+# f32: tests/test_resident.py's configs (k_max=3, mu_tol=1e-4) and
+# tolerances; as there, pi is compared on the box-only problem only (the
+# small-N ngN problem is infeasible, its multipliers grow every step).
+_CFG = {torch.float64: dict(k_max=4, mu_tol=1e-10, mu_switch=1e-10),
+        torch.float32: dict(k_max=3, mu_tol=1e-4, mu_switch=0.0)}
+_TOL = {torch.float64: dict(z=1e-10, pi=1e-10, lam=1e-9, lam_rtol=1e-9,
+                            stat=1e-9, stat_atol=1e-9, resid=1e-12),
+        torch.float32: dict(z=2e-3, pi=5e-3, lam=5e-3, lam_rtol=5e-3,
+                            stat=2e-2, stat_atol=2e-4, resid=1e-4)}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA card")
+    return torch.device("cuda", 0)
+
+
+def _batch(dev, dtype, N, ngN, B):
+    dims, qp = mass_spring_qp(8, 3, N, ngN=ngN, dtype=dtype, device=dev)
+    qpb = pbatch.broadcast_qp(qp, B)
+    rng = np.random.default_rng(0)
+    sc = torch.as_tensor(1 + 0.02 * rng.standard_normal(B), dtype=dtype,
+                         device=dev)
+    return dims, dataclasses.replace(qpb, b=qpb.b * sc[:, None, None])
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("ngN,B", [(0, 64), (4, 37)])
+def test_ipm_resident_kernel_matches_plain(cuda, dtype, ngN, B):
+    dims, qpb = _batch(cuda, dtype, 4, ngN, B)
+    args, kw, _, _ = ipm_resident.resident_inputs(dims, qpb,
+                                                  IPMConfig(**_CFG[dtype]))
+    n0 = rk.LAUNCHES
+    out_k = rk.ipm_resident(*args, **kw)
+    torch.cuda.synchronize()
+    assert rk.LAUNCHES == n0 + 1
+    out_p = rk.ipm_resident_ref(*args, **kw)
+    tol = _TOL[dtype]
+    assert torch.equal(out_k[5], out_p[5])            # kk
+    assert torch.equal(out_k[6], out_p[6])            # frozen
+    torch.testing.assert_close(out_k[0], out_p[0], rtol=0, atol=tol["z"])
+    if ngN == 0 or dtype == torch.float64:
+        torch.testing.assert_close(out_k[1], out_p[1], rtol=0,
+                                   atol=tol["pi"])
+    for i in (2, 3, 4) + ((8, 9) if ngN else ()):     # lam, t, mu, ng
+        torch.testing.assert_close(out_k[i], out_p[i], rtol=tol["lam_rtol"],
+                                   atol=tol["lam"])
+    torch.testing.assert_close(out_k[7], out_p[7], rtol=tol["stat"],
+                               atol=tol["stat_atol"])
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_resid_full_kernel_matches_plain(cuda, dtype):
+    dims, qpb = _batch(cuda, dtype, 4, 4, 50)
+    cfg = IPMConfig(k_max=2, mu_tol=0.0, mu_switch=0.0)
+    args, kw, cm, _ = ipm_resident.resident_inputs(dims, qpb, cfg)
+    z, pi, lam, t = rk.ipm_resident_ref(*args, **kw)[:4]
+    r_args, r_kw = ipm_resident.exit_resid_inputs(dims, qpb, cm, z, pi, lam,
+                                                  t)
+    n0 = stk.RESID_LAUNCHES
+    out_k = stk.resid_full(*r_args, **r_kw)
+    torch.cuda.synchronize()
+    assert stk.RESID_LAUNCHES == n0 + 1
+    out_p = stk.resid_full_ref(*r_args, **r_kw)
+    for a, b in zip(out_k, out_p):
+        torch.testing.assert_close(a, b, rtol=_TOL[dtype]["resid"],
+                                   atol=_TOL[dtype]["resid"])
+
+
+def test_resident_engine_on_card_matches_cpu(cuda):
+    """The resident engine on the card (both kernels) vs the same call on
+    the CPU (plain versions), float64, with general constraints."""
+    dims, qpb = _batch(cuda, torch.float64, 4, 4, 40)
+    cfg = IPMConfig(k_max=4, mu_tol=1e-10, mu_switch=0.0)
+    sol_g = ipm_resident.solve_batched_resident(dims, qpb, cfg)
+    sol_c = ipm_resident.solve_batched_resident(dims, qpb.to("cpu"), cfg)
+    assert torch.equal(sol_g.kk.cpu(), sol_c.kk)
+    for f in ("z", "pi", "lam_b", "t_b", "lam_g", "t_g", "stat",
+              "inf_norm_res"):
+        torch.testing.assert_close(getattr(sol_g, f).cpu(),
+                                   getattr(sol_c, f), rtol=1e-9, atol=1e-10)
+
+
+def test_wrappers_reject_bad_inputs(cuda):
+    dims, qpb = _batch(cuda, torch.float32, 4, 0, 16)
+    cfg = IPMConfig(k_max=2, mu_tol=0.0, mu_switch=0.0)
+    args, kw, _, _ = ipm_resident.resident_inputs(dims, qpb, cfg)
+    bad = list(args)
+    bad[3] = args[3].double()                       # z0 in another dtype
+    with pytest.raises(TypeError):
+        rk.ipm_resident(*bad, **kw)
+    bad = list(args)
+    bad[7] = args[7].transpose(0, 1).contiguous().transpose(0, 1)
+    with pytest.raises(ValueError):                 # non-contiguous H
+        rk.ipm_resident(*bad, **kw)
+    bad = list(args)
+    bad[8] = args[8].cpu()                          # F on the CPU
+    with pytest.raises(ValueError):
+        rk.ipm_resident(*bad, **kw)
+    with pytest.raises(TypeError):                  # half precision
+        rk.ipm_resident(*[a.half() if a.is_floating_point() else a
+                          for a in args], **kw)
