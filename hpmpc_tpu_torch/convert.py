@@ -13,17 +13,18 @@ import dataclasses
 import numpy as np
 import torch
 
-from .ocp import OCPDims, OCPQP
+from .ocp import OCPDims, OCPQP, resolve_device
 
 QP_FIELDS = tuple(f.name for f in dataclasses.fields(OCPQP))
 
 
-def qp_from_numpy(dims: OCPDims, arrays: dict, device="cpu",
+def qp_from_numpy(dims: OCPDims, arrays: dict, device=None,
                   dtype=torch.float64) -> OCPQP:
     """``arrays[name]`` for every :class:`OCPQP` field -> the port's QP on
-    ``device``; float leaves are cast to ``dtype``, ``idxb`` stays int32.
-    Each leaf is ``(stage, ...)`` or ``(B, stage, ...)``; the stage axis
-    must match ``dims``."""
+    ``device`` (default: the CUDA card); float leaves are cast to
+    ``dtype``, ``idxb`` stays int32.  Each leaf is ``(stage, ...)`` or
+    ``(B, stage, ...)``; the stage axis must match ``dims``."""
+    device = resolve_device(device)
     missing = [f for f in QP_FIELDS if f not in arrays]
     if missing:
         raise KeyError(f"qp_from_numpy: missing fields {missing}")
@@ -44,10 +45,11 @@ def qp_from_numpy(dims: OCPDims, arrays: dict, device="cpu",
     return qp
 
 
-def warm_from_numpy(arrays: dict, device="cpu", dtype=torch.float64):
+def warm_from_numpy(arrays: dict, device=None, dtype=torch.float64):
     """Warm-start state ``(z0, pi0)`` from ``arrays`` (each entry optional:
     a missing key gives None) — the iterate a previous solve returned,
-    (B, N+1, NZ) and (B, N, NX)."""
+    (B, N+1, NZ) and (B, N, NX), on ``device`` (default: the CUDA card)."""
+    device = resolve_device(device)
     def one(key):
         if arrays.get(key) is None:
             return None

@@ -439,40 +439,19 @@ __global__ void __launch_bounds__(BLOCK) ipm_resident_kernel(ResidentArgs a) {
           ge[i] = ge[i] + acc;
         }
       }
-      T Ll[NZ][NU], Dinv_u[NU], m[NZ];
+      T Ll[NZ][NU], Dinv_u[NU], Pbpx[NX], eu[NU], px[NX];
       load_ll(k, Ll);
       hp::dinv_diag<T, NU>(Ll, Dinv_u);
-      if (s == 0) {
+      const int ke = k < N - 1 ? k : N - 1;
 #pragma unroll
-        for (int i = 0; i < NZ; ++i) m[i] = ge[i];
-      } else {
-        const int ke = k < N - 1 ? k : N - 1;
-        T Pbpx[NX];
+      for (int i = 0; i < NX; ++i)
+        Pbpx[i] = s == 0 ? T(0)
+                         : pbs(static_cast<int64_t>(ke) * NX + i) + px_c[i];
+      hp::trs_stage<T, NU, NX>(Ll, Dinv_u, ge, Fc,
+                               static_cast<int64_t>(ke) * NZ * NX, Pbpx,
+                               s == 0, eu, px);
 #pragma unroll
-        for (int i = 0; i < NX; ++i)
-          Pbpx[i] = pbs(static_cast<int64_t>(ke) * NX + i) + px_c[i];
-#pragma unroll
-        for (int i = 0; i < NZ; ++i) {
-          T acc = ge[i];
-#pragma unroll
-          for (int q = 0; q < NX; ++q)
-            acc = acc + Fc((static_cast<int64_t>(ke) * NZ + i) * NX + q) *
-                            Pbpx[q];
-          m[i] = acc;
-        }
-      }
-      T mu_[NU], eu[NU], px[NX];
-#pragma unroll
-      for (int i = 0; i < NU; ++i) mu_[i] = m[i];
-      hp::tril_solve<T, NU>(Ll, Dinv_u, mu_, eu);
-#pragma unroll
-      for (int i = 0; i < NX; ++i) {
-        T acc = m[NU + i];
-#pragma unroll
-        for (int q = 0; q < NU; ++q) acc = acc - Ll[NU + i][q] * eu[q];
-        px[i] = acc;
-        px_c[i] = acc;
-      }
+      for (int i = 0; i < NX; ++i) px_c[i] = px[i];
       hp::store(eus, static_cast<int64_t>(k) * NU, eu);
       hp::store(pxs, static_cast<int64_t>(k) * NX, px);
     }

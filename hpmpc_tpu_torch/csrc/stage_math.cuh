@@ -5,7 +5,9 @@
 // _tril_solve, _triu_solve_t, _dinv_ll, _pb_of, _trs_stage, _root_x0,
 // _u_of_x, _pi_of_x, _x_next_of, _folded_bwd_core_fb) and the box step
 // primitives of hpmpc_tpu/ops/step_kernel.py (_t_inv_lamt, _qx_fold,
-// _gather_box, _scatter_add_box, _dt_dlam, _alpha_cands, _corr_co_qx).
+// _gather_box, _scatter_add_box, _dt_dlam, _alpha_cands, _corr_co_qx), the
+// last three in both forms: phase 1 (delta; qx_fold, dt_dlam, corr_co_qx)
+// and phase 2 (residual; qx_fold_res, dt_dlam_res, corr_co_qx_res).
 // The plain PyTorch versions are hpmpc_tpu_torch/ops/stage_math.py.
 //
 // Where the TPU helpers work on lists of (8, 128) tiles -- one tile per
@@ -208,6 +210,40 @@ __device__ __forceinline__ void x_next_of(const C& F, int64_t f0,
 #pragma unroll
     for (int i = 0; i < NZ; ++i) acc = acc + F(f0 + i * NX + j) * z[i];
     xn[j] = acc;
+  }
+}
+
+// Backward substitution on the split factor (stage_kernel._trs_stage):
+// m = g at the terminal stage (is_t), else g + F (Pb + px_next) with F read
+// from its (NZ, NX) stream rows at f0; eu = Luu^{-1} m_u; px = m_x - Lxu eu.
+template <typename T, int NU, int NX, typename C>
+__device__ __forceinline__ void trs_stage(const T (&Ll)[NU + NX][NU],
+                                          const T (&Dinv_u)[NU],
+                                          const T (&g)[NU + NX], const C& F,
+                                          int64_t f0, const T (&Pbpx)[NX],
+                                          bool is_t, T (&eu)[NU],
+                                          T (&px)[NX]) {
+  constexpr int NZ = NU + NX;
+  T m[NZ];
+#pragma unroll
+  for (int i = 0; i < NZ; ++i) {
+    T acc = g[i];
+    if (!is_t) {
+#pragma unroll
+      for (int q = 0; q < NX; ++q) acc = acc + F(f0 + i * NX + q) * Pbpx[q];
+    }
+    m[i] = acc;
+  }
+  T mu_[NU];
+#pragma unroll
+  for (int i = 0; i < NU; ++i) mu_[i] = m[i];
+  tril_solve<T, NU>(Ll, Dinv_u, mu_, eu);
+#pragma unroll
+  for (int i = 0; i < NX; ++i) {
+    T acc = m[NU + i];
+#pragma unroll
+    for (int q = 0; q < NU; ++q) acc = acc - Ll[NU + i][q] * eu[q];
+    px[i] = acc;
   }
 }
 
@@ -416,6 +452,67 @@ __device__ __forceinline__ void corr_co_qx(const T (&lam)[2 * K],
   qx_fold<T, K>(lam, t, mb, A, Qx, qx0);
 #pragma unroll
   for (int i = 0; i < K; ++i) qx[i] = qx0[i] + (co[K + i] - co[i]) * mb[i];
+}
+
+// ---------------------------------------------------------------------------
+// box step primitives, phase-2 (residual) forms: A = rd, M = rm
+// ---------------------------------------------------------------------------
+
+// Qx = fold(lam/t), qx = fold(sgn*t_inv*M - lam/t*A), masked.
+template <typename T, int K>
+__device__ __forceinline__ void qx_fold_res(const T (&lam)[2 * K],
+                                            const T (&t)[2 * K],
+                                            const T (&mb)[2 * K],
+                                            const T (&A)[2 * K],
+                                            const T (&M)[2 * K], T (&Qx)[K],
+                                            T (&qx)[K]) {
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
+    T ti_lo, lt_lo, ti_up, lt_up;
+    t_inv_lamt(lam[i], t[i], mb[i], ti_lo, lt_lo);
+    t_inv_lamt(lam[K + i], t[K + i], mb[K + i], ti_up, lt_up);
+    const T q_lo = ti_lo * M[i] - lt_lo * A[i];
+    const T q_up = -ti_up * M[K + i] - lt_up * A[K + i];
+    Qx[i] = (lt_lo + lt_up) * mb[i];
+    qx[i] = (q_lo + q_up) * mb[i];
+  }
+}
+
+// dt = sgn*(zb2 - A) * mb (the full slack step: no "- t" as in phase 1);
+// dlam = -t_inv*(lam*dt + M) * mb.
+template <typename T, int K>
+__device__ __forceinline__ void dt_dlam_res(const T (&lam)[2 * K],
+                                            const T (&t)[2 * K],
+                                            const T (&mb)[2 * K],
+                                            const T (&A)[2 * K],
+                                            const T (&M)[2 * K],
+                                            const T (&zb)[K],
+                                            T (&dt)[2 * K], T (&dl)[2 * K]) {
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
+    dt[i] = (zb[i] - A[i]) * mb[i];
+    dt[K + i] = (A[K + i] - zb[i]) * mb[K + i];
+  }
+#pragma unroll
+  for (int i = 0; i < 2 * K; ++i) {
+    T t_inv, lamt;
+    t_inv_lamt(lam[i], t[i], mb[i], t_inv, lamt);
+    dl[i] = -t_inv * (lam[i] * dt[i] + M[i]) * mb[i];
+  }
+}
+
+// Corrector residual rm2 = (M + (dt dl - sigma mu)) * mb and the gradient
+// fold of qx_fold_res on it.
+template <typename T, int K>
+__device__ __forceinline__ void corr_co_qx_res(
+    const T (&lam)[2 * K], const T (&t)[2 * K], const T (&mb)[2 * K],
+    const T (&A)[2 * K], const T (&M)[2 * K], const T (&dtb)[2 * K],
+    const T (&dlb)[2 * K], T sm, T (&co)[2 * K], T (&qx)[K]) {
+#pragma unroll
+  for (int i = 0; i < 2 * K; ++i)
+    co[i] = (M[i] + (dtb[i] * dlb[i] - sm)) * mb[i];
+  T Qx[K];
+  qx_fold_res<T, K>(lam, t, mb, A, co, Qx, qx);
 }
 
 }  // namespace hp

@@ -3,8 +3,9 @@
 
 Same field names and defaults as the JAX ``IPMConfig``, so a config carries
 across.  The structured two-phase solver itself (``ipm.solve``) is not
-ported yet; the engines that are (``models.ipm_resident``) share these
-definitions.
+ported yet; the engines that are (``models.ipm_resident``,
+``models.ipm_lanes``) share these definitions and the breakdown guard
+(:func:`step_ok`, :func:`anchor_lam_ref`).
 """
 
 from __future__ import annotations
@@ -64,3 +65,30 @@ GUARD_LAM_GROWTH = 30.0
 GUARD_MU_GROWTH = 10.0
 #: "not anchored yet" / "no blocking row" sentinel, finite in float32
 BIG = 3.0e38
+
+
+def step_ok(mu_new, mu_old, lam_max_new, lam_max_old, lam_ref):
+    """Numerical-breakdown guard of one step, per instance ((B,) tensors in,
+    a (B,) bool out), as :func:`hpmpc_tpu.models.ipm.step_ok`: the new mu
+    must be finite and, in float32 only, below ``GUARD_MU_FLOOR`` it must
+    not grow ``GUARD_MU_GROWTH``-fold, the max |dual| must not grow
+    ``GUARD_LAM_GROWTH``-fold in one step, and not beyond that factor of
+    the anchor ``lam_ref`` once one exists (finite).  float64 is exempt
+    from all but finiteness."""
+    ok = torch.isfinite(mu_new)
+    if mu_new.dtype == torch.float32:
+        floor = mu_old < GUARD_MU_FLOOR
+        ok = ok & ~((mu_new > GUARD_MU_GROWTH * mu_old) & floor)
+        ok = ok & ~((lam_max_new > GUARD_LAM_GROWTH
+                     * torch.clamp(lam_max_old, min=1.0)) & floor)
+        ok = ok & ~((lam_max_new > GUARD_LAM_GROWTH * lam_ref)
+                    & torch.isfinite(lam_ref))
+    return ok
+
+
+def anchor_lam_ref(lam_ref, mu_new, lam_max_new):
+    """Carry update of the cumulative guard's anchor: on the step that
+    first takes an instance below ``GUARD_MU_FLOOR``, record
+    ``max(|lam|, 1)``; afterwards keep it.  Starts at +inf (no anchor)."""
+    entering = torch.isinf(lam_ref) & (mu_new < GUARD_MU_FLOOR)
+    return torch.where(entering, torch.clamp(lam_max_new, min=1.0), lam_ref)

@@ -1,26 +1,37 @@
-"""Stream scaffolding of the batched engines (PyTorch twin of
-``make_ng_lanes`` and ``make_lanes_common`` in
-:mod:`hpmpc_tpu.models.ipm_lanes`).
+"""The lanes engine: the two-phase batched Mehrotra IPM on batch-last
+streams (PyTorch twin of :mod:`hpmpc_tpu.models.ipm_lanes`).
 
-Builds, from a batched :class:`~..ocp.OCPQP`, the batch-last streams the
-kernels read (layout: :mod:`..ops.layout`): the box index table, the
-constant box/stage streams, the reference's ``d_init_var`` initial iterate
-(box-violation correction branch included) and the general-constraint
-init.  Everything runs as plain tensor code on the QP's device; the
-einsums keep float32 at full precision (the package pins TF32 off).
+:func:`solve_batched_lanes` runs the reference's ``d_ip2_res_hard``: phase 1
+(delta formulation) down to ``max(mu_tol, mu_switch)``, the exact KKT
+residuals (:func:`~..ops.step_kernel.resid_full`), then phase 2 (residual
+formulation) down to ``mu_tol``, recomputing the residuals after every
+step.  Each half-iteration is one mega kernel
+(:mod:`..ops.mega_kernel`); the per-instance scalar math (alpha, mu,
+sigma), the general-constraint rows (a few (B, NG) vectors on a few
+stages, small einsums) and the gating stay in plain tensor code.
 
-The lanes engine itself (``solve_batched_lanes``) is not ported yet; only
-what the resident engine needs is here.
+The scaffolding it shares with the resident engine is here too: the box
+index table, the constant streams, the reference's ``d_init_var`` initial
+iterate (box-violation correction included) and the general-constraint
+init.  The einsums keep float32 at full precision (the package pins TF32
+off).
 """
 
 from __future__ import annotations
 
+import os
 import types
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from ..ops.layout import sym_compress, to_lanes
+from ..ocp import OCPDims, OCPQP
+from ..ops import mega_kernel as mk
+from ..ops import stage_math as sm
+from ..ops import step_kernel as stk
+from ..ops.layout import from_lanes, sym_compress, to_lanes
+from . import ipm as _ipm
 
 
 def make_ng_lanes(dims, qp, ng_stages, dt, B):
@@ -37,9 +48,13 @@ def make_ng_lanes(dims, qp, ng_stages, dt, B):
         ns.cz_of = lambda zl: empty
         ns.ct_add_lanes = lambda gl, v: gl
         ns.fold_g = lambda v: v
+        ns.ngl_of = ns.ct_lanes_stream = lambda v: None
         return ns
 
     C_act = [qp.C[:, n].to(dt) for n in ng_stages]     # each (B, NG, NZ)
+    C_stack = torch.stack(C_act, 1)                    # (B, n_ng, NG, NZ)
+    r, c = torch.tril_indices(dims.NZ, dims.NZ, device=dev)
+    C_i, C_j = C_stack[..., r], C_stack[..., c]        # (B, n_ng, NG, NT)
     ns.mgF = torch.cat([qp.ng_mask[:, n] for n in ng_stages], 1)
     dg_lo = torch.cat([qp.d_lg[:, n] for n in ng_stages], 1)
     dg_up = torch.cat([qp.d_ug[:, n] for n in ng_stages], 1)
@@ -65,8 +80,23 @@ def make_ng_lanes(dims, qp, ng_stages, dt, B):
             gl[n] += contrib
         return gl
 
+    def ngl_of(Qx_g):
+        """The mega kernels' ``ngl`` stream: C_n' diag(Qx_g) C_n packed
+        per active stage, (B, NGF) -> (n_ng, NT, B), in the working dtype
+        (the JAX package rounds it through float32)."""
+        Qg = Qx_g.reshape(B, n_ng, NG)
+        return to_lanes(torch.einsum("bngt,bng,bngt->bnt", C_i, Qg, C_j))
+
+    def ct_lanes_stream(v):
+        """The mega kernels' ``ngadd`` stream: C_n' v_n per active stage,
+        (B, NGF) -> (n_ng, NZ, B)."""
+        return to_lanes(torch.einsum("bng,bngz->bnz",
+                                     v.reshape(B, n_ng, NG), C_stack))
+
     ns.cz_of = cz_of
     ns.ct_add_lanes = ct_add_lanes
+    ns.ngl_of = ngl_of
+    ns.ct_lanes_stream = ct_lanes_stream
     ns.fold_g = lambda v: v[:, :NGF] + v[:, NGF:]
     return ns
 
@@ -161,3 +191,305 @@ def make_lanes_common(dims, qp, cfg, z0=None, pi0=None):
 
     ns.ng_init = ng_init
     return ns
+
+
+class _LState(NamedTuple):
+    """Loop state; fields ending in ``L`` are batch-last streams, the rest
+    batch-first."""
+
+    zL: torch.Tensor       # (N+1, NZ, B)
+    piL: torch.Tensor      # (N, NX, B)
+    lamL: torch.Tensor     # (N+1, 2NB, B) per stage [lower; upper]
+    tL: torch.Tensor       # (N+1, 2NB, B)
+    lam_g: torch.Tensor    # (B, 2NGF) [lower-all; upper-all]
+    t_g: torch.Tensor      # (B, 2NGF)
+    mu: torch.Tensor       # (B,)
+    alpha: torch.Tensor    # (B,)
+    kk: torch.Tensor       # (B,) int32
+    stat: torch.Tensor     # (B, k_max, 5)
+    lam_ref: torch.Tensor  # (B,) cumulative-guard anchor, +inf: none yet
+
+
+class _LRes(NamedTuple):
+    """KKT residuals of an iterate (phase 2's right-hand sides)."""
+
+    rqL: torch.Tensor      # (N+1, NZ, B)
+    rbL: torch.Tensor      # (N, NX, B)
+    rdL: torch.Tensor      # (N+1, 2NB, B)
+    rmL: torch.Tensor      # (N+1, 2NB, B)
+    rd_g: torch.Tensor     # (B, 2NGF)
+    rm_g: torch.Tensor     # (B, 2NGF)
+    mu: torch.Tensor       # (B,)
+
+
+def _gate(m, new, old):
+    """Per instance, ``new`` where ``m`` (B,) holds, else ``old``: a
+    select, never a multiply (a gated-off instance may hold NaN)."""
+    out = []
+    for f, a, b in zip(new._fields, new, old):
+        mm = m if f.endswith("L") else m.reshape((-1,) + (1,) * (a.ndim - 1))
+        out.append(torch.where(mm, a, b))
+    return type(new)(*out)
+
+
+def solve_batched_lanes(dims: OCPDims, qp: OCPQP, cfg, z0=None, pi0=None,
+                        state0=None) -> _ipm.IPMSolution:
+    """Batched two-phase solve on the lanes engine (the JAX package's
+    ``solve_batched_lanes`` with ``HPMPC_MEGA_SWEEPS=1`` and ``iter_ref=0``).
+
+    ``z0`` (B, N+1, NZ) / ``pi0`` (B, N, NX) with ``cfg.warm_start`` seed
+    the iterate.  float32 and float64 both run.  Liveness is per instance:
+    the loops run while any instance is live (one host sync per
+    iteration), and an instance that is not live keeps its state (a
+    select).  Needs box constraints and a static ``dims.idxb``.
+
+    Not ported yet, each raises ``NotImplementedError``: ``state0`` hot
+    continuation (ROADMAP Queue 1 #8), ``cfg.iter_ref > 0`` (Queue 1 #7),
+    and the 6-kernel loop ``HPMPC_MEGA_SWEEPS=0`` (Queue 2 rows 3-5, 9,
+    10)."""
+    if state0 is not None:
+        raise NotImplementedError(
+            "lanes engine: state0 hot continuation belongs to the two-stage "
+            "route, ROADMAP Queue 1 #8")
+    if int(cfg.iter_ref) != 0:
+        raise NotImplementedError(
+            "lanes engine: iter_ref refinement, ROADMAP Queue 1 #7")
+    if os.environ.get("HPMPC_MEGA_SWEEPS", "1") != "1":
+        raise NotImplementedError(
+            "lanes engine: the 6-kernel loop (HPMPC_MEGA_SWEEPS=0) needs "
+            "ROADMAP Queue 2 rows 3-5, 9 and 10")
+    dt = qp.dtype
+    if dt not in (torch.float32, torch.float64):
+        raise TypeError(f"lanes engine takes float32/float64, got {dt}")
+    if dims.NB == 0 or dims.idxb is None:
+        raise ValueError("lanes engine needs box constraints with a static "
+                         "dims.idxb")
+    dev = qp.device
+    N, NU, NX, NZ, NB, NG = (dims.N, dims.NU, dims.NX, dims.NZ, dims.NB,
+                             dims.NG)
+    Np1 = N + 1
+    B = qp.b.shape[0]
+    kd = dict(NB=NB, NU=NU, NZ=NZ, NX=NX)
+    ng_stages = tuple(n for n in range(Np1) if dims.ng[n] > 0)
+    n_ng = len(ng_stages)
+    NGF = n_ng * NG
+    k_max = int(cfg.k_max)
+    mu_scal = 1.0 / dims.n_constr
+    mu_tol = float(cfg.mu_tol)
+    mu_tol_low = float(max(cfg.mu_tol, cfg.mu_switch))
+    alpha_min = float(cfg.alpha_min)
+
+    cm = make_lanes_common(dims, qp, cfg, z0=z0, pi0=pi0)
+    idxT, mbL, dcatL, gL, bL = cm.idxT, cm.mbL, cm.dcatL, cm.gL, cm.bL
+    pdregL, Hl, Fl = cm.pdregL, cm.Hl, cm.Fl
+    zmaskL, xmaskL = to_lanes(qp.z_mask), to_lanes(qp.x_mask[:, 1:])
+    ngh = make_ng_lanes(dims, qp, ng_stages, dt, B)
+    mgF, dg_cat, mg2, sgn_g = ngh.mgF, ngh.dg_cat, ngh.mg2, ngh.sgn_g
+    cz_of, fold_g = ngh.cz_of, ngh.fold_g
+    cat2 = lambda v: torch.cat([v, v], 1)  # noqa: E731
+    empty = torch.zeros(B, 0, dtype=dt, device=dev)
+    kiota = torch.arange(k_max, device=dev)
+
+    def finish(parts, lam_g, t_g, dtg, dlg):
+        """Reduce a kernel's per-stage (amin, s0, s1, s2) partials over the
+        stages and add the ng rows: (alpha, s0, s1, s2), each (B,)."""
+        amin, s0, s1, s2 = (parts[0].amin(0), parts[1].sum(0),
+                            parts[2].sum(0), parts[3].sum(0))
+        if n_ng:
+            cand = torch.minimum(sm.alpha_cands(lam_g, dlg, mg2),
+                                 sm.alpha_cands(t_g, dtg, mg2))
+            amin = torch.minimum(amin, cand.amin(1))
+            s0 = s0 + (lam_g * t_g * mg2).sum(1)
+            s1 = s1 + (lam_g * dtg + t_g * dlg).sum(1)
+            s2 = s2 + (dlg * dtg).sum(1)
+        return torch.minimum(torch.ones_like(amin), amin), s0, s1, s2
+
+    def lam_inst_max(lamL, lam_g):
+        """Per-instance max |dual| (the dual-explosion guard's measure)."""
+        m = lamL.abs().reshape(-1, B).amax(0)
+        return torch.maximum(m, lam_g.abs().amax(1)) if n_ng else m
+
+    def stat_update(stat, kk, row):
+        mask = (kiota[None, :] == kk[:, None])[..., None]
+        return torch.where(mask, row[:, None, :], stat)
+
+    def ng_barrier(s):
+        """(1/t, lam/t, the kernels' ngl stream) of the ng rows at ``s``."""
+        if not n_ng:
+            return empty, empty, None
+        t_inv_g = torch.where(mg2 > 0, 1.0 / s.t_g, torch.zeros_like(s.t_g))
+        lamt_g = s.lam_g * t_inv_g
+        return t_inv_g, lamt_g, ngh.ngl_of(fold_g(lamt_g) * mgF)
+
+    def candidate(s, a2, dz2L, dpi2L, dt2L, dl2L, dtg2, dlg2, phase2):
+        """The iterate after a step of length ``a2`` (B,): phase 1 steps
+        toward the full corrector iterate, phase 2 along the delta."""
+        if phase2:
+            z_new, pi_new = s.zL + a2 * dz2L, s.piL + a2 * dpi2L
+        else:
+            z_new = s.zL + a2 * (dz2L - s.zL)
+            pi_new = s.piL + a2 * (dpi2L - s.piL)
+        return (z_new, pi_new, s.lamL + a2 * dl2L, s.tL + a2 * dt2L,
+                s.lam_g + a2[:, None] * dlg2, s.t_g + a2[:, None] * dtg2)
+
+    def accept(s, cand, row):
+        """The state after the step ``cand`` with trace row ``row`` (B, 5),
+        gated by the breakdown guard: a refused step keeps ``s`` with alpha
+        0, which ends the instance.  Returns (ok, state)."""
+        mu_new = row[:, 4]
+        lmx_new = lam_inst_max(cand[2], cand[4])
+        s_new = _LState(
+            *cand, mu=mu_new, alpha=0.995 * row[:, 3], kk=s.kk + 1,
+            stat=stat_update(s.stat, s.kk, row),
+            lam_ref=_ipm.anchor_lam_ref(s.lam_ref, mu_new, lmx_new))
+        ok = _ipm.step_ok(mu_new, s.mu, lmx_new,
+                          lam_inst_max(s.lamL, s.lam_g), s.lam_ref)
+        refused = s._replace(alpha=torch.zeros_like(s.alpha))
+        return ok, _gate(ok, s_new, refused)
+
+    # ---- phase 1 (delta formulation) -------------------------------------
+    def phase1_body(s):
+        t_inv_g, lamt_g, ngl = ng_barrier(s)
+        qx_g = (fold_g(-sgn_g * s.lam_g - lamt_g * dg_cat) * mgF
+                if n_ng else None)
+        dzL, fstate, dtL, dlL, *parts = mk.factor_solve_mega(
+            idxT, s.lamL, s.tL, dcatL, None, mbL, gL, pdregL, Hl, ngl,
+            ngh.ct_lanes_stream(qx_g) if n_ng else None, ng_stages, Fl, bL,
+            phase2=False, **kd)
+        dtg = dlg = empty
+        if n_ng:
+            dtg = (sgn_g * (cat2(cz_of(dzL)) - dg_cat) - s.t_g) * mg2
+            dlg = (-lamt_g * dtg - s.lam_g) * mg2
+        alpha_aff, a0, a1, a2c = finish(parts, s.lam_g, s.t_g, dtg, dlg)
+        a = 0.995 * alpha_aff
+        mu_aff = (a0 + a * a1 + a * a * a2c) * mu_scal
+        sigma = (mu_aff / s.mu) ** 3
+        smu = sigma * s.mu
+
+        ngadd2 = dl2g = None
+        if n_ng:
+            dl2g = t_inv_g * (smu[:, None] - dlg * dtg) * mg2
+            ngadd2 = ngh.ct_lanes_stream(qx_g + fold_g(-sgn_g * dl2g) * mgF)
+        dz2L, dpi2L, dt2L, dl2L, *parts2 = mk.solve_mega(
+            idxT, fstate, s.lamL, s.tL, dcatL, None, mbL, dtL, dlL, smu, gL,
+            ngadd2, ng_stages, Fl, bL, phase2=False, **kd)
+        dtg2 = dlg2 = empty
+        if n_ng:
+            dtg2 = (sgn_g * (cat2(cz_of(dz2L)) - dg_cat) - s.t_g) * mg2
+            dlg2 = (dl2g - lamt_g * dtg2 - s.lam_g) * mg2
+        alpha2, b0, b1, b2 = finish(parts2, s.lam_g, s.t_g, dtg2, dlg2)
+        a2 = 0.995 * alpha2
+        mu_new = (b0 + a2 * b1 + a2 * a2 * b2) * mu_scal
+        row = torch.stack([sigma, alpha_aff, mu_aff, alpha2, mu_new], 1)
+        cand = candidate(s, a2, dz2L, dpi2L, dt2L, dl2L, dtg2, dlg2, False)
+        return accept(s, cand, row)[1]
+
+    lam_g0, t_g0 = cm.ng_init(ngh)
+    s = _LState(
+        zL=cm.zL0,
+        piL=(cm.piL0 if cm.piL0 is not None
+             else torch.zeros(N, NX, B, dtype=dt, device=dev)),
+        lamL=cm.lamL0, tL=cm.tL0, lam_g=lam_g0, t_g=t_g0,
+        mu=torch.full((B,), float(cfg.mu0), dtype=dt, device=dev),
+        alpha=torch.ones(B, dtype=dt, device=dev),
+        kk=torch.zeros(B, dtype=torch.int32, device=dev),
+        stat=torch.zeros(B, k_max, 5, dtype=dt, device=dev),
+        lam_ref=torch.full((B,), float("inf"), dtype=dt, device=dev))
+
+    while True:
+        live = (s.kk < k_max) & (s.mu > mu_tol_low) & (s.alpha >= alpha_min)
+        if not bool(live.any()):        # the loop's one host sync
+            break
+        s = _gate(live, phase1_body(s), s)
+
+    # ---- residuals (one kernel + the ng rows) ----------------------------
+    def residuals(zL, piL, lamL, tL, lam_g, t_g):
+        rqL, rbL, rdL, rmL, musumL = stk.resid_full(
+            idxT, Hl, Fl, zL, piL, gL, bL, lamL, tL, dcatL, mbL, zmaskL,
+            xmaskL, **kd)
+        rbL = rbL[:N]
+        mu = musumL.sum(0)
+        rd_g = rm_g = empty
+        if n_ng:
+            rqL = ngh.ct_add_lanes(rqL, fold_g(-sgn_g * lam_g) * mgF)
+            rd_g = (dg_cat - cat2(cz_of(zL)) + sgn_g * t_g) * mg2
+            rm_g = lam_g * t_g * mg2
+            mu = mu + rm_g.sum(1)
+        return _LRes(rqL, rbL, rdL, rmL, rd_g, rm_g, mu * mu_scal)
+
+    res = residuals(s.zL, s.piL, s.lamL, s.tL, s.lam_g, s.t_g)
+    s = s._replace(mu=res.mu)
+
+    # ---- phase 2 (residual formulation) ----------------------------------
+    def phase2_body(s, res):
+        t_inv_g, lamt_g, ngl = ng_barrier(s)
+
+        def qxg_from(rm_g):
+            return fold_g(sgn_g * t_inv_g * rm_g - lamt_g * res.rd_g) * mgF
+
+        dzL, fstate, dtL, dlL, *parts = mk.factor_solve_mega(
+            idxT, s.lamL, s.tL, res.rdL, res.rmL, mbL, res.rqL, pdregL, Hl,
+            ngl, ngh.ct_lanes_stream(qxg_from(res.rm_g)) if n_ng else None,
+            ng_stages, Fl, res.rbL, phase2=True, **kd)
+        dtg = dlg = empty
+        if n_ng:
+            dtg = sgn_g * (cat2(cz_of(dzL)) - res.rd_g) * mg2
+            dlg = -t_inv_g * (s.lam_g * dtg + res.rm_g) * mg2
+        alpha_aff, a0, a1, a2c = finish(parts, s.lam_g, s.t_g, dtg, dlg)
+        a = 0.995 * alpha_aff
+        mu_aff = (a0 + a * a1 + a * a * a2c) * mu_scal
+        sigma = (mu_aff / s.mu) ** 3
+        smu = sigma * s.mu
+
+        ngadd2 = rm_g2 = None
+        if n_ng:
+            rm_g2 = res.rm_g + (dtg * dlg - smu[:, None]) * mg2
+            ngadd2 = ngh.ct_lanes_stream(qxg_from(rm_g2))
+        dz2L, dpi2L, dt2L, dl2L, *parts2 = mk.solve_mega(
+            idxT, fstate, s.lamL, s.tL, res.rdL, res.rmL, mbL, dtL, dlL, smu,
+            res.rqL, ngadd2, ng_stages, Fl, res.rbL, phase2=True, **kd)
+        dtg2 = dlg2 = empty
+        if n_ng:
+            dtg2 = sgn_g * (cat2(cz_of(dz2L)) - res.rd_g) * mg2
+            dlg2 = -t_inv_g * (s.lam_g * dtg2 + rm_g2) * mg2
+        alpha2 = finish(parts2, s.lam_g, s.t_g, dtg2, dlg2)[0]
+        a2 = 0.995 * alpha2
+        cand = candidate(s, a2, dz2L, dpi2L, dt2L, dl2L, dtg2, dlg2, True)
+        res_new = residuals(*cand)
+        row = torch.stack([sigma, alpha_aff, mu_aff, alpha2, res_new.mu], 1)
+        ok, s_new = accept(s, cand, row)
+        return s_new, _gate(ok, res_new, res)
+
+    while True:
+        live = (s.kk < k_max) & (s.mu > mu_tol) & (s.alpha >= alpha_min)
+        if not bool(live.any()):        # the loop's one host sync
+            break
+        s_new, res_new = phase2_body(s, res)
+        s, res = _gate(live, s_new, s), _gate(live, res_new, res)
+
+    # ---- status, residual norms, the IPMSolution --------------------------
+    status = torch.where(
+        s.mu <= mu_tol, 0, torch.where(s.kk >= k_max, 1, 2)).to(torch.int32)
+
+    def absmax_l(y):  # batch-last stream -> (B,)
+        return y.abs().reshape(-1, B).amax(0)
+
+    rd_max = absmax_l(res.rdL)
+    if n_ng:
+        rd_max = torch.maximum(rd_max, res.rd_g.abs().amax(1))
+    inf_norm_res = torch.stack([absmax_l(res.rqL), absmax_l(res.rbL), rd_max,
+                                res.mu], dim=1)
+    lam_g_s = torch.zeros(B, Np1, 2, NG, dtype=dt, device=dev)
+    t_g_s = torch.ones(B, Np1, 2, NG, dtype=dt, device=dev)
+    for k, n in enumerate(ng_stages):
+        sl = slice(k * NG, (k + 1) * NG)
+        lam_g_s[:, n, 0] = s.lam_g[:, sl]
+        lam_g_s[:, n, 1] = s.lam_g[:, NGF:][:, sl]
+        t_g_s[:, n, 0] = s.t_g[:, sl]
+        t_g_s[:, n, 1] = s.t_g[:, NGF:][:, sl]
+    return _ipm.IPMSolution(
+        z=from_lanes(s.zL), pi=from_lanes(s.piL),
+        lam_b=from_lanes(s.lamL).reshape(B, Np1, 2, NB),
+        t_b=from_lanes(s.tL).reshape(B, Np1, 2, NB),
+        lam_g=lam_g_s, t_g=t_g_s, kk=s.kk, status=status, stat=s.stat,
+        inf_norm_res=inf_norm_res)

@@ -156,6 +156,13 @@ class OCPQP:
         return OCPQP(**out)
 
 
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point builds its tensors on: ``device`` as
+    given, or the CUDA card when it is None.  There is no fallback: where
+    torch has no card, the first tensor made there raises."""
+    return torch.device("cuda") if device is None else torch.device(device)
+
+
 def pack_ocp(
     dims: OCPDims,
     A: Sequence[np.ndarray],
@@ -174,7 +181,7 @@ def pack_ocp(
     lg: Sequence[np.ndarray] | None = None,
     ug: Sequence[np.ndarray] | None = None,
     dtype=torch.float64,
-    device="cpu",
+    device=None,
 ) -> OCPQP:
     """Pack per-stage dense numpy data into an :class:`OCPQP`.
 
@@ -182,7 +189,9 @@ def pack_ocp(
     ``A[n], B[n], b[n]`` map stage n to n+1; ``Q[n], S[n], R[n]`` are the
     stage costs with ``Q[N]`` terminal; ``idxb[n]`` indexes the logical
     ``[u;x]`` vector of stage n.  The arrays are assembled in float64 numpy
-    exactly as :func:`hpmpc_tpu.ocp.pack_ocp` does, then cast once."""
+    exactly as :func:`hpmpc_tpu.ocp.pack_ocp` does, then cast once onto
+    ``device`` (default: the CUDA card, see :func:`resolve_device`)."""
+    device = resolve_device(device)
     N = dims.N
     NX, NU, NZ, NB, NG = dims.NX, dims.NU, dims.NZ, dims.NB, dims.NG
 

@@ -11,8 +11,12 @@ so an edited source is never served from a stale build.
 
 The library lands in ``hpmpc_tpu_torch/_build/`` (git-ignored) at first
 use and is loaded with ``ctypes``; nothing is built at import.
-``--use_fast_math`` is deliberately absent: the kernels reproduce the JAX
-kernels' exact ``rsqrt``/reciprocal with clamped pivots.
+:func:`build_all` starts one ``nvcc`` per library at once and waits for
+all of them.  ``ptxas -v`` reports each kernel's registers, stack and
+spills; the report of every build in this process is kept in
+:data:`PTXAS_LOG`.  ``--use_fast_math`` is deliberately absent: the
+kernels reproduce the JAX kernels' exact ``rsqrt``/reciprocal with clamped
+pivots.
 """
 
 from __future__ import annotations
@@ -32,9 +36,11 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _LIBS: dict = {}
+#: library file name -> the ptxas report of its build in this process
+PTXAS_LOG: dict = {}
 
 
 def _nvcc() -> str:
@@ -60,30 +66,65 @@ def _key(kernel: str, dims: dict) -> str:
     return f"{kernel}_{tag}_{h.hexdigest()[:12]}"
 
 
-def build(kernel: str, dims: dict) -> pathlib.Path:
-    """Compile ``csrc/<kernel>.cu`` for ``dims`` (e.g. ``{"NU": 3, "NX": 8,
-    "NB": 7}``) unless a build of the same sources exists; returns the
-    library path."""
+def _start(kernel: str, dims: dict):
+    """Start ``nvcc`` on ``csrc/<kernel>.cu`` for ``dims`` unless a build of
+    the same sources exists; returns (library path, running job or None)."""
     out = BUILD_DIR / f"lib{_key(kernel, dims)}.so"
     if out.exists():
-        return out
+        return out, None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     defs = [f"-DHP_{k}={int(v)}" for k, v in sorted(dims.items())]
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     cmd = [_nvcc(), *NVCC_FLAGS, *defs, "-I", str(CSRC), "-o", tmp,
            str(CSRC / f"{kernel}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    return out, (proc, cmd, tmp)
+
+
+def _finish(out: pathlib.Path, job) -> pathlib.Path:
+    """Wait for a job of :func:`_start`; raise if nvcc failed."""
+    if job is None:
+        return out
+    proc, cmd, tmp = job
     try:
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
-                f"{res.stdout}\n{res.stderr}")
+                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                f"{stdout}\n{stderr}")
+        PTXAS_LOG[out.name] = stderr
         os.replace(tmp, out)
     finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
         if os.path.exists(tmp):
             os.unlink(tmp)
     return out
+
+
+def build(kernel: str, dims: dict) -> pathlib.Path:
+    """Compile ``csrc/<kernel>.cu`` for ``dims`` (e.g. ``{"NU": 3, "NX": 8,
+    "NB": 7}``) unless a build of the same sources exists; returns the
+    library path."""
+    return _finish(*_start(kernel, dims))
+
+
+def build_all(specs) -> list:
+    """Build every ``(kernel, dims)`` of ``specs`` with one ``nvcc`` each,
+    all running at once; returns the library paths in order."""
+    jobs = [_start(kernel, dims) for kernel, dims in specs]
+    try:
+        return [_finish(out, job) for out, job in jobs]
+    finally:
+        for _, job in jobs:   # left running when an earlier build failed
+            if job is not None and job[0].poll() is None:
+                job[0].kill()
+                job[0].wait()
+            if job is not None and os.path.exists(job[2]):
+                os.unlink(job[2])
 
 
 def load(kernel: str, **dims) -> ctypes.CDLL:

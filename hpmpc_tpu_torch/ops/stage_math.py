@@ -10,9 +10,11 @@ and NaN behaviour match one for one.
 
 Everything here is batch-FIRST: a stage matrix is ``(B, r, c)``, a stage
 vector ``(B, r)``, a per-instance scalar ``(B,)``.  The triangular factors
-are lower; only their lower triangles are ever read.  Only the phase-1
-(delta-free) forms of the box primitives exist so far — the phase-2
-(residual) forms come with the lanes engine.
+are lower; only their lower triangles are ever read.  The box primitives
+come in two forms: the phase-1 (delta) forms ``qx_fold``, ``dt_dlam``,
+``corr_co_qx`` (``A`` = d_cat) and the phase-2 (residual) forms
+``qx_fold_res``, ``dt_dlam_res``, ``corr_co_qx_res`` (``A`` = rd, ``M`` =
+rm), the two branches of the JAX helpers' ``phase2`` flag.
 """
 
 from __future__ import annotations
@@ -193,3 +195,38 @@ def corr_co_qx(K, lam, t, mb, A, dtb, dlb, sm):
     co = t_inv * (sm[:, None] - dlb * dtb) * mb
     _, qx0 = qx_fold(K, lam, t, mb, A)
     return co, qx0 + (co[:, K:] - co[:, :K]) * mb[:, :K]
+
+
+# ---------------------------------------------------------------------------
+# box step primitives, phase-2 (residual) forms (step_kernel.py:64-165,
+# ``phase2=True``): A = rd, M = rm
+# ---------------------------------------------------------------------------
+
+
+def qx_fold_res(K, lam, t, mb, A, M):
+    """Phase-2 (Qx_fold, qx_fold): Qx = fold(lam/t),
+    qx = fold(sgn*t_inv*M - lam/t*A), masked."""
+    t_inv, lamt = t_inv_lamt(lam, t, mb)
+    q_lo = t_inv[:, :K] * M[:, :K] - lamt[:, :K] * A[:, :K]
+    q_up = -t_inv[:, K:] * M[:, K:] - lamt[:, K:] * A[:, K:]
+    mbl = mb[:, :K]
+    return (lamt[:, :K] + lamt[:, K:]) * mbl, (q_lo + q_up) * mbl
+
+
+def dt_dlam_res(K, lam, t, mb, A, M, zb):
+    """Phase-2 box (dt, dlam) of a delta with gathered values ``zb``:
+    dt = sgn*(zb2 - A) * mb (the full slack step, no ``- t``);
+    dlam = -t_inv*(lam*dt + M) * mb."""
+    t_inv, _ = t_inv_lamt(lam, t, mb)
+    dt_lo = (zb - A[:, :K]) * mb[:, :K]
+    dt_up = (A[:, K:] - zb) * mb[:, K:]
+    dt = torch.cat([dt_lo, dt_up], dim=1)
+    return dt, -t_inv * (lam * dt + M) * mb
+
+
+def corr_co_qx_res(K, lam, t, mb, A, M, dtb, dlb, sm):
+    """Phase-2 corrector stream rm2 = (M + dt dl - sigma mu) * mb and the
+    gradient fold of :func:`qx_fold_res` on it; ``sm`` is (B,)."""
+    co = (M + (dtb * dlb - sm[:, None])) * mb
+    _, qx = qx_fold_res(K, lam, t, mb, A, co)
+    return co, qx

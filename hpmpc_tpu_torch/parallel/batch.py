@@ -5,9 +5,9 @@ The batch is a first-class leading axis on every QP leaf.
 :func:`select_engine` keeps the JAX package's rule and engine names, minus
 the gates that are TPU measurements (the ``B % 1024`` block, the VMEM fit
 gates, the NZ 19..22 mega fence; nothing here chunks at 4096 either).
-Only the ``"resident"`` engine is ported; every other engine raises
-``NotImplementedError`` naming its ROADMAP item instead of quietly running
-something else.
+The ``"resident"`` and ``"lanes"`` engines are ported; every other engine
+raises ``NotImplementedError`` naming its ROADMAP item instead of quietly
+running something else.
 """
 
 from __future__ import annotations
@@ -23,11 +23,11 @@ from ..ocp import OCPDims, OCPQP
 #: ROADMAP.md Queue 1 item that ports each engine not available yet
 _NOT_PORTED = {
     "structured": "Queue 1 #5 (structured ipm.solve)",
-    "lanes": "Queue 1 #7 (lanes engine)",
-    "flat": "Queue 1 #7 (lanes engine; the flat engine folds into it)",
-    "two_stage_resident": "Queue 1 #7 (lanes engine, stage 2 of the "
-                          "two-stage route)",
-    "two_stage_lanes": "Queue 1 #7 (lanes engine)",
+    "flat": "Queue 1 #7 (the flat engine folds into the lanes engine)",
+    "two_stage_resident": "Queue 1 #8 (two-stage route: state0 and "
+                          "iter_ref on the lanes engine)",
+    "two_stage_lanes": "Queue 1 #8 (two-stage route: state0 and iter_ref "
+                       "on the lanes engine)",
 }
 
 
@@ -95,5 +95,9 @@ def solve_batched(dims: OCPDims, qp: OCPQP, cfg: ipm.IPMConfig,
 
         return ipm_resident.solve_batched_resident(dims, qp, cfg,
                                                    z0=z0, pi0=pi0)
+    if engine == "lanes":
+        from ..models import ipm_lanes
+
+        return ipm_lanes.solve_batched_lanes(dims, qp, cfg, z0=z0, pi0=pi0)
     raise NotImplementedError(
         f"engine {engine!r} is not ported yet: ROADMAP {_NOT_PORTED[engine]}")

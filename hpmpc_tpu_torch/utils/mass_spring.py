@@ -43,7 +43,7 @@ def mass_spring_qp(
     ngN: int = 0,
     Ts: float = 0.5,
     dtype=torch.float64,
-    device="cpu",
+    device=None,
     A: np.ndarray | None = None,
     B: np.ndarray | None = None,
 ) -> tuple[OCPDims, OCPQP]:
@@ -52,7 +52,8 @@ def mass_spring_qp(
     x0 eliminated (nx[0]=0, b0 = b + A x0), u in [-0.5, 0.5], first nx/2
     states in [-4, 4], Q=I, R=2I, S=0, q=0.1, r=0.2, b=0.1,
     x0=(2.5, 2.5, 0, ...).  Optional general constraints: stages 1..N-1
-    bound states x[0:ng] in [-100, 100]; stage N imposes x[0:ngN] == 0."""
+    bound states x[0:ng] in [-100, 100]; stage N imposes x[0:ngN] == 0.
+    The QP lands on ``device``, by default the CUDA card."""
     nb = nu + nx // 2
     nbu = min(nu, nb)
     nbx = max(nb - nu, 0)

@@ -1,7 +1,8 @@
-"""The port's slice as a whole: ``parallel.batch.solve_batched`` of the
+"""The port's slices as a whole: ``parallel.batch.solve_batched`` of the
 PyTorch port vs the JAX package's ``solve_batched`` on the resident route
-(``HPMPC_RESIDENT=1``, Pallas in interpret mode), plus the dispatch rule
-and the not-yet-ported engines."""
+(``HPMPC_RESIDENT=1``, Pallas in interpret mode), the dispatch rule, the
+default-tolerance route into the lanes engine, and the not-yet-ported
+engines."""
 
 import dataclasses
 
@@ -53,7 +54,8 @@ def test_solve_batched_matches_jax(interpret_pallas, monkeypatch):
         qpb, b=qpb.b * jnp.asarray(1 + 0.02 * rng.standard_normal(B),
                                    jnp.float32)[:, None, None])
     qp_t = qp_from_numpy(dims, {f: np.asarray(getattr(qpb, f))
-                                for f in QP_FIELDS}, dtype=torch.float32)
+                                for f in QP_FIELDS}, device="cpu",
+                         dtype=torch.float32)
     kw = dict(k_max=3, mu_tol=1e-4, mu_switch=0.0, use_pallas=True)
     cfg_j, cfg_t = jipm.IPMConfig(**kw), IPMConfig(**kw)
     assert jbatch.select_engine(dims, cfg_j, B, jnp.float32) == "resident"
@@ -99,7 +101,7 @@ def test_select_engine_agrees_with_jax(monkeypatch, ci, f32, env):
         monkeypatch.setenv(k, v)
     kw = dict(k_max=8, use_pallas=True)
     kw.update(_CFGS[ci])
-    dims, _ = mass_spring_qp(8, 3, 30, ngN=8)
+    dims, _ = mass_spring_qp(8, 3, 30, ngN=8, device="cpu")
     jdt, tdt = ((jnp.float32, torch.float32) if f32
                 else (jnp.float64, torch.float64))
     e_j = jbatch.select_engine(dims, jipm.IPMConfig(**kw), 4096, jdt)
@@ -108,7 +110,8 @@ def test_select_engine_agrees_with_jax(monkeypatch, ci, f32, env):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(mu_tol=1e-8, mu_switch=1e-5, use_pallas=True),     # -> lanes
+    dict(mu_tol=1e-8, mu_switch=1e-5, use_pallas=True,
+         dtype=torch.float64),                              # -> flat
     dict(mu_tol=1e-8, use_pallas=False),                    # -> structured
     dict(mu_tol=0.0, iter_ref=1, iter_ref_mu_thr=1e-3,
          use_pallas=True),                                  # -> two-stage
@@ -117,7 +120,36 @@ def test_select_engine_agrees_with_jax(monkeypatch, ci, f32, env):
 ])
 def test_unported_engines_raise(monkeypatch, kw):
     monkeypatch.delenv("HPMPC_RESIDENT", raising=False)
-    dims, qp = mass_spring_qp(8, 3, 4, dtype=torch.float32)
+    kw = dict(kw)
+    dims, qp = mass_spring_qp(8, 3, 4, dtype=kw.pop("dtype", torch.float32),
+                              device="cpu")
     qpb = tbatch.broadcast_qp(qp, 8)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tbatch.solve_batched(dims, qpb, IPMConfig(k_max=2, **kw))
+
+
+def test_solve_batched_default_tolerances_run_lanes(monkeypatch):
+    """The library's default tolerances (mu_tol 1e-8, mu_switch 1e-5) with
+    the kernels on (f32) go to the lanes engine, which here runs both
+    phases through both mega wrappers (on the CPU: their plain versions),
+    converges, and returns what calling the engine directly returns."""
+    from hpmpc_tpu_torch.models import ipm_lanes
+    from hpmpc_tpu_torch.ops import mega_kernel as mk
+
+    for k in ("HPMPC_RESIDENT", "HPMPC_LANES_LOOP", "HPMPC_MEGA_SWEEPS"):
+        monkeypatch.delenv(k, raising=False)
+    dims, qp = mass_spring_qp(8, 3, 4, dtype=torch.float32, device="cpu")
+    qpb = tbatch.broadcast_qp(qp, 8)
+    cfg = IPMConfig(k_max=12, use_pallas=True)
+    assert tbatch.select_engine(dims, cfg, 8, torch.float32) == "lanes"
+    before = {k: list(v) for k, v in mk.PLAIN_CALLS.items()}
+    sol = tbatch.solve_batched(dims, qpb, cfg)
+    for name, counts in mk.PLAIN_CALLS.items():
+        assert all(a > b for a, b in zip(counts, before[name])), name
+    assert bool((sol.status == 0).all())
+    ref = ipm_lanes.solve_batched_lanes(dims, qpb, cfg)
+    for f in sol._fields:
+        assert torch.equal(getattr(sol, f), getattr(ref, f)), f
+    monkeypatch.setenv("HPMPC_MEGA_SWEEPS", "0")
+    with pytest.raises(NotImplementedError, match="rows 3-5, 9 and 10"):
+        tbatch.solve_batched(dims, qpb, cfg)

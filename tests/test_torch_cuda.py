@@ -1,5 +1,6 @@
 """Hand-written CUDA kernels of the PyTorch port vs their plain PyTorch
-versions, on the card, at small shapes; and the wrappers' input checks.
+versions, on the card, at small shapes; the engines on the card vs on the
+CPU; and the wrappers' input checks.
 
 Needs a CUDA card and nvcc: skipped where torch sees no card.  Imports no
 JAX, so it also runs on a machine without it:
@@ -14,8 +15,9 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from hpmpc_tpu_torch.models import ipm_resident  # noqa: E402
+from hpmpc_tpu_torch.models import ipm_lanes, ipm_resident  # noqa: E402
 from hpmpc_tpu_torch.models.ipm import IPMConfig  # noqa: E402
+from hpmpc_tpu_torch.ops import mega_kernel as mk  # noqa: E402
 from hpmpc_tpu_torch.ops import resident_kernel as rk  # noqa: E402
 from hpmpc_tpu_torch.ops import step_kernel as stk  # noqa: E402
 from hpmpc_tpu_torch.parallel import batch as pbatch  # noqa: E402
@@ -108,6 +110,84 @@ def test_resident_engine_on_card_matches_cpu(cuda):
                                    getattr(sol_c, f), rtol=1e-9, atol=1e-10)
 
 
+def _capture_mega(monkeypatch, dims, qpb, cfg):
+    """Arguments of the first call of each mega wrapper, per phase, in one
+    lanes-engine solve: {(name, phase2): (args, kwargs)}."""
+    calls = {}
+    for name in ("factor_solve_mega", "solve_mega"):
+        fn = getattr(mk, name)
+
+        def spy(*a, _name=name, _fn=fn, **k):
+            calls.setdefault((_name, k["phase2"]), (a, k))
+            return _fn(*a, **k)
+
+        monkeypatch.setattr(mk, name, spy)
+    ipm_lanes.solve_batched_lanes(dims, qpb, cfg)
+    monkeypatch.undo()
+    return calls
+
+
+def _flat(out):
+    """Tensors of a mega wrapper's output, the factor state unpacked."""
+    return [x for o in out for x in (o if isinstance(o, tuple) else (o,))]
+
+
+# one mega call, kernel vs plain: no iteration amplifies the roundoff of the
+# two summation orders (host builds of the kernels measured <= 1.5e-6 of
+# each field's scale in f32, 2.3e-15 in f64), so 5e-5 / 1e-11 of the scale
+_MEGA_TOL = {torch.float32: 5e-5, torch.float64: 1e-11}
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("ngN", [0, 4])
+@pytest.mark.parametrize("phase2", [False, True])
+def test_mega_kernels_match_plain(cuda, monkeypatch, dtype, ngN, phase2):
+    """Each mega kernel on the arguments of the engine's first call of that
+    phase (phase 1: the initial iterate; phase 2, run alone with
+    mu_switch=1e9: A = rd, M = rm at the initial iterate), B=37 so the
+    last warp is ragged."""
+    dims, qpb = _batch(cuda, dtype, 4, ngN, 37)
+    kw = dict(mu_switch=1e9) if phase2 else {}
+    calls = _capture_mega(monkeypatch, dims, qpb,
+                          IPMConfig(k_max=2, use_pallas=True, **kw))
+    for name, ref in (("factor_solve_mega", mk.factor_solve_mega_ref),
+                      ("solve_mega", mk.solve_mega_ref)):
+        a, k = calls[(name, phase2)]
+        n0 = list(mk.LAUNCHES[name])
+        out_k = _flat(getattr(mk, name)(*a, **k))
+        torch.cuda.synchronize()
+        n0[int(phase2)] += 1
+        assert mk.LAUNCHES[name] == n0
+        out_p = _flat(ref(*a, **k))
+        for i, (x, y) in enumerate(zip(out_k, out_p)):
+            assert bool(torch.isfinite(x).all()), (name, i)
+            scale = max(1.0, float(y.abs().max()))
+            assert float((x - y).abs().max()) <= _MEGA_TOL[dtype] * scale, (
+                name, i)
+
+
+def test_lanes_engine_on_card_matches_cpu(cuda):
+    """The lanes engine on the card (mega kernels, resid_full) vs the same
+    call on the CPU (plain versions): float64, both phases, the ngN=4
+    block at N=16 (feasible there).  ~9 iterations amplify the two
+    summation orders to <= 3e-7 of a field's scale (host builds of the
+    kernels, 40 instances), so 1e-6 of the scale."""
+    dims, qpb = _batch(cuda, torch.float64, 16, 4, 40)
+    cfg = IPMConfig(k_max=12, mu_tol=1e-10, use_pallas=True)
+    n0 = [list(v) for v in mk.LAUNCHES.values()]
+    sol_g = ipm_lanes.solve_batched_lanes(dims, qpb, cfg)
+    assert all(min(a - b for a, b in zip(v, v0)) >= 1
+               for v, v0 in zip(mk.LAUNCHES.values(), n0))
+    sol_c = ipm_lanes.solve_batched_lanes(dims, qpb.to("cpu"), cfg)
+    assert torch.equal(sol_g.kk.cpu(), sol_c.kk)
+    assert torch.equal(sol_g.status.cpu(), sol_c.status)
+    for f in ("z", "pi", "lam_b", "t_b", "lam_g", "t_g", "stat",
+              "inf_norm_res"):
+        g, c = getattr(sol_g, f).cpu(), getattr(sol_c, f)
+        scale = max(1.0, float(c.abs().max()))
+        assert float((g - c).abs().max()) <= 1e-6 * scale, f
+
+
 def test_wrappers_reject_bad_inputs(cuda):
     dims, qpb = _batch(cuda, torch.float32, 4, 0, 16)
     cfg = IPMConfig(k_max=2, mu_tol=0.0, mu_switch=0.0)
@@ -127,3 +207,34 @@ def test_wrappers_reject_bad_inputs(cuda):
     with pytest.raises(TypeError):                  # half precision
         rk.ipm_resident(*[a.half() if a.is_floating_point() else a
                           for a in args], **kw)
+
+
+
+def test_mega_wrappers_reject_bad_inputs(cuda, monkeypatch):
+    dims, qpb = _batch(cuda, torch.float32, 4, 4, 16)
+    calls = _capture_mega(monkeypatch, dims, qpb,
+                          IPMConfig(k_max=1, mu_switch=1e9, use_pallas=True))
+    for name in ("factor_solve_mega", "solve_mega"):
+        fn = getattr(mk, name)
+        a, k = calls[(name, True)]
+        i_lam, i_m = (1, 4) if name == "factor_solve_mega" else (2, 5)
+        bad = list(a)
+        bad[i_lam] = a[i_lam].double()               # lam in another dtype
+        with pytest.raises(TypeError):
+            fn(*bad, **k)
+        bad = list(a)
+        bad[i_lam + 1] = a[i_lam + 1].transpose(0, 1).contiguous(
+        ).transpose(0, 1)                            # non-contiguous t
+        with pytest.raises(ValueError):
+            fn(*bad, **k)
+        bad = list(a)
+        bad[i_m] = None                              # phase 2 without M
+        with pytest.raises(ValueError):
+            fn(*bad, **k)
+        bad = list(a)
+        bad[i_lam + 1] = a[i_lam + 1][..., :8].contiguous()  # batch
+        with pytest.raises(ValueError):
+            fn(*bad, **k)
+        with pytest.raises(TypeError):               # half precision
+            fn(*[x.half() if isinstance(x, torch.Tensor)
+                 and x.is_floating_point() else x for x in a], **k)

@@ -42,7 +42,7 @@ def test_lanes_common_matches_jax(warm):
         qpb, b=qpb.b * jnp.asarray(1 + 0.02 * rng.standard_normal(B))[
             :, None, None])
     qp_t = qp_from_numpy(dims, {f: np.asarray(getattr(qpb, f))
-                                for f in QP_FIELDS})
+                                for f in QP_FIELDS}, device="cpu")
     z0 = pi0 = None
     if warm:
         z0 = 0.3 * rng.standard_normal((B, dims.N + 1, dims.NZ))

@@ -19,6 +19,7 @@ from hpmpc_tpu.utils import resid64 as jr64  # noqa: E402
 from hpmpc_tpu_torch.convert import (  # noqa: E402
     QP_FIELDS, qp_from_numpy, qp_to_numpy, warm_from_numpy)
 from hpmpc_tpu_torch.ops import layout  # noqa: E402
+from hpmpc_tpu_torch.ocp import resolve_device  # noqa: E402
 from hpmpc_tpu_torch.parallel.batch import broadcast_qp  # noqa: E402
 from hpmpc_tpu_torch.utils import mass_spring as tms  # noqa: E402
 from hpmpc_tpu_torch.utils import resid64 as tr64  # noqa: E402
@@ -34,7 +35,8 @@ _DT = {"f64": (jnp.float64, torch.float64), "f32": (jnp.float32,
 def test_mass_spring_bit_for_bit(cfg, dt):
     jdt, tdt = _DT[dt]
     dims_j, qp_j = jms.mass_spring_qp(8, 3, dtype=jdt, **cfg)
-    dims_t, qp_t = tms.mass_spring_qp(8, 3, dtype=tdt, **cfg)
+    dims_t, qp_t = tms.mass_spring_qp(8, 3, dtype=tdt, device="cpu",
+                                      **cfg)
     assert dataclasses.astuple(dims_j) == dataclasses.astuple(dims_t)
     assert dims_j.n_constr == dims_t.n_constr
     for name in QP_FIELDS:
@@ -64,7 +66,7 @@ def test_qp_numpy_round_trip(batched):
                   for f, a in arrays.items()}
         arrays["b"] = arrays["b"] * (1 + 0.1 * rng.standard_normal(
             (3, 1, 1)))
-    qp = qp_from_numpy(dims, arrays, dtype=torch.float64)
+    qp = qp_from_numpy(dims, arrays, device="cpu", dtype=torch.float64)
     assert qp.idxb.dtype == torch.int32
     back = qp_to_numpy(qp)
     for f in QP_FIELDS:
@@ -72,19 +74,38 @@ def test_qp_numpy_round_trip(batched):
     qp32 = qp.to(dtype=torch.float32)
     assert qp32.dtype == torch.float32 and qp32.idxb.dtype == torch.int32
     with pytest.raises(KeyError):
-        qp_from_numpy(dims, {k: v for k, v in arrays.items() if k != "H"})
+        qp_from_numpy(dims, {k: v for k, v in arrays.items() if k != "H"},
+                      device="cpu")
 
 
 def test_warm_from_numpy():
     rng = np.random.default_rng(2)
     z0 = rng.standard_normal((4, 5, 11))
-    z, pi = warm_from_numpy({"z0": z0}, dtype=torch.float32)
+    z, pi = warm_from_numpy({"z0": z0}, device="cpu", dtype=torch.float32)
     assert pi is None and z.dtype == torch.float32
     np.testing.assert_array_equal(z.numpy(), z0.astype(np.float32))
 
 
+def test_entry_points_default_to_the_card():
+    """With no device named, the entry points build on the CUDA card; they
+    never fall back to the CPU, so without a card they raise."""
+    assert resolve_device(None) == torch.device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+    if torch.cuda.is_available():
+        _, qp = tms.mass_spring_qp(8, 3, 4)
+        assert qp.device.type == "cuda"
+        return
+    dims, qp = tms.mass_spring_qp(8, 3, 4, device="cpu")
+    arrays = qp_to_numpy(qp)
+    for call in (lambda: tms.mass_spring_qp(8, 3, 4),
+                 lambda: qp_from_numpy(dims, arrays),
+                 lambda: warm_from_numpy({"z0": np.zeros((1, 5, 11))})):
+        with pytest.raises((AssertionError, RuntimeError)):
+            call()
+
+
 def test_broadcast_qp_shapes():
-    _, qp = tms.mass_spring_qp(8, 3, 4)
+    _, qp = tms.mass_spring_qp(8, 3, 4, device="cpu")
     qpb = broadcast_qp(qp, 5)
     for f in QP_FIELDS:
         assert tuple(getattr(qpb, f).shape) == (5,) + tuple(
@@ -135,7 +156,7 @@ def test_resid64_copy_matches_jax(batched_qp):
               t_b=rng.random((Bn, N + 1, 2, NB)),
               lam_g=rng.random((Bn, N + 1, 2, NG)),
               t_g=rng.random((Bn, N + 1, 2, NG)))
-    qp_t = qp_from_numpy(dims, arrays)
+    qp_t = qp_from_numpy(dims, arrays, device="cpu")
     qp_jb = type(qp_j)(**{f: jnp.asarray(a) for f, a in arrays.items()})
     got = tr64.true_residuals(qp_t, **{k: torch.as_tensor(v)
                                        for k, v in it.items()})

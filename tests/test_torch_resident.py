@@ -48,7 +48,7 @@ def interpret_pallas(monkeypatch):
 def _twin_batch(N, B, ngN, jdt, tdt):
     """The same perturbed batch for both packages: (dims, jax qp, port qp)."""
     _, qp_j = j_mass_spring(8, 3, N, ngN=ngN, dtype=jdt)
-    dims, _ = mass_spring_qp(8, 3, N, ngN=ngN)
+    dims, _ = mass_spring_qp(8, 3, N, ngN=ngN, device="cpu")
     qpb = jbatch.broadcast_qp(qp_j, B)
     rng = np.random.default_rng(0)
     qpb = dataclasses.replace(
@@ -56,7 +56,7 @@ def _twin_batch(N, B, ngN, jdt, tdt):
                                    jdt)[:, None, None])
     arrays = {f.name: np.asarray(getattr(qpb, f.name))
               for f in dataclasses.fields(qpb)}
-    return dims, qpb, qp_from_numpy(dims, arrays, dtype=tdt)
+    return dims, qpb, qp_from_numpy(dims, arrays, device="cpu", dtype=tdt)
 
 
 def _structured(dims, qpb, k_max, mu_tol):

@@ -59,7 +59,7 @@ def test_resid_full_matches_jax(interpret_pallas):
         qpb, b=qpb.b * jnp.asarray(1 + 0.02 * rng.standard_normal(B))[
             :, None, None])
     qp_t = qp_from_numpy(dims, {f: np.asarray(getattr(qpb, f))
-                                for f in QP_FIELDS})
+                                for f in QP_FIELDS}, device="cpu")
     # mid-solve iterate: two resident iterations from the cold start
     cfg = IPMConfig(k_max=2, mu_tol=0.0, mu_switch=0.0)
     args, kw, cm, _ = ipm_resident.resident_inputs(dims, qp_t, cfg)
