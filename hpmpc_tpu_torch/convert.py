@@ -2,7 +2,9 @@
 
 A JAX :class:`hpmpc_tpu.ocp.OCPQP`'s leaves, handed over as numpy arrays
 keyed by field name, become the port's :class:`~.ocp.OCPQP` (batched or
-not); warm-start state (``z0``/``pi0``) rides along the same way.  Numpy is
+not); warm-start state (``z0``/``pi0``) and a whole batched solution
+(:class:`~.models.ipm.IPMSolution`, e.g. a first stage's hand-off) ride
+along the same way.  Numpy is
 the only currency, so neither package imports the other.
 """
 
@@ -13,6 +15,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .models.ipm import IPMSolution
 from .ocp import OCPDims, OCPQP, resolve_device
 
 QP_FIELDS = tuple(f.name for f in dataclasses.fields(OCPQP))
@@ -57,6 +60,21 @@ def warm_from_numpy(arrays: dict, device=None, dtype=torch.float64):
                             dtype=dtype)
 
     return one("z0"), one("pi0")
+
+
+def solution_from_numpy(arrays: dict, device=None,
+                        dtype=torch.float64) -> IPMSolution:
+    """``arrays[name]`` for every :class:`~.models.ipm.IPMSolution` field
+    (batched, e.g. a JAX solution's leaves as numpy) -> the port's
+    solution on ``device`` (default: the CUDA card): ``kk``/``status``
+    int32, the rest ``dtype``."""
+    device = resolve_device(device)
+    out = {}
+    for name in IPMSolution._fields:
+        a = np.asarray(arrays[name])
+        dt = torch.int32 if name in ("kk", "status") else dtype
+        out[name] = torch.tensor(a, device=device, dtype=dt)
+    return IPMSolution(**out)
 
 
 def qp_to_numpy(qp: OCPQP) -> dict:

@@ -5,9 +5,14 @@ streams (PyTorch twin of :mod:`hpmpc_tpu.models.ipm_lanes`).
 (delta formulation) down to ``max(mu_tol, mu_switch)``, the exact KKT
 residuals (:func:`~..ops.step_kernel.resid_full`), then phase 2 (residual
 formulation) down to ``mu_tol``, recomputing the residuals after every
-step.  Each half-iteration is one mega kernel
-(:mod:`..ops.mega_kernel`); the per-instance scalar math (alpha, mu,
-sigma), the general-constraint rows (a few (B, NG) vectors on a few
+step.  A half-iteration is one mega kernel (:mod:`..ops.mega_kernel`,
+``HPMPC_MEGA_SWEEPS=1``, the default without refinement) or the 6-kernel
+sequence (prep, factor+solve, alpha; corrector, re-solve, alpha:
+:mod:`..ops.step_kernel`, :mod:`..ops.stage_kernel`), which also carries
+``iter_ref`` iterative refinement (the reference's ITER_REF,
+``d_ip2_res_hard.c:48``); either continues a previous stage's solution
+(``state0``, the two-stage route).  The per-instance scalar math (alpha,
+mu, sigma), the general-constraint rows (a few (B, NG) vectors on a few
 stages, small einsums) and the gating stay in plain tensor code.
 
 The scaffolding it shares with the resident engine is here too: the box
@@ -28,6 +33,7 @@ import torch
 
 from ..ocp import OCPDims, OCPQP
 from ..ops import mega_kernel as mk
+from ..ops import stage_kernel as sk
 from ..ops import stage_math as sm
 from ..ops import step_kernel as stk
 from ..ops.layout import from_lanes, sym_compress, to_lanes
@@ -49,10 +55,12 @@ def make_ng_lanes(dims, qp, ng_stages, dt, B):
         ns.ct_add_lanes = lambda gl, v: gl
         ns.fold_g = lambda v: v
         ns.ngl_of = ns.ct_lanes_stream = lambda v: None
+        ns.Cl_lanes = None
         return ns
 
     C_act = [qp.C[:, n].to(dt) for n in ng_stages]     # each (B, NG, NZ)
     C_stack = torch.stack(C_act, 1)                    # (B, n_ng, NG, NZ)
+    ns.Cl_lanes = to_lanes(C_stack)                    # (n_ng, NG, NZ, B)
     r, c = torch.tril_indices(dims.NZ, dims.NZ, device=dev)
     C_i, C_j = C_stack[..., r], C_stack[..., c]        # (B, n_ng, NG, NT)
     ns.mgF = torch.cat([qp.ng_mask[:, n] for n in ng_stages], 1)
@@ -232,32 +240,72 @@ def _gate(m, new, old):
     return type(new)(*out)
 
 
+def _hot_state(state0, qp, cm, ngh, ng_stages, mu_scal, dt) -> _LState:
+    """The loop state that continues a previous stage's solution
+    ``state0`` (the two-stage route's hand-off, the JAX engine's
+    ``state0`` branch): its full primal-dual iterate under the box and ng
+    masks, mu recomputed from lam*t, kk and the stat rows carried, alpha
+    back at 1 and the guard's anchor cleared."""
+    B = qp.b.shape[0]
+    mb_st = torch.cat([qp.nb_mask, qp.nb_mask], -1)
+    lam_st = torch.cat([state0.lam_b[:, :, 0], state0.lam_b[:, :, 1]],
+                       -1).to(dt)
+    t_st = torch.cat([state0.t_b[:, :, 0], state0.t_b[:, :, 1]], -1).to(dt)
+    lamL = to_lanes(torch.where(mb_st > 0, lam_st, torch.zeros_like(lam_st)))
+    tL = to_lanes(torch.where(mb_st > 0, t_st, torch.ones_like(t_st)))
+    mu = (lamL * tL * cm.mbL).reshape(-1, B).sum(0)
+    lam_g = t_g = torch.zeros(B, 0, dtype=dt, device=qp.device)
+    if ng_stages:
+        def gcat(a):
+            return torch.cat([a[:, n, side].to(dt) for side in (0, 1)
+                              for n in ng_stages], 1)
+
+        lam_g = torch.where(ngh.mg2 > 0, gcat(state0.lam_g),
+                            torch.zeros_like(ngh.mg2))
+        t_g = torch.where(ngh.mg2 > 0, gcat(state0.t_g),
+                          torch.ones_like(ngh.mg2))
+        mu = mu + (lam_g * t_g * ngh.mg2).sum(1)
+    return _LState(
+        zL=to_lanes(state0.z.to(dt) * qp.z_mask),
+        piL=to_lanes(state0.pi.to(dt) * qp.x_mask[:, 1:]),
+        lamL=lamL, tL=tL, lam_g=lam_g, t_g=t_g, mu=mu * mu_scal,
+        alpha=torch.ones(B, dtype=dt, device=qp.device),
+        kk=state0.kk.to(torch.int32), stat=state0.stat.to(dt),
+        lam_ref=torch.full((B,), float("inf"), dtype=dt, device=qp.device))
+
+
 def solve_batched_lanes(dims: OCPDims, qp: OCPQP, cfg, z0=None, pi0=None,
                         state0=None) -> _ipm.IPMSolution:
     """Batched two-phase solve on the lanes engine (the JAX package's
-    ``solve_batched_lanes`` with ``HPMPC_MEGA_SWEEPS=1`` and ``iter_ref=0``).
+    ``solve_batched_lanes``).
 
     ``z0`` (B, N+1, NZ) / ``pi0`` (B, N, NX) with ``cfg.warm_start`` seed
-    the iterate.  float32 and float64 both run.  Liveness is per instance:
-    the loops run while any instance is live (one host sync per
-    iteration), and an instance that is not live keeps its state (a
+    the iterate; ``state0``, a previous stage's :class:`~.ipm.IPMSolution`,
+    seeds the whole primal-dual state instead (hot continuation: mu is
+    recomputed from lam*t, kk and the stat rows carry over, alpha restarts
+    at 1).  ``cfg.iter_ref`` > 0 refines every direction ``iter_ref``
+    times (:func:`~..ops.stage_kernel.refine_flat_fused`); with
+    ``cfg.iter_ref_mu_thr`` > 0 only the iterations that start with the
+    batch's smallest mu below it (one decision for the whole batch, live or
+    not, as in the JAX engine).  float32 and float64 both run.  Liveness is
+    per instance: the loops run while any instance is live (one host sync
+    per iteration), and an instance that is not live keeps its state (a
     select).  Needs box constraints and a static ``dims.idxb``.
 
-    Not ported yet, each raises ``NotImplementedError``: ``state0`` hot
-    continuation (ROADMAP Queue 1 #8), ``cfg.iter_ref > 0`` (Queue 1 #7),
-    and the 6-kernel loop ``HPMPC_MEGA_SWEEPS=0`` (Queue 2 rows 3-5, 9,
-    10)."""
-    if state0 is not None:
+    Not ported yet, each raises ``NotImplementedError``:
+    ``HPMPC_FUSED_SWEEPS=1`` (ROADMAP Queue 2 rows 17-18) and
+    ``HPMPC_FUSED_REFINE=0`` with ``iter_ref`` (rows 11-12)."""
+    iter_ref = int(cfg.iter_ref)
+    ref_thr = float(cfg.iter_ref_mu_thr)
+    mega = os.environ.get("HPMPC_MEGA_SWEEPS", "1") == "1" and iter_ref == 0
+    if not mega and os.environ.get("HPMPC_FUSED_SWEEPS", "0") == "1":
         raise NotImplementedError(
-            "lanes engine: state0 hot continuation belongs to the two-stage "
-            "route, ROADMAP Queue 1 #8")
-    if int(cfg.iter_ref) != 0:
+            "lanes engine: the fused sweeps (HPMPC_FUSED_SWEEPS=1) need "
+            "ROADMAP Queue 2 rows 17 and 18")
+    if iter_ref and os.environ.get("HPMPC_FUSED_REFINE", "1") != "1":
         raise NotImplementedError(
-            "lanes engine: iter_ref refinement, ROADMAP Queue 1 #7")
-    if os.environ.get("HPMPC_MEGA_SWEEPS", "1") != "1":
-        raise NotImplementedError(
-            "lanes engine: the 6-kernel loop (HPMPC_MEGA_SWEEPS=0) needs "
-            "ROADMAP Queue 2 rows 3-5, 9 and 10")
+            "lanes engine: the unfused refinement (HPMPC_FUSED_REFINE=0) "
+            "needs ROADMAP Queue 2 rows 11 and 12")
     dt = qp.dtype
     if dt not in (torch.float32, torch.float64):
         raise TypeError(f"lanes engine takes float32/float64, got {dt}")
@@ -270,6 +318,7 @@ def solve_batched_lanes(dims: OCPDims, qp: OCPQP, cfg, z0=None, pi0=None,
     Np1 = N + 1
     B = qp.b.shape[0]
     kd = dict(NB=NB, NU=NU, NZ=NZ, NX=NX)
+    ks = dict(NU=NU, NZ=NZ, NX=NX)
     ng_stages = tuple(n for n in range(Np1) if dims.ng[n] > 0)
     n_ng = len(ng_stages)
     NGF = n_ng * NG
@@ -314,12 +363,79 @@ def solve_batched_lanes(dims: OCPDims, qp: OCPQP, cfg, z0=None, pi0=None,
         return torch.where(mask, row[:, None, :], stat)
 
     def ng_barrier(s):
-        """(1/t, lam/t, the kernels' ngl stream) of the ng rows at ``s``."""
+        """(1/t, lam/t, Qx_g, the kernels' ngl stream) of the ng rows at
+        ``s``; Qx_g is the folded masked barrier diagonal (B, NGF)."""
         if not n_ng:
-            return empty, empty, None
+            return empty, empty, None, None
         t_inv_g = torch.where(mg2 > 0, 1.0 / s.t_g, torch.zeros_like(s.t_g))
         lamt_g = s.lam_g * t_inv_g
-        return t_inv_g, lamt_g, ngh.ngl_of(fold_g(lamt_g) * mgF)
+        Qx_g = fold_g(lamt_g) * mgF
+        return t_inv_g, lamt_g, Qx_g, ngh.ngl_of(Qx_g)
+
+    def refine(fstate, Qx_g, geffL, rhsL, zL, piL):
+        """``iter_ref`` fused ITER_REF passes on the direction (zL, piL) of
+        the Newton system the 6-kernel affine half factored."""
+        Ll, Lxx, _, dvecL = fstate
+        qxgl = to_lanes(Qx_g.reshape(B, n_ng, NG)) if n_ng else None
+        for _ in range(iter_ref):
+            zL, piL = sk.refine_flat_fused(
+                Hl, dvecL, ngh.Cl_lanes, qxgl, ng_stages, geffL, Fl, rhsL, zL,
+                piL, Ll, Lxx, **ks)
+        return zL, piL
+
+    def affine_half(s, A_L, M_L, baseL, rhsL, qx_g, Qx_g, ngl, phase2,
+                    do_ref):
+        """Barrier prep + factorization + affine solve + affine alpha
+        partials: one mega kernel, or the 6-kernel loop's prep,
+        factor+solve (+ refinement) and alpha passes.  Returns (dz, fstate,
+        dt, dl, (amin, s0, s1, s2)); the 6-kernel fstate also carries
+        dvec."""
+        if mega:
+            dzL, fstate, dtL, dlL, *parts = mk.factor_solve_mega(
+                idxT, s.lamL, s.tL, A_L, M_L, mbL, baseL, pdregL, Hl, ngl,
+                ngh.ct_lanes_stream(qx_g) if n_ng else None, ng_stages, Fl,
+                rhsL, phase2=phase2, **kd)
+            return dzL, fstate, dtL, dlL, parts
+        dvecL, geffL = stk.prep_flat(idxT, s.lamL, s.tL, A_L, M_L, mbL,
+                                     baseL, pdregL, NB=NB, NZ=NZ,
+                                     phase2=phase2)
+        if n_ng:
+            geffL = ngh.ct_add_lanes(geffL, qx_g)
+        dzL, dpiL, fstate = sk.factor_solve_folded_flat(
+            Hl, dvecL, ngl, ng_stages, geffL, Fl, rhsL, want_pi=iter_ref > 0,
+            **ks)
+        fstate = fstate + (dvecL,)
+        if do_ref:
+            dzL, _ = refine(fstate, Qx_g, geffL, rhsL, dzL, dpiL)
+        dtL, dlL, *parts = stk.alpha_sums_flat(
+            idxT, dzL, s.lamL, s.tL, A_L, M_L, None, mbL, NB=NB, NZ=NZ,
+            phase2=phase2)
+        return dzL, fstate, dtL, dlL, parts
+
+    def corr_half(s, A_L, M_L, fstate, dtL, dlL, smu, baseL, rhsL, qx_g2,
+                  Qx_g, phase2, do_ref):
+        """Corrector gradient + retained-factor solve + corrector alpha
+        partials: one mega kernel, or the 6-kernel loop's corrector pass,
+        re-solve (+ refinement) and alpha pass.  Returns (dz2, dpi2, dt2,
+        dl2, (amin, s0, s1, s2))."""
+        if mega:
+            dz2L, dpi2L, dt2L, dl2L, *parts = mk.solve_mega(
+                idxT, fstate, s.lamL, s.tL, A_L, M_L, mbL, dtL, dlL, smu,
+                baseL, ngh.ct_lanes_stream(qx_g2) if n_ng else None,
+                ng_stages, Fl, rhsL, phase2=phase2, **kd)
+            return dz2L, dpi2L, dt2L, dl2L, parts
+        geff2L, coL = stk.corr_geff_flat(idxT, s.lamL, s.tL, A_L, M_L, dtL,
+                                         dlL, smu, baseL, mbL, NB=NB, NZ=NZ,
+                                         phase2=phase2)
+        if n_ng:
+            geff2L = ngh.ct_add_lanes(geff2L, qx_g2)
+        dz2L, dpi2L = sk.solve_flat(*fstate[:3], geff2L, Fl, rhsL, **ks)
+        if do_ref:
+            dz2L, dpi2L = refine(fstate, Qx_g, geff2L, rhsL, dz2L, dpi2L)
+        dt2L, dl2L, *parts = stk.alpha_sums_flat(
+            idxT, dz2L, s.lamL, s.tL, A_L, coL if phase2 else None,
+            None if phase2 else coL, mbL, NB=NB, NZ=NZ, phase2=phase2)
+        return dz2L, dpi2L, dt2L, dl2L, parts
 
     def candidate(s, a2, dz2L, dpi2L, dt2L, dl2L, dtg2, dlg2, phase2):
         """The iterate after a step of length ``a2`` (B,): phase 1 steps
@@ -347,15 +463,25 @@ def solve_batched_lanes(dims: OCPDims, qp: OCPQP, cfg, z0=None, pi0=None,
         refused = s._replace(alpha=torch.zeros_like(s.alpha))
         return ok, _gate(ok, s_new, refused)
 
+    def live_and_gate(s, tol):
+        """The loop's one host sync: the live instances (B,) and whether
+        any is live; with ``iter_ref`` also the batch-wide refinement gate
+        (the smallest mu of every instance, live or not, below
+        ``iter_ref_mu_thr``; always on without a threshold)."""
+        live = (s.kk < k_max) & (s.mu > tol) & (s.alpha >= alpha_min)
+        if not iter_ref or ref_thr <= 0:
+            return live, bool(live.any()), bool(iter_ref)
+        any_live, do_ref = torch.stack(
+            [live.any(), s.mu.min() < ref_thr]).tolist()
+        return live, any_live, do_ref
+
     # ---- phase 1 (delta formulation) -------------------------------------
-    def phase1_body(s):
-        t_inv_g, lamt_g, ngl = ng_barrier(s)
+    def phase1_body(s, do_ref):
+        t_inv_g, lamt_g, Qx_g, ngl = ng_barrier(s)
         qx_g = (fold_g(-sgn_g * s.lam_g - lamt_g * dg_cat) * mgF
                 if n_ng else None)
-        dzL, fstate, dtL, dlL, *parts = mk.factor_solve_mega(
-            idxT, s.lamL, s.tL, dcatL, None, mbL, gL, pdregL, Hl, ngl,
-            ngh.ct_lanes_stream(qx_g) if n_ng else None, ng_stages, Fl, bL,
-            phase2=False, **kd)
+        dzL, fstate, dtL, dlL, parts = affine_half(
+            s, dcatL, None, gL, bL, qx_g, Qx_g, ngl, False, do_ref)
         dtg = dlg = empty
         if n_ng:
             dtg = (sgn_g * (cat2(cz_of(dzL)) - dg_cat) - s.t_g) * mg2
@@ -366,13 +492,13 @@ def solve_batched_lanes(dims: OCPDims, qp: OCPQP, cfg, z0=None, pi0=None,
         sigma = (mu_aff / s.mu) ** 3
         smu = sigma * s.mu
 
-        ngadd2 = dl2g = None
+        qx_g2 = dl2g = None
         if n_ng:
             dl2g = t_inv_g * (smu[:, None] - dlg * dtg) * mg2
-            ngadd2 = ngh.ct_lanes_stream(qx_g + fold_g(-sgn_g * dl2g) * mgF)
-        dz2L, dpi2L, dt2L, dl2L, *parts2 = mk.solve_mega(
-            idxT, fstate, s.lamL, s.tL, dcatL, None, mbL, dtL, dlL, smu, gL,
-            ngadd2, ng_stages, Fl, bL, phase2=False, **kd)
+            qx_g2 = qx_g + fold_g(-sgn_g * dl2g) * mgF
+        dz2L, dpi2L, dt2L, dl2L, parts2 = corr_half(
+            s, dcatL, None, fstate, dtL, dlL, smu, gL, bL, qx_g2, Qx_g,
+            False, do_ref)
         dtg2 = dlg2 = empty
         if n_ng:
             dtg2 = (sgn_g * (cat2(cz_of(dz2L)) - dg_cat) - s.t_g) * mg2
@@ -384,23 +510,26 @@ def solve_batched_lanes(dims: OCPDims, qp: OCPQP, cfg, z0=None, pi0=None,
         cand = candidate(s, a2, dz2L, dpi2L, dt2L, dl2L, dtg2, dlg2, False)
         return accept(s, cand, row)[1]
 
-    lam_g0, t_g0 = cm.ng_init(ngh)
-    s = _LState(
-        zL=cm.zL0,
-        piL=(cm.piL0 if cm.piL0 is not None
-             else torch.zeros(N, NX, B, dtype=dt, device=dev)),
-        lamL=cm.lamL0, tL=cm.tL0, lam_g=lam_g0, t_g=t_g0,
-        mu=torch.full((B,), float(cfg.mu0), dtype=dt, device=dev),
-        alpha=torch.ones(B, dtype=dt, device=dev),
-        kk=torch.zeros(B, dtype=torch.int32, device=dev),
-        stat=torch.zeros(B, k_max, 5, dtype=dt, device=dev),
-        lam_ref=torch.full((B,), float("inf"), dtype=dt, device=dev))
+    if state0 is None:
+        lam_g0, t_g0 = cm.ng_init(ngh)
+        s = _LState(
+            zL=cm.zL0,
+            piL=(cm.piL0 if cm.piL0 is not None
+                 else torch.zeros(N, NX, B, dtype=dt, device=dev)),
+            lamL=cm.lamL0, tL=cm.tL0, lam_g=lam_g0, t_g=t_g0,
+            mu=torch.full((B,), float(cfg.mu0), dtype=dt, device=dev),
+            alpha=torch.ones(B, dtype=dt, device=dev),
+            kk=torch.zeros(B, dtype=torch.int32, device=dev),
+            stat=torch.zeros(B, k_max, 5, dtype=dt, device=dev),
+            lam_ref=torch.full((B,), float("inf"), dtype=dt, device=dev))
+    else:
+        s = _hot_state(state0, qp, cm, ngh, ng_stages, mu_scal, dt)
 
     while True:
-        live = (s.kk < k_max) & (s.mu > mu_tol_low) & (s.alpha >= alpha_min)
-        if not bool(live.any()):        # the loop's one host sync
+        live, any_live, do_ref = live_and_gate(s, mu_tol_low)
+        if not any_live:
             break
-        s = _gate(live, phase1_body(s), s)
+        s = _gate(live, phase1_body(s, do_ref), s)
 
     # ---- residuals (one kernel + the ng rows) ----------------------------
     def residuals(zL, piL, lamL, tL, lam_g, t_g):
@@ -421,16 +550,15 @@ def solve_batched_lanes(dims: OCPDims, qp: OCPQP, cfg, z0=None, pi0=None,
     s = s._replace(mu=res.mu)
 
     # ---- phase 2 (residual formulation) ----------------------------------
-    def phase2_body(s, res):
-        t_inv_g, lamt_g, ngl = ng_barrier(s)
+    def phase2_body(s, res, do_ref):
+        t_inv_g, lamt_g, Qx_g, ngl = ng_barrier(s)
 
         def qxg_from(rm_g):
             return fold_g(sgn_g * t_inv_g * rm_g - lamt_g * res.rd_g) * mgF
 
-        dzL, fstate, dtL, dlL, *parts = mk.factor_solve_mega(
-            idxT, s.lamL, s.tL, res.rdL, res.rmL, mbL, res.rqL, pdregL, Hl,
-            ngl, ngh.ct_lanes_stream(qxg_from(res.rm_g)) if n_ng else None,
-            ng_stages, Fl, res.rbL, phase2=True, **kd)
+        dzL, fstate, dtL, dlL, parts = affine_half(
+            s, res.rdL, res.rmL, res.rqL, res.rbL,
+            qxg_from(res.rm_g) if n_ng else None, Qx_g, ngl, True, do_ref)
         dtg = dlg = empty
         if n_ng:
             dtg = sgn_g * (cat2(cz_of(dzL)) - res.rd_g) * mg2
@@ -441,13 +569,13 @@ def solve_batched_lanes(dims: OCPDims, qp: OCPQP, cfg, z0=None, pi0=None,
         sigma = (mu_aff / s.mu) ** 3
         smu = sigma * s.mu
 
-        ngadd2 = rm_g2 = None
+        qx_g2 = rm_g2 = None
         if n_ng:
             rm_g2 = res.rm_g + (dtg * dlg - smu[:, None]) * mg2
-            ngadd2 = ngh.ct_lanes_stream(qxg_from(rm_g2))
-        dz2L, dpi2L, dt2L, dl2L, *parts2 = mk.solve_mega(
-            idxT, fstate, s.lamL, s.tL, res.rdL, res.rmL, mbL, dtL, dlL, smu,
-            res.rqL, ngadd2, ng_stages, Fl, res.rbL, phase2=True, **kd)
+            qx_g2 = qxg_from(rm_g2)
+        dz2L, dpi2L, dt2L, dl2L, parts2 = corr_half(
+            s, res.rdL, res.rmL, fstate, dtL, dlL, smu, res.rqL, res.rbL,
+            qx_g2, Qx_g, True, do_ref)
         dtg2 = dlg2 = empty
         if n_ng:
             dtg2 = sgn_g * (cat2(cz_of(dz2L)) - res.rd_g) * mg2
@@ -461,10 +589,10 @@ def solve_batched_lanes(dims: OCPDims, qp: OCPQP, cfg, z0=None, pi0=None,
         return s_new, _gate(ok, res_new, res)
 
     while True:
-        live = (s.kk < k_max) & (s.mu > mu_tol) & (s.alpha >= alpha_min)
-        if not bool(live.any()):        # the loop's one host sync
+        live, any_live, do_ref = live_and_gate(s, mu_tol)
+        if not any_live:
             break
-        s_new, res_new = phase2_body(s, res)
+        s_new, res_new = phase2_body(s, res, do_ref)
         s, res = _gate(live, s_new, s), _gate(live, res_new, res)
 
     # ---- status, residual norms, the IPMSolution --------------------------

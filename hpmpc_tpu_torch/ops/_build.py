@@ -39,6 +39,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _LIBS: dict = {}
+_NG_TABLES: dict = {}
 #: library file name -> the ptxas report of its build in this process
 PTXAS_LOG: dict = {}
 
@@ -127,23 +128,45 @@ def build_all(specs) -> list:
                 os.unlink(job[2])
 
 
+#: the entry points of each library whose entry is not ``hp_<kernel>``
+ENTRIES = {"step_flat": ("prep_flat", "alpha_sums_flat", "corr_geff_flat"),
+           "factor_solve_flat": ("factor_solve_folded_flat",),
+           "refine_flat": ("refine_flat_fused",)}
+
+
 def load(kernel: str, **dims) -> ctypes.CDLL:
     """The library of ``csrc/<kernel>.cu`` for these stage dimensions
     (built on first use, then cached for the process).  Every library
-    exports ``hp_<kernel>(const Args*, int dtype_code, cudaStream_t)``
+    exports ``hp_<entry>(const Args*, int dtype_code, cudaStream_t)`` for
+    each entry of :data:`ENTRIES` (default: the kernel's own name),
     returning ``cudaGetLastError()`` after the launch, and
     ``hp_error_string``."""
     key = (kernel,) + tuple(sorted(dims.items()))
     lib = _LIBS.get(key)
     if lib is None:
         lib = ctypes.CDLL(str(build(kernel, dims)))
-        f = getattr(lib, f"hp_{kernel}")
-        f.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-        f.restype = ctypes.c_int
+        for entry in ENTRIES.get(kernel, (kernel,)):
+            f = getattr(lib, f"hp_{entry}")
+            f.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+            f.restype = ctypes.c_int
         lib.hp_error_string.argtypes = [ctypes.c_int]
         lib.hp_error_string.restype = ctypes.c_char_p
         _LIBS[key] = lib
     return lib
+
+
+def launch(kernel: str, entry: str, args: ctypes.Structure, dev, dt,
+           **dims) -> None:
+    """Launch ``hp_<entry>`` of the library of ``csrc/<kernel>.cu`` for
+    these stage dimensions (built on first use) with the Args struct
+    ``args`` in dtype ``dt`` on the current stream of ``dev``; no sync.
+    Raises on a dtype the kernels do not take and on a CUDA error code."""
+    code = dtype_code(dt)
+    lib = load(kernel, **dims)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        rc = getattr(lib, f"hp_{entry}")(ctypes.addressof(args), code, stream)
+    check(lib, rc, entry)
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
@@ -176,6 +199,19 @@ def check_tensors(dev, dt, named: dict, shapes: dict) -> None:
         if tuple(x.shape) != shapes[name]:
             raise ValueError(f"{name} has shape {tuple(x.shape)}, "
                              f"expected {shapes[name]}")
+
+
+def ng_table(ng_stage_ids, dev):
+    """The (n_ng,) int32 table of the stages that carry general
+    constraints, on ``dev``, made once per process so that a launch makes
+    no host-to-device copy."""
+    key = (tuple(ng_stage_ids), str(dev))
+    tab = _NG_TABLES.get(key)
+    if tab is None:
+        tab = torch.tensor(list(ng_stage_ids) or [0], dtype=torch.int32,
+                           device=dev)
+        _NG_TABLES[key] = tab
+    return tab
 
 
 def ptr(t) -> int:

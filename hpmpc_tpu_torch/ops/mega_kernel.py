@@ -33,16 +33,15 @@ import ctypes
 import torch
 
 from . import _build
-from . import stage_math as sm
-from .layout import from_lanes, sym_expand, sym_nt, to_lanes
+from . import stage_kernel as sk
+from . import step_kernel as stk
+from .layout import sym_nt
 
 #: launches of each CUDA kernel in this process, [phase 1, phase 2]
 LAUNCHES = {"factor_solve_mega": [0, 0], "solve_mega": [0, 0]}
 #: calls of each wrapper that ran the plain version (CPU tensors),
 #: [phase 1, phase 2]
 PLAIN_CALLS = {"factor_solve_mega": [0, 0], "solve_mega": [0, 0]}
-
-_NG_TABLES: dict = {}
 
 
 class _FactorArgs(ctypes.Structure):
@@ -65,163 +64,38 @@ class _SolveArgs(ctypes.Structure):
         ("n_ng", ctypes.c_int64), ("phase2", ctypes.c_int64)]
 
 
-def _partials(lam, t, mb, dt, dl):
-    """One stage's (amin, s0, s1, s2): the fraction-to-boundary minimum
-    and the mu(alpha) sum partials of a box direction, each (B,)."""
-    cand = torch.minimum(sm.alpha_cands(lam, dl, mb),
-                         sm.alpha_cands(t, dt, mb))
-    return (cand.amin(1), (lam * t * mb).sum(1),
-            (lam * dt + t * dl).sum(1), (dl * dt).sum(1))
-
-
-def _box_dir(NB, phase2, lam, t, mb, A, M, zb, co):
-    """Box (dt, dlam) of a direction: phase 1 with the centering stream
-    ``co`` as dl0 (0 in the affine half), phase 2 with ``M`` (rm or rm2)."""
-    if phase2:
-        return sm.dt_dlam_res(NB, lam, t, mb, A, M, zb)
-    return sm.dt_dlam(NB, lam, t, mb, A, zb, co)
-
-
 def factor_solve_mega_ref(idx_tab, lam, t, A, M, mb, base, pdreg, H, ngl,
                           ngadd, ng_stage_ids, F, b, *, NB, NU, NZ, NX,
                           phase2):
     """Plain PyTorch version of :func:`factor_solve_mega` (same arguments,
-    same outputs), a Python loop over the stages of the
-    ``ops/stage_math.py`` helpers."""
-    Np1, B = lam.shape[0], lam.shape[-1]
-    N = Np1 - 1
-    dt_, dev = lam.dtype, lam.device
-    idx = idx_tab.long()
-    slot = {n: j for j, n in enumerate(ng_stage_ids)}
-    lamb, tb, Ab, mbb = (from_lanes(x) for x in (lam, t, A, mb))
-    Mb = from_lanes(M) if phase2 else None
-    Hf = sym_expand(from_lanes(H), NZ)            # (B, N+1, NZ, NZ)
-    Fb, bb = from_lanes(F), from_lanes(b)
-    gb, pdb = from_lanes(base), from_lanes(pdreg)
-    if slot:
-        nglf = sym_expand(from_lanes(ngl), NZ)    # (B, n_ng, NZ, NZ)
-        ngab = from_lanes(ngadd)                  # (B, n_ng, NZ)
-    new = lambda *s: torch.zeros(B, *s, dtype=dt_, device=dev)  # noqa: E731
-    Ll, Lxx, Pb = new(Np1, NZ, NU), new(Np1, NX, NX), new(N, NX)
-    eus, pxs = new(Np1, NU), new(Np1, NX)
-    Lxx_c, px_c = new(NX, NX), new(NX)
-    for k in range(N, -1, -1):
-        if phase2:
-            Qx, qx = sm.qx_fold_res(NB, lamb[:, k], tb[:, k], mbb[:, k],
-                                    Ab[:, k], Mb[:, k])
-        else:
-            Qx, qx = sm.qx_fold(NB, lamb[:, k], tb[:, k], mbb[:, k],
-                                Ab[:, k])
-        dvec = sm.scatter_add_box(pdb[:, k], idx[k], Qx)
-        Hp = Hf[:, k] + torch.diag_embed(dvec)
-        g = sm.scatter_add_box(gb[:, k], idx[k], qx)
-        if k in slot:
-            g = g + ngab[:, slot[k]]
-            Hp = Hp + nglf[:, slot[k]]
-        ke = min(k, N - 1)
-        Lf, eu, px, Pbk = sm.folded_bwd_core(NU, Hp, g, Fb[:, ke],
-                                             bb[:, ke], Lxx_c, px_c)
-        Lxx_c, px_c = torch.tril(Lf[:, NU:, NU:]), px
-        Ll[:, k], Lxx[:, k] = Lf[:, :, :NU], Lxx_c
-        if k < N:
-            Pb[:, k] = Pbk
-        eus[:, k], pxs[:, k] = eu, px
-
-    z, dtl, dll = new(Np1, NZ), new(Np1, 2 * NB), new(Np1, 2 * NB)
-    parts = new(4, Np1)
-    x = sm.root_x0(Lxx[:, 0], pxs[:, 0])
-    for s_ in range(Np1):
-        Dinv_u = sm.dinv_ll(Ll[:, s_], NU)
-        u = sm.u_of_x(NU, Ll[:, s_], Dinv_u, eus[:, s_], x)
-        zt = torch.cat([u, x], dim=1)
-        z[:, s_] = zt
-        se = min(s_, N - 1)
-        x = sm.x_next_of(Fb[:, se], bb[:, se], zt)
-        zb = sm.gather_box(zt, idx[s_])
-        dtb, dlb = _box_dir(NB, phase2, lamb[:, s_], tb[:, s_], mbb[:, s_],
-                            Ab[:, s_], Mb[:, s_] if phase2 else None, zb,
-                            0.0)
-        dtl[:, s_], dll[:, s_] = dtb, dlb
-        for i, p in enumerate(_partials(lamb[:, s_], tb[:, s_], mbb[:, s_],
-                                        dtb, dlb)):
-            parts[:, i, s_] = p
-    amin, s0, s1, s2 = to_lanes(parts).unbind(0)
-    return (to_lanes(z), (to_lanes(Ll), to_lanes(Lxx), to_lanes(Pb)),
-            to_lanes(dtl), to_lanes(dll), amin, s0, s1, s2)
+    same outputs): the 6-kernel loop's affine half composed from its plain
+    passes, prep + the ng gradient rows + the folded factorization + the
+    alpha pass."""
+    dvec, g = stk.prep_flat_ref(idx_tab, lam, t, A, M, mb, base, pdreg,
+                                NB=NB, NZ=NZ, phase2=phase2)
+    for j, n in enumerate(ng_stage_ids):
+        g[n] += ngadd[j]
+    z, _, fstate = sk.factor_solve_folded_flat_ref(
+        H, dvec, ngl, ng_stage_ids, g, F, b, NU=NU, NZ=NZ, NX=NX,
+        want_pi=False)
+    return (z, fstate) + stk.alpha_sums_flat_ref(
+        idx_tab, z, lam, t, A, M, None, mb, NB=NB, NZ=NZ, phase2=phase2)
 
 
 def solve_mega_ref(idx_tab, fstate, lam, t, A, M, mb, dtb, dlb, smv, base,
                    ngadd, ng_stage_ids, F, b, *, NB, NU, NZ, NX, phase2):
     """Plain PyTorch version of :func:`solve_mega` (same arguments, same
-    outputs)."""
-    Np1, B = lam.shape[0], lam.shape[-1]
-    N = Np1 - 1
-    dt_, dev = lam.dtype, lam.device
-    idx = idx_tab.long()
-    slot = {n: j for j, n in enumerate(ng_stage_ids)}
-    Llb, Lxxb, Pbb = (from_lanes(x) for x in fstate)
-    lamb, tb, Ab, mbb = (from_lanes(x) for x in (lam, t, A, mb))
-    Mb = from_lanes(M) if phase2 else None
-    dtab, dlab = from_lanes(dtb), from_lanes(dlb)
-    Fb, bb, gb = from_lanes(F), from_lanes(b), from_lanes(base)
-    if slot:
-        ngab = from_lanes(ngadd)
-    new = lambda *s: torch.zeros(B, *s, dtype=dt_, device=dev)  # noqa: E731
-    co, eus, pxs = new(Np1, 2 * NB), new(Np1, NU), new(Np1, NX)
-    px_c = None
-    for k in range(N, -1, -1):
-        if phase2:
-            cok, qx = sm.corr_co_qx_res(NB, lamb[:, k], tb[:, k], mbb[:, k],
-                                        Ab[:, k], Mb[:, k], dtab[:, k],
-                                        dlab[:, k], smv)
-        else:
-            cok, qx = sm.corr_co_qx(NB, lamb[:, k], tb[:, k], mbb[:, k],
-                                    Ab[:, k], dtab[:, k], dlab[:, k], smv)
-        co[:, k] = cok
-        g = sm.scatter_add_box(gb[:, k], idx[k], qx)
-        if k in slot:
-            g = g + ngab[:, slot[k]]
-        Dinv_u = sm.dinv_ll(Llb[:, k], NU)
-        ke = min(k, N - 1)
-        Pbpx = None if k == N else Pbb[:, ke] + px_c
-        eu, px_c = sm.trs_stage(NU, Llb[:, k], Dinv_u, g, Fb[:, ke], Pbpx,
-                                k == N)
-        eus[:, k], pxs[:, k] = eu, px_c
-
-    z, pi = new(Np1, NZ), new(N, NX)
-    dtl, dll, parts = new(Np1, 2 * NB), new(Np1, 2 * NB), new(4, Np1)
-    x = sm.root_x0(Lxxb[:, 0], pxs[:, 0])
-    for s_ in range(Np1):
-        if s_ >= 1:
-            pi[:, s_ - 1] = sm.pi_of_x(Lxxb[:, s_], pxs[:, s_], x)
-        Dinv_u = sm.dinv_ll(Llb[:, s_], NU)
-        u = sm.u_of_x(NU, Llb[:, s_], Dinv_u, eus[:, s_], x)
-        zt = torch.cat([u, x], dim=1)
-        z[:, s_] = zt
-        se = min(s_, N - 1)
-        x = sm.x_next_of(Fb[:, se], bb[:, se], zt)
-        zb = sm.gather_box(zt, idx[s_])
-        d_t, d_l = _box_dir(NB, phase2, lamb[:, s_], tb[:, s_], mbb[:, s_],
-                            Ab[:, s_], co[:, s_], zb, co[:, s_])
-        dtl[:, s_], dll[:, s_] = d_t, d_l
-        for i, p in enumerate(_partials(lamb[:, s_], tb[:, s_], mbb[:, s_],
-                                        d_t, d_l)):
-            parts[:, i, s_] = p
-    amin, s0, s1, s2 = to_lanes(parts).unbind(0)
-    return (to_lanes(z), to_lanes(pi), to_lanes(dtl), to_lanes(dll),
-            amin, s0, s1, s2)
-
-
-def _ng_table(ng_stage_ids, dev):
-    """The (n_ng,) int32 stage table on ``dev``, made once per process so
-    the launches issue no host-to-device copy."""
-    key = (tuple(ng_stage_ids), str(dev))
-    tab = _NG_TABLES.get(key)
-    if tab is None:
-        tab = torch.tensor(list(ng_stage_ids) or [0], dtype=torch.int32,
-                           device=dev)
-        _NG_TABLES[key] = tab
-    return tab
+    outputs): the corrector pass + the ng gradient rows + the
+    retained-factor solve + the alpha pass with the corrector stream (dl0
+    in phase 1, M = rm2 in phase 2)."""
+    g, co = stk.corr_geff_flat_ref(idx_tab, lam, t, A, M, dtb, dlb, smv,
+                                   base, mb, NB=NB, NZ=NZ, phase2=phase2)
+    for j, n in enumerate(ng_stage_ids):
+        g[n] += ngadd[j]
+    z, pi = sk.solve_flat_ref(*fstate, g, F, b, NU=NU, NZ=NZ, NX=NX)
+    return (z, pi) + stk.alpha_sums_flat_ref(
+        idx_tab, z, lam, t, A, co if phase2 else None,
+        None if phase2 else co, mb, NB=NB, NZ=NZ, phase2=phase2)
 
 
 def _check(name, lam, phase2, M, ng_stage_ids, named, shapes):
@@ -275,21 +149,16 @@ def factor_solve_mega(idx_tab, lam, t, A, M, mb, base, pdreg, H, ngl, ngadd,
                   F=(N, NZ, NX, B), b=(N, NX, B))
     _check(name, lam, phase2, M, ng_stage_ids, named, shapes)
     dev, dt = lam.device, lam.dtype
-    code = _build.dtype_code(dt)
-    lib = _build.load(name, NU=NU, NX=NX, NB=NB)
     new = lambda *s: torch.empty(*s, dtype=dt, device=dev)  # noqa: E731
     Ll, Lxx, Pb = new(Np1, NZ, NU, B), new(Np1, NX, NX, B), new(N, NX, B)
     z, dtl, dll = new(Np1, NZ, B), new(Np1, NB2, B), new(Np1, NB2, B)
     amin, s0, s1, s2 = new(4, Np1, B).unbind(0)
     work = new(Np1 * (NU + NX), B)
     ptrs = (idx_tab, lam, t, A, M, mb, base, pdreg, H, ngl, ngadd,
-            _ng_table(ng_stage_ids, dev), F, b, Ll, Lxx, Pb, z, dtl, dll,
+            _build.ng_table(ng_stage_ids, dev), F, b, Ll, Lxx, Pb, z, dtl, dll,
             amin, s0, s1, s2, work)
     a = _FactorArgs(*[_build.ptr(x) for x in ptrs], B, N, n_ng, ph)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        rc = getattr(lib, f"hp_{name}")(ctypes.addressof(a), code, stream)
-    _build.check(lib, rc, name)
+    _build.launch(name, name, a, dev, dt, NU=NU, NX=NX, NB=NB)
     LAUNCHES[name][ph] += 1
     return z, (Ll, Lxx, Pb), dtl, dll, amin, s0, s1, s2
 
@@ -330,20 +199,15 @@ def solve_mega(idx_tab, fstate, lam, t, A, M, mb, dtb, dlb, smv, base,
                   b=(N, NX, B))
     _check(name, lam, phase2, M, ng_stage_ids, named, shapes)
     dev, dt = lam.device, lam.dtype
-    code = _build.dtype_code(dt)
-    lib = _build.load(name, NU=NU, NX=NX, NB=NB)
     new = lambda *s: torch.empty(*s, dtype=dt, device=dev)  # noqa: E731
     z, pi = new(Np1, NZ, B), new(N, NX, B)
     dtl, dll = new(Np1, NB2, B), new(Np1, NB2, B)
     amin, s0, s1, s2 = new(4, Np1, B).unbind(0)
     work = new(Np1 * (NU + NX + NB2), B)
     ptrs = (idx_tab, lam, t, A, M, mb, dtb, dlb, smv, base, ngadd,
-            _ng_table(ng_stage_ids, dev), Ll, Lxx, Pb, F, b, z, pi, dtl,
+            _build.ng_table(ng_stage_ids, dev), Ll, Lxx, Pb, F, b, z, pi, dtl,
             dll, amin, s0, s1, s2, work)
     a = _SolveArgs(*[_build.ptr(x) for x in ptrs], B, N, n_ng, ph)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        rc = getattr(lib, f"hp_{name}")(ctypes.addressof(a), code, stream)
-    _build.check(lib, rc, name)
+    _build.launch(name, name, a, dev, dt, NU=NU, NX=NX, NB=NB)
     LAUNCHES[name][ph] += 1
     return z, pi, dtl, dll, amin, s0, s1, s2

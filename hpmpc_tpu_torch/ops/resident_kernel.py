@@ -326,8 +326,9 @@ def ipm_resident(idx_tab, lam0, t0, z0, pi0, base, pdreg, H, F, b, dcat, mb,
     if n_ng:
         named.update(Cg=Cg, dgg=dgg, mgg=mgg, lamg0=lamg0, tg0=tg0)
     _build.check_tensors(z0.device, z0.dtype, named, shapes)
-    code = _build.dtype_code(z0.dtype)
-    lib = _build.load("ipm_resident", NU=NU, NX=NX, NB=NB, NG=NG)
+    _build.dtype_code(z0.dtype)                 # raise before building
+    dims = dict(NU=NU, NX=NX, NB=NB, NG=NG)
+    lib = _build.load("ipm_resident", **dims)
     fn_rows = lib.hp_ipm_resident_work_rows
     fn_rows.argtypes = [ctypes.c_int64, ctypes.c_int64]
     fn_rows.restype = ctypes.c_int64
@@ -341,8 +342,7 @@ def ipm_resident(idx_tab, lam0, t0, z0, pi0, base, pdreg, H, F, b, dcat, mb,
     stat = new(K, 5, B)
     lamg, tg = new(n_ng, NG2, B), new(n_ng, NG2, B)
     work = new(int(fn_rows(N, n_ng)), B)
-    ng_stage = torch.tensor(list(ng_stage_ids) or [0], dtype=torch.int32,
-                            device=dev)
+    ng_stage = _build.ng_table(ng_stage_ids, dev)
     ptrs = [named.get(k) for k in ("idx_tab", "lam0", "t0", "z0", "pi0",
                                    "base", "pdreg", "H", "F", "b", "dcat",
                                    "mb", "Cg", "dgg", "mgg", "lamg0", "tg0")]
@@ -350,10 +350,7 @@ def ipm_resident(idx_tab, lam0, t0, z0, pi0, base, pdreg, H, F, b, dcat, mb,
     a = _ResidentArgs(*[_build.ptr(x) for x in ptrs], B, N, K, n_ng,
                       float(mu_scal), float(mu_tol), float(alpha_min),
                       float(mu0))
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        rc = lib.hp_ipm_resident(ctypes.addressof(a), code, stream)
-    _build.check(lib, rc, "ipm_resident")
+    _build.launch("ipm_resident", "ipm_resident", a, dev, dt, **dims)
     LAUNCHES += 1
     outs = (z, pi, lam, t, mu, kk, frozen, stat)
     if n_ng:

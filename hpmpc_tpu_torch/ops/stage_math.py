@@ -230,3 +230,26 @@ def corr_co_qx_res(K, lam, t, mb, A, M, dtb, dlb, sm):
     co = (M + (dtb * dlb - sm[:, None])) * mb
     _, qx = qx_fold_res(K, lam, t, mb, A, co)
     return co, qx
+
+
+# ---------------------------------------------------------------------------
+# per-stage direction tail of the alpha pass, which the mega kernels' plain
+# versions run too (step_kernel.py ``_dt_dlam`` + ``_alpha_store``)
+# ---------------------------------------------------------------------------
+
+
+def box_dir(K, phase2, lam, t, mb, A, M, zb, dl0):
+    """Box (dt, dlam) of a direction with gathered values ``zb``: phase 1
+    with the centering stream ``dl0`` (0 in the affine half), phase 2 with
+    ``M`` (rm or rm2)."""
+    if phase2:
+        return dt_dlam_res(K, lam, t, mb, A, M, zb)
+    return dt_dlam(K, lam, t, mb, A, zb, dl0)
+
+
+def alpha_partials(lam, t, mb, dt, dl):
+    """One stage's (amin, s0, s1, s2): the fraction-to-boundary minimum
+    and the mu(alpha) sum partials of a box direction, each (B,)."""
+    cand = torch.minimum(alpha_cands(lam, dl, mb), alpha_cands(t, dt, mb))
+    return (cand.amin(1), (lam * t * mb).sum(1),
+            (lam * dt + t * dl).sum(1), (dl * dt).sum(1))

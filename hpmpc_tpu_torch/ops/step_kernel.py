@@ -1,9 +1,22 @@
-"""Exact KKT residuals on batch-last streams: CUDA kernel + plain version.
+"""IPM step passes over the box streams and the exact KKT residuals:
+CUDA kernels + plain versions.
 
-Port of ``hpmpc_tpu/ops/step_kernel.py::resid_full_flat`` (TPU body
-``_resid_kernel``), the twin of the reference's ``d_res_res_mpc_hard_tv``.
-The other step kernels of that file (prep / alpha / corrector, soft
-variants) belong to the lanes engine and are not ported yet.
+Port of the hard-constraint kernels of ``hpmpc_tpu/ops/step_kernel.py``,
+the reference's ``d_aux_ip_hard_lib4.c`` step primitives:
+
+  * :func:`prep_flat` (TPU body ``_prep_kernel``) — barrier Hessian
+    diagonal and effective gradient in z-space;
+  * :func:`alpha_sums_flat` (``_alpha_kernel``) — the box direction of a
+    z direction, the fraction-to-boundary minimum and the mu(alpha)
+    partials per stage;
+  * :func:`corr_geff_flat` (``_corr_kernel``) — the centering/corrector
+    stream and the second effective gradient;
+  * :func:`resid_full` (``_resid_kernel`` of ``resid_full_flat``) — the
+    twin of the reference's ``d_res_res_mpc_hard_tv``.
+
+The first three are one library, ``csrc/step_flat.cu``; ``phase2`` picks
+the box formulas as in :mod:`.mega_kernel`.  The soft variants are not
+ported yet.
 
 Layout (see :mod:`.layout`): every stream is batch-last, ``(N+1, k, B)``
 for per-stage streams, ``(N, k, B)`` for the N-stage ones (F, b, pi,
@@ -24,6 +37,218 @@ from .layout import from_lanes, sym_expand, sym_nt, to_lanes
 
 #: launches of the CUDA resid_full kernel in this process
 RESID_LAUNCHES = 0
+#: launches of each step_flat kernel in this process, [phase 1, phase 2]
+LAUNCHES = {"prep_flat": [0, 0], "alpha_sums_flat": [0, 0],
+            "corr_geff_flat": [0, 0]}
+#: calls of each step_flat wrapper that ran the plain version (CPU
+#: tensors), [phase 1, phase 2]
+PLAIN_CALLS = {"prep_flat": [0, 0], "alpha_sums_flat": [0, 0],
+               "corr_geff_flat": [0, 0]}
+
+
+class _PrepArgs(ctypes.Structure):
+    # mirrors struct PrepArgs in csrc/step_flat.cu
+    _fields_ = [(n, ctypes.c_void_p) for n in (
+        "idx", "lam", "t", "A", "M", "mb", "base", "pdreg", "dvec",
+        "geff")] + [("B", ctypes.c_int64), ("N", ctypes.c_int64),
+                    ("phase2", ctypes.c_int64)]
+
+
+class _AlphaArgs(ctypes.Structure):
+    # mirrors struct AlphaArgs in csrc/step_flat.cu
+    _fields_ = [(n, ctypes.c_void_p) for n in (
+        "idx", "dz", "lam", "t", "A", "M", "dl0", "mb", "dt", "dl", "amin",
+        "s0", "s1", "s2")] + [("B", ctypes.c_int64), ("N", ctypes.c_int64),
+                              ("phase2", ctypes.c_int64)]
+
+
+class _CorrArgs(ctypes.Structure):
+    # mirrors struct CorrArgs in csrc/step_flat.cu
+    _fields_ = [(n, ctypes.c_void_p) for n in (
+        "idx", "lam", "t", "A", "M", "dtb", "dlb", "sm", "base", "mb",
+        "geff", "co")] + [("B", ctypes.c_int64), ("N", ctypes.c_int64),
+                          ("phase2", ctypes.c_int64)]
+
+
+def prep_flat_ref(idx_tab, lam, t, A, M, mb, base, pdreg, *, NB, NZ,
+                  phase2):
+    """Plain PyTorch version of :func:`prep_flat`: per stage, the box fold
+    (Qx, qx) scattered onto ``pdreg`` and ``base``."""
+    idx = idx_tab.long()
+    lamb, tb, Ab, mbb = (from_lanes(x) for x in (lam, t, A, mb))
+    Mb = from_lanes(M) if phase2 else None
+    gb, pdb = from_lanes(base), from_lanes(pdreg)
+    dvec, geff = torch.empty_like(pdb), torch.empty_like(gb)
+    for n in range(lamb.shape[1]):
+        if phase2:
+            Qx, qx = sm.qx_fold_res(NB, lamb[:, n], tb[:, n], mbb[:, n],
+                                    Ab[:, n], Mb[:, n])
+        else:
+            Qx, qx = sm.qx_fold(NB, lamb[:, n], tb[:, n], mbb[:, n],
+                                Ab[:, n])
+        dvec[:, n] = sm.scatter_add_box(pdb[:, n], idx[n], Qx)
+        geff[:, n] = sm.scatter_add_box(gb[:, n], idx[n], qx)
+    return to_lanes(dvec), to_lanes(geff)
+
+
+def alpha_sums_flat_ref(idx_tab, dz, lam, t, A, M, dl0, mb, *, NB, NZ,
+                        phase2):
+    """Plain PyTorch version of :func:`alpha_sums_flat`."""
+    idx = idx_tab.long()
+    dzb = from_lanes(dz)
+    lamb, tb, Ab, mbb = (from_lanes(x) for x in (lam, t, A, mb))
+    Mb = from_lanes(M) if phase2 else None
+    dl0b = from_lanes(dl0) if dl0 is not None else None
+    dtl, dll = torch.empty_like(lamb), torch.empty_like(lamb)
+    parts = lamb.new_empty(4, lamb.shape[0], lamb.shape[1])
+    for n in range(lamb.shape[1]):
+        zb = sm.gather_box(dzb[:, n], idx[n])
+        d_t, d_l = sm.box_dir(NB, phase2, lamb[:, n], tb[:, n], mbb[:, n],
+                              Ab[:, n], Mb[:, n] if phase2 else None, zb,
+                              dl0b[:, n] if dl0b is not None else 0.0)
+        dtl[:, n], dll[:, n] = d_t, d_l
+        for i, p in enumerate(sm.alpha_partials(lamb[:, n], tb[:, n],
+                                                mbb[:, n], d_t, d_l)):
+            parts[i, :, n] = p
+    amin, s0, s1, s2 = parts.movedim(1, -1).contiguous().unbind(0)
+    return to_lanes(dtl), to_lanes(dll), amin, s0, s1, s2
+
+
+def corr_geff_flat_ref(idx_tab, lam, t, A, M, dtb, dlb, smv, base, mb, *,
+                       NB, NZ, phase2):
+    """Plain PyTorch version of :func:`corr_geff_flat`."""
+    idx = idx_tab.long()
+    lamb, tb, Ab, mbb = (from_lanes(x) for x in (lam, t, A, mb))
+    Mb = from_lanes(M) if phase2 else None
+    dtab, dlab, gb = from_lanes(dtb), from_lanes(dlb), from_lanes(base)
+    geff, co = torch.empty_like(gb), torch.empty_like(lamb)
+    for n in range(lamb.shape[1]):
+        if phase2:
+            co[:, n], qx = sm.corr_co_qx_res(
+                NB, lamb[:, n], tb[:, n], mbb[:, n], Ab[:, n], Mb[:, n],
+                dtab[:, n], dlab[:, n], smv)
+        else:
+            co[:, n], qx = sm.corr_co_qx(
+                NB, lamb[:, n], tb[:, n], mbb[:, n], Ab[:, n], dtab[:, n],
+                dlab[:, n], smv)
+        geff[:, n] = sm.scatter_add_box(gb[:, n], idx[n], qx)
+    return to_lanes(geff), to_lanes(co)
+
+
+def _launch_step(name, args_t, named, shapes, outs, phase2, NB, NZ):
+    """Checks, build and launch shared by the three step_flat wrappers:
+    ``named`` are the inputs (None entries are passed as NULL), ``outs``
+    the outputs allocated by the caller, in the Args struct's order."""
+    lam = named["lam"]
+    _build.check_tensors(lam.device, lam.dtype,
+                         {k: v for k, v in named.items() if v is not None},
+                         shapes)
+    Np1, B = lam.shape[0], lam.shape[-1]
+    a = args_t(*[_build.ptr(x) for x in (*named.values(), *outs)],
+               B, Np1 - 1, int(phase2))
+    _build.launch("step_flat", name, a, lam.device, lam.dtype, NZ=NZ, NB=NB)
+    LAUNCHES[name][int(phase2)] += 1
+
+
+def _step_device(name, lam, phase2, M):
+    """The CPU/CUDA switch shared by the step_flat wrappers: True for the
+    plain version (counted), False for the kernel; raises on another
+    device or a phase/M mismatch."""
+    if lam.device.type == "cpu":
+        PLAIN_CALLS[name][int(phase2)] += 1
+        return True
+    if lam.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {lam.device}")
+    if phase2 != (M is not None):
+        raise ValueError(f"{name}: M is required in phase 2 and only there")
+    return False
+
+
+def prep_flat(idx_tab, lam, t, A, M, mb, base, pdreg, *, NB, NZ, phase2):
+    """Barrier Hessian diagonal + effective gradient, one pass.
+
+    Box streams ``lam``/``t``/``A``/``M``/``mb`` (N+1, 2NB, B) (``A`` =
+    d_cat and ``M`` None in phase 1, ``A`` = rd and ``M`` = rm in phase
+    2), ``base`` the gradient base (g or rq) and ``pdreg`` = pad_diag +
+    reg, both (N+1, NZ, B).  Returns ``(dvec, geff)``, each (N+1, NZ, B).
+
+    CPU tensors run :func:`prep_flat_ref`; CUDA tensors launch
+    ``csrc/step_flat.cu`` on the current stream (no sync)."""
+    kw = dict(NB=NB, NZ=NZ, phase2=bool(phase2))
+    if _step_device("prep_flat", lam, phase2, M):
+        return prep_flat_ref(idx_tab, lam, t, A, M, mb, base, pdreg, **kw)
+    Np1, B = lam.shape[0], lam.shape[-1]
+    box, zs = (Np1, 2 * NB, B), (Np1, NZ, B)
+    named = dict(idx_tab=idx_tab, lam=lam, t=t, A=A, M=M, mb=mb, base=base,
+                 pdreg=pdreg)
+    shapes = dict(idx_tab=(Np1, NB), lam=box, t=box, A=box, M=box, mb=box,
+                  base=zs, pdreg=zs)
+    dvec, geff = torch.empty(2, *zs, dtype=lam.dtype,
+                             device=lam.device).unbind(0)
+    _launch_step("prep_flat", _PrepArgs, named, shapes, (dvec, geff),
+                 phase2, NB, NZ)
+    return dvec, geff
+
+
+def alpha_sums_flat(idx_tab, dz, lam, t, A, M, dl0, mb, *, NB, NZ, phase2):
+    """Box (dt, dlam) of the z direction ``dz`` (N+1, NZ, B) plus the
+    per-stage fraction-to-boundary minimum and duality-gap partials.
+
+    ``M`` is rm or rm2 in phase 2 (None in phase 1); ``dl0`` the phase-1
+    centering stream of the corrector pass (None otherwise).  Returns
+    ``(dt, dl, amin, s0, s1, s2)``: dt/dl (N+1, 2NB, B), the rest (N+1,
+    B); the engine finishes with a min/sum over the stages and
+    ``mu(a) = (s0 + a s1 + a^2 s2) / n_constr``.
+
+    CPU tensors run :func:`alpha_sums_flat_ref`; CUDA tensors launch
+    ``csrc/step_flat.cu`` (no sync)."""
+    kw = dict(NB=NB, NZ=NZ, phase2=bool(phase2))
+    if _step_device("alpha_sums_flat", lam, phase2, M):
+        return alpha_sums_flat_ref(idx_tab, dz, lam, t, A, M, dl0, mb, **kw)
+    if phase2 and dl0 is not None:
+        raise ValueError("alpha_sums_flat: dl0 is a phase-1 input")
+    Np1, B = lam.shape[0], lam.shape[-1]
+    box = (Np1, 2 * NB, B)
+    named = dict(idx_tab=idx_tab, dz=dz, lam=lam, t=t, A=A, M=M, dl0=dl0,
+                 mb=mb)
+    shapes = dict(idx_tab=(Np1, NB), dz=(Np1, NZ, B), lam=box, t=box, A=box,
+                  M=box, dl0=box, mb=box)
+    new = lambda *s: torch.empty(*s, dtype=lam.dtype,  # noqa: E731
+                                 device=lam.device)
+    dtl, dll = new(2, *box).unbind(0)
+    amin, s0, s1, s2 = new(4, Np1, B).unbind(0)
+    _launch_step("alpha_sums_flat", _AlphaArgs, named, shapes,
+                 (dtl, dll, amin, s0, s1, s2), phase2, NB, NZ)
+    return dtl, dll, amin, s0, s1, s2
+
+
+def corr_geff_flat(idx_tab, lam, t, A, M, dtb, dlb, smv, base, mb, *, NB,
+                   NZ, phase2):
+    """Corrector stream + second effective gradient in one pass.
+
+    ``dtb``/``dlb`` are the affine box direction, ``smv`` (B,) sigma*mu.
+    Returns ``(geff2, co)``: geff2 (N+1, NZ, B) and ``co`` (N+1, 2NB, B),
+    the phase-1 centering correction dl2 or the phase-2 corrected
+    complementarity residual rm2 (both consumed by the corrector
+    :func:`alpha_sums_flat`).
+
+    CPU tensors run :func:`corr_geff_flat_ref`; CUDA tensors launch
+    ``csrc/step_flat.cu`` (no sync)."""
+    kw = dict(NB=NB, NZ=NZ, phase2=bool(phase2))
+    if _step_device("corr_geff_flat", lam, phase2, M):
+        return corr_geff_flat_ref(idx_tab, lam, t, A, M, dtb, dlb, smv,
+                                  base, mb, **kw)
+    Np1, B = lam.shape[0], lam.shape[-1]
+    box, zs = (Np1, 2 * NB, B), (Np1, NZ, B)
+    named = dict(idx_tab=idx_tab, lam=lam, t=t, A=A, M=M, dtb=dtb, dlb=dlb,
+                 smv=smv, base=base, mb=mb)
+    shapes = dict(idx_tab=(Np1, NB), lam=box, t=box, A=box, M=box, dtb=box,
+                  dlb=box, smv=(B,), base=zs, mb=box)
+    geff = torch.empty(zs, dtype=lam.dtype, device=lam.device)
+    co = torch.empty(box, dtype=lam.dtype, device=lam.device)
+    _launch_step("corr_geff_flat", _CorrArgs, named, shapes, (geff, co),
+                 phase2, NB, NZ)
+    return geff, co
 
 
 class _ResidArgs(ctypes.Structure):
@@ -122,8 +347,6 @@ def resid_full(idx_tab, H, F, z, pi, g, b, lam, t, dcat, mb, zmask, xmask,
     names = ("idx_tab", "H", "F", "z", "pi", "g", "b", "lam", "t", "dcat",
              "mb", "zmask", "xmask")
     _build.check_tensors(z.device, z.dtype, dict(zip(names, args)), shapes)
-    code = _build.dtype_code(z.dtype)
-    lib = _build.load("resid_full", NU=NU, NX=NX, NB=NB)
     new = lambda *s: torch.empty(*s, dtype=z.dtype, device=z.device)  # noqa: E731
     rq, rb = new(Np1, NZ, B), new(Np1, NX, B)
     rd, rm = new(Np1, NB2, B), new(Np1, NB2, B)
@@ -131,9 +354,7 @@ def resid_full(idx_tab, H, F, z, pi, g, b, lam, t, dcat, mb, zmask, xmask,
     a = _ResidArgs(*[_build.ptr(x) for x in args],
                    *[_build.ptr(x) for x in (rq, rb, rd, rm, musum)],
                    B, N)
-    stream = torch.cuda.current_stream(z.device).cuda_stream
-    with torch.cuda.device(z.device):
-        rc = lib.hp_resid_full(ctypes.addressof(a), code, stream)
-    _build.check(lib, rc, "resid_full")
+    _build.launch("resid_full", "resid_full", a, z.device, z.dtype, NU=NU,
+                  NX=NX, NB=NB)
     RESID_LAUNCHES += 1
     return rq, rb, rd, rm, musum

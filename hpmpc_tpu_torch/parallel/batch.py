@@ -5,9 +5,9 @@ The batch is a first-class leading axis on every QP leaf.
 :func:`select_engine` keeps the JAX package's rule and engine names, minus
 the gates that are TPU measurements (the ``B % 1024`` block, the VMEM fit
 gates, the NZ 19..22 mega fence; nothing here chunks at 4096 either).
-The ``"resident"`` and ``"lanes"`` engines are ported; every other engine
-raises ``NotImplementedError`` naming its ROADMAP item instead of quietly
-running something else.
+The ``"resident"``, ``"lanes"`` and the two two-stage engines are ported;
+every other engine raises ``NotImplementedError`` naming its ROADMAP item
+instead of quietly running something else.
 """
 
 from __future__ import annotations
@@ -24,10 +24,6 @@ from ..ocp import OCPDims, OCPQP
 _NOT_PORTED = {
     "structured": "Queue 1 #5 (structured ipm.solve)",
     "flat": "Queue 1 #7 (the flat engine folds into the lanes engine)",
-    "two_stage_resident": "Queue 1 #8 (two-stage route: state0 and "
-                          "iter_ref on the lanes engine)",
-    "two_stage_lanes": "Queue 1 #8 (two-stage route: state0 and iter_ref "
-                       "on the lanes engine)",
 }
 
 
@@ -99,5 +95,33 @@ def solve_batched(dims: OCPDims, qp: OCPQP, cfg: ipm.IPMConfig,
         from ..models import ipm_lanes
 
         return ipm_lanes.solve_batched_lanes(dims, qp, cfg, z0=z0, pi0=pi0)
+    if engine in ("two_stage_resident", "two_stage_lanes"):
+        return _solve_two_stage(dims, qp, cfg, engine, z0, pi0)
     raise NotImplementedError(
         f"engine {engine!r} is not ported yet: ROADMAP {_NOT_PORTED[engine]}")
+
+
+def _solve_two_stage(dims, qp, cfg, engine, z0, pi0) -> ipm.IPMSolution:
+    """The two-stage parity route (``bench.py``'s second line): the
+    resident or the lanes engine runs the well-conditioned iterations
+    unrefined to mu <= ``iter_ref_mu_thr``, then hands its whole
+    primal-dual state to the lanes engine, which finishes with the
+    mu-gated refinement; kk and the stat rows continue across the
+    hand-off.  ``HPMPC_STAGE2_LANES=0`` (the flat stage 2) raises."""
+    from ..models import ipm_lanes
+
+    if os.environ.get("HPMPC_STAGE2_LANES", "1") != "1":
+        raise NotImplementedError(
+            f"two-stage route with the flat stage 2: ROADMAP "
+            f"{_NOT_PORTED['flat']}")
+    cfg1 = dataclasses.replace(
+        cfg, iter_ref=0,
+        mu_tol=max(float(cfg.mu_tol), float(cfg.iter_ref_mu_thr)))
+    if engine == "two_stage_resident":
+        from ..models import ipm_resident
+
+        sol1 = ipm_resident.solve_batched_resident(dims, qp, cfg1,
+                                                   z0=z0, pi0=pi0)
+    else:
+        sol1 = ipm_lanes.solve_batched_lanes(dims, qp, cfg1, z0=z0, pi0=pi0)
+    return ipm_lanes.solve_batched_lanes(dims, qp, cfg, state0=sol1)

@@ -87,11 +87,15 @@ _CFGS = [
     dict(mu_tol=0.0, iter_ref=1, iter_ref_mu_thr=1e-3, mu_switch=1e-2),
     dict(mu_tol=0.0, iter_ref=1),
     dict(mu_tol=1e-8, use_pallas=False),
+    dict(mu_tol=1e-8, iter_ref=2, iter_ref_mu_thr=1e-4),  # two-stage, gated
+    dict(mu_tol=1e-8, iter_ref=1, iter_ref_mu_thr=1e-6),  # mu_switch above
 ]
 
 
 @pytest.mark.parametrize("env", [{}, {"HPMPC_RESIDENT": "0"},
-                                 {"HPMPC_LANES_LOOP": "0"}])
+                                 {"HPMPC_LANES_LOOP": "0"},
+                                 {"HPMPC_LANES_LOOP": "0",
+                                  "HPMPC_MEGA_SWEEPS": "1"}])
 @pytest.mark.parametrize("f32", [True, False])
 @pytest.mark.parametrize("ci", range(len(_CFGS)))
 def test_select_engine_agrees_with_jax(monkeypatch, ci, f32, env):
@@ -113,14 +117,16 @@ def test_select_engine_agrees_with_jax(monkeypatch, ci, f32, env):
     dict(mu_tol=1e-8, mu_switch=1e-5, use_pallas=True,
          dtype=torch.float64),                              # -> flat
     dict(mu_tol=1e-8, use_pallas=False),                    # -> structured
-    dict(mu_tol=0.0, iter_ref=1, iter_ref_mu_thr=1e-3,
-         use_pallas=True),                                  # -> two-stage
+    dict(mu_tol=0.0, iter_ref=1, iter_ref_mu_thr=1e-3, use_pallas=True,
+         env={"HPMPC_STAGE2_LANES": "0"}),    # -> two-stage, flat stage 2
     dict(mu_tol=0.0, mu_switch=0.0, use_pallas=True,
          escalate_stalled=True),                            # -> structured
 ])
 def test_unported_engines_raise(monkeypatch, kw):
     monkeypatch.delenv("HPMPC_RESIDENT", raising=False)
     kw = dict(kw)
+    for k, v in kw.pop("env", {}).items():
+        monkeypatch.setenv(k, v)
     dims, qp = mass_spring_qp(8, 3, 4, dtype=kw.pop("dtype", torch.float32),
                               device="cpu")
     qpb = tbatch.broadcast_qp(qp, 8)
@@ -132,9 +138,13 @@ def test_solve_batched_default_tolerances_run_lanes(monkeypatch):
     """The library's default tolerances (mu_tol 1e-8, mu_switch 1e-5) with
     the kernels on (f32) go to the lanes engine, which here runs both
     phases through both mega wrappers (on the CPU: their plain versions),
-    converges, and returns what calling the engine directly returns."""
+    converges, and returns what calling the engine directly returns.  With
+    ``HPMPC_MEGA_SWEEPS=0`` the same call runs the 6-kernel sequence and
+    returns the same bits: on the CPU the mega wrappers' plain versions are
+    that sequence's plain passes composed."""
     from hpmpc_tpu_torch.models import ipm_lanes
     from hpmpc_tpu_torch.ops import mega_kernel as mk
+    from hpmpc_tpu_torch.ops import stage_kernel as sk
 
     for k in ("HPMPC_RESIDENT", "HPMPC_LANES_LOOP", "HPMPC_MEGA_SWEEPS"):
         monkeypatch.delenv(k, raising=False)
@@ -151,5 +161,11 @@ def test_solve_batched_default_tolerances_run_lanes(monkeypatch):
     for f in sol._fields:
         assert torch.equal(getattr(sol, f), getattr(ref, f)), f
     monkeypatch.setenv("HPMPC_MEGA_SWEEPS", "0")
-    with pytest.raises(NotImplementedError, match="rows 3-5, 9 and 10"):
-        tbatch.solve_batched(dims, qpb, cfg)
+    n_mega = {k: list(v) for k, v in mk.PLAIN_CALLS.items()}
+    n_six = dict(sk.PLAIN_CALLS)
+    six = tbatch.solve_batched(dims, qpb, cfg)
+    assert mk.PLAIN_CALLS == n_mega
+    assert all(sk.PLAIN_CALLS[k] > n_six[k]
+               for k in ("factor_solve_folded_flat", "solve_flat"))
+    for f in sol._fields:
+        assert torch.equal(getattr(six, f), getattr(sol, f)), f

@@ -19,6 +19,7 @@ from hpmpc_tpu_torch.models import ipm_lanes, ipm_resident  # noqa: E402
 from hpmpc_tpu_torch.models.ipm import IPMConfig  # noqa: E402
 from hpmpc_tpu_torch.ops import mega_kernel as mk  # noqa: E402
 from hpmpc_tpu_torch.ops import resident_kernel as rk  # noqa: E402
+from hpmpc_tpu_torch.ops import stage_kernel as sk  # noqa: E402
 from hpmpc_tpu_torch.ops import step_kernel as stk  # noqa: E402
 from hpmpc_tpu_torch.parallel import batch as pbatch  # noqa: E402
 from hpmpc_tpu_torch.utils.mass_spring import mass_spring_qp  # noqa: E402
@@ -110,18 +111,26 @@ def test_resident_engine_on_card_matches_cpu(cuda):
                                    getattr(sol_c, f), rtol=1e-9, atol=1e-10)
 
 
-def _capture_mega(monkeypatch, dims, qpb, cfg):
-    """Arguments of the first call of each mega wrapper, per phase, in one
-    lanes-engine solve: {(name, phase2): (args, kwargs)}."""
-    calls = {}
-    for name in ("factor_solve_mega", "solve_mega"):
-        fn = getattr(mk, name)
+_MEGA = [(mk, "factor_solve_mega"), (mk, "solve_mega")]
+_SIX = [(stk, n) for n in ("prep_flat", "alpha_sums_flat", "corr_geff_flat")
+        ] + [(sk, n) for n in ("factor_solve_folded_flat", "solve_flat",
+                               "refine_flat_fused")]
 
-        def spy(*a, _name=name, _fn=fn, **k):
-            calls.setdefault((_name, k["phase2"]), (a, k))
+
+def _capture(monkeypatch, dims, qpb, cfg, targets):
+    """Arguments of the first call of each wrapper ``(module, name)`` of
+    ``targets`` in one lanes-engine solve: {(name, phase2, with_dl0):
+    (args, kwargs)}; phase2 is None for the sweeps, which take no phase,
+    and with_dl0 marks the alpha pass with the phase-1 centering stream."""
+    calls = {}
+    for mod, name in targets:
+        def spy(*a, _name=name, _fn=getattr(mod, name), **k):
+            key = (_name, k.get("phase2"),
+                   _name == "alpha_sums_flat" and a[6] is not None)
+            calls.setdefault(key, (a, k))
             return _fn(*a, **k)
 
-        monkeypatch.setattr(mk, name, spy)
+        monkeypatch.setattr(mod, name, spy)
     ipm_lanes.solve_batched_lanes(dims, qpb, cfg)
     monkeypatch.undo()
     return calls
@@ -148,11 +157,11 @@ def test_mega_kernels_match_plain(cuda, monkeypatch, dtype, ngN, phase2):
     last warp is ragged."""
     dims, qpb = _batch(cuda, dtype, 4, ngN, 37)
     kw = dict(mu_switch=1e9) if phase2 else {}
-    calls = _capture_mega(monkeypatch, dims, qpb,
-                          IPMConfig(k_max=2, use_pallas=True, **kw))
+    calls = _capture(monkeypatch, dims, qpb,
+                     IPMConfig(k_max=2, use_pallas=True, **kw), _MEGA)
     for name, ref in (("factor_solve_mega", mk.factor_solve_mega_ref),
                       ("solve_mega", mk.solve_mega_ref)):
-        a, k = calls[(name, phase2)]
+        a, k = calls[(name, phase2, False)]
         n0 = list(mk.LAUNCHES[name])
         out_k = _flat(getattr(mk, name)(*a, **k))
         torch.cuda.synchronize()
@@ -212,11 +221,11 @@ def test_wrappers_reject_bad_inputs(cuda):
 
 def test_mega_wrappers_reject_bad_inputs(cuda, monkeypatch):
     dims, qpb = _batch(cuda, torch.float32, 4, 4, 16)
-    calls = _capture_mega(monkeypatch, dims, qpb,
-                          IPMConfig(k_max=1, mu_switch=1e9, use_pallas=True))
+    calls = _capture(monkeypatch, dims, qpb,
+                     IPMConfig(k_max=1, mu_switch=1e9, use_pallas=True), _MEGA)
     for name in ("factor_solve_mega", "solve_mega"):
         fn = getattr(mk, name)
-        a, k = calls[(name, True)]
+        a, k = calls[(name, True, False)]
         i_lam, i_m = (1, 4) if name == "factor_solve_mega" else (2, 5)
         bad = list(a)
         bad[i_lam] = a[i_lam].double()               # lam in another dtype
@@ -238,3 +247,107 @@ def test_mega_wrappers_reject_bad_inputs(cuda, monkeypatch):
         with pytest.raises(TypeError):               # half precision
             fn(*[x.half() if isinstance(x, torch.Tensor)
                  and x.is_floating_point() else x for x in a], **k)
+
+
+def _launches(mod, name):
+    n = mod.LAUNCHES[name]
+    return sum(n) if isinstance(n, list) else n
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("ngN", [0, 4])
+@pytest.mark.parametrize("phase2", [False, True])
+def test_six_kernels_match_plain(cuda, monkeypatch, dtype, ngN, phase2):
+    """Each kernel of the 6-kernel loop (rows 3-5, 9, 10 and 13) on the
+    arguments of the engine's first call of it in one iteration with
+    ungated refinement (phase 2 alone with mu_switch=1e9), B=37; one call,
+    so the tolerance of the mega kernels' check."""
+    dims, qpb = _batch(cuda, dtype, 4, ngN, 37)
+    kw = dict(mu_switch=1e9) if phase2 else {}
+    calls = _capture(monkeypatch, dims, qpb,
+                     IPMConfig(k_max=1, iter_ref=1, use_pallas=True, **kw),
+                     _SIX)
+    assert len(calls) == (6 if phase2 else 7), sorted(calls)
+    mods = {n: m for m, n in _SIX}
+    for (name, _, _), (a, k) in sorted(calls.items()):
+        mod = mods[name]
+        n0 = _launches(mod, name)
+        out_k = _flat(getattr(mod, name)(*a, **k))
+        torch.cuda.synchronize()
+        assert _launches(mod, name) == n0 + 1, name
+        out_p = _flat(getattr(mod, name + "_ref")(*a, **k))
+        out_k = [x for x in out_k if x is not None]
+        out_p = [x for x in out_p if x is not None]
+        assert len(out_k) == len(out_p), name
+        for i, (x, y) in enumerate(zip(out_k, out_p)):
+            assert bool(torch.isfinite(x).all()), (name, i)
+            scale = max(1.0, float(y.abs().max()))
+            assert float((x - y).abs().max()) <= _MEGA_TOL[dtype] * scale, (
+                name, i)
+
+
+def test_six_kernel_engine_on_card_matches_cpu(cuda):
+    """The lanes engine's 6-kernel loop with mu-gated refinement on the
+    card vs the same call on the CPU (plain versions): float64, both
+    phases, the ngN=4 block at N=16, as the mega-route check above."""
+    dims, qpb = _batch(cuda, torch.float64, 16, 4, 40)
+    cfg = IPMConfig(k_max=12, mu_tol=1e-10, iter_ref=1, iter_ref_mu_thr=1e-3,
+                    use_pallas=True)
+    n0 = {n: _launches(m, n) for m, n in _SIX}
+    sol_g = ipm_lanes.solve_batched_lanes(dims, qpb, cfg)
+    assert all(_launches(m, n) > n0[n] for m, n in _SIX)
+    sol_c = ipm_lanes.solve_batched_lanes(dims, qpb.to("cpu"), cfg)
+    assert torch.equal(sol_g.kk.cpu(), sol_c.kk)
+    assert torch.equal(sol_g.status.cpu(), sol_c.status)
+    for f in ("z", "pi", "lam_b", "t_b", "lam_g", "t_g", "stat",
+              "inf_norm_res"):
+        g, c = getattr(sol_g, f).cpu(), getattr(sol_c, f)
+        scale = max(1.0, float(c.abs().max()))
+        assert float((g - c).abs().max()) <= 1e-6 * scale, f
+
+
+def test_parity_route_on_card(cuda):
+    """bench.py's parity config through solve_batched on the card, f32,
+    N=4: the two-stage route; controls within 1e-6 of the f64 lanes
+    engine at matched iterations, closer than the unrefined f32 route
+    (tests/test_resident.py, tests/test_stage_kernel.py)."""
+    K = 6
+    dims, q32 = _batch(cuda, torch.float32, 4, 0, 64)
+    _, q64 = _batch(cuda, torch.float64, 4, 0, 64)
+    cfg = IPMConfig(k_max=K, mu_tol=0.0, iter_ref=1, iter_ref_mu_thr=1e-3,
+                    use_pallas=True)
+    assert pbatch.select_engine(dims, cfg, 64, torch.float32) == (
+        "two_stage_resident")
+    sol = pbatch.solve_batched(dims, q32, cfg)
+    raw = pbatch.solve_batched(dims, q32, dataclasses.replace(cfg,
+                                                              iter_ref=0))
+    s64 = ipm_lanes.solve_batched_lanes(
+        dims, q64, IPMConfig(k_max=K, mu_tol=0.0, use_pallas=True))
+    assert int(sol.kk.max()) <= K
+    err = float((sol.z[..., :3].double() - s64.z[..., :3]).abs().max())
+    err_raw = float((raw.z[..., :3].double() - s64.z[..., :3]).abs().max())
+    assert err <= 1e-6, err
+    assert err < err_raw, (err, err_raw)
+
+
+def test_six_kernel_wrappers_reject_bad_inputs(cuda, monkeypatch):
+    dims, qpb = _batch(cuda, torch.float32, 4, 4, 16)
+    calls = _capture(monkeypatch, dims, qpb,
+                     IPMConfig(k_max=1, mu_switch=1e9, iter_ref=1,
+                               use_pallas=True), _SIX)
+    mods = {n: m for m, n in _SIX}
+    for (name, _, _), (a, k) in sorted(calls.items()):
+        fn = getattr(mods[name], name)
+        i = 1 if mods[name] is stk else 0             # lam / H
+        bad = list(a)
+        bad[i] = a[i].double()
+        with pytest.raises(TypeError):
+            fn(*bad, **k)
+        bad = list(a)
+        bad[i] = a[i][..., :8].contiguous()           # batch
+        with pytest.raises(ValueError):
+            fn(*bad, **k)
+        bad = list(a)
+        bad[-1] = a[-1].cpu()                         # another device
+        with pytest.raises(ValueError):
+            fn(*bad, **k)
