@@ -31,17 +31,30 @@ solve_batched`` (the f64 lanes runs call the engine directly):
     ``resid_full``.  Its control error against the f64 lanes engine at the
     same budget must be below that of the unrefined f32 route;
   * the lanes engine in float64 with the same refinement and the default
-    tolerances, which runs the phase-2 forms of the six kernels.
+    tolerances, which runs the phase-2 forms of the six kernels;
+  * the batched soft path at ``tools/bench_soft.py``'s configuration: the
+    reference's soft problem (``mass_spring_soft_qp(8, 3, 30, Z=10)``:
+    nx=8 nu=3 N=30, input boxes NB=3, every state softly bounded NS=8),
+    4096 float32 instances with ``g`` scaled by ``1 + 0.02 N(0,1)``,
+    ``IPMConfig(k_max=8, mu0=100, mu_tol=0)``, through
+    ``parallel.batch.solve_batched_soft`` -> the soft lanes engine:
+    ``factor_solve_soft_mega`` + ``solve_soft_mega``; the same on its
+    6-kernel loop (``HPMPC_MEGA_SWEEPS=0``: ``soft_prep_flat``,
+    ``factor_solve_folded_flat``, ``soft_alpha_sums_flat``;
+    ``soft_corr_flat``, ``solve_flat``, ``soft_alpha_sums_flat``); and the
+    soft engine in float64 (``k_max=30``, mu_tol 1e-8).
 
 Each path runs with the launch counters set to 0 just before and read just
-after, and its answer is held against the float64 host residual oracle.
-Then everything is timed and profiled, the default-tolerance lanes route
-also on its 6-kernel loop (``HPMPC_MEGA_SWEEPS=0``) beside the mega
-route, and each kernel alone.  Every failed check raises, so the exit code is
-non-zero.  Output, one item per line: the card (nvidia-smi name, power
-limit), build seconds and ptxas lines, per-check results, timings, a JSON
-line with the kernels (time, plain time, bound), and last
-``{"ok": true, "device": {...}}``.
+after, and its answer is held against a float64 host residual oracle (the
+hard one, ``utils/resid64.py``; the soft one, ``ipm_soft.compute_
+residuals``).  Then everything is timed and profiled, the default-tolerance
+lanes route and the soft route also on their 6-kernel loops beside the
+mega routes, and each kernel alone.  Every failed check raises, so the exit
+code is non-zero.  Output, one item per line: the card (nvidia-smi name,
+power limit), build seconds and ptxas lines, per-check results, timings,
+the seconds of each section and of the whole script, a JSON line with the
+kernels (time, plain time, bound), and last ``{"ok": true, "device":
+{...}}``.
 
 Imports no JAX.  Exits non-zero without a CUDA device or without the
 package beside it.
@@ -89,6 +102,13 @@ MEGA_TOL = {"float32": 5e-5, "float64": 1e-11}
 # the wrappers of the 6-kernel lanes loop: step passes, then sweeps
 STEP_NAMES = ("prep_flat", "alpha_sums_flat", "corr_geff_flat")
 STAGE_NAMES = ("factor_solve_folded_flat", "solve_flat", "refine_flat_fused")
+# the soft path's kernels: the mega pair, then the soft 6-kernel loop's
+# step passes (its sweeps are factor_solve_folded_flat and solve_flat)
+SOFT_MEGA = ("factor_solve_soft_mega", "solve_soft_mega")
+SOFT_STEP = ("soft_prep_flat", "soft_alpha_sums_flat", "soft_corr_flat")
+# the soft problem: tools/bench_soft.py's flagship, and the small problem
+# with general rows on stages 2 and N (tests/test_ipm_soft_lanes.py)
+SOFT_N, SOFT_NG_N = 30, 5
 ORACLE_SUBSAMPLE = 64
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, and float32
 # operations/s outside the tensor cores
@@ -146,11 +166,15 @@ def _nbytes(*groups) -> int:
     return sum(x.numel() * x.element_size() for g in groups for x in _flat(g))
 
 
-def _stage_ops(NU, NX, NB, NG):
+def _stage_ops(NU, NX, NB, NG, NS=0):
     """Floating-point operations per instance and stage of each sweep of
     the kernels (a multiply-add counts 2), counted from the loop bounds of
-    the stage helpers in csrc/stage_math.cuh."""
+    the stage helpers in csrc/stage_math.cuh; ``NS`` adds the soft
+    kernels' (per soft row: the slack Schur elimination 26, its folds 16,
+    the scatters 2, the soft direction 34, the gather 1, the alpha partials
+    48, the corrector's centering correction 16 and exact fold 11)."""
     NZ, NB2, NG2 = NU + NX, 2 * NB, 2 * NG
+    soft_fold, soft_alpha, soft_corr = 44 * NS, 109 * NS, 71 * NS
     NT = NZ * (NZ + 1) // 2
     chol = sum(2 + (NZ - j) + sum(2 * (NZ - jj) for jj in range(j + 1, NZ))
                for j in range(NZ))
@@ -181,7 +205,13 @@ def _stage_ops(NU, NX, NB, NG):
         solve_flat=trs + fwd_z + pi,
         refine=(2 * NZ * NZ + 2 * NZ + 4 * NZ * NX + 2 * NX + 2 * NX * NX
                 + trs + fwd_z + pi + NZ + NX),
-        ng_refine=4 * NG * NZ)
+        ng_refine=4 * NG * NZ,
+        # the soft kernels: the hard forms plus the soft rows' work
+        soft_factor=fold + factor + fwd + soft_fold + soft_alpha,
+        soft_solve=corr + fwd + 2 * NX * NX + soft_corr + soft_alpha
+        + 4 * NS,
+        soft_prep=fold - NZ + soft_fold, soft_alpha=22 * NB2 + soft_alpha,
+        soft_corr=6 * NB2 + fold - NZ + soft_corr)
 
 
 def _bound(nbytes: int, ops: float):
@@ -210,7 +240,8 @@ def _ptxas_lines(log: str):
 #: the port's kernels as the profiler names them (``<name>_kernel``)
 PROFILED = ("ipm_resident", "resid_full", "factor_solve_mega", "solve_mega",
             "prep_flat", "alpha_sums_flat", "corr_geff_flat",
-            "factor_solve_flat", "solve_flat", "refine_flat")
+            "factor_solve_flat", "solve_flat", "refine_flat") + SOFT_MEGA \
+    + SOFT_STEP
 
 
 def _profile(torch, run, reps: int = 3) -> dict:
@@ -257,18 +288,40 @@ def _profile_line(label, card, pr) -> str:
             f"{pr['syncs']:.0f} host-device syncs per call")
 
 
+def _variant(name, a, k) -> str:
+    """The label of a wrapper call's form that a check tells apart: the
+    hard alpha pass with the phase-1 centering stream dl0 and the soft
+    corrector alpha pass (each the corrector's), "" otherwise."""
+    if name == "alpha_sums_flat" and a[6] is not None:
+        return "with dl0"
+    return "corrector" if k.get("corrector") else ""
+
+
+@contextlib.contextmanager
+def _env(**values):
+    """The environment variables ``values`` set while the block runs."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                del os.environ[k]
+            else:
+                os.environ[k] = v
+
+
 @contextlib.contextmanager
 def _capture(targets):
     """Record the arguments of the first call of each wrapper ``(module,
     name)`` of ``targets`` while the block runs: {(name, variant): (args,
-    kwargs)}; variant is True for the alpha pass with the phase-1
-    centering stream dl0 (the corrector's), False otherwise."""
+    kwargs)}, variant as :func:`_variant`."""
     calls, saved = {}, [(m, n, getattr(m, n)) for m, n in targets]
 
     def spy(name, fn):
         def call(*a, **k):
-            key = (name, name == "alpha_sums_flat" and a[6] is not None)
-            calls.setdefault(key, (a, k))
+            calls.setdefault((name, _variant(name, a, k)), (a, k))
             return fn(*a, **k)
         return call
 
@@ -299,7 +352,7 @@ def _check_calls(torch, calls, mods, tol, what, errs):
         dabs = max(_maxdiff(torch, x, y) for x, y in zip(out_k, out_p))
         rel = max(_maxdiff(torch, x, y) / max(1.0, float(y.abs().max()))
                   for x, y in zip(out_k, out_p))
-        tag = " (with dl0)" if var else ""
+        tag = f" ({var})" if var else ""
         print(f"{kname}{tag} {what}: max|d| {dabs:.3e}, max |d|/scale "
               f"{rel:.3e} (tol {tol:.0e})", flush=True)
         if rel > tol:
@@ -351,6 +404,59 @@ def _check_solution(torch, sol, dims, k_max, what):
             _fail(f"{what}: solution field {f} is not finite")
 
 
+def _check_soft_solution(torch, sol, dims, NS, k_max, what):
+    """Shapes of a SoftSolution's main fields and finite values."""
+    N = dims.N
+    shapes = {"z": (B, N + 1, dims.NZ), "pi": (B, N, dims.NX),
+              "lam_b": (B, N + 1, 2, dims.NB), "lam_s": (B, N + 1, 4, NS),
+              "t_s": (B, N + 1, 4, NS), "kk": (B,), "stat": (B, k_max, 5)}
+    for f, shp in shapes.items():
+        if tuple(getattr(sol, f).shape) != shp:
+            _fail(f"{what}: solution field {f} has shape "
+                  f"{tuple(getattr(sol, f).shape)}, expected {shp}")
+    for f in sol._fields:
+        x = getattr(sol, f)
+        if x.is_floating_point() and not bool(torch.isfinite(x).all()):
+            _fail(f"{what}: solution field {f} is not finite")
+
+
+def _soft_oracle(torch, dims, qpb, soft, sol, primal_max, what):
+    """The soft KKT residuals (``ipm_soft.compute_residuals``) in float64
+    of a subsample of ``sol``: finite, small primal residuals (dynamics,
+    box, soft-bound gaps), and their mu equal to the solver's last stat
+    row; returns the largest mu."""
+    from hpmpc_tpu_torch.models import ipm_soft
+
+    sub = torch.arange(0, B, B // ORACLE_SUBSAMPLE, device=qpb.b.device)
+
+    def d64(x):
+        return x[sub].double() if x.is_floating_point() else x[sub]
+
+    q64 = type(qpb)(**{f.name: d64(getattr(qpb, f.name))
+                       for f in dataclasses.fields(qpb)})
+    s64 = type(soft)(*[d64(x) for x in soft])
+    x64 = type(sol)(*[d64(x) for x in sol])
+    res = ipm_soft.compute_residuals(dims, q64, s64, x64)
+    rmax = {f: float(getattr(res, f).abs().max()) for f in res._fields}
+    if not all(v == v and v != float("inf") for v in rmax.values()):
+        _fail(f"{what}: soft oracle residuals not finite: {rmax}")
+    kk = x64.kk.long().clamp(min=1) - 1
+    mu_eng = x64.stat[torch.arange(len(sub), device=sub.device), kk, 4]
+    dmu = float(((res.mu - mu_eng).abs() / res.mu.abs().clamp(min=1e-30))
+                .max())
+    print(f"{what}: soft f64 oracle ({ORACLE_SUBSAMPLE} instances): "
+          + ", ".join(f"max |{f}| {v:.3e}" for f, v in rmax.items())
+          + f"; oracle mu vs the solver's last stat row: max rel diff "
+          f"{dmu:.3e}", flush=True)
+    for f in ("rb", "rd_b", "rd_g", "rd_s"):
+        if rmax[f] > primal_max:
+            _fail(f"{what}: primal residual {f} {rmax[f]:.3e} > "
+                  f"{primal_max:.0e}")
+    if dmu > 1e-2:
+        _fail(f"{what}: oracle mu disagrees with the solver's ({dmu:.3e})")
+    return rmax["mu"]
+
+
 def main() -> int:
     repo = pathlib.Path(__file__).resolve().parent
     if not (repo / "hpmpc_tpu_torch" / "csrc").is_dir():
@@ -365,18 +471,28 @@ def main() -> int:
     sys.path.insert(0, str(repo))
     import numpy as np
 
-    from hpmpc_tpu_torch.models import ipm_lanes, ipm_resident
+    from hpmpc_tpu_torch.models import ipm_lanes, ipm_resident, ipm_soft_lanes
     from hpmpc_tpu_torch.models.ipm import IPMConfig
+    from hpmpc_tpu_torch.ocp import OCPDims
     from hpmpc_tpu_torch.ops import _build
     from hpmpc_tpu_torch.ops import mega_kernel as mk
     from hpmpc_tpu_torch.ops import resident_kernel as rk
     from hpmpc_tpu_torch.ops import stage_kernel as sk
     from hpmpc_tpu_torch.ops import step_kernel as stk
     from hpmpc_tpu_torch.parallel import batch as pbatch
-    from hpmpc_tpu_torch.utils.mass_spring import mass_spring_qp
+    from hpmpc_tpu_torch.utils.mass_spring import (mass_spring_qp,
+                                                   mass_spring_soft_qp)
 
     if "jax" in sys.modules:
         _fail("jax was imported")
+    t_script = time.perf_counter()
+    sections = []
+
+    def section_done(label, t_from):
+        sections.append((label, time.perf_counter() - t_from))
+        print(f"section {label}: {sections[-1][1]:.1f} s", flush=True)
+        return time.perf_counter()
+
     dev = torch.device("cuda", 0)
     card = _card_line()
     print(card, flush=True)
@@ -392,9 +508,17 @@ def main() -> int:
                         iter_ref_mu_thr=1e-3, use_pallas=True)
     cfg_ref64 = IPMConfig(k_max=30, iter_ref=1, iter_ref_mu_thr=1e-3,
                           use_pallas=True)
-    mods = {**{n: stk for n in STEP_NAMES}, **{n: sk for n in STAGE_NAMES},
-            "factor_solve_mega": mk, "solve_mega": mk}
+    # the soft path's config: tools/bench_soft.py's
+    cfg_soft = IPMConfig(k_max=8, mu0=100.0, mu_tol=0.0, use_pallas=True)
+    cfg_soft64 = IPMConfig(k_max=30, mu0=100.0, use_pallas=True)
+    mods = {**{n: stk for n in STEP_NAMES + SOFT_STEP},
+            **{n: sk for n in STAGE_NAMES},
+            "factor_solve_mega": mk, "solve_mega": mk,
+            **{n: mk for n in SOFT_MEGA}}
     six = [(mods[n], n) for n in STEP_NAMES + STAGE_NAMES]
+    soft_mega = [(mk, n) for n in SOFT_MEGA]
+    soft_six = [(stk, n) for n in SOFT_STEP] + [
+        (sk, "factor_solve_folded_flat"), (sk, "solve_flat")]
 
     def reset_counts():
         rk.LAUNCHES = 0
@@ -402,8 +526,9 @@ def main() -> int:
         for d in (stk.LAUNCHES, mk.LAUNCHES):
             for v in d.values():
                 v[:] = [0, 0]
-        for n in sk.LAUNCHES:
-            sk.LAUNCHES[n] = 0
+        for d in (sk.LAUNCHES, mk.SOFT_LAUNCHES, stk.SOFT_LAUNCHES):
+            for n in d:
+                d[n] = 0
 
     def read_counts():
         """Launches of every kernel since reset_counts(): [phase 1, phase
@@ -412,12 +537,15 @@ def main() -> int:
         out.update({n: list(v) for n, v in mk.LAUNCHES.items()})
         out.update({n: list(v) for n, v in stk.LAUNCHES.items()})
         out.update(sk.LAUNCHES)
+        out.update(mk.SOFT_LAUNCHES)
+        out.update(stk.SOFT_LAUNCHES)
         return out
 
     def total(v):
         return sum(v) if isinstance(v, list) else v
     rng = np.random.default_rng(SEED)
     scales = 1.0 + 0.05 * rng.standard_normal(B)
+    soft_scales = 1.0 + 0.02 * rng.standard_normal(B)
 
     def flagship(dtype):
         dims, qp = mass_spring_qp(8, 3, N_HORIZON, ngN=8, dtype=dtype,
@@ -426,15 +554,45 @@ def main() -> int:
         sc = torch.as_tensor(scales, dtype=dtype, device=dev)
         return dims, dataclasses.replace(qpb, b=qpb.b * sc[:, None, None])
 
+    def soft_problem(dtype, N=SOFT_N, ng=False):
+        """(dims, qp, soft, idxbs) of the soft problem at 4096 instances,
+        ``g`` scaled per instance; with ``ng`` one general row on stages 2
+        and N, 0.25 times the state sum, in [-1, 1]."""
+        dims, qp, soft = mass_spring_soft_qp(8, 3, N, Z=10.0, dtype=dtype,
+                                             device=dev)
+        if ng:
+            ngv = [0] * (N + 1)
+            ngv[2] = ngv[N] = 1
+            dims = OCPDims.create(N, dims.nx, dims.nu, dims.nb, ngv,
+                                  idxb=dims.idxb)
+            C = torch.zeros(N + 1, 1, dims.NZ, dtype=dtype, device=dev)
+            d_lg = torch.zeros(N + 1, 1, dtype=dtype, device=dev)
+            for n in (2, N):
+                C[n, 0, dims.NU:] = 0.25
+                d_lg[n, 0] = -1.0
+            qp = dataclasses.replace(
+                qp, C=C, d_lg=d_lg, d_ug=-d_lg, ng_mask=torch.as_tensor(
+                    dims.ng_mask(), dtype=dtype, device=dev))
+        qpb = pbatch.broadcast_qp(qp, B)
+        sc = torch.as_tensor(soft_scales, dtype=dtype, device=dev)
+        return (dims, dataclasses.replace(qpb, g=qpb.g * sc[:, None, None]),
+                pbatch.broadcast_soft(soft, B), soft.idxbs.cpu().numpy())
+
     # ---- 1. build: one nvcc per library, all at once -----------------------
+    t_sec = time.perf_counter()
     dims, _ = mass_spring_qp(8, 3, N_HORIZON, ngN=8, device=dev)
     d3 = dict(NU=dims.NU, NX=dims.NX, NB=dims.NB)
     d2 = dict(NU=dims.NU, NX=dims.NX)
+    dims_s, _, soft0 = mass_spring_soft_qp(8, 3, SOFT_N, device=dev)
+    NS = soft0.ns_mask.shape[-1]
+    ds = dict(NU=dims_s.NU, NX=dims_s.NX, NB=dims_s.NB, NS=NS)
     specs = [("resid_full", d3), ("ipm_resident", dict(d3, NG=dims.NG)),
              ("factor_solve_mega", d3), ("solve_mega", d3),
              ("step_flat", dict(NZ=dims.NZ, NB=dims.NB)),
              ("factor_solve_flat", d2), ("solve_flat", d2),
-             ("refine_flat", dict(d2, NG=dims.NG))]
+             ("refine_flat", dict(d2, NG=dims.NG)),
+             ("factor_solve_soft_mega", ds), ("solve_soft_mega", ds),
+             ("soft_step_flat", dict(NZ=dims_s.NZ, NB=dims_s.NB, NS=NS))]
     t0 = time.perf_counter()
     _build.build_all(specs)
     print(f"build: {time.perf_counter() - t0:.1f} s ({len(specs)} "
@@ -442,6 +600,7 @@ def main() -> int:
     for lib, log in sorted(_build.PTXAS_LOG.items()):
         for line in _ptxas_lines(log):
             print(f"ptxas {lib.split('_N')[0]}: {line}", flush=True)
+    t_sec = section_done("1 build", t_sec)
 
     # ---- 2. each kernel vs its plain version, float32 and float64 --------
     max_abs_err = {}
@@ -513,9 +672,31 @@ def main() -> int:
                 _fail(f"6-kernel loop {what}: captured calls "
                       f"{sorted(calls)}")
             _check_calls(torch, calls, mods, MEGA_TOL[name], what, errs)
-        del calls
+        # each soft kernel on the soft engine's first calls at the initial
+        # iterate, the mega pair and the soft 6-kernel loop's passes, on
+        # the flagship soft problem and the small one with general rows,
+        # with exact_mehrotra_soft True and False
+        for N_s, ng in ((SOFT_N, False), (SOFT_NG_N, True)):
+            soft_c = soft_problem(dtype, N_s, ng)
+            for exact in (True, False):
+                what = (f"{name} soft N={N_s}{' ng' if ng else ''}"
+                        f"{'' if exact else ' dropped correction'}")
+                for mega, targets, n_calls in (("1", soft_mega, 2),
+                                               ("0", soft_six, 6)):
+                    with _env(HPMPC_MEGA_SWEEPS=mega), \
+                            _capture(targets) as calls:
+                        ipm_soft_lanes.solve_batched_soft_lanes(
+                            *soft_c[:3], IPMConfig(k_max=1, mu0=100.0,
+                                                   use_pallas=True),
+                            soft_c[3], exact_mehrotra_soft=exact)
+                    if len(calls) != n_calls:
+                        _fail(f"soft {what}: captured calls {sorted(calls)}")
+                    _check_calls(torch, calls, mods, MEGA_TOL[name], what,
+                                 errs)
+        del calls, soft_c
         if dtype == torch.float32:
             max_abs_err.update(errs)
+    t_sec = section_done("2 kernels vs plain", t_sec)
 
     # ---- 3. main path 1: solve_batched, resident route, float32 ----------
     dims, qpb = flagship(torch.float32)
@@ -686,13 +867,92 @@ def main() -> int:
         _fail("f64 refined lanes run: fewer than 99% of instances converged")
     _oracle(torch, np, qpb64, sol_r64, dev, 1e-6, 1e-9, 1e-6,
             "refined lanes path f64")
+    t_sec = section_done("3-7 hard main paths", t_sec)
 
-    # ---- 8. timings ---------------------------------------------------------
-    def solve_rep(q0, d, c, fn):
+    # ---- 8. main path 6: solve_batched_soft, the soft lanes engine, f32 ---
+    dims_s, qpb_s, sb_s, idxbs_s = soft_problem(torch.float32)
+    engine_s = pbatch.select_soft_engine(dims_s, cfg_soft, torch.float32, NS,
+                                         idxbs_s)
+    if engine_s != "soft_lanes":
+        _fail(f"select_soft_engine chose {engine_s!r}, expected "
+              "'soft_lanes'")
+
+    def soft_path(label, mega, targets, need):
+        """One solve_batched_soft of the flagship soft batch on route
+        ``mega`` with the counters reset just before and read just after:
+        (solution, launches, the first call of each wrapper of
+        ``targets``)."""
+        reset_counts()
+        with _env(HPMPC_MEGA_SWEEPS=mega), _capture(targets) as calls:
+            sol_ = pbatch.solve_batched_soft(dims_s, qpb_s, sb_s, cfg_soft,
+                                             idxbs=idxbs_s)
+        torch.cuda.synchronize()
+        counts_ = read_counts()
+        launches_ = {n: counts_[n] for n in need}
+        if min(launches_.values()) < 1:
+            _fail(f"{label} skipped a kernel: launches {launches_}")
+        _check_soft_solution(torch, sol_, dims_s, NS, cfg_soft.k_max, label)
+        kk_ = sol_.kk.double()
+        print(f"{label}: engine {engine_s}, launches {launches_}, mean kk "
+              f"{float(kk_.mean()):.3f}, kk histogram "
+              f"{torch.bincount(sol_.kk.long()).tolist()}, status counts "
+              f"(converged, max-iter, frozen) "
+              f"{torch.bincount(sol_.status, minlength=3).tolist()}",
+              flush=True)
+        if float(kk_.mean()) <= 3.0:
+            _fail(f"{label}: suspicious mean iteration count "
+                  f"{float(kk_.mean())}")
+        _soft_oracle(torch, dims_s, qpb_s, sb_s, sol_, 1e-3, label)
+        return sol_, launches_, calls
+
+    sol_s, launches_s, soft_calls = soft_path(
+        "soft path f32", "1", soft_mega, SOFT_MEGA)
+    # ---- 9. main path 7: the same on the soft 6-kernel loop ---------------
+    sol_s6, launches_s6, soft6_calls = soft_path(
+        "soft path f32, 6-kernel loop", "0", soft_six,
+        SOFT_STEP + ("factor_solve_folded_flat", "solve_flat"))
+    same = sol_s.kk == sol_s6.kk
+    if int(same.sum()) < 0.99 * B:
+        _fail("soft path: the mega route and the 6-kernel loop disagree on "
+              f"kk ({int(same.sum())} of {B} equal)")
+    dz6 = float((sol_s.z - sol_s6.z)[same].abs().max())
+    print(f"soft path f32: mega vs 6-kernel loop: kk equal on "
+          f"{int(same.sum())} of {B}, max |dz| {dz6:.3e} there", flush=True)
+
+    # ---- 10. main path 8: the soft engine in float64, to mu <= 1e-8 ------
+    dims_s64, qpb_s64, sb_s64, _ = soft_problem(torch.float64)
+    reset_counts()
+    sol_s64 = ipm_soft_lanes.solve_batched_soft_lanes(
+        dims_s64, qpb_s64, sb_s64, cfg_soft64, idxbs_s)
+    torch.cuda.synchronize()
+    launches_s64 = {n: read_counts()[n] for n in SOFT_MEGA}
+    if min(launches_s64.values()) < 1:
+        _fail(f"soft path f64 skipped a kernel: launches {launches_s64}")
+    _check_soft_solution(torch, sol_s64, dims_s64, NS, cfg_soft64.k_max,
+                         "soft path f64")
+    conv_s = float((sol_s64.status == 0).double().mean())
+    print(f"soft path f64: launches {launches_s64}, mean kk "
+          f"{float(sol_s64.kk.double().mean()):.3f}, status counts "
+          f"{torch.bincount(sol_s64.status, minlength=3).tolist()}, "
+          f"converged with mu <= 1e-8: {conv_s:.4f}", flush=True)
+    if conv_s < 0.99:
+        _fail("soft path f64: fewer than 99% of instances converged")
+    mu_o = _soft_oracle(torch, dims_s64, qpb_s64, sb_s64, sol_s64, 1e-6,
+                        "soft path f64")
+    if mu_o > 1e-8:
+        _fail(f"soft path f64: oracle mu {mu_o:.3e} > 1e-8")
+    t_sec = section_done("8-10 soft main paths", t_sec)
+
+    # ---- 11. timings --------------------------------------------------------
+    def solve_rep(q0, d, c, fn, field="b"):
         def run(r):
-            q = dataclasses.replace(q0, b=q0.b * (1.0 + 1e-4 * r))
+            q = dataclasses.replace(
+                q0, **{field: getattr(q0, field) * (1.0 + 1e-4 * r)})
             return fn(d, q, c)
         return run
+
+    def soft_solve(d, q, c):
+        return pbatch.solve_batched_soft(d, q, sb_s, c, idxbs=idxbs_s)
 
     def six_kernel_loop(fn):
         """``fn`` with the lanes engine on its 6-kernel loop
@@ -713,7 +973,8 @@ def main() -> int:
     def plain_kernels():
         """Every kernel wrapper of the port replaced by its plain version."""
         swaps = [(rk, "ipm_resident"), (stk, "resid_full"),
-                 (mk, "factor_solve_mega"), (mk, "solve_mega"), *six]
+                 (mk, "factor_solve_mega"), (mk, "solve_mega"), *six,
+                 *soft_mega, *soft_six[:3]]
         saved = [(m, n, getattr(m, n)) for m, n in swaps]
         for m, n, _ in saved:
             setattr(m, n, getattr(m, n + "_ref"))
@@ -724,18 +985,24 @@ def main() -> int:
                 setattr(m, n, fn)
 
     e2e = {}
-    for label, q0, d, c, fn, reps, preps in (
-            ("resident f32", qpb, dims, cfg, pbatch.solve_batched, 10, 2),
-            ("lanes f32", qpb, dims, cfg_lanes, pbatch.solve_batched, 5, 1),
+    for label, q0, d, c, fn, reps, preps, field in (
+            ("resident f32", qpb, dims, cfg, pbatch.solve_batched, 10, 2,
+             "b"),
+            ("lanes f32", qpb, dims, cfg_lanes, pbatch.solve_batched, 5, 1,
+             "b"),
             ("lanes f32, 6-kernel loop", qpb, dims, cfg_lanes,
-             six_kernel_loop(pbatch.solve_batched), 5, 1),
+             six_kernel_loop(pbatch.solve_batched), 5, 1, "b"),
             ("lanes f64", qpb64, dims64, cfg_lanes,
-             ipm_lanes.solve_batched_lanes, 3, 1),
-            ("parity f32", qpb, dims, cfg_par, pbatch.solve_batched, 5, 1)):
-        ms = _time_ms(torch, solve_rep(q0, d, c, fn), reps=reps)
+             ipm_lanes.solve_batched_lanes, 3, 1, "b"),
+            ("parity f32", qpb, dims, cfg_par, pbatch.solve_batched, 5, 1,
+             "b"),
+            ("soft f32", qpb_s, dims_s, cfg_soft, soft_solve, 5, 1, "g"),
+            ("soft f32, 6-kernel loop", qpb_s, dims_s, cfg_soft,
+             six_kernel_loop(soft_solve), 5, 1, "g")):
+        ms = _time_ms(torch, solve_rep(q0, d, c, fn, field), reps=reps)
         with plain_kernels():
-            ms_plain = _time_ms(torch, solve_rep(q0, d, c, fn), reps=preps,
-                                warmup=0)
+            ms_plain = _time_ms(torch, solve_rep(q0, d, c, fn, field),
+                                reps=preps, warmup=0)
         e2e[label] = (ms, ms_plain)
         print(f"main path {label} [{card}]: {ms:.3f} ms per {B}-batch "
               f"({B / ms * 1e3:.1f} solves/s); plain version "
@@ -747,15 +1014,19 @@ def main() -> int:
           flush=True)
 
     # where the time of one call goes (torch.profiler, 3 calls each)
-    for label, q0, d, c, fn in (
-            ("lanes f32", qpb, dims, cfg_lanes, pbatch.solve_batched),
+    for label, q0, d, c, fn, field in (
+            ("lanes f32", qpb, dims, cfg_lanes, pbatch.solve_batched, "b"),
             ("lanes f32, 6-kernel loop", qpb, dims, cfg_lanes,
-             six_kernel_loop(pbatch.solve_batched)),
+             six_kernel_loop(pbatch.solve_batched), "b"),
             ("lanes f64", qpb64, dims64, cfg_lanes,
-             ipm_lanes.solve_batched_lanes),
-            ("parity f32", qpb, dims, cfg_par, pbatch.solve_batched)):
-        pr = _profile(torch, solve_rep(q0, d, c, fn))
+             ipm_lanes.solve_batched_lanes, "b"),
+            ("parity f32", qpb, dims, cfg_par, pbatch.solve_batched, "b"),
+            ("soft f32", qpb_s, dims_s, cfg_soft, soft_solve, "g"),
+            ("soft f32, 6-kernel loop", qpb_s, dims_s, cfg_soft,
+             six_kernel_loop(soft_solve), "g")):
+        pr = _profile(torch, solve_rep(q0, d, c, fn, field))
         print(_profile_line(label, card, pr), flush=True)
+    t_sec = section_done("11 end-to-end timings and profiles", t_sec)
 
     # each kernel alone, at the main paths' shapes and configs (float32):
     # the resident pair on the resident path's inputs, the mega pair on the
@@ -779,38 +1050,62 @@ def main() -> int:
          (r_args, r_kw), 50, BS * ops["resid"],
          launches["resid_full"] + launches_l["resid_full"]),
         ("factor_solve_mega", "hpmpc_tpu/ops/mega_kernel.py:325", mk,
-         lanes_calls[("factor_solve_mega", False)], 20,
+         lanes_calls[("factor_solve_mega", "")], 20,
          B * ((N + 1) * ops["factor"] + ops["root"]
               + n_ng * ops["ng_factor"]),
          sum(launches_l["factor_solve_mega"])),
         ("solve_mega", "hpmpc_tpu/ops/mega_kernel.py:601", mk,
-         lanes_calls[("solve_mega", False)], 20,
+         lanes_calls[("solve_mega", "")], 20,
          B * ((N + 1) * ops["solve"] + ops["root"]
               + n_ng * ops["ng_solve"]),
          sum(launches_l["solve_mega"])),
         ("prep_flat", "hpmpc_tpu/ops/step_kernel.py:222", stk,
-         par_calls[("prep_flat", False)], 50, BS * ops["prep"], None),
+         par_calls[("prep_flat", "")], 50, BS * ops["prep"], None),
         ("alpha_sums_flat", "hpmpc_tpu/ops/step_kernel.py:302", stk,
-         par_calls[("alpha_sums_flat", False)], 50, BS * ops["alpha"], None),
+         par_calls[("alpha_sums_flat", "")], 50, BS * ops["alpha"], None),
         ("corr_geff_flat", "hpmpc_tpu/ops/step_kernel.py:379", stk,
-         par_calls[("corr_geff_flat", False)], 50, BS * ops["corr"], None),
+         par_calls[("corr_geff_flat", "")], 50, BS * ops["corr"], None),
         ("factor_solve_folded_flat", "hpmpc_tpu/ops/stage_kernel.py:1224",
-         sk, par_calls[("factor_solve_folded_flat", False)], 20,
+         sk, par_calls[("factor_solve_folded_flat", "")], 20,
          BS * ops["factor_flat"] + B * (ops["root"]
                                         + n_ng * ops["ng_factor"]), None),
         ("solve_flat", "hpmpc_tpu/ops/stage_kernel.py:1429", sk,
-         par_calls[("solve_flat", False)], 20,
+         par_calls[("solve_flat", "")], 20,
          BS * ops["solve_flat"] + B * ops["root"], None),
         ("refine_flat_fused", "hpmpc_tpu/ops/stage_kernel.py:1909", sk,
-         par_calls[("refine_flat_fused", False)], 20,
+         par_calls[("refine_flat_fused", "")], 20,
          BS * ops["refine"] + B * (ops["root"] + n_ng * ops["ng_refine"]),
          None)]
+    # the soft pair on the soft path's first calls, the soft step passes on
+    # its 6-kernel loop's (the affine alpha pass)
+    ops_s = _stage_ops(dims_s.NU, dims_s.NX, dims_s.NB, dims_s.NG, NS)
+    BSs = B * (SOFT_N + 1)
+    rows += [
+        ("factor_solve_soft_mega", "hpmpc_tpu/ops/mega_kernel.py:939", mk,
+         soft_calls[("factor_solve_soft_mega", "")], 20,
+         BSs * ops_s["soft_factor"] + B * ops_s["root"],
+         launches_s["factor_solve_soft_mega"]),
+        ("solve_soft_mega", "hpmpc_tpu/ops/mega_kernel.py:1242", mk,
+         soft_calls[("solve_soft_mega", "")], 20,
+         BSs * ops_s["soft_solve"] + B * ops_s["root"],
+         launches_s["solve_soft_mega"]),
+        ("soft_prep_flat", "hpmpc_tpu/ops/step_kernel.py:654", stk,
+         soft6_calls[("soft_prep_flat", "")], 50, BSs * ops_s["soft_prep"],
+         launches_s6["soft_prep_flat"]),
+        ("soft_alpha_sums_flat", "hpmpc_tpu/ops/step_kernel.py:758", stk,
+         soft6_calls[("soft_alpha_sums_flat", "")], 50,
+         BSs * ops_s["soft_alpha"], launches_s6["soft_alpha_sums_flat"]),
+        ("soft_corr_flat", "hpmpc_tpu/ops/step_kernel.py:845", stk,
+         soft6_calls[("soft_corr_flat", "")], 50, BSs * ops_s["soft_corr"],
+         launches_s6["soft_corr_flat"])]
     srcs = {"ipm_resident": "ipm_resident", "resid_full": "resid_full",
             "factor_solve_mega": "factor_solve_mega",
             "solve_mega": "solve_mega", "factor_solve_folded_flat":
             "factor_solve_flat", "solve_flat": "solve_flat",
             "refine_flat_fused": "refine_flat",
-            **{n: "step_flat" for n in STEP_NAMES}}
+            **{n: "step_flat" for n in STEP_NAMES},
+            **{n: n for n in SOFT_MEGA},
+            **{n: "soft_step_flat" for n in SOFT_STEP}}
     kernels = []
     for name, repl, mod, (a, k), reps, n_ops, n_launch in rows:
         fast, plain = getattr(mod, name), getattr(mod, name + "_ref")
@@ -834,6 +1129,10 @@ def main() -> int:
                         "bound_ms": bound_ms, "bound_by": bound_by,
                         "library_ms": None})
     print(f"launches per call: parity path {launches_p}", flush=True)
+    section_done("12 kernels alone", t_sec)
+    print(f"chip_smoke: total {time.perf_counter() - t_script:.1f} s ("
+          + ", ".join(f"{k} {v:.1f} s" for k, v in sections) + ")",
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

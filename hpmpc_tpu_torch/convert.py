@@ -2,9 +2,10 @@
 
 A JAX :class:`hpmpc_tpu.ocp.OCPQP`'s leaves, handed over as numpy arrays
 keyed by field name, become the port's :class:`~.ocp.OCPQP` (batched or
-not); warm-start state (``z0``/``pi0``) and a whole batched solution
-(:class:`~.models.ipm.IPMSolution`, e.g. a first stage's hand-off) ride
-along the same way.  Numpy is
+not); warm-start state (``z0``/``pi0``), a whole batched solution
+(:class:`~.models.ipm.IPMSolution`, e.g. a first stage's hand-off) and
+soft-constraint data (:class:`~.models.ipm_soft.SoftSpec`) ride along
+the same way.  Numpy is
 the only currency, so neither package imports the other.
 """
 
@@ -16,6 +17,7 @@ import numpy as np
 import torch
 
 from .models.ipm import IPMSolution
+from .models.ipm_soft import SoftSpec
 from .ocp import OCPDims, OCPQP, resolve_device
 
 QP_FIELDS = tuple(f.name for f in dataclasses.fields(OCPQP))
@@ -75,6 +77,23 @@ def solution_from_numpy(arrays: dict, device=None,
         dt = torch.int32 if name in ("kk", "status") else dtype
         out[name] = torch.tensor(a, device=device, dtype=dt)
     return IPMSolution(**out)
+
+
+def soft_from_numpy(arrays: dict, device=None,
+                    dtype=torch.float64) -> SoftSpec:
+    """``arrays[name]`` for every :class:`~.models.ipm_soft.SoftSpec` field
+    (e.g. a JAX ``SoftSpec``'s leaves as numpy, batched or not) -> the
+    port's soft data on ``device`` (default: the CUDA card): ``idxbs``
+    int32, the rest ``dtype``."""
+    device = resolve_device(device)
+    out = {}
+    for name in SoftSpec._fields:
+        a = np.asarray(arrays[name])
+        if name == "idxbs":
+            out[name] = torch.tensor(a.astype(np.int32), device=device)
+        else:
+            out[name] = torch.tensor(a, device=device, dtype=dtype)
+    return SoftSpec(**out)
 
 
 def qp_to_numpy(qp: OCPQP) -> dict:

@@ -7,7 +7,9 @@
 // primitives of hpmpc_tpu/ops/step_kernel.py (_t_inv_lamt, _qx_fold,
 // _gather_box, _scatter_add_box, _dt_dlam, _alpha_cands, _corr_co_qx), the
 // last three in both forms: phase 1 (delta; qx_fold, dt_dlam, corr_co_qx)
-// and phase 2 (residual; qx_fold_res, dt_dlam_res, corr_co_qx_res).
+// and phase 2 (residual; qx_fold_res, dt_dlam_res, corr_co_qx_res), and
+// the soft-constraint primitives (_soft_schur, _soft_qx, _soft_dt_dls and
+// the combined box + soft passes of the soft kernels).
 // The plain PyTorch versions are hpmpc_tpu_torch/ops/stage_math.py.
 //
 // Where the TPU helpers work on lists of (8, 128) tiles -- one tile per
@@ -513,6 +515,188 @@ __device__ __forceinline__ void corr_co_qx_res(
     co[i] = (M[i] + (dtb[i] * dlb[i] - sm)) * mb[i];
   T Qx[K];
   qx_fold_res<T, K>(lam, t, mb, A, co, Qx, qx);
+}
+
+// ---------------------------------------------------------------------------
+// soft-constraint step primitives (step_kernel._soft_schur, _soft_qx,
+// _soft_dt_dls, the soft half of _soft_corr_kernel, and
+// mega_kernel._soft_alpha_from_out), always in the phase-1 forms.  A soft
+// vector holds 4NS slots [lo; up; s_lo; s_up], the constants 6NS slots
+// [d_lbs; d_ubs; Z0; Z1; zlin0; zlin1], the mask NS slots.
+// ---------------------------------------------------------------------------
+
+// Everything the soft step formulas read of one stage's slack Schur
+// elimination; rQx0/rQx1 are the first two families of lamt.
+template <typename T, int NS>
+struct SoftSchur {
+  T ms4[4 * NS], t_inv[4 * NS], lamt[4 * NS];
+  T rqx0[NS], rqx1[NS], Zl0[NS], Zl1[NS], zl0[NS], zl1[NS];
+  T dlbs[NS], dubs[NS];
+};
+
+// The slack Schur elimination of one stage; every "ms > 0" guard stays (a
+// masked slot may hold anything).
+template <typename T, int NS>
+__device__ __forceinline__ void soft_schur(const T (&lam_s)[4 * NS],
+                                           const T (&t_s)[4 * NS],
+                                           const T (&ms)[NS],
+                                           const T (&c)[6 * NS],
+                                           SoftSchur<T, NS>& S) {
+#pragma unroll
+  for (int i = 0; i < 4 * NS; ++i) {
+    const T m = ms[i % NS];
+    S.ms4[i] = m;
+    const T rec = T(1) / (m > T(0) ? t_s[i] : T(1));
+    S.t_inv[i] = rec * m;
+    S.lamt[i] = lam_s[i] * S.t_inv[i];
+  }
+#pragma unroll
+  for (int k = 0; k < NS; ++k) {
+    const bool on = ms[k] > T(0);
+    S.dlbs[k] = c[k];
+    S.dubs[k] = c[NS + k];
+    S.rqx0[k] = lam_s[k] + S.lamt[k] * S.dlbs[k];
+    S.rqx1[k] = lam_s[NS + k] - S.lamt[NS + k] * S.dubs[k];
+    S.Zl0[k] = on ? T(1) / (c[2 * NS + k] + S.lamt[k] + S.lamt[2 * NS + k])
+                  : T(0);
+    S.Zl1[k] = on ? T(1) / (c[3 * NS + k] + S.lamt[NS + k] +
+                            S.lamt[3 * NS + k])
+                  : T(0);
+    S.zl0[k] = -c[4 * NS + k] + S.rqx0[k] + lam_s[2 * NS + k];
+    S.zl1[k] = -c[5 * NS + k] + S.rqx1[k] + lam_s[3 * NS + k];
+  }
+}
+
+// (Qx_s, qx_s) per soft row from the Schur elimination.
+template <typename T, int NS>
+__device__ __forceinline__ void soft_qx(const T (&ms)[NS],
+                                        const SoftSchur<T, NS>& S,
+                                        T (&Qx)[NS], T (&qx)[NS]) {
+#pragma unroll
+  for (int k = 0; k < NS; ++k) {
+    const T rQx0 = S.lamt[k], rQx1 = S.lamt[NS + k];
+    const T rqx0e = S.rqx0[k] - rQx0 * S.zl0[k] * S.Zl0[k];
+    const T rqx1e = S.rqx1[k] - rQx1 * S.zl1[k] * S.Zl1[k];
+    const T rQx0e = rQx0 - rQx0 * rQx0 * S.Zl0[k];
+    const T rQx1e = rQx1 - rQx1 * rQx1 * S.Zl1[k];
+    Qx[k] = (rQx0e + rQx1e) * ms[k];
+    qx[k] = (rqx1e - rqx0e) * ms[k];
+  }
+}
+
+// Soft (dt, dlam) of the gathered direction values zs against the zl pair
+// (zl0x, zl1x) (affine: zl; corrector: zl + the dl2s fold), with the
+// centering stream dl0 (0 in the affine pass).
+template <typename T, int NS>
+__device__ __forceinline__ void soft_dt_dls(
+    const T (&lam_s)[4 * NS], const T (&t_s)[4 * NS],
+    const SoftSchur<T, NS>& S, const T (&zs)[NS], const T (&dl0)[4 * NS],
+    const T (&zl0x)[NS], const T (&zl1x)[NS], T (&dts)[4 * NS],
+    T (&dls)[4 * NS]) {
+#pragma unroll
+  for (int k = 0; k < NS; ++k) {
+    const T ds_lo = (zl0x[k] - S.lamt[k] * zs[k]) * S.Zl0[k];
+    const T ds_up = (zl1x[k] + S.lamt[NS + k] * zs[k]) * S.Zl1[k];
+    dts[k] = (ds_lo + zs[k] - S.dlbs[k] - t_s[k]) * S.ms4[k];
+    dts[NS + k] = (ds_up - zs[k] + S.dubs[k] - t_s[NS + k]) * S.ms4[NS + k];
+    dts[2 * NS + k] = (ds_lo - t_s[2 * NS + k]) * S.ms4[2 * NS + k];
+    dts[3 * NS + k] = (ds_up - t_s[3 * NS + k]) * S.ms4[3 * NS + k];
+  }
+#pragma unroll
+  for (int i = 0; i < 4 * NS; ++i)
+    dls[i] = (dl0[i] - S.lamt[i] * dts[i] - lam_s[i]) * S.ms4[i];
+}
+
+// The soft prep of one stage: the box fold and the soft Schur fold,
+// scattered onto dv (holding pdreg) and ge (holding the gradient base).
+template <typename T, int NB, int NS, int NZ>
+__device__ __forceinline__ void soft_fold(
+    const T (&lam)[2 * NB], const T (&t)[2 * NB], const T (&mb)[2 * NB],
+    const T (&A)[2 * NB], const T (&lam_s)[4 * NS], const T (&t_s)[4 * NS],
+    const T (&ms)[NS], const T (&c)[6 * NS], const int* idxb,
+    const int* idxs, T (&dv)[NZ], T (&ge)[NZ]) {
+  T Qx[NB], qx[NB];
+  qx_fold<T, NB>(lam, t, mb, A, Qx, qx);
+  SoftSchur<T, NS> S;
+  soft_schur<T, NS>(lam_s, t_s, ms, c, S);
+  T Qs[NS], qs[NS];
+  soft_qx<T, NS>(ms, S, Qs, qs);
+  scatter_add_box<T, NB, NZ>(dv, idxb, Qx);
+  scatter_add_box<T, NS, NZ>(dv, idxs, Qs);
+  scatter_add_box<T, NB, NZ>(ge, idxb, qx);
+  scatter_add_box<T, NS, NZ>(ge, idxs, qs);
+}
+
+// The soft corrector pass of one stage: the box centering correction cob
+// and the soft one dl2s = t_inv (sigma mu - dl dt) ms4, and the corrected
+// gradient folds scattered onto ge (holding the gradient base).  EXACT
+// keeps the Schur-folded dl2s correction of the soft gradient; without it
+// the soft fold is the affine one (the reference's dropped correction).
+template <typename T, int NB, int NS, int NZ, bool EXACT>
+__device__ __forceinline__ void soft_corr_fold(
+    const T (&lam)[2 * NB], const T (&t)[2 * NB], const T (&mb)[2 * NB],
+    const T (&A)[2 * NB], const T (&dtb)[2 * NB], const T (&dlb)[2 * NB],
+    const T (&lam_s)[4 * NS], const T (&t_s)[4 * NS], const T (&ms)[NS],
+    const T (&c)[6 * NS], const T (&dts)[4 * NS], const T (&dls)[4 * NS],
+    T sm, const int* idxb, const int* idxs, T (&cob)[2 * NB],
+    T (&dl2s)[4 * NS], T (&ge)[NZ]) {
+  T qx[NB];
+  corr_co_qx<T, NB>(lam, t, mb, A, dtb, dlb, sm, cob, qx);
+  SoftSchur<T, NS> S;
+  soft_schur<T, NS>(lam_s, t_s, ms, c, S);
+#pragma unroll
+  for (int i = 0; i < 4 * NS; ++i)
+    dl2s[i] = S.t_inv[i] * (sm - dls[i] * dts[i]) * S.ms4[i];
+  T Qs[NS], qs[NS];
+  soft_qx<T, NS>(ms, S, Qs, qs);
+  if (EXACT) {
+#pragma unroll
+    for (int k = 0; k < NS; ++k) {
+      const T d0 = dl2s[k], d1 = dl2s[NS + k];
+      const T d2 = dl2s[2 * NS + k], d3 = dl2s[3 * NS + k];
+      const T rqx0c = d0 - S.lamt[k] * (d0 + d2) * S.Zl0[k];
+      const T rqx1c = d1 - S.lamt[NS + k] * (d1 + d3) * S.Zl1[k];
+      qs[k] = qs[k] + (rqx1c - rqx0c) * ms[k];
+    }
+  }
+  scatter_add_box<T, NB, NZ>(ge, idxb, qx);
+  scatter_add_box<T, NS, NZ>(ge, idxs, qs);
+}
+
+// The combined box + soft direction and alpha/sums pass of one stage
+// (mega_kernel._soft_alpha_from_out) on its z: box (dt, dl) with the
+// centering stream dl0b (zeros in the affine pass), soft (dt, dl) against
+// zl, or in the corrector pass (CORR) against zl + the dl2s fold with dl2s
+// as the centering stream; then the fraction-to-boundary minimum and the
+// mu(alpha) partials over both families.
+template <typename T, int NB, int NS, int NZ, bool CORR>
+__device__ __forceinline__ void soft_alpha_pass(
+    const T (&z)[NZ], const int* idxb, const int* idxs,
+    const T (&lam)[2 * NB], const T (&t)[2 * NB], const T (&mb)[2 * NB],
+    const T (&A)[2 * NB], const T (&dl0b)[2 * NB], const T (&lam_s)[4 * NS],
+    const T (&t_s)[4 * NS], const T (&ms)[NS], const T (&c)[6 * NS],
+    const T (&dl2s)[4 * NS], T (&dtb)[2 * NB], T (&dlb)[2 * NB],
+    T (&dts)[4 * NS], T (&dls)[4 * NS], T& amin, T& s0, T& s1, T& s2) {
+  T zb[NB];
+  gather_box<T, NB, NZ>(z, idxb, zb);
+  dt_dlam<T, NB>(lam, t, mb, A, zb, dl0b, dtb, dlb);
+  SoftSchur<T, NS> S;
+  soft_schur<T, NS>(lam_s, t_s, ms, c, S);
+  T zs[NS], zl0x[NS], zl1x[NS], dl0s[4 * NS];
+  gather_box<T, NS, NZ>(z, idxs, zs);
+#pragma unroll
+  for (int k = 0; k < NS; ++k) {
+    zs[k] = zs[k] * ms[k];
+    zl0x[k] = CORR ? S.zl0[k] + dl2s[k] + dl2s[2 * NS + k] : S.zl0[k];
+    zl1x[k] = CORR ? S.zl1[k] + dl2s[NS + k] + dl2s[3 * NS + k] : S.zl1[k];
+  }
+#pragma unroll
+  for (int i = 0; i < 4 * NS; ++i) dl0s[i] = CORR ? dl2s[i] : T(0);
+  soft_dt_dls<T, NS>(lam_s, t_s, S, zs, dl0s, zl0x, zl1x, dts, dls);
+  amin = T(INFINITY);
+  s0 = s1 = s2 = T(0);
+  alpha_sums<T, 2 * NB>(lam, t, mb, dtb, dlb, amin, s0, s1, s2);
+  alpha_sums<T, 4 * NS>(lam_s, t_s, S.ms4, dts, dls, amin, s0, s1, s2);
 }
 
 }  // namespace hp

@@ -4,8 +4,8 @@
 Same field names and defaults as the JAX ``IPMConfig``, so a config carries
 across.  The structured two-phase solver itself (``ipm.solve``) is not
 ported yet; the engines that are (``models.ipm_resident``,
-``models.ipm_lanes``) share these definitions and the breakdown guard
-(:func:`step_ok`, :func:`anchor_lam_ref`).
+``models.ipm_lanes``, ``models.ipm_soft_lanes``) share these definitions
+and the breakdown guard (:func:`step_ok`, :func:`anchor_lam_ref`).
 """
 
 from __future__ import annotations
@@ -67,22 +67,26 @@ GUARD_MU_GROWTH = 10.0
 BIG = 3.0e38
 
 
-def step_ok(mu_new, mu_old, lam_max_new, lam_max_old, lam_ref):
+def step_ok(mu_new, mu_old, lam_max_new=None, lam_max_old=None,
+            lam_ref=None):
     """Numerical-breakdown guard of one step, per instance ((B,) tensors in,
     a (B,) bool out), as :func:`hpmpc_tpu.models.ipm.step_ok`: the new mu
     must be finite and, in float32 only, below ``GUARD_MU_FLOOR`` it must
     not grow ``GUARD_MU_GROWTH``-fold, the max |dual| must not grow
-    ``GUARD_LAM_GROWTH``-fold in one step, and not beyond that factor of
-    the anchor ``lam_ref`` once one exists (finite).  float64 is exempt
-    from all but finiteness."""
+    ``GUARD_LAM_GROWTH``-fold in one step (given ``lam_max_new``), and not
+    beyond that factor of the anchor ``lam_ref`` once one exists (given,
+    and finite).  The soft engine passes the mu guards only.  float64 is
+    exempt from all but finiteness."""
     ok = torch.isfinite(mu_new)
     if mu_new.dtype == torch.float32:
         floor = mu_old < GUARD_MU_FLOOR
         ok = ok & ~((mu_new > GUARD_MU_GROWTH * mu_old) & floor)
-        ok = ok & ~((lam_max_new > GUARD_LAM_GROWTH
-                     * torch.clamp(lam_max_old, min=1.0)) & floor)
-        ok = ok & ~((lam_max_new > GUARD_LAM_GROWTH * lam_ref)
-                    & torch.isfinite(lam_ref))
+        if lam_max_new is not None:
+            ok = ok & ~((lam_max_new > GUARD_LAM_GROWTH
+                         * torch.clamp(lam_max_old, min=1.0)) & floor)
+        if lam_ref is not None:
+            ok = ok & ~((lam_max_new > GUARD_LAM_GROWTH * lam_ref)
+                        & torch.isfinite(lam_ref))
     return ok
 
 

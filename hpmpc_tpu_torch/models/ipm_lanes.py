@@ -111,7 +111,9 @@ def make_ng_lanes(dims, qp, ng_stages, dt, B):
 
 def make_lanes_common(dims, qp, cfg, z0=None, pi0=None):
     """Shared scaffolding of the batched engines: index table, constant
-    box/stage streams and the ``d_init_var`` initial iterate.
+    box/stage streams, the ``d_init_var`` initial iterate and the
+    per-instance loop helpers of the hard and soft lanes engines
+    (``finish_alpha_sums``, ``stat_update``, ``gate``).
 
     ``z0`` (B, N+1, NZ) / ``pi0`` (B, N, NX) with ``cfg.warm_start`` seed
     the iterate; the box-violation correction still applies to the seeded
@@ -198,6 +200,45 @@ def make_lanes_common(dims, qp, cfg, z0=None, pi0=None):
         return lam_g0, t_g0
 
     ns.ng_init = ng_init
+
+    # ---- per-instance loop helpers shared by the hard and soft engines --
+    kiota = torch.arange(int(cfg.k_max), device=dev)
+
+    def finish_alpha_sums(parts, ngh, lam_g, t_g, dtg, dlg):
+        """Reduce a kernel's per-stage (amin, s0, s1, s2) partials over the
+        stages and add the ng rows: (alpha, s0, s1, s2), each (B,)."""
+        amin, s0, s1, s2 = (parts[0].amin(0), parts[1].sum(0),
+                            parts[2].sum(0), parts[3].sum(0))
+        if ngh.n_ng:
+            cand = torch.minimum(sm.alpha_cands(lam_g, dlg, ngh.mg2),
+                                 sm.alpha_cands(t_g, dtg, ngh.mg2))
+            amin = torch.minimum(amin, cand.amin(1))
+            s0 = s0 + (lam_g * t_g * ngh.mg2).sum(1)
+            s1 = s1 + (lam_g * dtg + t_g * dlg).sum(1)
+            s2 = s2 + (dlg * dtg).sum(1)
+        return torch.minimum(torch.ones_like(amin), amin), s0, s1, s2
+
+    def stat_update(stat, kk, row):
+        """``stat`` (B, k_max, 5) with row ``kk`` of each instance set to
+        ``row`` (B, 5)."""
+        mask = (kiota[None, :] == kk[:, None])[..., None]
+        return torch.where(mask, row[:, None, :], stat)
+
+    def gate(m, new, old):
+        """Per instance, ``new`` where ``m`` (B,) holds, else ``old`` (two
+        loop states of one NamedTuple type; fields ending in ``L`` are
+        batch-last): a select, never a multiply (a gated-off instance may
+        hold NaN)."""
+        out = []
+        for f, a, b in zip(new._fields, new, old):
+            mm = (m if f.endswith("L")
+                  else m.reshape((-1,) + (1,) * (a.ndim - 1)))
+            out.append(torch.where(mm, a, b))
+        return type(new)(*out)
+
+    ns.finish_alpha_sums = finish_alpha_sums
+    ns.stat_update = stat_update
+    ns.gate = gate
     return ns
 
 
@@ -228,16 +269,6 @@ class _LRes(NamedTuple):
     rd_g: torch.Tensor     # (B, 2NGF)
     rm_g: torch.Tensor     # (B, 2NGF)
     mu: torch.Tensor       # (B,)
-
-
-def _gate(m, new, old):
-    """Per instance, ``new`` where ``m`` (B,) holds, else ``old``: a
-    select, never a multiply (a gated-off instance may hold NaN)."""
-    out = []
-    for f, a, b in zip(new._fields, new, old):
-        mm = m if f.endswith("L") else m.reshape((-1,) + (1,) * (a.ndim - 1))
-        out.append(torch.where(mm, a, b))
-    return type(new)(*out)
 
 
 def _hot_state(state0, qp, cm, ngh, ng_stages, mu_scal, dt) -> _LState:
@@ -337,30 +368,15 @@ def solve_batched_lanes(dims: OCPDims, qp: OCPQP, cfg, z0=None, pi0=None,
     cz_of, fold_g = ngh.cz_of, ngh.fold_g
     cat2 = lambda v: torch.cat([v, v], 1)  # noqa: E731
     empty = torch.zeros(B, 0, dtype=dt, device=dev)
-    kiota = torch.arange(k_max, device=dev)
+    gate = cm.gate
 
     def finish(parts, lam_g, t_g, dtg, dlg):
-        """Reduce a kernel's per-stage (amin, s0, s1, s2) partials over the
-        stages and add the ng rows: (alpha, s0, s1, s2), each (B,)."""
-        amin, s0, s1, s2 = (parts[0].amin(0), parts[1].sum(0),
-                            parts[2].sum(0), parts[3].sum(0))
-        if n_ng:
-            cand = torch.minimum(sm.alpha_cands(lam_g, dlg, mg2),
-                                 sm.alpha_cands(t_g, dtg, mg2))
-            amin = torch.minimum(amin, cand.amin(1))
-            s0 = s0 + (lam_g * t_g * mg2).sum(1)
-            s1 = s1 + (lam_g * dtg + t_g * dlg).sum(1)
-            s2 = s2 + (dlg * dtg).sum(1)
-        return torch.minimum(torch.ones_like(amin), amin), s0, s1, s2
+        return cm.finish_alpha_sums(parts, ngh, lam_g, t_g, dtg, dlg)
 
     def lam_inst_max(lamL, lam_g):
         """Per-instance max |dual| (the dual-explosion guard's measure)."""
         m = lamL.abs().reshape(-1, B).amax(0)
         return torch.maximum(m, lam_g.abs().amax(1)) if n_ng else m
-
-    def stat_update(stat, kk, row):
-        mask = (kiota[None, :] == kk[:, None])[..., None]
-        return torch.where(mask, row[:, None, :], stat)
 
     def ng_barrier(s):
         """(1/t, lam/t, Qx_g, the kernels' ngl stream) of the ng rows at
@@ -456,12 +472,12 @@ def solve_batched_lanes(dims: OCPDims, qp: OCPQP, cfg, z0=None, pi0=None,
         lmx_new = lam_inst_max(cand[2], cand[4])
         s_new = _LState(
             *cand, mu=mu_new, alpha=0.995 * row[:, 3], kk=s.kk + 1,
-            stat=stat_update(s.stat, s.kk, row),
+            stat=cm.stat_update(s.stat, s.kk, row),
             lam_ref=_ipm.anchor_lam_ref(s.lam_ref, mu_new, lmx_new))
         ok = _ipm.step_ok(mu_new, s.mu, lmx_new,
                           lam_inst_max(s.lamL, s.lam_g), s.lam_ref)
         refused = s._replace(alpha=torch.zeros_like(s.alpha))
-        return ok, _gate(ok, s_new, refused)
+        return ok, gate(ok, s_new, refused)
 
     def live_and_gate(s, tol):
         """The loop's one host sync: the live instances (B,) and whether
@@ -529,7 +545,7 @@ def solve_batched_lanes(dims: OCPDims, qp: OCPQP, cfg, z0=None, pi0=None,
         live, any_live, do_ref = live_and_gate(s, mu_tol_low)
         if not any_live:
             break
-        s = _gate(live, phase1_body(s, do_ref), s)
+        s = gate(live, phase1_body(s, do_ref), s)
 
     # ---- residuals (one kernel + the ng rows) ----------------------------
     def residuals(zL, piL, lamL, tL, lam_g, t_g):
@@ -586,14 +602,14 @@ def solve_batched_lanes(dims: OCPDims, qp: OCPQP, cfg, z0=None, pi0=None,
         res_new = residuals(*cand)
         row = torch.stack([sigma, alpha_aff, mu_aff, alpha2, res_new.mu], 1)
         ok, s_new = accept(s, cand, row)
-        return s_new, _gate(ok, res_new, res)
+        return s_new, gate(ok, res_new, res)
 
     while True:
         live, any_live, do_ref = live_and_gate(s, mu_tol)
         if not any_live:
             break
         s_new, res_new = phase2_body(s, res, do_ref)
-        s, res = _gate(live, s_new, s), _gate(live, res_new, res)
+        s, res = gate(live, s_new, s), gate(live, res_new, res)
 
     # ---- status, residual norms, the IPMSolution --------------------------
     status = torch.where(

@@ -130,6 +130,8 @@ def build_all(specs) -> list:
 
 #: the entry points of each library whose entry is not ``hp_<kernel>``
 ENTRIES = {"step_flat": ("prep_flat", "alpha_sums_flat", "corr_geff_flat"),
+           "soft_step_flat": ("soft_prep_flat", "soft_alpha_sums_flat",
+                              "soft_corr_flat"),
            "factor_solve_flat": ("factor_solve_folded_flat",),
            "refine_flat": ("refine_flat_fused",)}
 
@@ -187,11 +189,12 @@ def dtype_code(dt) -> int:
 
 def check_tensors(dev, dt, named: dict, shapes: dict) -> None:
     """Raise unless every tensor in ``named`` lies on ``dev``, has dtype
-    ``dt`` (``idx_tab``: int32), is contiguous and has ``shapes[name]``."""
+    ``dt`` (the index tables ``idx_tab``/``idxs_tab``: int32), is contiguous
+    and has ``shapes[name]``."""
     for name, x in named.items():
         if x.device != dev:
             raise ValueError(f"{name} is on {x.device}, expected {dev}")
-        want_dt = torch.int32 if name == "idx_tab" else dt
+        want_dt = torch.int32 if name in ("idx_tab", "idxs_tab") else dt
         if x.dtype != want_dt:
             raise TypeError(f"{name} has dtype {x.dtype}, expected {want_dt}")
         if not x.is_contiguous():

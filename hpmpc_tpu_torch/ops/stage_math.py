@@ -4,7 +4,9 @@ One function per in-kernel helper of the JAX package, same name without
 the leading underscore: the Riccati stage algebra of
 ``hpmpc_tpu/ops/stage_kernel.py`` (``_chol`` ... ``_folded_bwd_core_fb``)
 and the box step primitives of ``hpmpc_tpu/ops/step_kernel.py``
-(``_t_inv_lamt`` ... ``_corr_co_qx``).  Their CUDA counterparts are the
+(``_t_inv_lamt`` ... ``_corr_co_qx``), and its soft-constraint primitives
+(``_soft_schur`` ... ``_soft_dt_dls``, with the combined box + soft passes
+of the soft kernels).  Their CUDA counterparts are the
 ``__device__`` functions of ``csrc/stage_math.cuh``; the formulas, clamps
 and NaN behaviour match one for one.
 
@@ -253,3 +255,110 @@ def alpha_partials(lam, t, mb, dt, dl):
     cand = torch.minimum(alpha_cands(lam, dl, mb), alpha_cands(t, dt, mb))
     return (cand.amin(1), (lam * t * mb).sum(1),
             (lam * dt + t * dl).sum(1), (dl * dt).sum(1))
+
+
+# ---------------------------------------------------------------------------
+# soft-constraint step primitives (step_kernel.py:547-608, mega_kernel.py
+# :632-673): the 4-slack-family machinery of the single-loop soft IPM,
+# always in the phase-1 (delta) formulation.  Soft vectors are (B, 4NS)
+# ordered [lo; up; s_lo; s_up], the soft constants (B, 6NS) ordered
+# [d_lbs; d_ubs; Z0; Z1; zlin0; zlin1], the mask ``ms`` (B, NS).
+# ---------------------------------------------------------------------------
+
+
+def soft4(a, NS):
+    """The four slack families of a (B, 4NS) soft vector."""
+    return a[:, :NS], a[:, NS:2 * NS], a[:, 2 * NS:3 * NS], a[:, 3 * NS:]
+
+
+def soft_schur(NS, lam_s, t_s, ms, c):
+    """Per-stage soft slack Schur elimination: a dict of every quantity the
+    soft step formulas read.  Every ``where(ms > 0, ...)`` guard stays: a
+    masked slot may hold anything."""
+    dlbs, dubs = c[:, :NS], c[:, NS:2 * NS]
+    Z0, Z1 = c[:, 2 * NS:3 * NS], c[:, 3 * NS:4 * NS]
+    zl0F, zl1F = c[:, 4 * NS:5 * NS], c[:, 5 * NS:]
+    ms4 = torch.cat([ms, ms, ms, ms], 1)
+    rec = 1.0 / torch.where(ms4 > 0, t_s, torch.ones_like(t_s))
+    t_inv_s = rec * ms4
+    lamt_s = lam_s * t_inv_s
+    lts0, lts1, lts2, lts3 = soft4(lamt_s, NS)
+    ls0, ls1, ls2, ls3 = soft4(lam_s, NS)
+    rqx0 = ls0 + lts0 * dlbs
+    rqx1 = ls1 - lts1 * dubs
+    on = ms > 0
+    one, zero = torch.ones_like(ms), torch.zeros_like(ms)
+    Zl0 = torch.where(on, 1.0 / torch.where(on, Z0 + lts0 + lts2, one), zero)
+    Zl1 = torch.where(on, 1.0 / torch.where(on, Z1 + lts1 + lts3, one), zero)
+    return dict(ms4=ms4, t_inv_s=t_inv_s, lamt_s=lamt_s, rQx0=lts0,
+                rQx1=lts1, rqx0=rqx0, rqx1=rqx1, Zl0=Zl0, Zl1=Zl1,
+                zl0=-zl0F + rqx0 + ls2, zl1=-zl1F + rqx1 + ls3, dlbs=dlbs,
+                dubs=dubs)
+
+
+def soft_qx(ms, S):
+    """(Qx_s, qx_s), each (B, NS), from the Schur dict."""
+    rqx0e = S["rqx0"] - S["rQx0"] * S["zl0"] * S["Zl0"]
+    rqx1e = S["rqx1"] - S["rQx1"] * S["zl1"] * S["Zl1"]
+    rQx0e = S["rQx0"] - S["rQx0"] * S["rQx0"] * S["Zl0"]
+    rQx1e = S["rQx1"] - S["rQx1"] * S["rQx1"] * S["Zl1"]
+    return (rQx0e + rQx1e) * ms, (rqx1e - rqx0e) * ms
+
+
+def soft_dt_dls(NS, lam_s, t_s, S, zs, dl0_s, zl0x, zl1x):
+    """Soft (dt, dlam) for the gathered direction values ``zs`` (B, NS)
+    against the current zl pair (affine: zl; corrector: zl + the dl2
+    fold); ``dl0_s`` is 0 (affine) or dl2s (corrector)."""
+    ts0, ts1, ts2, ts3 = soft4(t_s, NS)
+    ds_lo = (zl0x - S["rQx0"] * zs) * S["Zl0"]
+    ds_up = (zl1x + S["rQx1"] * zs) * S["Zl1"]
+    dts = torch.cat([ds_lo + zs - S["dlbs"] - ts0,
+                     ds_up - zs + S["dubs"] - ts1,
+                     ds_lo - ts2, ds_up - ts3], 1) * S["ms4"]
+    dls = (dl0_s - S["lamt_s"] * dts - lam_s) * S["ms4"]
+    return dts, dls
+
+
+def soft_corr_qx(NS, ms, S, dts, dls, sm, exact):
+    """Soft centering correction dl2s = t_inv (sigma mu - dl dt) ms4 and
+    the corrected soft gradient fold: qx_s plus the Schur-folded dl2s
+    correction with ``exact``, qx_s alone without (the reference's dropped
+    correction, ``hpmpc_tpu/models/ipm_soft.py:113-120``); ``sm`` (B,)."""
+    dl2s = S["t_inv_s"] * (sm[:, None] - dls * dts) * S["ms4"]
+    _, qx_s = soft_qx(ms, S)
+    if not exact:
+        return dl2s, qx_s
+    d0, d1, d2, d3 = soft4(dl2s, NS)
+    rqx0c = d0 - S["rQx0"] * (d0 + d2) * S["Zl0"]
+    rqx1c = d1 - S["rQx1"] * (d1 + d3) * S["Zl1"]
+    return dl2s, qx_s + (rqx1c - rqx0c) * ms
+
+
+def soft_alpha_pass(K, NS, lam, t, mb, A, lam_s, t_s, ms, c, zb, zs, dl0b,
+                    dl2s):
+    """The combined box + soft direction and alpha/sums pass of one stage
+    (``_soft_alpha_from_out``): box (dt, dl) of the gathered box values
+    ``zb`` with the centering stream ``dl0b`` (0 in the affine pass), soft
+    (dt, dl) of the gathered soft values ``zs`` against zl, or in the
+    corrector pass (``dl2s`` given) against zl + the dl2s fold, then the
+    fraction-to-boundary minimum and the mu(alpha) partials over both
+    families.  Returns (dtb, dlb, dts, dls, amin, s0, s1, s2)."""
+    dtb, dlb = dt_dlam(K, lam, t, mb, A, zb, dl0b)
+    S = soft_schur(NS, lam_s, t_s, ms, c)
+    zs = zs * ms
+    if dl2s is None:
+        zl0x, zl1x, dl0_s = S["zl0"], S["zl1"], 0.0
+    else:
+        d0, d1, d2, d3 = soft4(dl2s, NS)
+        zl0x, zl1x, dl0_s = S["zl0"] + d0 + d2, S["zl1"] + d1 + d3, dl2s
+    dts, dls = soft_dt_dls(NS, lam_s, t_s, S, zs, dl0_s, zl0x, zl1x)
+    ms4 = S["ms4"]
+    cand = torch.minimum(
+        torch.minimum(alpha_cands(lam, dlb, mb),
+                      alpha_cands(t, dtb, mb)).amin(1),
+        torch.minimum(alpha_cands(lam_s, dls, ms4),
+                      alpha_cands(t_s, dts, ms4)).amin(1))
+    return (dtb, dlb, dts, dls, cand,
+            (lam * t * mb).sum(1) + (lam_s * t_s * ms4).sum(1),
+            (lam * dtb + t * dlb).sum(1) + (lam_s * dts + t_s * dls).sum(1),
+            (dlb * dtb).sum(1) + (dls * dts).sum(1))

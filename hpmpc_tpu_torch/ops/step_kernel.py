@@ -15,8 +15,17 @@ the reference's ``d_aux_ip_hard_lib4.c`` step primitives:
     twin of the reference's ``d_res_res_mpc_hard_tv``.
 
 The first three are one library, ``csrc/step_flat.cu``; ``phase2`` picks
-the box formulas as in :mod:`.mega_kernel`.  The soft variants are not
-ported yet.
+the box formulas as in :mod:`.mega_kernel`.  Their soft twins, the step
+passes of the soft lanes engine's 6-kernel loop (the reference's
+``d_aux_ip_soft_lib4.c`` primitives, always in the phase-1 formulas), are
+the library ``csrc/soft_step_flat.cu``:
+
+  * :func:`soft_prep_flat` (TPU body ``_soft_prep_kernel``) — box fold +
+    soft slack Schur elimination, both scattered;
+  * :func:`soft_alpha_sums_flat` (``_soft_alpha_kernel``) — box and soft
+    directions, alpha minimum and mu partials, affine or corrector;
+  * :func:`soft_corr_flat` (``_soft_corr_kernel``) — both families'
+    centering corrections and the second effective gradient, ``exact``.
 
 Layout (see :mod:`.layout`): every stream is batch-last, ``(N+1, k, B)``
 for per-stage streams, ``(N, k, B)`` for the N-stage ones (F, b, pi,
@@ -249,6 +258,242 @@ def corr_geff_flat(idx_tab, lam, t, A, M, dtb, dlb, smv, base, mb, *, NB,
     _launch_step("corr_geff_flat", _CorrArgs, named, shapes, (geff, co),
                  phase2, NB, NZ)
     return geff, co
+
+
+# ---------------------------------------------------------------------------
+# soft-constraint step passes (csrc/soft_step_flat.cu), the 6-kernel loop of
+# the soft lanes engine: single-loop, phase-1 (delta) box formulas only
+# ---------------------------------------------------------------------------
+
+#: launches of each soft_step_flat kernel in this process
+SOFT_LAUNCHES = {"soft_prep_flat": 0, "soft_alpha_sums_flat": 0,
+                 "soft_corr_flat": 0}
+#: calls of each soft_step_flat wrapper that ran the plain version
+SOFT_PLAIN_CALLS = {"soft_prep_flat": 0, "soft_alpha_sums_flat": 0,
+                    "soft_corr_flat": 0}
+
+
+class _SoftPrepArgs(ctypes.Structure):
+    # mirrors struct SoftPrepArgs in csrc/soft_step_flat.cu
+    _fields_ = [(n, ctypes.c_void_p) for n in (
+        "idxb", "idxs", "lam", "t", "A", "mb", "lam_s", "t_s", "soft_c",
+        "ms", "base", "pdreg", "dvec", "geff")] + [
+        ("B", ctypes.c_int64), ("N", ctypes.c_int64), ("flag", ctypes.c_int64)]
+
+
+class _SoftAlphaArgs(ctypes.Structure):
+    # mirrors struct SoftAlphaArgs in csrc/soft_step_flat.cu
+    _fields_ = [(n, ctypes.c_void_p) for n in (
+        "idxb", "idxs", "dz", "lam", "t", "A", "mb", "lam_s", "t_s",
+        "soft_c", "ms", "dl0b", "dl2s", "dtb", "dlb", "dts", "dls", "amin",
+        "s0", "s1", "s2")] + [
+        ("B", ctypes.c_int64), ("N", ctypes.c_int64), ("flag", ctypes.c_int64)]
+
+
+class _SoftCorrArgs(ctypes.Structure):
+    # mirrors struct SoftCorrArgs in csrc/soft_step_flat.cu
+    _fields_ = [(n, ctypes.c_void_p) for n in (
+        "idxb", "idxs", "lam", "t", "A", "mb", "lam_s", "t_s", "soft_c",
+        "ms", "dtb", "dlb", "dts", "dls", "sm", "base", "geff", "dl2b",
+        "dl2s")] + [
+        ("B", ctypes.c_int64), ("N", ctypes.c_int64), ("flag", ctypes.c_int64)]
+
+
+def _soft_streams(idx_tab, idxs_tab, lam, t, A, mb, lam_s, t_s, soft_c, ms):
+    """The box and soft streams of a soft pass, batch-first, and the two
+    index tables as int64."""
+    return ((idx_tab.long(), idxs_tab.long())
+            + tuple(from_lanes(x) for x in (lam, t, A, mb, lam_s, t_s,
+                                            soft_c, ms)))
+
+
+def soft_prep_flat_ref(idx_tab, idxs_tab, lam, t, A, mb, lam_s, t_s, soft_c,
+                       ms, base, pdreg, *, NB, NS, NZ):
+    """Plain PyTorch version of :func:`soft_prep_flat`: per stage, the box
+    fold and the soft Schur fold scattered onto ``pdreg`` and ``base``."""
+    idx, idxs, lamb, tb, Ab, mbb, lsb, tsb, cb, msb = _soft_streams(
+        idx_tab, idxs_tab, lam, t, A, mb, lam_s, t_s, soft_c, ms)
+    gb, pdb = from_lanes(base), from_lanes(pdreg)
+    dvec, geff = torch.empty_like(pdb), torch.empty_like(gb)
+    for n in range(lamb.shape[1]):
+        Qx, qx = sm.qx_fold(NB, lamb[:, n], tb[:, n], mbb[:, n], Ab[:, n])
+        S = sm.soft_schur(NS, lsb[:, n], tsb[:, n], msb[:, n], cb[:, n])
+        Qs, qs = sm.soft_qx(msb[:, n], S)
+        dvec[:, n] = sm.scatter_add_box(
+            sm.scatter_add_box(pdb[:, n], idx[n], Qx), idxs[n], Qs)
+        geff[:, n] = sm.scatter_add_box(
+            sm.scatter_add_box(gb[:, n], idx[n], qx), idxs[n], qs)
+    return to_lanes(dvec), to_lanes(geff)
+
+
+def soft_alpha_sums_flat_ref(idx_tab, idxs_tab, dz, lam, t, A, mb, lam_s,
+                             t_s, soft_c, ms, dl0b, dl2s, *, NB, NS, NZ,
+                             corrector):
+    """Plain PyTorch version of :func:`soft_alpha_sums_flat`."""
+    idx, idxs, lamb, tb, Ab, mbb, lsb, tsb, cb, msb = _soft_streams(
+        idx_tab, idxs_tab, lam, t, A, mb, lam_s, t_s, soft_c, ms)
+    dzb = from_lanes(dz)
+    d0b = from_lanes(dl0b) if corrector else None
+    d2s = from_lanes(dl2s) if corrector else None
+    dtb, dlb = torch.empty_like(lamb), torch.empty_like(lamb)
+    dts, dls = torch.empty_like(lsb), torch.empty_like(lsb)
+    parts = lamb.new_empty(4, lamb.shape[0], lamb.shape[1])
+    for n in range(lamb.shape[1]):
+        out = sm.soft_alpha_pass(
+            NB, NS, lamb[:, n], tb[:, n], mbb[:, n], Ab[:, n], lsb[:, n],
+            tsb[:, n], msb[:, n], cb[:, n], sm.gather_box(dzb[:, n], idx[n]),
+            sm.gather_box(dzb[:, n], idxs[n]),
+            d0b[:, n] if corrector else 0.0,
+            d2s[:, n] if corrector else None)
+        dtb[:, n], dlb[:, n], dts[:, n], dls[:, n] = out[:4]
+        for i, p in enumerate(out[4:]):
+            parts[i, :, n] = p
+    amin, s0, s1, s2 = parts.movedim(1, -1).contiguous().unbind(0)
+    return (to_lanes(dtb), to_lanes(dlb), to_lanes(dts), to_lanes(dls),
+            amin, s0, s1, s2)
+
+
+def soft_corr_flat_ref(idx_tab, idxs_tab, lam, t, A, mb, lam_s, t_s, soft_c,
+                       ms, dtb, dlb, dts, dls, smv, base, *, NB, NS, NZ,
+                       exact):
+    """Plain PyTorch version of :func:`soft_corr_flat`."""
+    idx, idxs, lamb, tb, Ab, mbb, lsb, tsb, cb, msb = _soft_streams(
+        idx_tab, idxs_tab, lam, t, A, mb, lam_s, t_s, soft_c, ms)
+    dtab, dlab, dtsb, dlsb, gb = (from_lanes(x)
+                                  for x in (dtb, dlb, dts, dls, base))
+    geff = torch.empty_like(gb)
+    dl2b, dl2s = torch.empty_like(lamb), torch.empty_like(lsb)
+    for n in range(lamb.shape[1]):
+        dl2b[:, n], qx = sm.corr_co_qx(NB, lamb[:, n], tb[:, n], mbb[:, n],
+                                       Ab[:, n], dtab[:, n], dlab[:, n], smv)
+        S = sm.soft_schur(NS, lsb[:, n], tsb[:, n], msb[:, n], cb[:, n])
+        dl2s[:, n], qs = sm.soft_corr_qx(NS, msb[:, n], S, dtsb[:, n],
+                                         dlsb[:, n], smv, exact)
+        geff[:, n] = sm.scatter_add_box(
+            sm.scatter_add_box(gb[:, n], idx[n], qx), idxs[n], qs)
+    return to_lanes(geff), to_lanes(dl2b), to_lanes(dl2s)
+
+
+def _soft_step_device(name, lam):
+    """The CPU/CUDA switch of the soft step wrappers: True for the plain
+    version (counted), False for the kernel; raises on another device."""
+    if lam.device.type == "cpu":
+        SOFT_PLAIN_CALLS[name] += 1
+        return True
+    if lam.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {lam.device}")
+    return False
+
+
+def _soft_shapes(lam, NB, NS, NZ):
+    """The shapes of the streams a soft pass takes (N+1 stages, B
+    instances)."""
+    Np1, B = lam.shape[0], lam.shape[-1]
+    box, s4 = (Np1, 2 * NB, B), (Np1, 4 * NS, B)
+    return dict(idx_tab=(Np1, NB), idxs_tab=(Np1, NS), lam=box, t=box, A=box,
+                mb=box, lam_s=s4, t_s=s4, soft_c=(Np1, 6 * NS, B),
+                ms=(Np1, NS, B), base=(Np1, NZ, B), pdreg=(Np1, NZ, B),
+                dz=(Np1, NZ, B), dl0b=box, dl2s=s4, dtb=box, dlb=box, dts=s4,
+                dls=s4, smv=(B,))
+
+
+def _launch_soft(name, args_t, named, outs, flag, NB, NS, NZ):
+    """Checks, build and launch shared by the soft step wrappers (None
+    inputs are passed as NULL)."""
+    lam = named["lam"]
+    _build.check_tensors(lam.device, lam.dtype,
+                         {k: v for k, v in named.items() if v is not None},
+                         _soft_shapes(lam, NB, NS, NZ))
+    Np1, B = lam.shape[0], lam.shape[-1]
+    a = args_t(*[_build.ptr(x) for x in (*named.values(), *outs)],
+               B, Np1 - 1, int(flag))
+    _build.launch("soft_step_flat", name, a, lam.device, lam.dtype, NZ=NZ,
+                  NB=NB, NS=NS)
+    SOFT_LAUNCHES[name] += 1
+
+
+def soft_prep_flat(idx_tab, idxs_tab, lam, t, A, mb, lam_s, t_s, soft_c, ms,
+                   base, pdreg, *, NB, NS, NZ):
+    """Soft-IPM barrier Hessian diagonal + effective gradient, one pass:
+    the box fold and the soft slack Schur fold, both scattered.
+
+    Box streams ``lam``/``t``/``A`` (= d_cat)/``mb`` (N+1, 2NB, B), soft
+    streams ``lam_s``/``t_s`` (N+1, 4NS, B), the packed constants
+    ``soft_c`` (N+1, 6NS, B) and mask ``ms`` (N+1, NS, B), ``base``/
+    ``pdreg`` (N+1, NZ, B), the index tables ``idx_tab`` (N+1, NB) and
+    ``idxs_tab`` (N+1, NS) int32 (padded-z coordinates; padded slots point
+    at 0 under a zero mask).  Returns ``(dvec, geff)``, each (N+1, NZ, B).
+
+    CPU tensors run :func:`soft_prep_flat_ref`; CUDA tensors launch
+    ``csrc/soft_step_flat.cu`` on the current stream (no sync)."""
+    ins = (idx_tab, idxs_tab, lam, t, A, mb, lam_s, t_s, soft_c, ms, base,
+           pdreg)
+    if _soft_step_device("soft_prep_flat", lam):
+        return soft_prep_flat_ref(*ins, NB=NB, NS=NS, NZ=NZ)
+    named = dict(zip(("idx_tab", "idxs_tab", "lam", "t", "A", "mb", "lam_s",
+                      "t_s", "soft_c", "ms", "base", "pdreg"), ins))
+    dvec, geff = torch.empty(2, *base.shape, dtype=lam.dtype,
+                             device=lam.device).unbind(0)
+    _launch_soft("soft_prep_flat", _SoftPrepArgs, named, (dvec, geff), 0,
+                 NB, NS, NZ)
+    return dvec, geff
+
+
+def soft_alpha_sums_flat(idx_tab, idxs_tab, dz, lam, t, A, mb, lam_s, t_s,
+                         soft_c, ms, dl0b, dl2s, *, NB, NS, NZ, corrector):
+    """Box + soft directions of the z direction ``dz`` (N+1, NZ, B), the
+    per-stage fraction-to-boundary minimum and the mu(alpha) partials over
+    both families.  The corrector pass (``corrector``) takes the centering
+    corrections ``dl0b`` (N+1, 2NB, B) and ``dl2s`` (N+1, 4NS, B) of
+    :func:`soft_corr_flat`; the affine pass takes None for both.  Returns
+    ``(dtb, dlb, dts, dls, amin, s0, s1, s2)``.
+
+    CPU tensors run :func:`soft_alpha_sums_flat_ref`; CUDA tensors launch
+    ``csrc/soft_step_flat.cu`` (no sync)."""
+    if corrector != (dl0b is not None) or corrector != (dl2s is not None):
+        raise ValueError("soft_alpha_sums_flat: dl0b and dl2s are the "
+                         "corrector pass's inputs, and only its")
+    ins = (idx_tab, idxs_tab, dz, lam, t, A, mb, lam_s, t_s, soft_c, ms,
+           dl0b, dl2s)
+    if _soft_step_device("soft_alpha_sums_flat", lam):
+        return soft_alpha_sums_flat_ref(*ins, NB=NB, NS=NS, NZ=NZ,
+                                        corrector=corrector)
+    named = dict(zip(("idx_tab", "idxs_tab", "dz", "lam", "t", "A", "mb",
+                      "lam_s", "t_s", "soft_c", "ms", "dl0b", "dl2s"), ins))
+    new = lambda *s: torch.empty(*s, dtype=lam.dtype,  # noqa: E731
+                                 device=lam.device)
+    dtb, dlb = new(2, *lam.shape).unbind(0)
+    dts, dls = new(2, *lam_s.shape).unbind(0)
+    amin, s0, s1, s2 = new(4, lam.shape[0], lam.shape[-1]).unbind(0)
+    _launch_soft("soft_alpha_sums_flat", _SoftAlphaArgs, named,
+                 (dtb, dlb, dts, dls, amin, s0, s1, s2), corrector, NB, NS,
+                 NZ)
+    return dtb, dlb, dts, dls, amin, s0, s1, s2
+
+
+def soft_corr_flat(idx_tab, idxs_tab, lam, t, A, mb, lam_s, t_s, soft_c, ms,
+                   dtb, dlb, dts, dls, smv, base, *, NB, NS, NZ, exact):
+    """Soft corrector gradient pass: the centering corrections of both
+    families and the second effective gradient.  ``dtb``/``dlb``/``dts``/
+    ``dls`` are the affine directions, ``smv`` (B,) sigma*mu; ``exact``
+    keeps the Schur-folded soft correction of the gradient (False: the
+    reference's dropped correction).  Returns ``(geff2, dl2b, dl2s)``.
+
+    CPU tensors run :func:`soft_corr_flat_ref`; CUDA tensors launch
+    ``csrc/soft_step_flat.cu`` (no sync)."""
+    ins = (idx_tab, idxs_tab, lam, t, A, mb, lam_s, t_s, soft_c, ms, dtb,
+           dlb, dts, dls, smv, base)
+    if _soft_step_device("soft_corr_flat", lam):
+        return soft_corr_flat_ref(*ins, NB=NB, NS=NS, NZ=NZ, exact=exact)
+    named = dict(zip(("idx_tab", "idxs_tab", "lam", "t", "A", "mb", "lam_s",
+                      "t_s", "soft_c", "ms", "dtb", "dlb", "dts", "dls",
+                      "smv", "base"), ins))
+    new = lambda *s: torch.empty(*s, dtype=lam.dtype,  # noqa: E731
+                                 device=lam.device)
+    geff, dl2b, dl2s = new(*base.shape), new(*lam.shape), new(*lam_s.shape)
+    _launch_soft("soft_corr_flat", _SoftCorrArgs, named, (geff, dl2b, dl2s),
+                 exact, NB, NS, NZ)
+    return geff, dl2b, dl2s
 
 
 class _ResidArgs(ctypes.Structure):

@@ -5,7 +5,8 @@ The batch is a first-class leading axis on every QP leaf.
 :func:`select_engine` keeps the JAX package's rule and engine names, minus
 the gates that are TPU measurements (the ``B % 1024`` block, the VMEM fit
 gates, the NZ 19..22 mega fence; nothing here chunks at 4096 either).
-The ``"resident"``, ``"lanes"`` and the two two-stage engines are ported;
+The ``"resident"``, ``"lanes"`` and the two two-stage engines are ported,
+and on the soft path (:func:`solve_batched_soft`) ``"soft_lanes"``;
 every other engine raises ``NotImplementedError`` naming its ROADMAP item
 instead of quietly running something else.
 """
@@ -99,6 +100,65 @@ def solve_batched(dims: OCPDims, qp: OCPQP, cfg: ipm.IPMConfig,
         return _solve_two_stage(dims, qp, cfg, engine, z0, pi0)
     raise NotImplementedError(
         f"engine {engine!r} is not ported yet: ROADMAP {_NOT_PORTED[engine]}")
+
+
+#: ROADMAP.md item that ports each soft engine not available yet
+_SOFT_NOT_PORTED = {
+    "soft_resident": "Queue 2 row 1s (the soft resident kernel)",
+    "soft_flat": "Queue 1 #7 (ipm_soft_fast folds into the lanes engine)",
+    "soft_structured": "Queue 1 #10 (the structured soft ipm_soft.solve)",
+}
+
+
+def broadcast_soft(soft, batch: int):
+    """Tile one :class:`~..models.ipm_soft.SoftSpec` into a batch (leading
+    axis; views, no copies)."""
+    return type(soft)(*[x.expand((batch,) + tuple(x.shape)) for x in soft])
+
+
+def select_soft_engine(dims: OCPDims, cfg: ipm.IPMConfig, dtype, NS: int,
+                       idxbs) -> str:
+    """The soft-path dispatch rule of
+    :func:`hpmpc_tpu.parallel.batch.solve_batched_soft`, minus the TPU
+    gates (the ``B % 1024`` block and the VMEM fit gates):
+    ``"soft_resident"`` (opt-in, ``HPMPC_RESIDENT=1``), ``"soft_lanes"``,
+    ``"soft_flat"`` or ``"soft_structured"``.  ``HPMPC_LANES_LOOP=0``
+    (without ``HPMPC_MEGA_SWEEPS=1``) leaves the lanes engine."""
+    if not (cfg.use_pallas and dims.idxb is not None and idxbs is not None):
+        return "soft_structured"
+    soft_f32 = dims.NB > 0 and NS > 0 and dtype == torch.float32
+    if (os.environ.get("HPMPC_RESIDENT") == "1" and soft_f32
+            and int(cfg.iter_ref) == 0):
+        return "soft_resident"
+    if ((os.environ.get("HPMPC_LANES_LOOP", "1") == "1"
+         or os.environ.get("HPMPC_MEGA_SWEEPS", "0") == "1") and soft_f32):
+        return "soft_lanes"
+    return "soft_flat"
+
+
+def solve_batched_soft(dims: OCPDims, qp: OCPQP, soft, cfg: ipm.IPMConfig,
+                       idxbs=None, exact_mehrotra_soft: bool = True):
+    """Solve a batch of soft-constrained QPs (leading instance axis on
+    every leaf of ``qp`` and ``soft``) with the engine
+    :func:`select_soft_engine` picks; returns a
+    :class:`~..models.ipm_soft.SoftSolution`.
+
+    ``idxbs``: the static (N+1, NS) padded-z soft coordinates shared by
+    every instance (the soft analogue of ``dims.idxb``).  The
+    ``"soft_lanes"`` engine is ported; the others raise
+    ``NotImplementedError`` naming their ROADMAP item."""
+    NS = soft.ns_mask.shape[-1]
+    engine = select_soft_engine(dims, cfg, qp.dtype, NS, idxbs)
+    if engine != "soft_lanes":
+        raise NotImplementedError(
+            f"soft engine {engine!r} is not ported yet: ROADMAP "
+            f"{_SOFT_NOT_PORTED[engine]}")
+    from ..models import ipm_soft_lanes
+
+    idxbs_t = tuple(tuple(int(i) for i in row) for row in idxbs)
+    return ipm_soft_lanes.solve_batched_soft_lanes(
+        dims, qp, soft, cfg, idxbs_t,
+        exact_mehrotra_soft=exact_mehrotra_soft)
 
 
 def _solve_two_stage(dims, qp, cfg, engine, z0, pi0) -> ipm.IPMSolution:

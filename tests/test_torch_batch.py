@@ -43,11 +43,13 @@ def _np(x):
 
 
 def test_solve_batched_matches_jax(interpret_pallas, monkeypatch):
-    """f32 box-only N=4: both packages' library entry point on the
-    resident route, at tests/test_resident.py's tolerances."""
+    """f32 box-only, the 2-mass chain (nx=4, nu=2, N=3): both packages'
+    library entry point on the resident route, at tests/test_resident.py's
+    tolerances.  The width keeps the interpret-mode compilation of the JAX
+    resident kernel short (see tests/test_torch_resident.py (a))."""
     monkeypatch.setenv("HPMPC_RESIDENT", "1")
     B = 1024
-    dims, qp_j = j_mass_spring(8, 3, 4, dtype=jnp.float32)
+    dims, qp_j = j_mass_spring(4, 2, 3, dtype=jnp.float32)
     qpb = jbatch.broadcast_qp(qp_j, B)
     rng = np.random.default_rng(0)
     qpb = dataclasses.replace(

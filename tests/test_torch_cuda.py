@@ -15,14 +15,17 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from hpmpc_tpu_torch.models import ipm_lanes, ipm_resident  # noqa: E402
+from hpmpc_tpu_torch.models import (  # noqa: E402
+    ipm_lanes, ipm_resident, ipm_soft, ipm_soft_lanes)
 from hpmpc_tpu_torch.models.ipm import IPMConfig  # noqa: E402
+from hpmpc_tpu_torch.ocp import OCPDims  # noqa: E402
 from hpmpc_tpu_torch.ops import mega_kernel as mk  # noqa: E402
 from hpmpc_tpu_torch.ops import resident_kernel as rk  # noqa: E402
 from hpmpc_tpu_torch.ops import stage_kernel as sk  # noqa: E402
 from hpmpc_tpu_torch.ops import step_kernel as stk  # noqa: E402
 from hpmpc_tpu_torch.parallel import batch as pbatch  # noqa: E402
-from hpmpc_tpu_torch.utils.mass_spring import mass_spring_qp  # noqa: E402
+from hpmpc_tpu_torch.utils.mass_spring import (  # noqa: E402
+    mass_spring_qp, mass_spring_soft_qp)
 
 pytestmark = pytest.mark.cuda
 
@@ -328,6 +331,147 @@ def test_parity_route_on_card(cuda):
     err_raw = float((raw.z[..., :3].double() - s64.z[..., :3]).abs().max())
     assert err <= 1e-6, err
     assert err < err_raw, (err, err_raw)
+
+
+_SOFT_MEGA = [(mk, "factor_solve_soft_mega"), (mk, "solve_soft_mega")]
+_SOFT_STEP = [(stk, n) for n in ("soft_prep_flat", "soft_alpha_sums_flat",
+                                 "soft_corr_flat")]
+
+
+def _soft_batch(dev, dtype, N, ng, B):
+    """The reference's soft problem (mass_spring_soft_qp(8, 3, N, Z=10)),
+    ``g`` scaled per instance; with ``ng`` one general row on stages 2
+    and N (tests/test_ipm_soft_lanes.py's ng problem)."""
+    dims, qp, soft = mass_spring_soft_qp(8, 3, N, Z=10.0, dtype=dtype,
+                                         device=dev)
+    if ng:
+        ngv = [0] * (N + 1)
+        ngv[2] = ngv[N] = 1
+        dims = OCPDims.create(N, dims.nx, dims.nu, dims.nb, ngv,
+                              idxb=dims.idxb)
+        C = torch.zeros(N + 1, 1, dims.NZ, dtype=dtype, device=dev)
+        d_lg = torch.zeros(N + 1, 1, dtype=dtype, device=dev)
+        for n in (2, N):
+            C[n, 0, dims.NU:] = 0.25
+            d_lg[n, 0] = -1.0
+        qp = dataclasses.replace(
+            qp, C=C, d_lg=d_lg, d_ug=-d_lg,
+            ng_mask=torch.as_tensor(dims.ng_mask(), dtype=dtype, device=dev))
+    qpb = pbatch.broadcast_qp(qp, B)
+    rng = np.random.default_rng(0)
+    sc = torch.as_tensor(1 + 0.02 * rng.standard_normal(B), dtype=dtype,
+                         device=dev)
+    return (dims, dataclasses.replace(qpb, g=qpb.g * sc[:, None, None]),
+            pbatch.broadcast_soft(soft, B), soft.idxbs.cpu().numpy())
+
+
+def _soft_capture(monkeypatch, batch, cfg, targets, exact):
+    """Arguments of the first call of each soft wrapper of ``targets`` in
+    one soft lanes solve: {(name, corrector): (args, kwargs)}."""
+    calls = {}
+    for mod, name in targets:
+        def spy(*a, _name=name, _fn=getattr(mod, name), **k):
+            calls.setdefault((_name, bool(k.get("corrector"))), (a, k))
+            return _fn(*a, **k)
+
+        monkeypatch.setattr(mod, name, spy)
+    dims, qpb, sb, idxbs = batch
+    ipm_soft_lanes.solve_batched_soft_lanes(dims, qpb, sb, cfg, idxbs,
+                                            exact_mehrotra_soft=exact)
+    monkeypatch.undo()
+    return calls
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("ng", [False, True])
+@pytest.mark.parametrize("exact", [True, False])
+def test_soft_kernels_match_plain(cuda, monkeypatch, dtype, ng, exact):
+    """Each soft kernel (rows 21, 22, 6, 7, 8) on the arguments of the soft
+    engine's first call of it (the initial iterate; the 6-kernel loop with
+    HPMPC_MEGA_SWEEPS=0), B=37; one call, so the mega kernels' tolerance."""
+    batch = _soft_batch(cuda, dtype, 5, ng, 37)
+    cfg = IPMConfig(k_max=1, mu0=100.0, use_pallas=True)
+    calls = _soft_capture(monkeypatch, batch, cfg, _SOFT_MEGA, exact)
+    monkeypatch.setenv("HPMPC_MEGA_SWEEPS", "0")
+    calls.update(_soft_capture(monkeypatch, batch, cfg, _SOFT_STEP, exact))
+    assert len(calls) == 6, sorted(calls)
+    for (name, _), (a, k) in sorted(calls.items()):
+        mod = mk if name.endswith("mega") else stk
+        n0 = mod.SOFT_LAUNCHES[name]
+        out_k = _flat(getattr(mod, name)(*a, **k))
+        torch.cuda.synchronize()
+        assert mod.SOFT_LAUNCHES[name] == n0 + 1, name
+        out_p = _flat(getattr(mod, name + "_ref")(*a, **k))
+        assert len(out_k) == len(out_p), name
+        for i, (x, y) in enumerate(zip(out_k, out_p)):
+            assert bool(torch.isfinite(x).all()), (name, i)
+            scale = max(1.0, float(y.abs().max()))
+            assert float((x - y).abs().max()) <= _MEGA_TOL[dtype] * scale, (
+                name, i)
+
+
+@pytest.mark.parametrize("mega", ["1", "0"])
+def test_soft_route_on_card_matches_cpu(cuda, monkeypatch, mega):
+    """solve_batched_soft on the card (f32 -> the soft lanes engine, both
+    routes) vs the same call on the CPU (plain versions), the ng problem:
+    kk equal, fields within 2e-3 of their scale (f32 roundoff of two
+    summation orders through 4 iterations); then the f64 engine on the
+    card converges and its soft residuals are small (f64 oracle)."""
+    monkeypatch.setenv("HPMPC_MEGA_SWEEPS", mega)
+    dims, qpb, sb, idxbs = _soft_batch(cuda, torch.float32, 5, True, 40)
+    cfg = IPMConfig(k_max=4, mu0=100.0, mu_tol=1e-5, use_pallas=True)
+    n0 = {**mk.SOFT_LAUNCHES, **stk.SOFT_LAUNCHES}
+    sol_g = pbatch.solve_batched_soft(dims, qpb, sb, cfg, idxbs=idxbs)
+    n1 = {**mk.SOFT_LAUNCHES, **stk.SOFT_LAUNCHES}
+    ran = {k for k in n0 if n1[k] > n0[k]}
+    assert ran == ({"factor_solve_soft_mega", "solve_soft_mega"}
+                   if mega == "1" else set(stk.SOFT_LAUNCHES)), ran
+    sol_c = pbatch.solve_batched_soft(
+        dims, qpb.to("cpu"), type(sb)(*[x.cpu() for x in sb]), cfg,
+        idxbs=idxbs)
+    assert torch.equal(sol_g.kk.cpu(), sol_c.kk)
+    for f in ("z", "pi", "lam_b", "t_b", "lam_g", "t_g", "lam_s", "t_s",
+              "stat"):
+        g, c = getattr(sol_g, f).cpu(), getattr(sol_c, f)
+        scale = max(1.0, float(c.abs().max()))
+        assert float((g - c).abs().max()) <= 2e-3 * scale, f
+    dims, qpb, sb, idxbs = _soft_batch(cuda, torch.float64, 5, True, 40)
+    sol = ipm_soft_lanes.solve_batched_soft_lanes(
+        dims, qpb, sb, IPMConfig(k_max=30, mu0=100.0, use_pallas=True),
+        idxbs)
+    assert bool((sol.status == 0).all())
+    res = ipm_soft.compute_residuals(dims, qpb, sb, sol)
+    assert float(res.mu.max()) <= 1e-8
+    for f in ("rb", "rd_b", "rd_g", "rd_s"):
+        assert float(getattr(res, f).abs().max()) <= 1e-6, f
+
+
+def test_soft_wrappers_reject_bad_inputs(cuda, monkeypatch):
+    batch = _soft_batch(cuda, torch.float32, 5, True, 16)
+    cfg = IPMConfig(k_max=1, mu0=100.0, use_pallas=True)
+    calls = _soft_capture(monkeypatch, batch, cfg, _SOFT_MEGA, True)
+    monkeypatch.setenv("HPMPC_MEGA_SWEEPS", "0")
+    calls.update(_soft_capture(monkeypatch, batch, cfg, _SOFT_STEP, True))
+    for (name, _), (a, k) in sorted(calls.items()):
+        fn = getattr(mk if name.endswith("mega") else stk, name)
+        # lam follows fstate / dz in these two
+        i = 3 if name in ("solve_soft_mega", "soft_alpha_sums_flat") else 2
+        bad = list(a)
+        bad[i] = a[i].double()                          # another dtype
+        with pytest.raises(TypeError):
+            fn(*bad, **k)
+        bad = list(a)
+        bad[i] = a[i][..., :8].contiguous()             # batch
+        with pytest.raises(ValueError):
+            fn(*bad, **k)
+        bad = list(a)
+        bad[1] = a[1].long()                            # soft index table
+        with pytest.raises(TypeError):
+            fn(*bad, **k)
+        bad = list(a)
+        bad[i + 1] = a[i + 1].cpu()                     # t on another device
+        with pytest.raises(ValueError):
+            fn(*bad, **k)
 
 
 def test_six_kernel_wrappers_reject_bad_inputs(cuda, monkeypatch):

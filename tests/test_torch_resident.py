@@ -45,10 +45,10 @@ def interpret_pallas(monkeypatch):
     yield
 
 
-def _twin_batch(N, B, ngN, jdt, tdt):
+def _twin_batch(N, B, ngN, jdt, tdt, nx=8, nu=3):
     """The same perturbed batch for both packages: (dims, jax qp, port qp)."""
-    _, qp_j = j_mass_spring(8, 3, N, ngN=ngN, dtype=jdt)
-    dims, _ = mass_spring_qp(8, 3, N, ngN=ngN, device="cpu")
+    _, qp_j = j_mass_spring(nx, nu, N, ngN=ngN, dtype=jdt)
+    dims, _ = mass_spring_qp(nx, nu, N, ngN=ngN, device="cpu")
     qpb = jbatch.broadcast_qp(qp_j, B)
     rng = np.random.default_rng(0)
     qpb = dataclasses.replace(
@@ -69,12 +69,17 @@ def _np(x):
 
 
 def test_resident_f32_ng_matches_jax_resident(interpret_pallas):
-    """(a): interpret-mode JAX resident kernel vs the port, f32, ngN=4."""
+    """(a): interpret-mode JAX resident kernel vs the port, f32, with the
+    terminal equality block (ngN=2), on the 2-mass chain (nx=4, nu=2,
+    N=6, feasible): the interpret-mode compilation of the resident kernel
+    grows with the unrolled stage width far more than with the horizon,
+    and the code paths are the same at any width."""
     import os
 
     from hpmpc_tpu.models import ipm_resident as j_resident
 
-    dims, qpb, qpt = _twin_batch(4, 1024, 4, jnp.float32, torch.float32)
+    dims, qpb, qpt = _twin_batch(6, 1024, 2, jnp.float32, torch.float32,
+                                 nx=4, nu=2)
     cfg_j = jipm.IPMConfig(k_max=3, mu_tol=1e-4, use_pallas=True)
     assert os.environ.get("JAX_PLATFORMS") == "cpu"
     sol_j = jax.jit(

@@ -3,10 +3,12 @@
 PyTorch port vs the JAX package's Pallas kernels in interpret mode.
 
 On the CPU the port's wrappers run their plain versions (counted in
-``PLAIN_CALLS``).  Inputs: tests/test_torch_mega.py's tiny problem shape
-(B=1024, N=3, NZ=5, NU=2, NX=3) built in numpy from a seed, without and
-with general constraints (NG=2 rows on stages 1 and N; float32 with them
-only, float64 both ways): SPD stage
+``PLAIN_CALLS``).  Inputs: one 1024-lane block, N=3, the narrowest stage
+that has both an input and a state block coupled through F (NZ=3: NU=1,
+NX=2; the interpret-mode compilation of the sweeps grows with the
+unrolled stage width), built in numpy from a seed, without and with
+general constraints (NG=2 rows on stages 1 and N; float32 with them only,
+float64 both ways): SPD stage
 Hessians, a positive barrier diagonal, the packed C' diag(Qx_g) C term of
 the same C and Qx_g that the refinement pass takes.  The re-solve and the
 refinement pass run on the JAX factorization's factor state (handed to
@@ -33,7 +35,7 @@ from hpmpc_tpu_torch.ops.layout import sym_compress, to_lanes  # noqa: E402
 
 torch.set_num_threads(1)
 
-B, NP1, NZ, NU, NX, NG = 1024, 4, 5, 2, 3, 2
+B, NP1, NZ, NU, NX, NG = 1024, 4, 3, 1, 2, 2
 N = NP1 - 1
 NT = NZ * (NZ + 1) // 2
 DIMS = dict(NU=NU, NZ=NZ, NX=NX)

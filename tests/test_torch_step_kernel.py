@@ -2,8 +2,9 @@
 
 ``resid_full`` (on the CPU: its plain version ``resid_full_ref``) against
 the JAX ``resid_full_flat`` Pallas kernel run in interpret mode, float64,
-N=4 (5 grid steps), on a mid-solve iterate — the port's own resident
-solve stopped after two iterations.  Plus the per-stage helpers of
+on the 2-mass chain (nx=4, nu=2; its interpret-mode compilation grows with
+the unrolled stage width), N=3 (4 grid steps), on a mid-solve iterate —
+the port's own resident solve stopped after two iterations.  Plus the per-stage helpers of
 ``ops/stage_math.py`` against numpy."""
 
 import dataclasses
@@ -52,7 +53,7 @@ def _lanes(x):
 
 
 def test_resid_full_matches_jax(interpret_pallas):
-    dims, qp_j = j_mass_spring(8, 3, 4, dtype=jnp.float64)
+    dims, qp_j = j_mass_spring(4, 2, 3, dtype=jnp.float64)
     qpb = jbatch.broadcast_qp(qp_j, B)
     rng = np.random.default_rng(0)
     qpb = dataclasses.replace(
