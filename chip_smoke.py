@@ -42,7 +42,17 @@ solve_batched`` (the f64 lanes runs call the engine directly):
     6-kernel loop (``HPMPC_MEGA_SWEEPS=0``: ``soft_prep_flat``,
     ``factor_solve_folded_flat``, ``soft_alpha_sums_flat``;
     ``soft_corr_flat``, ``solve_flat``, ``soft_alpha_sums_flat``); and the
-    soft engine in float64 (``k_max=30``, mu_tol 1e-8).
+    soft engine in float64 (``k_max=30``, mu_tol 1e-8);
+  * the structured two-phase IPM (``models.ipm.solve``) on the hard
+    flagship: route A, the library's default ``IPMConfig()`` (plain
+    batched Riccati, no kernel), float32 and float64; route B, its kernel
+    backend (``factor_solve_folded`` + ``solve_batched``), reached through
+    ``solve_batched`` with ``use_pallas`` on dims without a static
+    ``idxb``, float64 at ``k_max=6`` against route A, float64 and float32
+    at the default tolerances; route C, ``escalate_stalled`` in float32:
+    the lanes engine, then every unconverged instance re-solved in float64
+    on route A and merged, at the default tolerances (every instance
+    stalls) and on a batch that the float32 stage converges in part.
 
 Each path runs with the launch counters set to 0 just before and read just
 after, and its answer is held against a float64 host residual oracle (the
@@ -99,6 +109,10 @@ TOL = {
 # the field's scale; the same for the six kernels of the 6-kernel loop,
 # each checked on one call per phase at the initial iterate too
 MEGA_TOL = {"float32": 5e-5, "float64": 1e-11}
+# the structured kernels in float32 at the third IPM iteration: the kernel's
+# error against the float64 plain version on the same inputs may be at most
+# this many times the float32 plain version's own (see section 2)
+COND_FACTOR = 10.0
 # the wrappers of the 6-kernel lanes loop: step passes, then sweeps
 STEP_NAMES = ("prep_flat", "alpha_sums_flat", "corr_geff_flat")
 STAGE_NAMES = ("factor_solve_folded_flat", "solve_flat", "refine_flat_fused")
@@ -106,6 +120,14 @@ STAGE_NAMES = ("factor_solve_folded_flat", "solve_flat", "refine_flat_fused")
 # step passes (its sweeps are factor_solve_folded_flat and solve_flat)
 SOFT_MEGA = ("factor_solve_soft_mega", "solve_soft_mega")
 SOFT_STEP = ("soft_prep_flat", "soft_alpha_sums_flat", "soft_corr_flat")
+# the structured route's kernels: row 16, row 15, and row 14 (the same
+# kernel reading the effective Hessian whole; off the solver path)
+STRUCT_NAMES = ("factor_solve_folded", "solve_batched",
+                "factor_solve_batched")
+# the kernels whose first input is a (N+1, NZ, NZ, B) matrix stream of
+# which they read the lower triangle only (row 15's factor, row 14's
+# effective Hessian): the byte bound charges that triangle
+TRIL_FIRST = ("solve_batched", "factor_solve_batched")
 # the soft problem: tools/bench_soft.py's flagship, and the small problem
 # with general rows on stages 2 and N (tests/test_ipm_soft_lanes.py)
 SOFT_N, SOFT_NG_N = 30, 5
@@ -164,6 +186,12 @@ def _flat(out):
 
 def _nbytes(*groups) -> int:
     return sum(x.numel() * x.element_size() for g in groups for x in _flat(g))
+
+
+def _tril_nbytes(x, NZ: int) -> int:
+    """Bytes of the lower triangles of the (NZ, NZ) blocks of ``x``
+    (N+1, NZ, NZ, B)."""
+    return x.numel() // (NZ * NZ) * (NZ * (NZ + 1) // 2) * x.element_size()
 
 
 def _stage_ops(NU, NX, NB, NG, NS=0):
@@ -241,7 +269,7 @@ def _ptxas_lines(log: str):
 PROFILED = ("ipm_resident", "resid_full", "factor_solve_mega", "solve_mega",
             "prep_flat", "alpha_sums_flat", "corr_geff_flat",
             "factor_solve_flat", "solve_flat", "refine_flat") + SOFT_MEGA \
-    + SOFT_STEP
+    + SOFT_STEP + ("factor_solve_folded", "solve_batched")
 
 
 def _profile(torch, run, reps: int = 3) -> dict:
@@ -313,15 +341,17 @@ def _env(**values):
 
 
 @contextlib.contextmanager
-def _capture(targets):
-    """Record the arguments of the first call of each wrapper ``(module,
-    name)`` of ``targets`` while the block runs: {(name, variant): (args,
-    kwargs)}, variant as :func:`_variant`."""
+def _capture(targets, last=False):
+    """Record the arguments of the first call (with ``last``, the last one)
+    of each wrapper ``(module, name)`` of ``targets`` while the block runs:
+    {(name, variant): (args, kwargs)}, variant as :func:`_variant`."""
     calls, saved = {}, [(m, n, getattr(m, n)) for m, n in targets]
 
     def spy(name, fn):
         def call(*a, **k):
-            calls.setdefault((name, _variant(name, a, k)), (a, k))
+            key = (name, _variant(name, a, k))
+            if last or key not in calls:
+                calls[key] = (a, k)
             return fn(*a, **k)
         return call
 
@@ -358,6 +388,40 @@ def _check_calls(torch, calls, mods, tol, what, errs):
         if rel > tol:
             _fail(f"{kname}{tag} {what} disagrees with its plain version")
         errs[kname] = max(errs.get(kname, 0.0), dabs)
+
+
+def _check_vs_f64(torch, calls, mods, factor, floor, what):
+    """Each captured float32 call: the kernel and its plain version, each
+    against the plain version in float64 on the same inputs (upcast).  The
+    kernel's largest difference, relative to each output's scale, must be
+    at most ``factor`` times the float32 plain version's (both are float32
+    roundoff as the inputs' conditioning amplifies it), or ``floor``."""
+    def up(x):
+        f = hasattr(x, "is_floating_point") and x.is_floating_point()
+        return x.double() if f else x
+
+    for (kname, _), (a, k) in sorted(calls.items()):
+        plain = getattr(mods[kname], kname + "_ref")
+        out_k = _flat(getattr(mods[kname], kname)(*a, **k))
+        torch.cuda.synchronize()
+        out_p = _flat(plain(*a, **k))
+        out_64 = _flat(plain(*[up(x) for x in a],
+                             **{n: up(v) for n, v in k.items()}))
+        if not all(bool(torch.isfinite(x).all()) for x in out_k):
+            _fail(f"{kname} {what}: non-finite output")
+
+        def rel(out):
+            return max(_maxdiff(torch, x, y) / max(1.0, float(y.abs().max()))
+                       for x, y in zip(out, out_64))
+
+        e_k, e_p = rel(out_k), rel(out_p)
+        print(f"{kname} {what}: vs the f64 plain version on the same inputs,"
+              f" max |d|/scale: kernel {e_k:.3e}, f32 plain version "
+              f"{e_p:.3e} (ratio {e_k / max(e_p, 1e-30):.2f}, limit "
+              f"{factor:.0f} or {floor:.0e})", flush=True)
+        if e_k > max(factor * e_p, floor):
+            _fail(f"{kname} {what}: the kernel's f32 error exceeds "
+                  f"{factor:.0f} times its plain version's")
 
 
 def _oracle(torch, np, qpb, sol, dev, rtol, atol, primal_max, what):
@@ -471,7 +535,8 @@ def main() -> int:
     sys.path.insert(0, str(repo))
     import numpy as np
 
-    from hpmpc_tpu_torch.models import ipm_lanes, ipm_resident, ipm_soft_lanes
+    from hpmpc_tpu_torch.models import (ipm, ipm_lanes, ipm_resident,
+                                        ipm_soft_lanes)
     from hpmpc_tpu_torch.models.ipm import IPMConfig
     from hpmpc_tpu_torch.ocp import OCPDims
     from hpmpc_tpu_torch.ops import _build
@@ -512,15 +577,23 @@ def main() -> int:
     cfg_soft = IPMConfig(k_max=8, mu0=100.0, mu_tol=0.0, use_pallas=True)
     cfg_soft64 = IPMConfig(k_max=30, mu0=100.0, use_pallas=True)
     mods = {**{n: stk for n in STEP_NAMES + SOFT_STEP},
-            **{n: sk for n in STAGE_NAMES},
+            **{n: sk for n in STAGE_NAMES + STRUCT_NAMES},
             "factor_solve_mega": mk, "solve_mega": mk,
             **{n: mk for n in SOFT_MEGA}}
     six = [(mods[n], n) for n in STEP_NAMES + STAGE_NAMES]
     soft_mega = [(mk, n) for n in SOFT_MEGA]
     soft_six = [(stk, n) for n in SOFT_STEP] + [
         (sk, "factor_solve_folded_flat"), (sk, "solve_flat")]
+    struct_targets = [(sk, n) for n in STRUCT_NAMES[:2]]
+
+    # row 14's launches over the main paths' runs (sections 3-13): no
+    # solver path runs it, so each run adds its count, 0, at the next reset
+    row14_main = None
 
     def reset_counts():
+        nonlocal row14_main
+        if row14_main is not None:
+            row14_main += sk.LAUNCHES["factor_solve_batched"]
         rk.LAUNCHES = 0
         stk.RESID_LAUNCHES = 0
         for d in (stk.LAUNCHES, mk.LAUNCHES):
@@ -592,7 +665,8 @@ def main() -> int:
              ("factor_solve_flat", d2), ("solve_flat", d2),
              ("refine_flat", dict(d2, NG=dims.NG)),
              ("factor_solve_soft_mega", ds), ("solve_soft_mega", ds),
-             ("soft_step_flat", dict(NZ=dims_s.NZ, NB=dims_s.NB, NS=NS))]
+             ("soft_step_flat", dict(NZ=dims_s.NZ, NB=dims_s.NB, NS=NS)),
+             ("factor_solve_folded", d2), ("solve_batched", d2)]
     t0 = time.perf_counter()
     _build.build_all(specs)
     print(f"build: {time.perf_counter() - t0:.1f} s ({len(specs)} "
@@ -694,11 +768,38 @@ def main() -> int:
                     _check_calls(torch, calls, mods, MEGA_TOL[name], what,
                                  errs)
         del calls, soft_c
+        # rows 16 and 15 on the structured kernel route's calls of its
+        # second and third iterations (mid-solve iterates: the barrier
+        # values in dvec and the ng term after accepted steps), row 14 on
+        # the effective Hessian row 16 assembles there.  Each against its
+        # plain version at MEGA_TOL, but float32 at the third iteration:
+        # from there on the terminal equality block's barrier (P_N ~ 1e4)
+        # amplifies any two float32 summation orders ~50x in z and pi
+        # (4.5e-4 of pi's scale, kernel vs plain, on the card), so there
+        # the kernel and its plain version are each held against the f64
+        # plain version on the same inputs (_check_vs_f64)
+        for it in (2, 3):
+            with _capture(struct_targets, last=True) as calls:
+                ipm.solve(dims, qpb, IPMConfig(k_max=it, use_pallas=True))
+            if len(calls) != 2:
+                _fail(f"structured {name}: captured calls {sorted(calls)}")
+            a16 = calls[("factor_solve_folded", "")][0]
+            calls[("factor_solve_batched", "")] = (
+                (sk.whole_hessian(*a16[:4], dims.NZ),) + tuple(a16[4:]), {})
+            what = f"{name} structured, iteration {it}"
+            if dtype == torch.float32 and it == 3:
+                _check_vs_f64(torch, calls, mods, COND_FACTOR,
+                              MEGA_TOL[name], what)
+            else:
+                _check_calls(torch, calls, mods, MEGA_TOL[name], what, errs)
+            del calls, a16
         if dtype == torch.float32:
             max_abs_err.update(errs)
     t_sec = section_done("2 kernels vs plain", t_sec)
 
     # ---- 3. main path 1: solve_batched, resident route, float32 ----------
+    reset_counts()
+    row14_main = 0
     dims, qpb = flagship(torch.float32)
     N = dims.N
     engine = pbatch.select_engine(dims, cfg, B, torch.float32)
@@ -943,7 +1044,152 @@ def main() -> int:
         _fail(f"soft path f64: oracle mu {mu_o:.3e} > 1e-8")
     t_sec = section_done("8-10 soft main paths", t_sec)
 
-    # ---- 11. timings --------------------------------------------------------
+    # ---- 11. main path 9: the structured route A, IPMConfig() ------------
+    # the library's default config: no use_pallas -> "structured" on the
+    # plain batched Riccati, in both types; it launches no kernel
+    cfg_def = IPMConfig()
+    sols_a = {}
+    for d_, q_ in ((dims, qpb), (dims64, qpb64)):
+        dt_ = q_.dtype
+        what = f"route A {str(dt_).split('.')[-1]}"
+        if pbatch.select_engine(d_, cfg_def, B, dt_) != "structured":
+            _fail(f"{what}: select_engine did not choose 'structured'")
+        reset_counts()
+        sol_ = pbatch.solve_batched(d_, q_, cfg_def)
+        torch.cuda.synchronize()
+        if any(total(v) for v in read_counts().values()):
+            _fail(f"{what} launched a kernel: {read_counts()}")
+        _check_solution(torch, sol_, d_, cfg_def.k_max, what)
+        mu_f = sol_.inf_norm_res[:, 3]
+        print(f"{what}: status counts (converged, max-iter, frozen) "
+              f"{torch.bincount(sol_.status, minlength=3).tolist()}, kk "
+              f"histogram {torch.bincount(sol_.kk.long()).tolist()}, mu "
+              f"{float(mu_f.min()):.3e}..{float(mu_f.max()):.3e}",
+              flush=True)
+        sols_a[dt_] = sol_
+    if not bool((sols_a[torch.float64].status == 0).all()):
+        _fail("route A f64: not every instance converged")
+    _oracle(torch, np, qpb64, sols_a[torch.float64], dev, 1e-6, 1e-9, 1e-6,
+            "route A f64")
+
+    # ---- 12. main path 10: the structured route B, the kernel backend ----
+    # use_pallas on dims without a static idxb: "structured" (the JAX
+    # rule), each factorization one launch of row 16, each re-solve one of
+    # row 15
+    cfg_b = IPMConfig(use_pallas=True)
+    dims_n = dataclasses.replace(dims, idxb=None)
+    dims64_n = dataclasses.replace(dims64, idxb=None)
+    if pbatch.select_engine(dims_n, cfg_b, B, torch.float32) != "structured":
+        _fail("route B: select_engine did not choose 'structured'")
+    # f64 at k_max=6 against route A (deeper runs amplify the two
+    # summation orders through the ngN=8 block, ROADMAP Queue 3)
+    sol_b6 = pbatch.solve_batched(dims64_n, qpb64,
+                                  dataclasses.replace(cfg_b, k_max=6))
+    sol_a6 = pbatch.solve_batched(dims64, qpb64, IPMConfig(k_max=6))
+    if not (torch.equal(sol_b6.kk, sol_a6.kk)
+            and torch.equal(sol_b6.status, sol_a6.status)):
+        _fail("route B f64 (k_max=6): kk/status differ from route A")
+    dz_ab = _maxdiff(torch, sol_b6.z, sol_a6.z) / max(
+        1.0, float(sol_a6.z.abs().max()))
+    print(f"route B vs route A, f64, k_max=6: kk and status equal, max "
+          f"|dz|/scale {dz_ab:.3e} (tol 1e-8)", flush=True)
+    if dz_ab > 1e-8:
+        _fail("route B f64 (k_max=6) disagrees with route A")
+    del sol_b6, sol_a6
+
+    def route_b(d_, q_, what, capture=False):
+        """One route-B solve with the counters reset just before and read
+        just after; no plain version may run."""
+        plain0 = dict(sk.PLAIN_CALLS)
+        reset_counts()
+        with _capture(struct_targets if capture else []) as calls_:
+            sol_ = pbatch.solve_batched(d_, q_, cfg_b)
+        torch.cuda.synchronize()
+        launches_ = {n: read_counts()[n] for n in STRUCT_NAMES[:2]}
+        if min(launches_.values()) < 1 or sk.PLAIN_CALLS != plain0:
+            _fail(f"{what}: launches {launches_}, plain calls "
+                  f"{ {n: sk.PLAIN_CALLS[n] - plain0[n] for n in plain0} }")
+        others = {n: v for n, v in read_counts().items()
+                  if n not in STRUCT_NAMES[:2] and total(v)}
+        if others:
+            _fail(f"{what} launched other kernels: {others}")
+        _check_solution(torch, sol_, d_, cfg_b.k_max, what)
+        mu_f = sol_.inf_norm_res[:, 3]
+        print(f"{what}: engine structured, launches {launches_}, status "
+              f"counts (converged, max-iter, frozen) "
+              f"{torch.bincount(sol_.status, minlength=3).tolist()}, kk "
+              f"histogram {torch.bincount(sol_.kk.long()).tolist()}, mu "
+              f"{float(mu_f.min()):.3e}..{float(mu_f.max()):.3e}",
+              flush=True)
+        return sol_, launches_, calls_
+
+    sol_b64, _, _ = route_b(dims64_n, qpb64, "route B f64")
+    n_conv = int((sol_b64.status == 0).sum())
+    print(f"route B f64: {n_conv}/{B} at status 0", flush=True)
+    if n_conv != B:
+        _fail(f"route B f64: {B - n_conv} instances did not converge")
+    _oracle(torch, np, qpb64, sol_b64, dev, 1e-6, 1e-9, 1e-6, "route B f64")
+    sol_b32, launches_b, struct_calls = route_b(dims_n, qpb, "route B f32",
+                                                capture=True)
+    _oracle(torch, np, qpb, sol_b32, dev, 1e-2, 1e-5, 1e-3, "route B f32")
+
+    # ---- 13. main path 11: route C, escalate_stalled, float32 ------------
+    # the lanes engine solves the batch; every instance with status != 0
+    # is re-solved in f64 on route A and merged back
+    cfg_c = IPMConfig(use_pallas=True, escalate_stalled=True)
+
+    def route_c(cfg_e, what, mixed):
+        """One escalated solve with the counters reset just before and read
+        just after, held against the same solve without escalation: the
+        converged instances keep their bits, the stalled ones converge;
+        with ``mixed`` the f32 stage must leave some, not all, stalled."""
+        cfg_e0 = dataclasses.replace(cfg_e, escalate_stalled=False)
+        if pbatch.select_engine(dims, cfg_e0, B, torch.float32) != "lanes":
+            _fail(f"{what}: the f32 stage does not go to the lanes engine")
+        sol_0 = pbatch.solve_batched(dims, qpb, cfg_e0)
+        reset_counts()
+        sol_ = pbatch.solve_batched(dims, qpb, cfg_e)
+        torch.cuda.synchronize()
+        counts_ = read_counts()
+        launches_ = {n: counts_[n] for n in ("factor_solve_mega",
+                                             "solve_mega", "resid_full")}
+        if min(total(v) for v in launches_.values()) < 1:
+            _fail(f"{what} skipped a kernel: launches {launches_}")
+        _check_solution(torch, sol_, dims, cfg_e.k_max, what)
+        stalled = sol_0.status != 0
+        n_st = int(stalled.sum())
+        if mixed and not 0 < n_st < B:
+            _fail(f"{what}: the f32 stage left {n_st} of {B} instances "
+                  "stalled; the check needs a mixed batch")
+        for f in sol_._fields:
+            if not torch.equal(getattr(sol_, f)[~stalled],
+                               getattr(sol_0, f)[~stalled]):
+                _fail(f"{what} changed converged instances' {f}")
+        if not bool((sol_.status[stalled] == 0).all()):
+            _fail(f"{what}: a re-solved instance did not converge")
+        print(f"{what} f32: launches {launches_}; status counts (converged, "
+              f"max-iter, frozen) before escalation "
+              f"{torch.bincount(sol_0.status, minlength=3).tolist()}, after "
+              f"{torch.bincount(sol_.status, minlength=3).tolist()}; {n_st} "
+              f"re-solved in f64, {B - n_st} converged instances unchanged "
+              f"bit for bit; max mu after "
+              f"{float(sol_.inf_norm_res[:, 3].max()):.3e}", flush=True)
+        _oracle(torch, np, qpb, sol_, dev, 1e-2, 1e-5, 1e-3, what)
+
+    route_c(cfg_c, "route C", mixed=False)
+    # the same on a batch that the f32 stage converges in part (mu_tol
+    # 5e-5 above the f32 floor's low end, mu_switch 1e-3 above mu_tol so
+    # that the lanes engine keeps it), so that the per-instance merge runs
+    # at the flagship size
+    route_c(dataclasses.replace(cfg_c, mu_tol=5e-5, mu_switch=1e-3),
+            "route C, mixed batch", mixed=True)
+    reset_counts()
+    launches_14, row14_main = row14_main, None
+    print(f"row 14 (factor_solve_batched) launches over the main paths: "
+          f"{launches_14}", flush=True)
+    t_sec = section_done("11-13 structured routes", t_sec)
+
+    # ---- 14. timings --------------------------------------------------------
     def solve_rep(q0, d, c, fn, field="b"):
         def run(r):
             q = dataclasses.replace(
@@ -974,7 +1220,7 @@ def main() -> int:
         """Every kernel wrapper of the port replaced by its plain version."""
         swaps = [(rk, "ipm_resident"), (stk, "resid_full"),
                  (mk, "factor_solve_mega"), (mk, "solve_mega"), *six,
-                 *soft_mega, *soft_six[:3]]
+                 *soft_mega, *soft_six[:3], *struct_targets]
         saved = [(m, n, getattr(m, n)) for m, n in swaps]
         for m, n, _ in saved:
             setattr(m, n, getattr(m, n + "_ref"))
@@ -998,15 +1244,30 @@ def main() -> int:
              "b"),
             ("soft f32", qpb_s, dims_s, cfg_soft, soft_solve, 5, 1, "g"),
             ("soft f32, 6-kernel loop", qpb_s, dims_s, cfg_soft,
-             six_kernel_loop(soft_solve), 5, 1, "g")):
+             six_kernel_loop(soft_solve), 5, 1, "g"),
+            # the structured routes; A runs no kernel (no plain version to
+            # time apart), C's plain version is the lanes route's and A's
+            ("structured A f32", qpb, dims, cfg_def, pbatch.solve_batched,
+             2, 0, "b"),
+            ("structured A f64", qpb64, dims64, cfg_def,
+             pbatch.solve_batched, 2, 0, "b"),
+            ("structured B f32", qpb, dims_n, cfg_b, pbatch.solve_batched,
+             5, 1, "b"),
+            ("structured B f64", qpb64, dims64_n, cfg_b, pbatch.solve_batched,
+             5, 1, "b"),
+            ("structured C f32", qpb, dims, cfg_c, pbatch.solve_batched, 2,
+             0, "b")):
         ms = _time_ms(torch, solve_rep(q0, d, c, fn, field), reps=reps)
-        with plain_kernels():
-            ms_plain = _time_ms(torch, solve_rep(q0, d, c, fn, field),
-                                reps=preps, warmup=0)
+        ms_plain = float("nan")
+        if preps:
+            with plain_kernels():
+                ms_plain = _time_ms(torch, solve_rep(q0, d, c, fn, field),
+                                    reps=preps, warmup=0)
         e2e[label] = (ms, ms_plain)
         print(f"main path {label} [{card}]: {ms:.3f} ms per {B}-batch "
               f"({B / ms * 1e3:.1f} solves/s); plain version "
-              f"{ms_plain:.3f} ms", flush=True)
+              + (f"{ms_plain:.3f} ms" if preps else "not timed"),
+              flush=True)
     ms_e2e, ms_e2e_plain = e2e["resident f32"]
     print(f"main path [{card}]: {ms_e2e:.3f} ms per {B}-batch "
           f"({B / ms_e2e * 1e3:.1f} solves/s, mean kk "
@@ -1023,10 +1284,22 @@ def main() -> int:
             ("parity f32", qpb, dims, cfg_par, pbatch.solve_batched, "b"),
             ("soft f32", qpb_s, dims_s, cfg_soft, soft_solve, "g"),
             ("soft f32, 6-kernel loop", qpb_s, dims_s, cfg_soft,
-             six_kernel_loop(soft_solve), "g")):
-        pr = _profile(torch, solve_rep(q0, d, c, fn, field))
+             six_kernel_loop(soft_solve), "g"),
+            ("structured A f32", qpb, dims, cfg_def, pbatch.solve_batched,
+             "b"),
+            ("structured A f64", qpb64, dims64, cfg_def, pbatch.solve_batched,
+             "b"),
+            ("structured B f32", qpb, dims_n, cfg_b, pbatch.solve_batched,
+             "b"),
+            ("structured B f64", qpb64, dims64_n, cfg_b, pbatch.solve_batched,
+             "b"),
+            ("structured C f32", qpb, dims, cfg_c, pbatch.solve_batched,
+             "b")):
+        # one profiled call of the routes that launch ~10^5 small kernels
+        reps = 1 if label.startswith(("structured A", "structured C")) else 3
+        pr = _profile(torch, solve_rep(q0, d, c, fn, field), reps=reps)
         print(_profile_line(label, card, pr), flush=True)
-    t_sec = section_done("11 end-to-end timings and profiles", t_sec)
+    t_sec = section_done("14 end-to-end timings and profiles", t_sec)
 
     # each kernel alone, at the main paths' shapes and configs (float32):
     # the resident pair on the resident path's inputs, the mega pair on the
@@ -1098,6 +1371,24 @@ def main() -> int:
         ("soft_corr_flat", "hpmpc_tpu/ops/step_kernel.py:845", stk,
          soft6_calls[("soft_corr_flat", "")], 50, BSs * ops_s["soft_corr"],
          launches_s6["soft_corr_flat"])]
+    # rows 16 and 15 on route B's first calls (f32), row 14 on the
+    # effective Hessian row 16 assembles there (its launches: those of the
+    # main paths' runs, read above)
+    a16, k16 = struct_calls[("factor_solve_folded", "")]
+    ng16 = len(a16[3])
+    rows += [
+        ("factor_solve_folded", "hpmpc_tpu/ops/stage_kernel.py:1069", sk,
+         (a16, k16), 20,
+         BS * ops["factor_flat"] + B * (ops["root"] + ng16 * ops["ng_factor"]),
+         launches_b["factor_solve_folded"]),
+        ("solve_batched", "hpmpc_tpu/ops/stage_kernel.py:902", sk,
+         struct_calls[("solve_batched", "")], 20,
+         BS * ops["solve_flat"] + B * ops["root"],
+         launches_b["solve_batched"]),
+        ("factor_solve_batched", "hpmpc_tpu/ops/stage_kernel.py:764", sk,
+         ((sk.whole_hessian(*a16[:4], dims.NZ),) + tuple(a16[4:]), {}),
+         20, BS * (ops["factor_flat"] - dims.NZ) + B * ops["root"],
+         launches_14)]
     srcs = {"ipm_resident": "ipm_resident", "resid_full": "resid_full",
             "factor_solve_mega": "factor_solve_mega",
             "solve_mega": "solve_mega", "factor_solve_folded_flat":
@@ -1105,13 +1396,17 @@ def main() -> int:
             "refine_flat_fused": "refine_flat",
             **{n: "step_flat" for n in STEP_NAMES},
             **{n: n for n in SOFT_MEGA},
-            **{n: "soft_step_flat" for n in SOFT_STEP}}
+            **{n: "soft_step_flat" for n in SOFT_STEP},
+            "factor_solve_folded": "factor_solve_folded",
+            "factor_solve_batched": "factor_solve_folded",
+            "solve_batched": "solve_batched"}
     kernels = []
     for name, repl, mod, (a, k), reps, n_ops, n_launch in rows:
         fast, plain = getattr(mod, name), getattr(mod, name + "_ref")
         out = fast(*a, **k)
         kw_in = [v for v in k.values() if hasattr(v, "is_floating_point")]
-        nbytes = _nbytes(a, kw_in, out)
+        nbytes = (_nbytes(a[1:], kw_in, out) + _tril_nbytes(a[0], dims.NZ)
+                  if name in TRIL_FIRST else _nbytes(a, kw_in, out))
         bound_ms, bound_by = _bound(nbytes, n_ops)
         ms = _time_ms(torch, lambda r: fast(*a, **k), reps=reps)
         ms_plain = _time_ms(torch, lambda r: plain(*a, **k), reps=2)
@@ -1129,7 +1424,7 @@ def main() -> int:
                         "bound_ms": bound_ms, "bound_by": bound_by,
                         "library_ms": None})
     print(f"launches per call: parity path {launches_p}", flush=True)
-    section_done("12 kernels alone", t_sec)
+    section_done("15 kernels alone", t_sec)
     print(f"chip_smoke: total {time.perf_counter() - t_script:.1f} s ("
           + ", ".join(f"{k} {v:.1f} s" for k, v in sections) + ")",
           flush=True)

@@ -3,8 +3,9 @@
 A JAX :class:`hpmpc_tpu.ocp.OCPQP`'s leaves, handed over as numpy arrays
 keyed by field name, become the port's :class:`~.ocp.OCPQP` (batched or
 not); warm-start state (``z0``/``pi0``), a whole batched solution
-(:class:`~.models.ipm.IPMSolution`, e.g. a first stage's hand-off) and
-soft-constraint data (:class:`~.models.ipm_soft.SoftSpec`) ride along
+(:class:`~.models.ipm.IPMSolution`, e.g. a first stage's hand-off), a
+retained factor with its backup iterate (:class:`~.models.ipm.KKTCarry`)
+and soft-constraint data (:class:`~.models.ipm_soft.SoftSpec`) ride along
 the same way.  Numpy is
 the only currency, so neither package imports the other.
 """
@@ -16,7 +17,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from .models.ipm import IPMSolution
+from .models.ipm import IPMSolution, KKTCarry
 from .models.ipm_soft import SoftSpec
 from .ocp import OCPDims, OCPQP, resolve_device
 
@@ -77,6 +78,17 @@ def solution_from_numpy(arrays: dict, device=None,
         dt = torch.int32 if name in ("kk", "status") else dtype
         out[name] = torch.tensor(a, device=device, dtype=dt)
     return IPMSolution(**out)
+
+
+def carry_from_numpy(arrays: dict, device=None,
+                     dtype=torch.float64) -> KKTCarry:
+    """``arrays[name]`` for every :class:`~.models.ipm.KKTCarry` field
+    (e.g. a batched JAX ``KKTCarry``'s leaves as numpy) -> the port's carry
+    on ``device`` (default: the CUDA card) in ``dtype``."""
+    device = resolve_device(device)
+    return KKTCarry(**{name: torch.tensor(np.asarray(arrays[name]),
+                                          device=device, dtype=dtype)
+                       for name in KKTCarry._fields})
 
 
 def soft_from_numpy(arrays: dict, device=None,

@@ -1,9 +1,9 @@
-"""Riccati sweep kernels of the 6-kernel lanes loop and its refinement
-pass: CUDA kernels + plain versions.
+"""Riccati sweep kernels: CUDA kernels + plain versions.
 
-Port of three wrappers of ``hpmpc_tpu/ops/stage_kernel.py`` (each two
+Port of six wrappers of ``hpmpc_tpu/ops/stage_kernel.py`` (each two
 ``pallas_call`` s on the TPU, backward sweep then forward recovery, and
-one launch here):
+one launch here).  Three serve the 6-kernel lanes loop and its
+refinement pass:
 
   * :func:`factor_solve_folded_flat` (TPU bodies ``_bwd_kernel_folded``,
     split factor, and ``_fwd_kernel_split``) — the folded backward Riccati
@@ -25,6 +25,26 @@ either.  General constraints sit on the stages ``ng_stage_ids`` (slot j on
 stage ``ng_stage_ids[j]``): ``ngl`` (n_ng, NT, B) the packed C' diag(Qx_g)
 C term, ``C`` (n_ng, NG, NZ, B) the rows and ``qxg`` (n_ng, NG, B) the
 folded barrier diagonal; None when there are no such stages.
+
+Three serve the structured IPM's kernel backend
+(:func:`..models.ipm.make_kernel_chain_kkt`, the JAX package's
+``make_pallas_chain_kkt``) with the FULL factor:
+
+  * :func:`factor_solve_folded` (``_bwd_kernel_folded`` unsplit +
+    ``_fwd_kernel``) — the folded factorization of H + diag(dvec) (+ the
+    packed ng term on its stage) with the forward recovery of z and pi;
+  * :func:`factor_solve_batched` (``_bwd_kernel`` + ``_fwd_kernel``) — the
+    same on an effective Hessian handed over whole;
+  * :func:`solve_batched` (``_bwd_trs_kernel`` + ``_fwd_kernel``) — the
+    retained-factor re-solve with the cached Pb.
+
+They take the JAX wrappers' arguments in the port's batch-last layout and
+return the JAX wrappers' outputs the same way: z (N+1, NZ, B), pi (N, NX,
+B), L (N+1, NZ, NZ, B) with its strictly upper part zero, eu (N+1, NZ, B)
+zero past NU, px (N+1, NX, B), Pb (N, NX, B) -- the chain-backend shapes
+(B, N+1, NZ) ... with the batch axis moved last.  The TPU wrappers'
+stage-N tail (u_N and x_N in XLA after the calls) is computed in the
+kernels.
 """
 
 from __future__ import annotations
@@ -39,10 +59,12 @@ from .layout import from_lanes, sym_expand, sym_nt, to_lanes
 
 #: launches of each CUDA kernel in this process
 LAUNCHES = {"factor_solve_folded_flat": 0, "solve_flat": 0,
-            "refine_flat_fused": 0}
+            "refine_flat_fused": 0, "factor_solve_folded": 0,
+            "factor_solve_batched": 0, "solve_batched": 0}
 #: calls of each wrapper that ran the plain version (CPU tensors)
 PLAIN_CALLS = {"factor_solve_folded_flat": 0, "solve_flat": 0,
-               "refine_flat_fused": 0}
+               "refine_flat_fused": 0, "factor_solve_folded": 0,
+               "factor_solve_batched": 0, "solve_batched": 0}
 
 
 class _FactorArgs(ctypes.Structure):
@@ -68,6 +90,22 @@ class _RefineArgs(ctypes.Structure):
         "Lxx", "z_new", "pi_new", "work")] + [
         ("B", ctypes.c_int64), ("N", ctypes.c_int64),
         ("n_ng", ctypes.c_int64)]
+
+
+class _FoldedArgs(ctypes.Structure):
+    # mirrors struct FactorSolveFoldedArgs in csrc/factor_solve_folded.cu
+    _fields_ = [(n, ctypes.c_void_p) for n in (
+        "H", "dvec", "ngl", "ng_stage", "g", "F", "b", "L", "eu", "px", "Pb",
+        "z", "pi")] + [
+        ("B", ctypes.c_int64), ("N", ctypes.c_int64),
+        ("n_ng", ctypes.c_int64)]
+
+
+class _TrsArgs(ctypes.Structure):
+    # mirrors struct SolveBatchedArgs in csrc/solve_batched.cu
+    _fields_ = [(n, ctypes.c_void_p) for n in (
+        "L", "g", "F", "b", "Pb", "z", "pi", "work")] + [
+        ("B", ctypes.c_int64), ("N", ctypes.c_int64)]
 
 
 def _forward(Llb, Lxxb, eus, pxs, Fb, bb, want_pi):
@@ -118,33 +156,12 @@ def _trs(Llb, Lxxb, Pbb, gb, Fb, bb):
 def factor_solve_folded_flat_ref(H, dvec, ngl, ng_stage_ids, g, F, b, *,
                                  NU, NZ, NX, want_pi):
     """Plain PyTorch version of :func:`factor_solve_folded_flat` (same
-    arguments, same outputs)."""
-    Np1, B = H.shape[0], H.shape[-1]
-    N = Np1 - 1
-    slot = {n: j for j, n in enumerate(ng_stage_ids)}
-    Hf = sym_expand(from_lanes(H), NZ)            # (B, N+1, NZ, NZ)
-    dvb, gb, Fb, bb = (from_lanes(x) for x in (dvec, g, F, b))
-    if slot:
-        nglf = sym_expand(from_lanes(ngl), NZ)    # (B, n_ng, NZ, NZ)
-    new = lambda *s: H.new_zeros(B, *s)  # noqa: E731
-    Ll, Lxx, Pb = new(Np1, NZ, NU), new(Np1, NX, NX), new(N, NX)
-    eus, pxs = new(Np1, NU), new(Np1, NX)
-    Lxx_c, px_c = new(NX, NX), new(NX)
-    for k in range(N, -1, -1):
-        Hp = Hf[:, k] + torch.diag_embed(dvb[:, k])
-        if k in slot:
-            Hp = Hp + nglf[:, slot[k]]
-        ke = min(k, N - 1)
-        Lf, eu, px, Pbk = sm.folded_bwd_core(NU, Hp, gb[:, k], Fb[:, ke],
-                                             bb[:, ke], Lxx_c, px_c)
-        Lxx_c, px_c = torch.tril(Lf[:, NU:, NU:]), px
-        Ll[:, k], Lxx[:, k] = Lf[:, :, :NU], Lxx_c
-        if k < N:
-            Pb[:, k] = Pbk
-        eus[:, k], pxs[:, k] = eu, px
-    z, pi = _forward(Ll, Lxx, eus, pxs, Fb, bb, want_pi)
-    return (to_lanes(z), to_lanes(pi) if want_pi else None,
-            (to_lanes(Ll), to_lanes(Lxx), to_lanes(Pb)))
+    arguments, same outputs): :func:`factor_solve_folded_ref` with the
+    factor split into Ll and Lxx."""
+    z, pi, L, _, _, Pb = factor_solve_folded_ref(H, dvec, ngl, ng_stage_ids,
+                                                 g, F, b, NU)
+    return (z, pi if want_pi else None,
+            (L[:, :, :NU].contiguous(), L[:, NU:, NU:].contiguous(), Pb))
 
 
 def solve_flat_ref(Ll, Lxx, Pb, g, F, b, *, NU, NZ, NX):
@@ -306,3 +323,166 @@ def refine_flat_fused(H, dvec, C, qxg, ng_stage_ids, g, F, b, z, pi, Ll, Lxx,
                   NG=max(NG, 1))
     LAUNCHES[name] += 1
     return z_new, pi_new
+
+
+# ---------------------------------------------------------------------------
+# the structured IPM's kernel backend: full factor (rows 14-16)
+# ---------------------------------------------------------------------------
+
+
+def _full_sweeps(Hb, gb, Fb, bb, NU):
+    """Backward folded sweep on the effective Hessian ``Hb`` (B, N+1, NZ,
+    NZ), then the forward recovery, batch-first: (z, pi, L, eu, px, Pb)
+    with the full factor and eu padded to NZ."""
+    B, Np1, NZ = gb.shape
+    N, NX = Np1 - 1, NZ - NU
+    new = gb.new_zeros
+    L, eus, pxs, Pb = new(B, Np1, NZ, NZ), new(B, Np1, NZ), new(B, Np1, NX), \
+        new(B, N, NX)
+    Lxx_c, px_c = new(B, NX, NX), new(B, NX)
+    for k in range(N, -1, -1):
+        ke = min(k, N - 1)
+        Lf, eu, px, Pbk = sm.folded_bwd_core(NU, Hb[:, k], gb[:, k],
+                                             Fb[:, ke], bb[:, ke], Lxx_c, px_c)
+        Lxx_c, px_c = Lf[:, NU:, NU:], px
+        L[:, k], eus[:, k, :NU], pxs[:, k] = Lf, eu, px
+        if k < N:
+            Pb[:, k] = Pbk
+    z, pi = _forward(L[..., :NU], L[:, :, NU:, NU:], eus[..., :NU], pxs, Fb,
+                     bb, True)
+    return z, pi, L, eus, pxs, Pb
+
+
+def whole_hessian(H, dvec, ngterm, ng_stage_ids, NZ):
+    """The effective Hessian that :func:`factor_solve_folded` assembles --
+    packed ``H`` + diag(``dvec``) + the packed ng term ``ngterm[j]`` on
+    stage ``ng_stage_ids[j]`` -- whole, batch-last (N+1, NZ, NZ, B): the
+    input of :func:`factor_solve_batched`."""
+    Hf = sym_expand(from_lanes(H), NZ) + torch.diag_embed(from_lanes(dvec))
+    if ng_stage_ids:
+        ngf = sym_expand(from_lanes(ngterm), NZ)
+        for j, n in enumerate(ng_stage_ids):
+            Hf[:, n] += ngf[:, j]
+    return to_lanes(Hf)
+
+
+def factor_solve_folded_ref(H, dvec, ngterm, ng_stage_ids, g_eff, F, b, NU):
+    """Plain PyTorch version of :func:`factor_solve_folded` (same
+    arguments, same outputs): :func:`factor_solve_batched_ref` on
+    :func:`whole_hessian`."""
+    return factor_solve_batched_ref(
+        whole_hessian(H, dvec, ngterm, ng_stage_ids, g_eff.shape[1]),
+        g_eff, F, b, NU)
+
+
+def factor_solve_batched_ref(H_eff, g_eff, F, b, NU):
+    """Plain PyTorch version of :func:`factor_solve_batched` (same
+    arguments, same outputs)."""
+    out = _full_sweeps(*(from_lanes(x) for x in (H_eff, g_eff, F, b)), NU)
+    return tuple(to_lanes(x) for x in out)
+
+
+def solve_batched_ref(L, g_eff, F, b, Pb, NU):
+    """Plain PyTorch version of :func:`solve_batched` (same arguments,
+    same outputs)."""
+    Lb, gb, Fb, bb, Pbb = (from_lanes(x) for x in (L, g_eff, F, b, Pb))
+    Ll, Lxx = Lb[..., :NU], Lb[:, :, NU:, NU:]
+    eus, pxs = _trs(Ll, Lxx, Pbb, gb, Fb, bb)
+    z, pi = _forward(Ll, Lxx, eus, pxs, Fb, bb, True)
+    return to_lanes(z), to_lanes(pi)
+
+
+def _launch_folded(name, H, dvec, ngl, ng_stage_ids, g, F, b, NU):
+    """Check and launch one form of ``csrc/factor_solve_folded.cu``: the
+    folded one (``dvec`` given, packed H) or the whole-Hessian one."""
+    Np1, NZ, B = g.shape
+    N, NX, n_ng = Np1 - 1, F.shape[2], len(ng_stage_ids)
+    if NZ != NU + NX:
+        raise ValueError(f"{name}: NZ {NZ} != NU {NU} + NX {NX}")
+    if dvec is None:
+        named = dict(H=H, g=g, F=F, b=b)
+        hshape = (Np1, NZ, NZ, B)
+    else:
+        named = dict(H=H, dvec=dvec, ngl=ngl, g=g, F=F, b=b)
+        hshape = (Np1, sym_nt(NZ), B)
+    shapes = dict(H=hshape, dvec=(Np1, NZ, B), ngl=(n_ng, sym_nt(NZ), B),
+                  g=(Np1, NZ, B), F=(N, NZ, NX, B), b=(N, NX, B))
+    _cuda_check(name, g, ng_stage_ids, named, shapes)
+    new = lambda *s: torch.empty(*s, dtype=g.dtype, device=g.device)  # noqa: E731
+    L, eu, px, Pb = new(Np1, NZ, NZ, B), new(Np1, NZ, B), new(Np1, NX, B), \
+        new(N, NX, B)
+    z, pi = new(Np1, NZ, B), new(N, NX, B)
+    ptrs = (H, dvec, ngl, _build.ng_table(ng_stage_ids, g.device), g, F, b, L,
+            eu, px, Pb, z, pi)
+    a = _FoldedArgs(*[_build.ptr(x) for x in ptrs], B, N, n_ng)
+    _build.launch("factor_solve_folded", name, a, g.device, g.dtype, NU=NU,
+                  NX=NX)
+    LAUNCHES[name] += 1
+    return z, pi, L, eu, px, Pb
+
+
+def factor_solve_folded(H, dvec, ngterm, ng_stage_ids, g_eff, F, b, NU):
+    """Folded Riccati factorization + forward recovery, one launch (Queue 2
+    row 16): the effective Hessian H + diag(dvec) (+ the packed C'
+    diag(Qx_g) C term ``ngterm[j]`` on stage ``ng_stage_ids[j]``) is
+    assembled in the kernel, never stored.
+
+    Inputs: packed ``H`` (N+1, NT, B), ``dvec`` and ``g_eff`` (N+1, NZ,
+    B), ``ngterm`` (n_ng, NT, B) or None without ng stages, ``F`` (N, NZ,
+    NX, B), ``b`` (N, NX, B).  Returns ``(z, pi, L, eu, px, Pb)`` (module
+    doc).
+
+    CPU tensors run :func:`factor_solve_folded_ref`; CUDA tensors launch
+    ``csrc/factor_solve_folded.cu`` on the current stream (no sync)."""
+    name = "factor_solve_folded"
+    if H.device.type == "cpu":
+        PLAIN_CALLS[name] += 1
+        return factor_solve_folded_ref(H, dvec, ngterm, tuple(ng_stage_ids),
+                                       g_eff, F, b, NU)
+    return _launch_folded(name, H, dvec, ngterm, ng_stage_ids, g_eff, F, b,
+                          NU)
+
+
+def factor_solve_batched(H_eff, g_eff, F, b, NU):
+    """Riccati factorization + forward recovery of an effective Hessian
+    handed over whole, one launch (Queue 2 row 14): ``H_eff`` (N+1, NZ,
+    NZ, B), of which the lower triangle is read; the rest as
+    :func:`factor_solve_folded`.
+
+    CPU tensors run :func:`factor_solve_batched_ref`; CUDA tensors launch
+    the whole-Hessian form of ``csrc/factor_solve_folded.cu`` (no sync)."""
+    name = "factor_solve_batched"
+    if H_eff.device.type == "cpu":
+        PLAIN_CALLS[name] += 1
+        return factor_solve_batched_ref(H_eff, g_eff, F, b, NU)
+    return _launch_folded(name, H_eff, None, None, (), g_eff, F, b, NU)
+
+
+def solve_batched(L, g_eff, F, b, Pb, NU):
+    """Retained-factor backward substitution with the cached Pb + forward
+    recovery, one launch (Queue 2 row 15): the solve of the gradient
+    ``g_eff`` (N+1, NZ, B) and right-hand side ``b`` (N, NX, B) against
+    the full factor ``L`` (N+1, NZ, NZ, B) and ``Pb`` (N, NX, B) of
+    :func:`factor_solve_folded`.  Returns ``(z, pi)``.
+
+    CPU tensors run :func:`solve_batched_ref`; CUDA tensors launch
+    ``csrc/solve_batched.cu`` (no sync)."""
+    name = "solve_batched"
+    if g_eff.device.type == "cpu":
+        PLAIN_CALLS[name] += 1
+        return solve_batched_ref(L, g_eff, F, b, Pb, NU)
+    Np1, NZ, B = g_eff.shape
+    N, NX = Np1 - 1, F.shape[2]
+    if NZ != NU + NX:
+        raise ValueError(f"{name}: NZ {NZ} != NU {NU} + NX {NX}")
+    named = dict(L=L, g=g_eff, F=F, b=b, Pb=Pb)
+    shapes = dict(L=(Np1, NZ, NZ, B), g=(Np1, NZ, B), F=(N, NZ, NX, B),
+                  b=(N, NX, B), Pb=(N, NX, B))
+    _cuda_check(name, g_eff, (), named, shapes)
+    new = lambda *s: torch.empty(*s, dtype=L.dtype, device=L.device)  # noqa: E731
+    z, pi, work = new(Np1, NZ, B), new(N, NX, B), new(Np1 * NZ, B)
+    a = _TrsArgs(*[_build.ptr(x) for x in (L, g_eff, F, b, Pb, z, pi,
+                                           work)], B, N)
+    _build.launch(name, name, a, L.device, L.dtype, NU=NU, NX=NX)
+    LAUNCHES[name] += 1
+    return z, pi

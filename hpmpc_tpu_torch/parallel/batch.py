@@ -5,10 +5,13 @@ The batch is a first-class leading axis on every QP leaf.
 :func:`select_engine` keeps the JAX package's rule and engine names, minus
 the gates that are TPU measurements (the ``B % 1024`` block, the VMEM fit
 gates, the NZ 19..22 mega fence; nothing here chunks at 4096 either).
-The ``"resident"``, ``"lanes"`` and the two two-stage engines are ported,
-and on the soft path (:func:`solve_batched_soft`) ``"soft_lanes"``;
-every other engine raises ``NotImplementedError`` naming its ROADMAP item
-instead of quietly running something else.
+The ``"resident"``, ``"lanes"``, the two two-stage engines and
+``"structured"`` (the batch-native :func:`~..models.ipm.solve`, which the
+library's default ``IPMConfig()`` reaches) are ported, with the f32
+escalation (:func:`_escalate_stalled`) and :func:`solve_single`; on the
+soft path (:func:`solve_batched_soft`) ``"soft_lanes"``.  Every other
+engine raises ``NotImplementedError`` naming its ROADMAP item instead of
+quietly running something else.
 """
 
 from __future__ import annotations
@@ -23,7 +26,6 @@ from ..ocp import OCPDims, OCPQP
 
 #: ROADMAP.md Queue 1 item that ports each engine not available yet
 _NOT_PORTED = {
-    "structured": "Queue 1 #5 (structured ipm.solve)",
     "flat": "Queue 1 #7 (the flat engine folds into the lanes engine)",
 }
 
@@ -80,11 +82,13 @@ def solve_batched(dims: OCPDims, qp: OCPQP, cfg: ipm.IPMConfig,
                   z0=None, pi0=None) -> ipm.IPMSolution:
     """Solve a batch of QPs (leading instance axis on every leaf) with the
     engine :func:`select_engine` picks.  ``z0`` (B, N+1, NZ) / ``pi0``
-    (B, N, NX) with ``cfg.warm_start`` seed the iterate."""
+    (B, N, NX) with ``cfg.warm_start`` seed the iterate.  In float32 with
+    ``cfg.escalate_stalled`` the instances the solve leaves unconverged are
+    re-solved in float64 (:func:`_escalate_stalled`)."""
     if cfg.escalate_stalled and qp.dtype == torch.float32:
-        raise NotImplementedError(
-            "escalate_stalled re-solves through the structured engine: "
-            f"ROADMAP {_NOT_PORTED['structured']}")
+        cfg_base = dataclasses.replace(cfg, escalate_stalled=False)
+        sol = solve_batched(dims, qp, cfg_base, z0=z0, pi0=pi0)
+        return _escalate_stalled(dims, qp, cfg_base, sol, z0, pi0)
     B = qp.b.shape[0]
     engine = select_engine(dims, cfg, B, qp.dtype)
     if engine == "resident":
@@ -98,8 +102,55 @@ def solve_batched(dims: OCPDims, qp: OCPQP, cfg: ipm.IPMConfig,
         return ipm_lanes.solve_batched_lanes(dims, qp, cfg, z0=z0, pi0=pi0)
     if engine in ("two_stage_resident", "two_stage_lanes"):
         return _solve_two_stage(dims, qp, cfg, engine, z0, pi0)
+    if engine == "structured":
+        return ipm.solve(dims, qp, cfg, z0=z0, pi0=pi0)
     raise NotImplementedError(
         f"engine {engine!r} is not ported yet: ROADMAP {_NOT_PORTED[engine]}")
+
+
+def _escalate_stalled(dims: OCPDims, qp: OCPQP, cfg, sol, z0, pi0):
+    """The float32 floor's escalation (``IPMConfig.escalate_stalled``, the
+    JAX package's ``_escalate_stalled``): every instance the float32 solve
+    left unconverged (status != 0) is re-solved in float64 through the
+    structured route with the plain backend (``use_pallas=False``: float64
+    end to end) and its result, cast back, replaces that instance's; the
+    converged instances keep theirs bit for bit.  One host sync finds the
+    stalled instances; only they are re-solved (instances are independent,
+    so each gets what a whole-batch re-solve would give it)."""
+    idx = torch.nonzero(sol.status != 0).flatten()
+    if idx.numel() == 0:
+        return sol
+
+    def pick64(x):
+        x = x[idx]
+        return x.double() if x.is_floating_point() else x
+
+    qp64 = OCPQP(**{f.name: pick64(getattr(qp, f.name))
+                    for f in dataclasses.fields(qp)})
+    cfg64 = dataclasses.replace(cfg, use_pallas=False)
+    solm = solve_batched(dims, qp64, cfg64,
+                         z0=None if z0 is None else pick64(z0),
+                         pi0=None if pi0 is None else pick64(pi0))
+    out = []
+    for a, m in zip(sol, solm):
+        a = a.clone()
+        a[idx] = m.to(a.dtype)
+        out.append(a)
+    return type(sol)(*out)
+
+
+def solve_single(dims: OCPDims, qp: OCPQP, cfg: ipm.IPMConfig, z0=None,
+                 pi0=None) -> ipm.IPMSolution:
+    """Solve ONE QP (leaves without an instance axis; ``z0`` (N+1, NZ) /
+    ``pi0`` (N, NX) with ``cfg.warm_start``) through :func:`solve_batched`
+    at B=1 and return its solution without the instance axis.  The JAX
+    function pads the instance into a 1024-lane block for the TPU's (8,
+    128) tile; that is a TPU gate and is dropped here, as the others."""
+    qpb = broadcast_qp(qp, 1)
+    sol = solve_batched(dims, qpb, cfg,
+                        z0=None if z0 is None else z0[None],
+                        pi0=None if pi0 is None else pi0[None])
+    return type(sol)(*[x[0] for x in sol])
 
 
 #: ROADMAP.md item that ports each soft engine not available yet

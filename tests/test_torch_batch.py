@@ -1,8 +1,10 @@
 """The port's slices as a whole: ``parallel.batch.solve_batched`` of the
 PyTorch port vs the JAX package's ``solve_batched`` on the resident route
 (``HPMPC_RESIDENT=1``, Pallas in interpret mode), the dispatch rule, the
-default-tolerance route into the lanes engine, and the not-yet-ported
-engines."""
+default-tolerance route into the lanes engine, the structured route (the
+library's default ``IPMConfig()``, and ``use_pallas`` without a static
+``idxb``), the float32 escalation, ``solve_single``, and the
+not-yet-ported engines."""
 
 import dataclasses
 
@@ -118,11 +120,8 @@ def test_select_engine_agrees_with_jax(monkeypatch, ci, f32, env):
 @pytest.mark.parametrize("kw", [
     dict(mu_tol=1e-8, mu_switch=1e-5, use_pallas=True,
          dtype=torch.float64),                              # -> flat
-    dict(mu_tol=1e-8, use_pallas=False),                    # -> structured
     dict(mu_tol=0.0, iter_ref=1, iter_ref_mu_thr=1e-3, use_pallas=True,
          env={"HPMPC_STAGE2_LANES": "0"}),    # -> two-stage, flat stage 2
-    dict(mu_tol=0.0, mu_switch=0.0, use_pallas=True,
-         escalate_stalled=True),                            # -> structured
 ])
 def test_unported_engines_raise(monkeypatch, kw):
     monkeypatch.delenv("HPMPC_RESIDENT", raising=False)
@@ -171,3 +170,120 @@ def test_solve_batched_default_tolerances_run_lanes(monkeypatch):
                for k in ("factor_solve_folded_flat", "solve_flat"))
     for f in sol._fields:
         assert torch.equal(getattr(six, f), getattr(sol, f)), f
+
+
+def _small_batch(dtype, B=8, spread=0.3):
+    """The nx=8 nu=3 N=4 mass-spring batch with ``b`` scaled by 1 +
+    ``spread`` N(0,1) per instance (numpy seed 0)."""
+    dims, qp = mass_spring_qp(8, 3, 4, dtype=dtype, device="cpu")
+    qpb = tbatch.broadcast_qp(qp, B)
+    rng = np.random.default_rng(0)
+    sc = torch.as_tensor(1 + spread * rng.standard_normal(B), dtype=dtype)
+    return dims, dataclasses.replace(qpb, b=qpb.b * sc[:, None, None])
+
+
+def _equal(a, b):
+    for f in a._fields:
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+
+
+def _kernel_calls():
+    from hpmpc_tpu_torch.ops import mega_kernel as mk
+    from hpmpc_tpu_torch.ops import stage_kernel as sk
+
+    return (dict(sk.PLAIN_CALLS),
+            {k: list(v) for k, v in mk.PLAIN_CALLS.items()})
+
+
+def test_library_default_config_runs_structured(monkeypatch):
+    """``IPMConfig()`` (no ``use_pallas``) goes to the structured route on
+    its plain backend, in both types: no kernel wrapper runs."""
+    from hpmpc_tpu_torch.models import ipm
+
+    monkeypatch.delenv("HPMPC_RESIDENT", raising=False)
+    for dt in (torch.float32, torch.float64):
+        dims, qpb = _small_batch(dt, B=4)
+        assert tbatch.select_engine(dims, IPMConfig(), 4, dt) == "structured"
+        before = _kernel_calls()
+        sol = tbatch.solve_batched(dims, qpb, IPMConfig())
+        assert _kernel_calls() == before
+        _equal(sol, ipm.solve(dims, qpb, IPMConfig()))
+        assert sol.z.dtype == dt
+    assert bool((sol.status == 0).all())
+
+
+def test_no_idxb_kernel_config_runs_rows_16_and_15():
+    """``use_pallas`` on dims without a static ``idxb`` dispatches to
+    ``"structured"`` (the JAX rule) and its kernel backend: the
+    factorization and the re-solve wrappers run (their plain versions on
+    the CPU), every iteration."""
+    from hpmpc_tpu_torch.models import ipm
+    from hpmpc_tpu_torch.ops import stage_kernel as sk
+
+    dims, qpb = _small_batch(torch.float64, B=4)
+    dims0 = dataclasses.replace(dims, idxb=None)
+    cfg = IPMConfig(k_max=12, use_pallas=True)
+    assert tbatch.select_engine(dims0, cfg, 4, torch.float64) == "structured"
+    assert jbatch.select_engine(dims0, jipm.IPMConfig(k_max=12,
+                                                      use_pallas=True),
+                                4, jnp.float64) == "structured"
+    n0 = dict(sk.PLAIN_CALLS)
+    sol = tbatch.solve_batched(dims0, qpb, cfg)
+    ran = {k: sk.PLAIN_CALLS[k] - n0[k]
+           for k in ("factor_solve_folded", "solve_batched")}
+    assert ran["factor_solve_folded"] == ran["solve_batched"] >= int(
+        sol.kk.max()), ran
+    _equal(sol, ipm.solve(dims, qpb, cfg))
+    assert bool((sol.status == 0).all())
+
+
+def test_escalate_stalled_resolves_in_float64(monkeypatch):
+    """float32 with ``use_pallas`` and ``escalate_stalled``: the lanes
+    engine solves the batch, every instance it leaves unconverged (here at
+    ``k_max=6``: 5 of 8 hit the budget) is re-solved in float64 by the
+    structured route on its plain backend and merged back; the converged
+    instances keep their bits.  Each re-solved instance equals the float64
+    structured solve of the whole batch, cast back (instances are
+    independent: kk and status equal, values within a float32 ulp)."""
+    from hpmpc_tpu_torch.models import ipm
+
+    for k in ("HPMPC_RESIDENT", "HPMPC_LANES_LOOP", "HPMPC_MEGA_SWEEPS"):
+        monkeypatch.delenv(k, raising=False)
+    dims, qpb = _small_batch(torch.float32)
+    cfg = IPMConfig(k_max=6, use_pallas=True, escalate_stalled=True)
+    base_cfg = dataclasses.replace(cfg, escalate_stalled=False)
+    assert tbatch.select_engine(dims, base_cfg, 8, torch.float32) == "lanes"
+    base = tbatch.solve_batched(dims, qpb, base_cfg)
+    stalled = base.status != 0
+    assert 0 < int(stalled.sum()) < 8
+    sol = tbatch.solve_batched(dims, qpb, cfg)
+    ref = ipm.solve(dims, qpb.to(dtype=torch.float64),
+                    dataclasses.replace(base_cfg, use_pallas=False))
+    for f in sol._fields:
+        a, b, r = getattr(sol, f), getattr(base, f), getattr(ref, f)
+        assert a.dtype == b.dtype and a.shape == b.shape, f
+        assert torch.equal(a[~stalled], b[~stalled]), f
+        r = r[stalled].to(a.dtype)
+        if a.is_floating_point():
+            torch.testing.assert_close(a[stalled], r, rtol=2e-7, atol=1e-30)
+        else:
+            assert torch.equal(a[stalled], r), f
+    # nothing stalled: the solution is returned as it is
+    again = tbatch._escalate_stalled(dims, qpb, base_cfg, sol._replace(
+        status=torch.zeros_like(sol.status)), None, None)
+    assert again.z is sol.z
+
+
+@pytest.mark.parametrize("dt,kw", [(torch.float64, {}),
+                                   (torch.float32, dict(use_pallas=True))])
+def test_solve_single_is_row_0_of_the_batch(monkeypatch, dt, kw):
+    """``solve_single`` on an unbatched QP equals row 0 of the batched
+    solve of copies of it (structured route in f64, lanes route in f32)."""
+    monkeypatch.delenv("HPMPC_RESIDENT", raising=False)
+    dims, qp = mass_spring_qp(8, 3, 4, dtype=dt, device="cpu")
+    cfg = IPMConfig(k_max=12, **kw)
+    one = tbatch.solve_single(dims, qp, cfg)
+    many = tbatch.solve_batched(dims, tbatch.broadcast_qp(qp, 3), cfg)
+    for f in one._fields:
+        assert getattr(one, f).shape == getattr(many, f).shape[1:], f
+        assert torch.equal(getattr(one, f), getattr(many, f)[0]), f

@@ -16,7 +16,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from hpmpc_tpu_torch.models import (  # noqa: E402
-    ipm_lanes, ipm_resident, ipm_soft, ipm_soft_lanes)
+    ipm, ipm_lanes, ipm_resident, ipm_soft, ipm_soft_lanes)
 from hpmpc_tpu_torch.models.ipm import IPMConfig  # noqa: E402
 from hpmpc_tpu_torch.ocp import OCPDims  # noqa: E402
 from hpmpc_tpu_torch.ops import mega_kernel as mk  # noqa: E402
@@ -495,3 +495,113 @@ def test_six_kernel_wrappers_reject_bad_inputs(cuda, monkeypatch):
         bad[-1] = a[-1].cpu()                         # another device
         with pytest.raises(ValueError):
             fn(*bad, **k)
+
+
+_STRUCT = [(sk, "factor_solve_folded"), (sk, "solve_batched")]
+
+
+def _struct_capture(monkeypatch, dims, qpb, cfg):
+    """Arguments of the first call of rows 16 and 15 in one structured
+    solve: {name: (args, kwargs)}."""
+    calls = {}
+    for mod, name in _STRUCT:
+        def spy(*a, _name=name, _fn=getattr(mod, name), **k):
+            calls.setdefault(_name, (a, k))
+            return _fn(*a, **k)
+
+        monkeypatch.setattr(mod, name, spy)
+    ipm.solve(dims, qpb, cfg)
+    monkeypatch.undo()
+    return calls
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("ngN", [0, 4])
+def test_structured_kernels_match_plain(cuda, monkeypatch, dtype, ngN):
+    """Rows 16 and 15 on the arguments of the structured solve's first
+    calls (the initial iterate), row 14 on the effective Hessian row 16
+    assembles, B=37 so the last warp is ragged; one call each, so the
+    tolerance of the mega kernels' check.  Row 14 and row 16 also agree
+    with each other."""
+    dims, qpb = _batch(cuda, dtype, 4, ngN, 37)
+    calls = _struct_capture(monkeypatch, dims, qpb,
+                            IPMConfig(k_max=1, use_pallas=True))
+    assert sorted(calls) == ["factor_solve_folded", "solve_batched"]
+    a16, k16 = calls["factor_solve_folded"]
+    H, dvec, ngl, ids, g, F, b, NU = a16
+    cases = [("factor_solve_folded", a16, k16),
+             ("solve_batched",) + calls["solve_batched"],
+             ("factor_solve_batched",
+              (sk.whole_hessian(H, dvec, ngl, ids, dims.NZ), g, F, b, NU), {})]
+    outs = {}
+    for name, a, k in cases:
+        n0 = sk.LAUNCHES[name]
+        out_k = getattr(sk, name)(*a, **k)
+        torch.cuda.synchronize()
+        assert sk.LAUNCHES[name] == n0 + 1, name
+        out_p = getattr(sk, name + "_ref")(*a, **k)
+        assert len(out_k) == len(out_p), name
+        for i, (x, y) in enumerate(zip(out_k, out_p)):
+            assert x.shape == y.shape, (name, i)
+            assert bool(torch.isfinite(x).all()), (name, i)
+            scale = max(1.0, float(y.abs().max()))
+            assert float((x - y).abs().max()) <= _MEGA_TOL[dtype] * scale, (
+                name, i)
+        outs[name] = out_k
+    for i, (x, y) in enumerate(zip(outs["factor_solve_batched"],
+                                   outs["factor_solve_folded"])):
+        scale = max(1.0, float(y.abs().max()))
+        assert float((x - y).abs().max()) <= _MEGA_TOL[dtype] * scale, i
+
+
+def test_structured_route_on_card_matches_cpu(cuda):
+    """The structured IPM's kernel backend on the card vs the same call on
+    the CPU (plain versions): float64, both phases, the ngN=4 block at
+    N=16, 40 instances; ~9 iterations amplify the two summation orders,
+    so 1e-6 of a field's scale, as the lanes engine's check."""
+    dims, qpb = _batch(cuda, torch.float64, 16, 4, 40)
+    cfg = IPMConfig(k_max=12, mu_tol=1e-10, use_pallas=True)
+    n0 = {n: sk.LAUNCHES[n] for _, n in _STRUCT}
+    p0 = {n: sk.PLAIN_CALLS[n] for _, n in _STRUCT}
+    sol_g = ipm.solve(dims, qpb, cfg)
+    assert all(sk.LAUNCHES[n] > n0[n] for n in n0)
+    assert all(sk.PLAIN_CALLS[n] == p0[n] for n in p0)
+    sol_c = ipm.solve(dims, qpb.to("cpu"), cfg)
+    assert torch.equal(sol_g.kk.cpu(), sol_c.kk)
+    assert torch.equal(sol_g.status.cpu(), sol_c.status)
+    for f in ("z", "pi", "lam_b", "t_b", "lam_g", "t_g", "stat",
+              "inf_norm_res"):
+        g, c = getattr(sol_g, f).cpu(), getattr(sol_c, f)
+        scale = max(1.0, float(c.abs().max()))
+        assert float((g - c).abs().max()) <= 1e-6 * scale, f
+
+
+def test_structured_wrappers_reject_bad_inputs(cuda, monkeypatch):
+    dims, qpb = _batch(cuda, torch.float32, 4, 4, 16)
+    calls = _struct_capture(monkeypatch, dims, qpb,
+                            IPMConfig(k_max=1, use_pallas=True))
+    H, dvec, ngl, ids, g, F, b, NU = calls["factor_solve_folded"][0]
+    He = sk.whole_hessian(H, dvec, ngl, ids, dims.NZ)
+    L, g2, F2, b2, Pb, _ = calls["solve_batched"][0]
+    forms = [(sk.factor_solve_folded, (H, dvec, ngl, ids, g, F, b, NU), 4),
+             (sk.factor_solve_batched, (He, g, F, b, NU), 1),
+             (sk.solve_batched, (L, g2, F2, b2, Pb, NU), 1)]
+    for fn, a, i in forms:                            # i: the gradient
+        bad = list(a)
+        bad[i] = a[i].double()                        # another dtype
+        with pytest.raises(TypeError):
+            fn(*bad)
+        bad = list(a)
+        bad[i] = a[i][..., :8].contiguous()           # batch
+        with pytest.raises(ValueError):
+            fn(*bad)
+        bad = list(a)
+        bad[i + 1] = a[i + 1].cpu()                   # F on the CPU
+        with pytest.raises(ValueError):
+            fn(*bad)
+        bad = list(a)
+        bad[-1] = NU + 1                              # NU != NZ - NX
+        with pytest.raises(ValueError):
+            fn(*bad)
+    with pytest.raises(ValueError):                   # ng term missing
+        sk.factor_solve_folded(H, dvec, None, ids, g, F, b, NU)
