@@ -52,7 +52,26 @@ solve_batched`` (the f64 lanes runs call the engine directly):
     at the default tolerances; route C, ``escalate_stalled`` in float32:
     the lanes engine, then every unconverged instance re-solved in float64
     on route A and merged, at the default tolerances (every instance
-    stalls) and on a batch that the float32 stage converges in part.
+    stalls) and on a batch that the float32 stage converges in part;
+  * the lanes engine's flat form (the 6-kernel loop with the unfused
+    refinement: ``resid_terms_flat`` + ``solve_flat_pb``, into which the
+    JAX package's flat engine folds): route D, ``solve_batched`` with
+    ``IPMConfig(k_max=8, mu_tol=0, iter_ref=1, use_pallas=True)`` in
+    float32 (the ``"flat"`` engine); route E, the first float64
+    ``use_pallas`` batches, with and without ``iter_ref``, at the default
+    tolerances; route F, bench.py's parity line with the flat stage 2
+    (``HPMPC_STAGE2_LANES=0``), its control error held as the parity
+    line's and its answer against the lanes stage 2's beside the flat
+    stage 2 without refinement, and the float64 lanes engine with the
+    unfused refinement (``HPMPC_FUSED_REFINE=0``) against the fused one;
+  * the structured soft IPM (``models.ipm_soft.solve``), route G:
+    ``tools/bench_soft.py``'s problem and config without ``use_pallas``,
+    float32 and float64 (also to mu <= 1e-8), and its kernel backend
+    (``use_pallas`` without ``idxbs``: rows 16/15) against the plain one;
+    route H, the float64 soft batch through ``solve_batched_soft`` (the
+    ``"soft_flat"`` engine: the soft 6-kernel loop) to mu <= 1e-8.  The
+    soft lanes engine's two routes are timed side by side in float32 and
+    float64 (its default is the 6-kernel loop).
 
 Each path runs with the launch counters set to 0 just before and read just
 after, and its answer is held against a float64 host residual oracle (the
@@ -116,6 +135,8 @@ COND_FACTOR = 10.0
 # the wrappers of the 6-kernel lanes loop: step passes, then sweeps
 STEP_NAMES = ("prep_flat", "alpha_sums_flat", "corr_geff_flat")
 STAGE_NAMES = ("factor_solve_folded_flat", "solve_flat", "refine_flat_fused")
+# the unfused refinement pass of the flat form: row 12, then row 11
+UNFUSED = ("resid_terms_flat", "solve_flat_pb")
 # the soft path's kernels: the mega pair, then the soft 6-kernel loop's
 # step passes (its sweeps are factor_solve_folded_flat and solve_flat)
 SOFT_MEGA = ("factor_solve_soft_mega", "solve_soft_mega")
@@ -124,10 +145,13 @@ SOFT_STEP = ("soft_prep_flat", "soft_alpha_sums_flat", "soft_corr_flat")
 # kernel reading the effective Hessian whole; off the solver path)
 STRUCT_NAMES = ("factor_solve_folded", "solve_batched",
                 "factor_solve_batched")
-# the kernels whose first input is a (N+1, NZ, NZ, B) matrix stream of
-# which they read the lower triangle only (row 15's factor, row 14's
-# effective Hessian): the byte bound charges that triangle
-TRIL_FIRST = ("solve_batched", "factor_solve_batched")
+# the kernels that read only the lower triangle of one (N+1, n, n, B)
+# matrix stream argument, {name: (its position, n's field of OCPDims)}:
+# row 15's factor, row 14's effective Hessian, the retained Lxx of rows 10,
+# 11 and 13; the byte bound charges that triangle
+TRIL_READ = {"solve_batched": (0, "NZ"), "factor_solve_batched": (0, "NZ"),
+             "solve_flat": (1, "NX"), "solve_flat_pb": (1, "NX"),
+             "refine_flat_fused": (11, "NX")}
 # the soft problem: tools/bench_soft.py's flagship, and the small problem
 # with general rows on stages 2 and N (tests/test_ipm_soft_lanes.py)
 SOFT_N, SOFT_NG_N = 30, 5
@@ -188,10 +212,10 @@ def _nbytes(*groups) -> int:
     return sum(x.numel() * x.element_size() for g in groups for x in _flat(g))
 
 
-def _tril_nbytes(x, NZ: int) -> int:
-    """Bytes of the lower triangles of the (NZ, NZ) blocks of ``x``
-    (N+1, NZ, NZ, B)."""
-    return x.numel() // (NZ * NZ) * (NZ * (NZ + 1) // 2) * x.element_size()
+def _tril_nbytes(x, n: int) -> int:
+    """Bytes of the lower triangles of the (n, n) blocks of ``x``
+    (N+1, n, n, B)."""
+    return x.numel() // (n * n) * (n * (n + 1) // 2) * x.element_size()
 
 
 def _stage_ops(NU, NX, NB, NG, NS=0):
@@ -234,6 +258,9 @@ def _stage_ops(NU, NX, NB, NG, NS=0):
         refine=(2 * NZ * NZ + 2 * NZ + 4 * NZ * NX + 2 * NX + 2 * NX * NX
                 + trs + fwd_z + pi + NZ + NX),
         ng_refine=4 * NG * NZ,
+        # the unfused pass: H z on every stage, F' z and F pi on N of them;
+        # the re-solve's Pb = Lxx (Lxx' b) on N stages
+        hz=2 * NZ * NZ, f_terms=4 * NZ * NX, pb=2 * NX * NX,
         # the soft kernels: the hard forms plus the soft rows' work
         soft_factor=fold + factor + fwd + soft_fold + soft_alpha,
         soft_solve=corr + fwd + 2 * NX * NX + soft_corr + soft_alpha
@@ -265,11 +292,15 @@ def _ptxas_lines(log: str):
     return out
 
 
-#: the port's kernels as the profiler names them (``<name>_kernel``)
+#: the port's kernels as the profiler names them (``<name>_kernel``; the
+#: Pb form of solve_flat.cu is its template instance ``<T, true>``)
 PROFILED = ("ipm_resident", "resid_full", "factor_solve_mega", "solve_mega",
             "prep_flat", "alpha_sums_flat", "corr_geff_flat",
-            "factor_solve_flat", "solve_flat", "refine_flat") + SOFT_MEGA \
-    + SOFT_STEP + ("factor_solve_folded", "solve_batched")
+            "factor_solve_flat", "solve_flat_pb", "solve_flat",
+            "refine_flat", "resid_terms_flat") + SOFT_MEGA + SOFT_STEP + (
+                "factor_solve_folded", "solve_batched")
+_PATTERNS = {k: rf"\b{k}_kernel\b" for k in PROFILED}
+_PATTERNS["solve_flat_pb"] = r"\bsolve_flat_kernel<\w+, true>"
 
 
 def _profile(torch, run, reps: int = 3) -> dict:
@@ -299,8 +330,8 @@ def _profile(torch, run, reps: int = 3) -> dict:
             continue
         ms = getattr(e, "self_device_time_total",
                      getattr(e, "self_cuda_time_total", 0.0)) / 1e3 / reps
-        part = next((k for k in PROFILED
-                     if re.search(rf"\b{k}_kernel\b", e.key)), "other")
+        part = next((k for k in PROFILED if re.search(_PATTERNS[k], e.key)),
+                    "other")
         out["ms"][part] = out["ms"].get(part, 0.0) + ms
         out["n"][part] = out["n"].get(part, 0.0) + e.count / reps
         out["busy"] += ms
@@ -341,16 +372,17 @@ def _env(**values):
 
 
 @contextlib.contextmanager
-def _capture(targets, last=False):
+def _capture(targets, last=False, when=None):
     """Record the arguments of the first call (with ``last``, the last one)
-    of each wrapper ``(module, name)`` of ``targets`` while the block runs:
-    {(name, variant): (args, kwargs)}, variant as :func:`_variant`."""
+    of each wrapper ``(module, name)`` of ``targets`` while the block runs
+    (with ``when``, among the calls made while ``when()`` holds): {(name,
+    variant): (args, kwargs)}, variant as :func:`_variant`."""
     calls, saved = {}, [(m, n, getattr(m, n)) for m, n in targets]
 
     def spy(name, fn):
         def call(*a, **k):
             key = (name, _variant(name, a, k))
-            if last or key not in calls:
+            if (last or key not in calls) and (when is None or when()):
                 calls[key] = (a, k)
             return fn(*a, **k)
         return call
@@ -362,6 +394,24 @@ def _capture(targets, last=False):
     finally:
         for m, n, fn in saved:
             setattr(m, n, fn)
+
+
+@contextlib.contextmanager
+def _phase_watch(stk):
+    """{"phase2": bool}: whether the lanes engine has begun its phase 2
+    (a prep pass of its 6-kernel loop with ``phase2``) while the block
+    runs."""
+    seen, prep = {"phase2": False}, stk.prep_flat
+
+    def spy(*a, **k):
+        seen["phase2"] |= bool(k.get("phase2"))
+        return prep(*a, **k)
+
+    stk.prep_flat = spy
+    try:
+        yield seen
+    finally:
+        stk.prep_flat = prep
 
 
 def _check_calls(torch, calls, mods, tol, what, errs):
@@ -577,7 +627,7 @@ def main() -> int:
     cfg_soft = IPMConfig(k_max=8, mu0=100.0, mu_tol=0.0, use_pallas=True)
     cfg_soft64 = IPMConfig(k_max=30, mu0=100.0, use_pallas=True)
     mods = {**{n: stk for n in STEP_NAMES + SOFT_STEP},
-            **{n: sk for n in STAGE_NAMES + STRUCT_NAMES},
+            **{n: sk for n in STAGE_NAMES + STRUCT_NAMES + UNFUSED},
             "factor_solve_mega": mk, "solve_mega": mk,
             **{n: mk for n in SOFT_MEGA}}
     six = [(mods[n], n) for n in STEP_NAMES + STAGE_NAMES]
@@ -585,6 +635,7 @@ def main() -> int:
     soft_six = [(stk, n) for n in SOFT_STEP] + [
         (sk, "factor_solve_folded_flat"), (sk, "solve_flat")]
     struct_targets = [(sk, n) for n in STRUCT_NAMES[:2]]
+    unfused = [(sk, n) for n in UNFUSED]
 
     # row 14's launches over the main paths' runs (sections 3-13): no
     # solver path runs it, so each run adds its count, 0, at the next reset
@@ -663,7 +714,7 @@ def main() -> int:
              ("factor_solve_mega", d3), ("solve_mega", d3),
              ("step_flat", dict(NZ=dims.NZ, NB=dims.NB)),
              ("factor_solve_flat", d2), ("solve_flat", d2),
-             ("refine_flat", dict(d2, NG=dims.NG)),
+             ("refine_flat", dict(d2, NG=dims.NG)), ("resid_terms_flat", d2),
              ("factor_solve_soft_mega", ds), ("solve_soft_mega", ds),
              ("soft_step_flat", dict(NZ=dims_s.NZ, NB=dims_s.NB, NS=NS)),
              ("factor_solve_folded", d2), ("solve_batched", d2)]
@@ -970,6 +1021,175 @@ def main() -> int:
             "refined lanes path f64")
     t_sec = section_done("3-7 hard main paths", t_sec)
 
+    # ---- D. the flat route, float32: bench.py's parity config without -----
+    # iter_ref_mu_thr -> "flat", the lanes engine's flat form: the 6-kernel
+    # loop with the unfused refinement (rows 3-5, 9, 10, 12, 11), never the
+    # fused pass (row 13) or the mega kernels (rows 19-20)
+    flat_need = STEP_NAMES + STAGE_NAMES[:2] + UNFUSED
+    flat_banned = ("refine_flat_fused", "factor_solve_mega", "solve_mega")
+
+    def flat_launches(what, counts_, need=flat_need, banned=flat_banned):
+        """The launches of ``need`` + ``banned``; fails unless each of
+        ``need`` ran and none of ``banned`` did."""
+        out = {n: counts_[n] for n in need + banned}
+        if (min(total(counts_[n]) for n in need) < 1
+                or any(total(counts_[n]) for n in banned)):
+            _fail(f"{what}: launches {out}")
+        return out
+
+    cfg_d = IPMConfig(k_max=8, mu_tol=0.0, alpha_min=1e-8, iter_ref=1,
+                      use_pallas=True)
+    engine_d = pbatch.select_engine(dims, cfg_d, B, torch.float32)
+    if engine_d != "flat":
+        _fail(f"route D: select_engine chose {engine_d!r}, expected 'flat'")
+    reset_counts()
+    with _capture(unfused) as d_calls:
+        sol_d = pbatch.solve_batched(dims, qpb, cfg_d)
+    torch.cuda.synchronize()
+    launches_d = flat_launches("route D", read_counts())
+    _check_solution(torch, sol_d, dims, cfg_d.k_max, "route D")
+    err_d, med_d = ctrl_err(sol_d, ref64[cfg_d.k_max])
+    print(f"route D f32: engine {engine_d}, launches {launches_d}, kk "
+          f"histogram {torch.bincount(sol_d.kk.long()).tolist()}, status "
+          f"counts {torch.bincount(sol_d.status, minlength=3).tolist()}, "
+          f"control error vs f64 lanes (k_max={cfg_d.k_max}) max "
+          f"{err_d:.3e} (median {med_d:.3e}; unrefined {err_r:.3e})",
+          flush=True)
+    _oracle(torch, np, qpb, sol_d, dev, 1e-2, 1e-5, 1e-3, "route D")
+    # rows 12 and 11 vs their plain versions on the first refinement's
+    # inputs (iteration 1: no iterate amplifies the two summation orders)
+    errs_d = {}
+    _check_calls(torch, d_calls, mods, MEGA_TOL["float32"],
+                 "float32, route D's first refinement", errs_d)
+    max_abs_err.update(errs_d)
+
+    # ---- E. the flat route, float64, default tolerances --------------------
+    cfg_e = IPMConfig(use_pallas=True, iter_ref=1)
+    cfg_e0 = IPMConfig(use_pallas=True)
+    for c_ in (cfg_e, cfg_e0):
+        if pbatch.select_engine(dims64, c_, B, torch.float64) != "flat":
+            _fail("route E: select_engine did not choose 'flat'")
+    reset_counts()
+    with _phase_watch(stk) as phase, _capture(
+            unfused, when=lambda: phase["phase2"]) as e_calls:
+        sol_e = pbatch.solve_batched(dims64, qpb64, cfg_e)
+    torch.cuda.synchronize()
+    launches_e = flat_launches("route E", read_counts())
+    if min(launches_e[n][1] for n in STEP_NAMES) < 1:
+        _fail(f"route E skipped phase 2: launches {launches_e}")
+    reset_counts()
+    sol_e0 = pbatch.solve_batched(dims64, qpb64, cfg_e0)
+    torch.cuda.synchronize()
+    launches_e0 = flat_launches("route E without refinement", read_counts(),
+                                need=STEP_NAMES + STAGE_NAMES[:2],
+                                banned=flat_banned + UNFUSED)
+    # every instance converges with refinement; without it, as the f64
+    # lanes engine's mega route (section 5), at least 99%
+    for sol_, c_, what, lau, need_conv in (
+            (sol_e, cfg_e, "route E f64", launches_e, B),
+            (sol_e0, cfg_e0, "route E f64, no refinement", launches_e0,
+             0.99 * B)):
+        _check_solution(torch, sol_, dims64, c_.k_max, what)
+        n_conv = int(((sol_.status == 0)
+                      & (sol_.inf_norm_res[:, 3] <= 1e-8)).sum())
+        print(f"{what}: launches {lau}, kk histogram "
+              f"{torch.bincount(sol_.kk.long()).tolist()}, status counts "
+              f"{torch.bincount(sol_.status, minlength=3).tolist()}, "
+              f"{n_conv}/{B} at status 0 with mu <= 1e-8", flush=True)
+        if n_conv < need_conv:
+            _fail(f"{what}: {B - n_conv} instances did not converge")
+        _oracle(torch, np, qpb64, sol_, dev, 1e-6, 1e-9, 1e-6, what)
+    _check_calls(torch, e_calls, mods, MEGA_TOL["float64"],
+                 "float64, route E's first phase-2 refinement", {})
+    if len(e_calls) != 2:
+        _fail(f"route E: captured phase-2 calls {sorted(e_calls)}")
+
+    # ---- F. the parity route with the flat stage 2, float32; the f64 -------
+    # lanes engine with the unfused refinement against the fused one.  Its
+    # control error is held as section 6 holds the parity path's: max (and
+    # median) below the unrefined route's.  The max is decided by the few
+    # f32 instances whose trajectory a summation order moves near the f32
+    # floor (ROADMAP Queue 3, "The parity line at N=30"), so the route is
+    # also held against the lanes stage 2 (the fused refinement, the same
+    # arithmetic in another order) beside the flat stage 2 without
+    # refinement: the refinement must move the flat stage 2 to the lanes
+    # stage 2's answer
+    reset_counts()
+    with _env(HPMPC_STAGE2_LANES="0"):
+        sol_f = pbatch.solve_batched(dims, qpb, cfg_par)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    launches_f = flat_launches("route F", counts)
+    if counts["ipm_resident"] != 1:
+        _fail("route F: stage 1 did not run the resident kernel once")
+    _check_solution(torch, sol_f, dims, cfg_par.k_max, "route F")
+    err_f, med_f = ctrl_err(sol_f, ref64[cfg_par.k_max])
+    print(f"route F f32 (parity, flat stage 2): launches {launches_f}, kk "
+          f"histogram {torch.bincount(sol_f.kk.long()).tolist()}, control "
+          f"error vs f64 lanes (k_max={cfg_par.k_max}) max {err_f:.3e} "
+          f"(median {med_f:.3e}); lanes stage 2 {err_p:.3e} ({med_p:.3e}), "
+          f"unrefined {err_r:.3e} ({med_r:.3e})", flush=True)
+    if not (err_f < err_r and med_f < med_r):
+        _fail(f"route F: refined control error max {err_f:.3e} / median "
+              f"{med_f:.3e} is not below the unrefined {err_r:.3e} / "
+              f"{med_r:.3e}")
+    with _env(HPMPC_STAGE2_LANES="0"):
+        sol_f0 = pbatch._solve_two_stage(
+            dims, qpb, dataclasses.replace(cfg_par, iter_ref=0),
+            "two_stage_resident", None, None)
+
+    # per instance max |du| against the lanes stage 2; "moved": the
+    # instances on which the refinement changes the answer (the flat stage
+    # 2 without it differs from the lanes stage 2 there).  A refinement
+    # that did nothing would leave route F equal to sol_f0 on them
+    du_f, du_f0 = ((s_.z[..., :NU] - sol_p.z[..., :NU]).abs().amax((1, 2))
+                   .double() for s_ in (sol_f, sol_f0))
+    moved = du_f0 > 0
+    n_moved = int(moved.sum())
+    same_f, same_f0 = (float((s_.kk == sol_p.kk).double().mean())
+                       for s_ in (sol_f, sol_f0))
+    mdu_f, mdu_f0 = ((float(d[moved].median()) if n_moved else float("nan"))
+                     for d in (du_f, du_f0))
+    err_f0, med_f0 = ctrl_err(sol_f0, ref64[cfg_par.k_max])
+    print(f"route F f32 vs the lanes stage 2 (fused refinement): kk equal "
+          f"on {same_f:.4f} of the instances (the flat stage 2 without "
+          f"refinement: {same_f0:.4f}); on the {n_moved} instances the "
+          f"refinement moves, median max|du| {mdu_f:.3e} (without "
+          f"refinement {mdu_f0:.3e}); control error without refinement max "
+          f"{err_f0:.3e} (median {med_f0:.3e})", flush=True)
+    if not (n_moved and same_f > same_f0 and mdu_f < 0.5 * mdu_f0):
+        _fail("route F: the flat stage 2's refinement does not take it to "
+              "the lanes stage 2's answer")
+    del sol_f0
+    _oracle(torch, np, qpb, sol_f, dev, 1e-2, 1e-5, 1e-3, "route F")
+    reset_counts()
+    with _env(HPMPC_FUSED_REFINE="0"):
+        sol_u64 = ipm_lanes.solve_batched_lanes(dims64, qpb64, cfg_ref64)
+    torch.cuda.synchronize()
+    launches_u = flat_launches("route F, unfused refinement f64",
+                               read_counts())
+    if not (torch.equal(sol_u64.kk, sol_r64.kk)
+            and torch.equal(sol_u64.status, sol_r64.status)):
+        _fail("route F f64: the unfused refinement changes kk or status")
+    dz_u = _maxdiff(torch, sol_u64.z, sol_r64.z) / max(
+        1.0, float(sol_r64.z.abs().max()))
+    print(f"route F f64 (lanes, HPMPC_FUSED_REFINE=0): launches {launches_u};"
+          f" vs the fused refinement (row 13): kk and status equal, max "
+          f"|dz|/scale {dz_u:.3e} (tol 1e-10)", flush=True)
+    # the comparison's noise floor: the fused run on b moved by one ulp
+    sol_e64 = ipm_lanes.solve_batched_lanes(
+        dims64, dataclasses.replace(qpb64, b=qpb64.b * (1.0 + 2.0 ** -52)),
+        cfg_ref64)
+    dz_e = _maxdiff(torch, sol_e64.z, sol_r64.z) / max(
+        1.0, float(sol_r64.z.abs().max()))
+    print(f"route F f64: the fused refinement on b * (1 + 2^-52) against "
+          f"b: max |dz|/scale {dz_e:.3e} (the floor any change of rounding "
+          "meets)", flush=True)
+    if dz_u > 1e-10:
+        _fail("route F f64: the unfused refinement disagrees with the fused")
+    del sol_u64, sol_e64
+    t_sec = section_done("D-F flat routes", t_sec)
+
     # ---- 8. main path 6: solve_batched_soft, the soft lanes engine, f32 ---
     dims_s, qpb_s, sb_s, idxbs_s = soft_problem(torch.float32)
     engine_s = pbatch.select_soft_engine(dims_s, cfg_soft, torch.float32, NS,
@@ -1020,11 +1240,14 @@ def main() -> int:
     print(f"soft path f32: mega vs 6-kernel loop: kk equal on "
           f"{int(same.sum())} of {B}, max |dz| {dz6:.3e} there", flush=True)
 
-    # ---- 10. main path 8: the soft engine in float64, to mu <= 1e-8 ------
+    # ---- 10. main path 8: the soft engine in float64, to mu <= 1e-8, on ----
+    # its mega route (the f64 batch's dispatch, "soft_flat", takes the
+    # 6-kernel loop: route H)
     dims_s64, qpb_s64, sb_s64, _ = soft_problem(torch.float64)
     reset_counts()
-    sol_s64 = ipm_soft_lanes.solve_batched_soft_lanes(
-        dims_s64, qpb_s64, sb_s64, cfg_soft64, idxbs_s)
+    with _env(HPMPC_MEGA_SWEEPS="1"):
+        sol_s64 = ipm_soft_lanes.solve_batched_soft_lanes(
+            dims_s64, qpb_s64, sb_s64, cfg_soft64, idxbs_s)
     torch.cuda.synchronize()
     launches_s64 = {n: read_counts()[n] for n in SOFT_MEGA}
     if min(launches_s64.values()) < 1:
@@ -1043,6 +1266,101 @@ def main() -> int:
     if mu_o > 1e-8:
         _fail(f"soft path f64: oracle mu {mu_o:.3e} > 1e-8")
     t_sec = section_done("8-10 soft main paths", t_sec)
+
+    # ---- G. the structured soft route: tools/bench_soft.py's problem and ---
+    # config without use_pallas -> "soft_structured", the batch-native
+    # ipm_soft.solve on the plain batched Riccati (no kernel), f32 and f64
+    cfg_g = IPMConfig(k_max=8, mu0=100.0, mu_tol=0.0)
+    cfg_g64 = IPMConfig(k_max=30, mu0=100.0)
+
+    def route_g(d_, q_, s_, c_, what, idxbs=idxbs_s, need=()):
+        """One solve_batched_soft with the counters reset just before and
+        read just after: it launches exactly the kernels ``need``."""
+        if pbatch.select_soft_engine(d_, c_, q_.dtype, NS,
+                                     idxbs) != "soft_structured":
+            _fail(f"{what}: select_soft_engine did not choose "
+                  "'soft_structured'")
+        plain0 = dict(sk.PLAIN_CALLS)
+        reset_counts()
+        sol_ = pbatch.solve_batched_soft(d_, q_, s_, c_, idxbs=idxbs)
+        torch.cuda.synchronize()
+        ran = {n: v for n, v in read_counts().items() if total(v)}
+        if set(ran) != set(need) or sk.PLAIN_CALLS != plain0:
+            _fail(f"{what}: launches {ran}, expected {need}")
+        _check_soft_solution(torch, sol_, d_, NS, c_.k_max, what)
+        print(f"{what}: engine soft_structured, launches {ran}, kk histogram"
+              f" {torch.bincount(sol_.kk.long()).tolist()}, status counts "
+              f"{torch.bincount(sol_.status, minlength=3).tolist()}",
+              flush=True)
+        return sol_
+
+    for d_, q_, s_ in ((dims_s, qpb_s, sb_s), (dims_s64, qpb_s64, sb_s64)):
+        what = f"route G {str(q_.dtype).split('.')[-1]}"
+        _soft_oracle(torch, d_, q_, s_, route_g(d_, q_, s_, cfg_g, what),
+                     1e-3, what)
+    sol_g64 = route_g(dims_s64, qpb_s64, sb_s64, cfg_g64,
+                      "route G f64, mu_tol 1e-8")
+    conv_g = float((sol_g64.status == 0).double().mean())
+    print(f"route G f64, mu_tol 1e-8: converged {conv_g:.4f}", flush=True)
+    if conv_g < 0.99:
+        _fail("route G f64: fewer than 99% of instances converged")
+    mu_g = _soft_oracle(torch, dims_s64, qpb_s64, sb_s64, sol_g64, 1e-6,
+                        "route G f64, mu_tol 1e-8")
+    if mu_g > 1e-8:
+        _fail(f"route G f64: oracle mu {mu_g:.3e} > 1e-8")
+    del sol_g64
+    # the kernel backend (use_pallas without idxbs: rows 16/15) against the
+    # plain one, f64 at k_max=6 (ROADMAP Queue 3, "Soft multipliers")
+    cfg_gk = IPMConfig(k_max=6, mu0=100.0, mu_tol=0.0, use_pallas=True)
+    sol_gk = route_g(dims_s64, qpb_s64, sb_s64, cfg_gk,
+                     "route G f64, kernel backend, k_max=6", idxbs=None,
+                     need=STRUCT_NAMES[:2])
+    sol_gp = route_g(dims_s64, qpb_s64, sb_s64,
+                     dataclasses.replace(cfg_gk, use_pallas=False),
+                     "route G f64, plain backend, k_max=6", idxbs=None)
+    if not (torch.equal(sol_gk.kk, sol_gp.kk)
+            and torch.equal(sol_gk.status, sol_gp.status)):
+        _fail("route G f64 (k_max=6): the kernel backend's kk/status differ")
+    dz_g = _maxdiff(torch, sol_gk.z, sol_gp.z) / max(
+        1.0, float(sol_gp.z.abs().max()))
+    print(f"route G f64, k_max=6: kernel vs plain backend: kk and status "
+          f"equal, max |dz|/scale {dz_g:.3e} (tol 1e-8)", flush=True)
+    if dz_g > 1e-8:
+        _fail("route G f64 (k_max=6): the kernel backend disagrees")
+    del sol_gk, sol_gp
+
+    # ---- H. the f64 soft batch through solve_batched_soft: "soft_flat", ----
+    # the soft lanes engine's 6-kernel loop, to mu <= 1e-8
+    engine_h = pbatch.select_soft_engine(dims_s64, cfg_soft64, torch.float64,
+                                         NS, idxbs_s)
+    if engine_h != "soft_flat":
+        _fail(f"route H: select_soft_engine chose {engine_h!r}")
+    reset_counts()
+    sol_h = pbatch.solve_batched_soft(dims_s64, qpb_s64, sb_s64, cfg_soft64,
+                                      idxbs=idxbs_s)
+    torch.cuda.synchronize()
+    launches_h = flat_launches(
+        "route H", read_counts(), need=SOFT_STEP + STAGE_NAMES[:2],
+        banned=SOFT_MEGA)
+    _check_soft_solution(torch, sol_h, dims_s64, NS, cfg_soft64.k_max,
+                         "route H")
+    conv_h = float((sol_h.status == 0).double().mean())
+    same = sol_h.kk == sol_s64.kk
+    dz_h = (float((sol_h.z - sol_s64.z)[same].abs().max())
+            if bool(same.any()) else float("nan"))
+    print(f"route H f64: engine {engine_h}, launches {launches_h}, mean kk "
+          f"{float(sol_h.kk.double().mean()):.3f}, converged {conv_h:.4f}; "
+          f"vs the mega route (section 10): kk equal on {int(same.sum())} "
+          f"of {B}, max |dz| {dz_h:.3e} there", flush=True)
+    if conv_h < 0.99 or int(same.sum()) < 0.99 * B:
+        _fail("route H: fewer than 99% converged or agree with the mega "
+              "route on kk")
+    mu_h = _soft_oracle(torch, dims_s64, qpb_s64, sb_s64, sol_h, 1e-6,
+                        "route H f64")
+    if mu_h > 1e-8:
+        _fail(f"route H: oracle mu {mu_h:.3e} > 1e-8")
+    del sol_h
+    t_sec = section_done("G-H soft routes", t_sec)
 
     # ---- 11. main path 9: the structured route A, IPMConfig() ------------
     # the library's default config: no use_pallas -> "structured" on the
@@ -1198,29 +1516,35 @@ def main() -> int:
         return run
 
     def soft_solve(d, q, c):
-        return pbatch.solve_batched_soft(d, q, sb_s, c, idxbs=idxbs_s)
+        sb = sb_s if q.dtype == torch.float32 else sb_s64
+        return pbatch.solve_batched_soft(d, q, sb, c, idxbs=idxbs_s)
+
+    def soft_lanes(d, q, c):
+        return ipm_soft_lanes.solve_batched_soft_lanes(d, q, sb_s64, c,
+                                                       idxbs_s)
+
+    def with_env(fn, **env):
+        """``fn`` with the environment variables ``env`` set for the
+        duration of each call."""
+        def call(d, q, c):
+            with _env(**env):
+                return fn(d, q, c)
+        return call
 
     def six_kernel_loop(fn):
-        """``fn`` with the lanes engine on its 6-kernel loop
-        (``HPMPC_MEGA_SWEEPS=0``) for the duration of each call."""
-        def call(d, q, c):
-            old = os.environ.get("HPMPC_MEGA_SWEEPS")
-            os.environ["HPMPC_MEGA_SWEEPS"] = "0"
-            try:
-                return fn(d, q, c)
-            finally:
-                if old is None:
-                    del os.environ["HPMPC_MEGA_SWEEPS"]
-                else:
-                    os.environ["HPMPC_MEGA_SWEEPS"] = old
-        return call
+        """``fn`` with the lanes engines on their 6-kernel loop."""
+        return with_env(fn, HPMPC_MEGA_SWEEPS="0")
+
+    def mega_route(fn):
+        """``fn`` with the lanes engines on their mega route."""
+        return with_env(fn, HPMPC_MEGA_SWEEPS="1")
 
     @contextlib.contextmanager
     def plain_kernels():
         """Every kernel wrapper of the port replaced by its plain version."""
         swaps = [(rk, "ipm_resident"), (stk, "resid_full"),
                  (mk, "factor_solve_mega"), (mk, "solve_mega"), *six,
-                 *soft_mega, *soft_six[:3], *struct_targets]
+                 *soft_mega, *soft_six[:3], *struct_targets, *unfused]
         saved = [(m, n, getattr(m, n)) for m, n in swaps]
         for m, n, _ in saved:
             setattr(m, n, getattr(m, n + "_ref"))
@@ -1242,9 +1566,34 @@ def main() -> int:
              ipm_lanes.solve_batched_lanes, 3, 1, "b"),
             ("parity f32", qpb, dims, cfg_par, pbatch.solve_batched, 5, 1,
              "b"),
-            ("soft f32", qpb_s, dims_s, cfg_soft, soft_solve, 5, 1, "g"),
+            # the soft lanes engine's two routes side by side, f32 and f64
+            # (the f64 batch's dispatch, "soft_flat", is route H)
+            ("soft f32, mega", qpb_s, dims_s, cfg_soft,
+             mega_route(soft_solve), 5, 1, "g"),
             ("soft f32, 6-kernel loop", qpb_s, dims_s, cfg_soft,
              six_kernel_loop(soft_solve), 5, 1, "g"),
+            ("soft f64, mega", qpb_s64, dims_s64, cfg_soft64,
+             mega_route(soft_lanes), 3, 0, "g"),
+            ("soft f64, 6-kernel loop (route H)", qpb_s64, dims_s64,
+             cfg_soft64, soft_solve, 3, 0, "g"),
+            ("flat D f32", qpb, dims, cfg_d, pbatch.solve_batched, 5, 1,
+             "b"),
+            ("flat E f64", qpb64, dims64, cfg_e, pbatch.solve_batched, 3, 0,
+             "b"),
+            ("flat E f64, no refinement", qpb64, dims64, cfg_e0,
+             pbatch.solve_batched, 3, 0, "b"),
+            ("parity F f32, flat stage 2", qpb, dims, cfg_par,
+             with_env(pbatch.solve_batched, HPMPC_STAGE2_LANES="0"), 5, 0,
+             "b"),
+            ("lanes F f64, fused refinement", qpb64, dims64, cfg_ref64,
+             ipm_lanes.solve_batched_lanes, 3, 0, "b"),
+            ("lanes F f64, unfused refinement", qpb64, dims64, cfg_ref64,
+             with_env(ipm_lanes.solve_batched_lanes, HPMPC_FUSED_REFINE="0"),
+             3, 0, "b"),
+            ("structured soft G f32", qpb_s, dims_s, cfg_g, soft_solve, 2, 0,
+             "g"),
+            ("structured soft G f64", qpb_s64, dims_s64, cfg_g, soft_solve, 2,
+             0, "g"),
             # the structured routes; A runs no kernel (no plain version to
             # time apart), C's plain version is the lanes route's and A's
             ("structured A f32", qpb, dims, cfg_def, pbatch.solve_batched,
@@ -1268,6 +1617,13 @@ def main() -> int:
               f"({B / ms * 1e3:.1f} solves/s); plain version "
               + (f"{ms_plain:.3f} ms" if preps else "not timed"),
               flush=True)
+    for dt_ in ("f32", "f64"):
+        m_, s6_ = (e2e[f"soft {dt_}, mega"][0],
+                   e2e[next(k for k in e2e
+                            if k.startswith(f"soft {dt_}, 6-kernel"))][0])
+        print(f"soft lanes routes [{card}], {dt_}: 6-kernel loop {s6_:.3f} "
+              f"ms, mega {m_:.3f} ms per {B}-batch: the default (6-kernel "
+              f"loop) is {'faster' if s6_ < m_ else 'slower'}", flush=True)
     ms_e2e, ms_e2e_plain = e2e["resident f32"]
     print(f"main path [{card}]: {ms_e2e:.3f} ms per {B}-batch "
           f"({B / ms_e2e * 1e3:.1f} solves/s, mean kk "
@@ -1282,9 +1638,24 @@ def main() -> int:
             ("lanes f64", qpb64, dims64, cfg_lanes,
              ipm_lanes.solve_batched_lanes, "b"),
             ("parity f32", qpb, dims, cfg_par, pbatch.solve_batched, "b"),
-            ("soft f32", qpb_s, dims_s, cfg_soft, soft_solve, "g"),
+            ("soft f32, mega", qpb_s, dims_s, cfg_soft,
+             mega_route(soft_solve), "g"),
             ("soft f32, 6-kernel loop", qpb_s, dims_s, cfg_soft,
              six_kernel_loop(soft_solve), "g"),
+            ("soft f64, mega", qpb_s64, dims_s64, cfg_soft64,
+             mega_route(soft_lanes), "g"),
+            ("soft f64, 6-kernel loop (route H)", qpb_s64, dims_s64,
+             cfg_soft64, soft_solve, "g"),
+            ("flat D f32", qpb, dims, cfg_d, pbatch.solve_batched, "b"),
+            ("flat E f64", qpb64, dims64, cfg_e, pbatch.solve_batched, "b"),
+            ("parity F f32, flat stage 2", qpb, dims, cfg_par,
+             with_env(pbatch.solve_batched, HPMPC_STAGE2_LANES="0"), "b"),
+            ("lanes F f64, unfused refinement", qpb64, dims64, cfg_ref64,
+             with_env(ipm_lanes.solve_batched_lanes, HPMPC_FUSED_REFINE="0"),
+             "b"),
+            ("structured soft G f32", qpb_s, dims_s, cfg_g, soft_solve, "g"),
+            ("structured soft G f64", qpb_s64, dims_s64, cfg_g, soft_solve,
+             "g"),
             ("structured A f32", qpb, dims, cfg_def, pbatch.solve_batched,
              "b"),
             ("structured A f64", qpb64, dims64, cfg_def, pbatch.solve_batched,
@@ -1296,7 +1667,8 @@ def main() -> int:
             ("structured C f32", qpb, dims, cfg_c, pbatch.solve_batched,
              "b")):
         # one profiled call of the routes that launch ~10^5 small kernels
-        reps = 1 if label.startswith(("structured A", "structured C")) else 3
+        reps = 1 if label.startswith(("structured A", "structured C",
+                                      "structured soft")) else 3
         pr = _profile(torch, solve_rep(q0, d, c, fn, field), reps=reps)
         print(_profile_line(label, card, pr), flush=True)
     t_sec = section_done("14 end-to-end timings and profiles", t_sec)
@@ -1389,11 +1761,22 @@ def main() -> int:
          ((sk.whole_hessian(*a16[:4], dims.NZ),) + tuple(a16[4:]), {}),
          20, BS * (ops["factor_flat"] - dims.NZ) + B * ops["root"],
          launches_14)]
+    # rows 11 and 12 on route D's first refinement (f32)
+    rows += [
+        ("solve_flat_pb", "hpmpc_tpu/ops/stage_kernel.py:1385", sk,
+         d_calls[("solve_flat_pb", "")], 20,
+         BS * ops["solve_flat"] + B * (N * ops["pb"] + ops["root"]),
+         total(launches_d["solve_flat_pb"])),
+        ("resid_terms_flat", "hpmpc_tpu/ops/stage_kernel.py:1523", sk,
+         d_calls[("resid_terms_flat", "")], 50,
+         BS * ops["hz"] + B * N * ops["f_terms"],
+         total(launches_d["resid_terms_flat"]))]
     srcs = {"ipm_resident": "ipm_resident", "resid_full": "resid_full",
             "factor_solve_mega": "factor_solve_mega",
             "solve_mega": "solve_mega", "factor_solve_folded_flat":
             "factor_solve_flat", "solve_flat": "solve_flat",
-            "refine_flat_fused": "refine_flat",
+            "refine_flat_fused": "refine_flat", "solve_flat_pb": "solve_flat",
+            "resid_terms_flat": "resid_terms_flat",
             **{n: "step_flat" for n in STEP_NAMES},
             **{n: n for n in SOFT_MEGA},
             **{n: "soft_step_flat" for n in SOFT_STEP},
@@ -1405,8 +1788,11 @@ def main() -> int:
         fast, plain = getattr(mod, name), getattr(mod, name + "_ref")
         out = fast(*a, **k)
         kw_in = [v for v in k.values() if hasattr(v, "is_floating_point")]
-        nbytes = (_nbytes(a[1:], kw_in, out) + _tril_nbytes(a[0], dims.NZ)
-                  if name in TRIL_FIRST else _nbytes(a, kw_in, out))
+        nbytes = _nbytes(a, kw_in, out)
+        if name in TRIL_READ:
+            i, n_ = TRIL_READ[name]
+            nbytes += (_tril_nbytes(a[i], getattr(dims, n_))
+                       - _nbytes([a[i]]))
         bound_ms, bound_by = _bound(nbytes, n_ops)
         ms = _time_ms(torch, lambda r: fast(*a, **k), reps=reps)
         ms_plain = _time_ms(torch, lambda r: plain(*a, **k), reps=2)

@@ -25,6 +25,9 @@
 // instance (128 warps at B=4096).
 //
 // Design: the TPU grid's 2(N+1) steps become two loops inside the thread.
+// The stage products H z, F pi and F' z are hp::sym_mv_acc, hp::f_mv_acc
+// and hp::ft_mv_acc, shared with csrc/resid_terms_flat.cu (the unfused
+// pass).
 // Backward, stages N..0: rq and rb are assembled in registers, never
 // stored (the TPU keeps them in VMEM too); rb goes to per-instance global
 // scratch for the forward loop (the TPU's rb slab), as do eu and px; the
@@ -127,33 +130,18 @@ __global__ void __launch_bounds__(BLOCK) refine_flat_kernel(RefineArgs a) {
     T z[NZ], rq[NZ];
     hp::load(z, zc, rz);
 #pragma unroll
-    for (int i = 0; i < NZ; ++i) {
-      T acc = gc(rz + i) + dvc(rz + i) * z[i];
-#pragma unroll
-      for (int j = 0; j < NZ; ++j) {
-        const int p = i >= j ? hp::sym_idx(i, j) : hp::sym_idx(j, i);
-        acc = acc + Hc(static_cast<int64_t>(k) * NT + p) * z[j];
-      }
-      rq[i] = acc;
-    }
+    for (int i = 0; i < NZ; ++i) rq[i] = gc(rz + i) + dvc(rz + i) * z[i];
+    hp::sym_mv_acc<T, NZ>(Hc, static_cast<int64_t>(k) * NT, z, rq);
     T Pbpx[NX];
     if (k < N) {
       T piv[NX], rb[NX], Lxx[NX][NX], Pb[NX];
       hp::load(piv, pic, static_cast<int64_t>(k) * NX);
+      hp::f_mv_acc<T, NZ, NX>(Fc, f0, piv, rq);
+      hp::load(rb, bc, static_cast<int64_t>(k) * NX);
+      hp::ft_mv_acc<T, NZ, NX>(Fc, f0, z, rb);
 #pragma unroll
-      for (int i = 0; i < NZ; ++i) {
-        T fpi = Fc(f0 + i * NX) * piv[0];
-#pragma unroll
-        for (int q = 1; q < NX; ++q) fpi = fpi + Fc(f0 + i * NX + q) * piv[q];
-        rq[i] = rq[i] + fpi;
-      }
-#pragma unroll
-      for (int q = 0; q < NX; ++q) {
-        T acc = bc(static_cast<int64_t>(k) * NX + q);
-#pragma unroll
-        for (int i = 0; i < NZ; ++i) acc = acc + Fc(f0 + i * NX + q) * z[i];
-        rb[q] = acc - zc(static_cast<int64_t>(k + 1) * NZ + NU + q);
-      }
+      for (int q = 0; q < NX; ++q)
+        rb[q] = rb[q] - zc(static_cast<int64_t>(k + 1) * NZ + NU + q);
       hp::store(rbs, static_cast<int64_t>(k) * NX, rb);
       load_lxx(k + 1, Lxx);
       hp::pb_of<T, NX>(Lxx, rb, Pb);

@@ -215,6 +215,54 @@ __device__ __forceinline__ void x_next_of(const C& F, int64_t f0,
   }
 }
 
+// The three stage products of the KKT residual (stage_kernel._resid_kernel),
+// added onto y (from y = 0 in csrc/resid_terms_flat.cu; onto the residual's
+// other terms in csrc/refine_flat.cu):
+//   y += H z  with H a packed lower triangle at row h0 of its stream and
+//   y += F' z, F read from its (NZ, NX) stream rows at f0, term by term;
+//   y += F v as one dot product added last.  nvcc contracts a multiply
+//   and an add into an FMA wherever it can (--fmad=true), so the shape of
+//   each expression, not only its order, decides the rounding: these are
+//   the expressions of the row 13 pass, whose f32 rounding the parity
+//   line is measured against (hpmpc_tpu_torch/tools/compare_builds.py
+//   holds it bit for bit against another build).
+template <typename T, int NZ, typename C>
+__device__ __forceinline__ void sym_mv_acc(const C& H, int64_t h0,
+                                           const T (&z)[NZ], T (&y)[NZ]) {
+#pragma unroll
+  for (int i = 0; i < NZ; ++i) {
+    T acc = y[i];
+#pragma unroll
+    for (int j = 0; j < NZ; ++j)
+      acc = acc + H(h0 + (i >= j ? sym_idx(i, j) : sym_idx(j, i))) * z[j];
+    y[i] = acc;
+  }
+}
+
+template <typename T, int NZ, int NX, typename C>
+__device__ __forceinline__ void ft_mv_acc(const C& F, int64_t f0,
+                                          const T (&z)[NZ], T (&y)[NX]) {
+#pragma unroll
+  for (int q = 0; q < NX; ++q) {
+    T acc = y[q];
+#pragma unroll
+    for (int i = 0; i < NZ; ++i) acc = acc + F(f0 + i * NX + q) * z[i];
+    y[q] = acc;
+  }
+}
+
+template <typename T, int NZ, int NX, typename C>
+__device__ __forceinline__ void f_mv_acc(const C& F, int64_t f0,
+                                         const T (&v)[NX], T (&y)[NZ]) {
+#pragma unroll
+  for (int i = 0; i < NZ; ++i) {
+    T dot = F(f0 + i * NX) * v[0];
+#pragma unroll
+    for (int q = 1; q < NX; ++q) dot = dot + F(f0 + i * NX + q) * v[q];
+    y[i] = y[i] + dot;
+  }
+}
+
 // Backward substitution on the split factor (stage_kernel._trs_stage):
 // m = g at the terminal stage (is_t), else g + F (Pb + px_next) with F read
 // from its (NZ, NX) stream rows at f0; eu = Luu^{-1} m_u; px = m_x - Lxu eu.

@@ -403,8 +403,8 @@ def make_kernel_chain_kkt(qp: OCPQP, ng_stages: tuple, NU: int):
     factor_solve_folded`); :func:`~..ops.stage_kernel.solve_batched` re-
     solves on the retained factor with its Pb.  H and F are packed and
     made batch-last once here, per solve; the factor state ``(L, Pb)``
-    stays batch-last.  Shared by the hard structured route and (later) the
-    structured soft IPM."""
+    stays batch-last.  Shared by the hard structured route and the
+    structured soft IPM (:func:`.ipm_soft.solve`)."""
     Hl = to_lanes(sym_compress(qp.H))
     Fl = to_lanes(qp.F)
     idx = _stage_index(ng_stages, qp.device) if ng_stages else None

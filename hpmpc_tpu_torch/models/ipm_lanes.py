@@ -10,7 +10,12 @@ step.  A half-iteration is one mega kernel (:mod:`..ops.mega_kernel`,
 sequence (prep, factor+solve, alpha; corrector, re-solve, alpha:
 :mod:`..ops.step_kernel`, :mod:`..ops.stage_kernel`), which also carries
 ``iter_ref`` iterative refinement (the reference's ITER_REF,
-``d_ip2_res_hard.c:48``); either continues a previous stage's solution
+``d_ip2_res_hard.c:48``): one fused pass (``refine_flat_fused``) or, with
+``HPMPC_FUSED_REFINE=0``, the unfused pass (``resid_terms_flat``, the
+residuals' elementwise assembly, ``solve_flat_pb``).  The flat form
+(``flat=True``) is the 6-kernel sequence with the unfused refinement: the
+kernel set of the JAX package's flat engine ``ipm_fast``, which the port
+folds in here.  Either form continues a previous stage's solution
 (``state0``, the two-stage route).  The per-instance scalar math (alpha,
 mu, sigma), the general-constraint rows (a few (B, NG) vectors on a few
 stages, small einsums) and the gating stay in plain tensor code.
@@ -306,7 +311,7 @@ def _hot_state(state0, qp, cm, ngh, ng_stages, mu_scal, dt) -> _LState:
 
 
 def solve_batched_lanes(dims: OCPDims, qp: OCPQP, cfg, z0=None, pi0=None,
-                        state0=None) -> _ipm.IPMSolution:
+                        state0=None, flat: bool = False) -> _ipm.IPMSolution:
     """Batched two-phase solve on the lanes engine (the JAX package's
     ``solve_batched_lanes``).
 
@@ -318,25 +323,28 @@ def solve_batched_lanes(dims: OCPDims, qp: OCPQP, cfg, z0=None, pi0=None,
     times (:func:`~..ops.stage_kernel.refine_flat_fused`); with
     ``cfg.iter_ref_mu_thr`` > 0 only the iterations that start with the
     batch's smallest mu below it (one decision for the whole batch, live or
-    not, as in the JAX engine).  float32 and float64 both run.  Liveness is
-    per instance: the loops run while any instance is live (one host sync
-    per iteration), and an instance that is not live keeps its state (a
+    not, as in the JAX engine); ``HPMPC_FUSED_REFINE=0`` runs each pass
+    unfused (:func:`~..ops.stage_kernel.resid_terms_flat` +
+    :func:`~..ops.stage_kernel.solve_flat_pb`).  ``flat=True`` is the flat
+    form that ``parallel.batch`` routes the ``"flat"`` engine and the flat
+    stage 2 to: the 6-kernel sequence with the unfused refinement, whatever
+    the two knobs say.  float32 and float64 both run.  Liveness is per
+    instance: the loops run while any instance is live (one host sync per
+    iteration), and an instance that is not live keeps its state (a
     select).  Needs box constraints and a static ``dims.idxb``.
 
-    Not ported yet, each raises ``NotImplementedError``:
-    ``HPMPC_FUSED_SWEEPS=1`` (ROADMAP Queue 2 rows 17-18) and
-    ``HPMPC_FUSED_REFINE=0`` with ``iter_ref`` (rows 11-12)."""
+    Not ported yet: ``HPMPC_FUSED_SWEEPS=1`` (ROADMAP Queue 2 rows 17-18)
+    raises ``NotImplementedError``."""
     iter_ref = int(cfg.iter_ref)
     ref_thr = float(cfg.iter_ref_mu_thr)
-    mega = os.environ.get("HPMPC_MEGA_SWEEPS", "1") == "1" and iter_ref == 0
+    mega = (not flat and iter_ref == 0
+            and os.environ.get("HPMPC_MEGA_SWEEPS", "1") == "1")
     if not mega and os.environ.get("HPMPC_FUSED_SWEEPS", "0") == "1":
         raise NotImplementedError(
             "lanes engine: the fused sweeps (HPMPC_FUSED_SWEEPS=1) need "
-            "ROADMAP Queue 2 rows 17 and 18")
-    if iter_ref and os.environ.get("HPMPC_FUSED_REFINE", "1") != "1":
-        raise NotImplementedError(
-            "lanes engine: the unfused refinement (HPMPC_FUSED_REFINE=0) "
-            "needs ROADMAP Queue 2 rows 11 and 12")
+            "ROADMAP Queue 1 #7b, Queue 2 rows 17 and 18")
+    fused_refine = (not flat
+                    and os.environ.get("HPMPC_FUSED_REFINE", "1") == "1")
     dt = qp.dtype
     if dt not in (torch.float32, torch.float64):
         raise TypeError(f"lanes engine takes float32/float64, got {dt}")
@@ -389,14 +397,35 @@ def solve_batched_lanes(dims: OCPDims, qp: OCPQP, cfg, z0=None, pi0=None,
         return t_inv_g, lamt_g, Qx_g, ngh.ngl_of(Qx_g)
 
     def refine(fstate, Qx_g, geffL, rhsL, zL, piL):
-        """``iter_ref`` fused ITER_REF passes on the direction (zL, piL) of
-        the Newton system the 6-kernel affine half factored."""
+        """``iter_ref`` ITER_REF passes on the direction (zL, piL) of the
+        Newton system the 6-kernel affine half factored: fused, or the
+        unfused pass (the JAX engine's ``newton_refine_lanes``): the stage
+        products, the residuals assembled elementwise (the pi coupling and
+        the x shift are slice-adds in this layout), the re-solve with Pb
+        recomputed for rb, the update."""
         Ll, Lxx, _, dvecL = fstate
-        qxgl = to_lanes(Qx_g.reshape(B, n_ng, NG)) if n_ng else None
+        if fused_refine:
+            qxgl = to_lanes(Qx_g.reshape(B, n_ng, NG)) if n_ng else None
+            for _ in range(iter_ref):
+                zL, piL = sk.refine_flat_fused(
+                    Hl, dvecL, ngh.Cl_lanes, qxgl, ng_stages, geffL, Fl, rhsL,
+                    zL, piL, Ll, Lxx, **ks)
+            return zL, piL
         for _ in range(iter_ref):
-            zL, piL = sk.refine_flat_fused(
-                Hl, dvecL, ngh.Cl_lanes, qxgl, ng_stages, geffL, Fl, rhsL, zL,
-                piL, Ll, Lxx, **ks)
+            hzL, fzL, fpiL = sk.resid_terms_flat(Hl, Fl, zL, piL, NZ=NZ,
+                                                 NX=NX)
+            # the terms in the fused pass's order (csrc/refine_flat.cu):
+            # g + dvec z as one multiply-add (dvec ~ 1/mu near the end,
+            # where rounding dvec z apart from g would round the largest
+            # term alone), + H z, + F pi, - the pi shift, + the ng term
+            rqL = torch.addcmul(geffL, dvecL, zL) + hzL
+            rqL[:N] += fpiL[:N]
+            rqL[1:, NU:] -= piL
+            if n_ng:
+                rqL = ngh.ct_add_lanes(rqL, Qx_g * mgF * cz_of(zL))
+            rbL = rhsL + fzL[:N] - zL[1:, NU:]
+            dzL, dpiL = sk.solve_flat_pb(Ll, Lxx, rqL, Fl, rbL, **ks)
+            zL, piL = zL + dzL, piL + dpiL
         return zL, piL
 
     def affine_half(s, A_L, M_L, baseL, rhsL, qx_g, Qx_g, ngl, phase2,

@@ -6,15 +6,16 @@ reference's ``d_ip2_mpc_soft_tv`` (``mpc_solvers/d_ip2_soft.c:83``): every
 soft constraint carries four slack/multiplier families [lo; up; s_lo;
 s_up], eliminated stage by stage into the box fold of the Riccati sweep
 (the Zl/zl recurrences of ``d_aux_ip_soft_lib4.c:167`` and the corrector
-gradient at ``:508``).  A half-iteration is one soft mega kernel
-(:func:`~..ops.mega_kernel.factor_solve_soft_mega` /
+gradient at ``:508``).  A half-iteration is the 6-kernel sequence (soft
+prep, factor+solve, soft alpha; soft corrector, re-solve, soft alpha:
+:mod:`..ops.step_kernel`, :mod:`..ops.stage_kernel`), the default, or one
+soft mega kernel (:func:`~..ops.mega_kernel.factor_solve_soft_mega` /
 :func:`~..ops.mega_kernel.solve_soft_mega`, ``HPMPC_MEGA_SWEEPS=1``, the
-default) or the 6-kernel sequence (soft prep, factor+solve, soft alpha;
-soft corrector, re-solve, soft alpha: :mod:`..ops.step_kernel`,
-:mod:`..ops.stage_kernel`).  The per-instance scalar math, the
-general-constraint rows and the gating stay in plain tensor code, with
-the scaffolding of the hard engine (:func:`.ipm_lanes.make_lanes_common`,
-:func:`.ipm_lanes.make_ng_lanes`).
+JAX package's default: on the H100 the 6-kernel sequence was faster in
+every call that timed both, PERF.md §6).  The per-instance scalar math,
+the general-constraint rows and the gating stay in plain tensor code,
+with the scaffolding of the hard engine
+(:func:`.ipm_lanes.make_lanes_common`, :func:`.ipm_lanes.make_ng_lanes`).
 """
 
 from __future__ import annotations
@@ -63,19 +64,23 @@ def solve_batched_soft_lanes(dims, qp, soft, cfg, idxbs_static,
     padded-z soft coordinates shared by the batch.  ``exact_mehrotra_soft``
     keeps the soft corrector's gradient correction (False: the reference's
     dropped correction, ``hpmpc_tpu/models/ipm_soft.py:113-120``).
-    float32 and float64 both run.  Liveness is per instance: the loop runs
-    while any instance is live (one host sync per iteration), and an
-    instance that is not live keeps its state (a select).  Needs box
-    constraints (NB > 0), soft rows (NS > 0) and a static ``dims.idxb``.
+    The default is the 6-kernel sequence, which also stands for the JAX
+    package's flat soft engine ``ipm_soft_fast`` (the ``"soft_flat"``
+    engine of ``parallel.batch``); ``HPMPC_MEGA_SWEEPS=1`` takes the two
+    mega kernels instead.  float32 and float64 both run.  Liveness is per
+    instance: the loop runs while any instance is live (one host sync per
+    iteration), and an instance that is not live keeps its state (a
+    select).  Needs box constraints (NB > 0), soft rows (NS > 0) and a
+    static ``dims.idxb``.
 
     Not ported yet: ``HPMPC_FUSED_SWEEPS=1`` (ROADMAP Queue 2 rows 17-18)
     raises ``NotImplementedError``."""
     exact = bool(exact_mehrotra_soft)
-    mega = os.environ.get("HPMPC_MEGA_SWEEPS", "1") == "1"
+    mega = os.environ.get("HPMPC_MEGA_SWEEPS", "0") == "1"
     if not mega and os.environ.get("HPMPC_FUSED_SWEEPS", "0") == "1":
         raise NotImplementedError(
             "soft lanes engine: the fused sweeps (HPMPC_FUSED_SWEEPS=1) need "
-            "ROADMAP Queue 2 rows 17 and 18")
+            "ROADMAP Queue 1 #7b, Queue 2 rows 17 and 18")
     dt = qp.dtype
     if dt not in (torch.float32, torch.float64):
         raise TypeError(f"soft lanes engine takes float32/float64, got {dt}")

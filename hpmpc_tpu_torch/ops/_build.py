@@ -133,6 +133,7 @@ ENTRIES = {"step_flat": ("prep_flat", "alpha_sums_flat", "corr_geff_flat"),
            "soft_step_flat": ("soft_prep_flat", "soft_alpha_sums_flat",
                               "soft_corr_flat"),
            "factor_solve_flat": ("factor_solve_folded_flat",),
+           "solve_flat": ("solve_flat", "solve_flat_pb"),
            "refine_flat": ("refine_flat_fused",),
            "factor_solve_folded": ("factor_solve_folded",
                                    "factor_solve_batched")}

@@ -18,6 +18,15 @@ refinement pass:
     (rq, rb) of the current iterate, the correction re-solve with Pb
     recomputed from the retained Lxx, and ``(z + dz, pi + dpi)``.
 
+Two serve the same pass unfused (the flat form of the lanes engine, the
+JAX package's flat engine ``ipm_fast``):
+
+  * :func:`resid_terms_flat` (``_resid_kernel``) — the stage products H z,
+    F' z and F pi of the Newton residuals;
+  * :func:`solve_flat_pb` (``_bwd_trs_pb_kernel`` + ``_fwd_kernel_split``)
+    — the retained-factor re-solve with Pb recomputed from Lxx for a new
+    right-hand side, then the forward recovery with pi.
+
 Layout (:mod:`.layout`): batch-last streams; the factor state ``fstate =
 (Ll (N+1, NZ, NU, B), Lxx (N+1, NX, NX, B), Pb (N, NX, B))`` is
 :func:`~.mega_kernel.factor_solve_mega`'s, so :func:`solve_flat` takes
@@ -59,12 +68,11 @@ from .layout import from_lanes, sym_expand, sym_nt, to_lanes
 
 #: launches of each CUDA kernel in this process
 LAUNCHES = {"factor_solve_folded_flat": 0, "solve_flat": 0,
-            "refine_flat_fused": 0, "factor_solve_folded": 0,
+            "refine_flat_fused": 0, "resid_terms_flat": 0,
+            "solve_flat_pb": 0, "factor_solve_folded": 0,
             "factor_solve_batched": 0, "solve_batched": 0}
 #: calls of each wrapper that ran the plain version (CPU tensors)
-PLAIN_CALLS = {"factor_solve_folded_flat": 0, "solve_flat": 0,
-               "refine_flat_fused": 0, "factor_solve_folded": 0,
-               "factor_solve_batched": 0, "solve_batched": 0}
+PLAIN_CALLS = dict.fromkeys(LAUNCHES, 0)
 
 
 class _FactorArgs(ctypes.Structure):
@@ -90,6 +98,13 @@ class _RefineArgs(ctypes.Structure):
         "Lxx", "z_new", "pi_new", "work")] + [
         ("B", ctypes.c_int64), ("N", ctypes.c_int64),
         ("n_ng", ctypes.c_int64)]
+
+
+class _ResidTermsArgs(ctypes.Structure):
+    # mirrors struct ResidTermsArgs in csrc/resid_terms_flat.cu
+    _fields_ = [(n, ctypes.c_void_p) for n in (
+        "H", "F", "z", "pi", "hz", "fz", "fpi")] + [
+        ("B", ctypes.c_int64), ("N", ctypes.c_int64)]
 
 
 class _FoldedArgs(ctypes.Structure):
@@ -323,6 +338,86 @@ def refine_flat_fused(H, dvec, C, qxg, ng_stage_ids, g, F, b, z, pi, Ll, Lxx,
                   NG=max(NG, 1))
     LAUNCHES[name] += 1
     return z_new, pi_new
+
+
+def resid_terms_flat_ref(H, F, z, pi, *, NZ, NX):
+    """Plain PyTorch version of :func:`resid_terms_flat` (same arguments,
+    same outputs)."""
+    N = F.shape[0]
+    Hf = sym_expand(from_lanes(H), NZ)
+    Fb, zb, pib = from_lanes(F), from_lanes(z), from_lanes(pi)
+    hz = (Hf @ zb[..., None])[..., 0]
+    fz = zb.new_zeros(zb.shape[0], N + 1, NX)
+    fpi = torch.zeros_like(zb)
+    fz[:, :N] = (Fb.transpose(-1, -2) @ zb[:, :N, :, None])[..., 0]
+    fpi[:, :N] = (Fb @ pib[..., None])[..., 0]
+    return to_lanes(hz), to_lanes(fz), to_lanes(fpi)
+
+
+def solve_flat_pb_ref(Ll, Lxx, g, F, b, *, NU, NZ, NX):
+    """Plain PyTorch version of :func:`solve_flat_pb` (same arguments, same
+    outputs)."""
+    Llb, Lxxb, gb, Fb, bb = (from_lanes(x) for x in (Ll, Lxx, g, F, b))
+    eus, pxs = _trs(Llb, Lxxb, None, gb, Fb, bb)
+    z, pi = _forward(Llb, Lxxb, eus, pxs, Fb, bb, True)
+    return to_lanes(z), to_lanes(pi)
+
+
+def resid_terms_flat(H, F, z, pi, *, NZ, NX):
+    """The stage products of the Newton residuals, one launch: ``(hz, fz,
+    fpi)`` with hz_n = H_n z_n (N+1, NZ, B), fz_n = F_n' z_n (N+1, NX, B)
+    and fpi_n = F_n pi_n (N+1, NZ, B), the stage-N slices of fz and fpi
+    zero.  Inputs: packed ``H`` (N+1, NT, B), ``F`` (N, NZ, NX, B), ``z``
+    (N+1, NZ, B), ``pi`` (N, NX, B).
+
+    CPU tensors run :func:`resid_terms_flat_ref`; CUDA tensors launch
+    ``csrc/resid_terms_flat.cu`` (no sync)."""
+    name = "resid_terms_flat"
+    if z.device.type == "cpu":
+        PLAIN_CALLS[name] += 1
+        return resid_terms_flat_ref(H, F, z, pi, NZ=NZ, NX=NX)
+    Np1, B = z.shape[0], z.shape[-1]
+    N = Np1 - 1
+    named = dict(H=H, F=F, z=z, pi=pi)
+    shapes = dict(H=(Np1, sym_nt(NZ), B), F=(N, NZ, NX, B), z=(Np1, NZ, B),
+                  pi=(N, NX, B))
+    _cuda_check(name, z, (), named, shapes)
+    new = lambda *s: torch.empty(*s, dtype=z.dtype, device=z.device)  # noqa: E731
+    hz, fz, fpi = new(Np1, NZ, B), new(Np1, NX, B), new(Np1, NZ, B)
+    a = _ResidTermsArgs(*[_build.ptr(x) for x in (H, F, z, pi, hz, fz,
+                                                  fpi)], B, N)
+    _build.launch(name, name, a, z.device, z.dtype, NU=NZ - NX, NX=NX)
+    LAUNCHES[name] += 1
+    return hz, fz, fpi
+
+
+def solve_flat_pb(Ll, Lxx, g, F, b, *, NU, NZ, NX):
+    """Retained-factor re-solve for a new right-hand side, one launch: the
+    backward substitution of the gradient ``g`` (N+1, NZ, B) with Pb_k =
+    Lxx_{k+1} (Lxx_{k+1}' b_k) recomputed from the factor for ``b`` (N,
+    NX, B) -- no Pb cache is read --, then the forward recovery with pi.
+    ``(Ll, Lxx)`` is the split factor of :func:`factor_solve_folded_flat`.
+    Returns ``(z, pi)``.
+
+    CPU tensors run :func:`solve_flat_pb_ref`; CUDA tensors launch the Pb
+    form of ``csrc/solve_flat.cu`` (no sync)."""
+    name = "solve_flat_pb"
+    if g.device.type == "cpu":
+        PLAIN_CALLS[name] += 1
+        return solve_flat_pb_ref(Ll, Lxx, g, F, b, NU=NU, NZ=NZ, NX=NX)
+    Np1, B = g.shape[0], g.shape[-1]
+    N = Np1 - 1
+    named = dict(Ll=Ll, Lxx=Lxx, g=g, F=F, b=b)
+    shapes = dict(Ll=(Np1, NZ, NU, B), Lxx=(Np1, NX, NX, B), g=(Np1, NZ, B),
+                  F=(N, NZ, NX, B), b=(N, NX, B))
+    _cuda_check(name, g, (), named, shapes)
+    new = lambda *s: torch.empty(*s, dtype=g.dtype, device=g.device)  # noqa: E731
+    z, pi, work = new(Np1, NZ, B), new(N, NX, B), new(Np1 * (NU + NX), B)
+    a = _SolveArgs(*[_build.ptr(x) for x in (Ll, Lxx, None, g, F, b, z, pi,
+                                             work)], B, N)
+    _build.launch("solve_flat", name, a, g.device, g.dtype, NU=NU, NX=NX)
+    LAUNCHES[name] += 1
+    return z, pi
 
 
 # ---------------------------------------------------------------------------

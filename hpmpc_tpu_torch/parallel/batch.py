@@ -5,13 +5,17 @@ The batch is a first-class leading axis on every QP leaf.
 :func:`select_engine` keeps the JAX package's rule and engine names, minus
 the gates that are TPU measurements (the ``B % 1024`` block, the VMEM fit
 gates, the NZ 19..22 mega fence; nothing here chunks at 4096 either).
-The ``"resident"``, ``"lanes"``, the two two-stage engines and
-``"structured"`` (the batch-native :func:`~..models.ipm.solve`, which the
-library's default ``IPMConfig()`` reaches) are ported, with the f32
-escalation (:func:`_escalate_stalled`) and :func:`solve_single`; on the
-soft path (:func:`solve_batched_soft`) ``"soft_lanes"``.  Every other
-engine raises ``NotImplementedError`` naming its ROADMAP item instead of
-quietly running something else.
+Every engine of :func:`solve_batched` is ported: ``"resident"``,
+``"lanes"``, ``"flat"`` (the lanes engine's flat form, into which the
+JAX package's flat engine ``ipm_fast`` folds), the two two-stage engines
+and ``"structured"`` (the batch-native :func:`~..models.ipm.solve`, which
+the library's default ``IPMConfig()`` reaches), with the f32 escalation
+(:func:`_escalate_stalled`) and :func:`solve_single`; on the soft path
+(:func:`solve_batched_soft`) ``"soft_lanes"`` and ``"soft_flat"`` (both
+the soft lanes engine, whose default 6-kernel loop is the flat form) and
+``"soft_structured"`` (the batch-native :func:`~..models.ipm_soft.solve`).  The opt-in soft resident engine raises
+``NotImplementedError`` naming its ROADMAP item instead of quietly running
+something else.
 """
 
 from __future__ import annotations
@@ -23,11 +27,6 @@ import torch
 
 from ..models import ipm
 from ..ocp import OCPDims, OCPQP
-
-#: ROADMAP.md Queue 1 item that ports each engine not available yet
-_NOT_PORTED = {
-    "flat": "Queue 1 #7 (the flat engine folds into the lanes engine)",
-}
 
 
 def broadcast_qp(qp: OCPQP, batch: int) -> OCPQP:
@@ -96,16 +95,14 @@ def solve_batched(dims: OCPDims, qp: OCPQP, cfg: ipm.IPMConfig,
 
         return ipm_resident.solve_batched_resident(dims, qp, cfg,
                                                    z0=z0, pi0=pi0)
-    if engine == "lanes":
+    if engine in ("lanes", "flat"):
         from ..models import ipm_lanes
 
-        return ipm_lanes.solve_batched_lanes(dims, qp, cfg, z0=z0, pi0=pi0)
+        return ipm_lanes.solve_batched_lanes(dims, qp, cfg, z0=z0, pi0=pi0,
+                                             flat=engine == "flat")
     if engine in ("two_stage_resident", "two_stage_lanes"):
         return _solve_two_stage(dims, qp, cfg, engine, z0, pi0)
-    if engine == "structured":
-        return ipm.solve(dims, qp, cfg, z0=z0, pi0=pi0)
-    raise NotImplementedError(
-        f"engine {engine!r} is not ported yet: ROADMAP {_NOT_PORTED[engine]}")
+    return ipm.solve(dims, qp, cfg, z0=z0, pi0=pi0)
 
 
 def _escalate_stalled(dims: OCPDims, qp: OCPQP, cfg, sol, z0, pi0):
@@ -153,14 +150,6 @@ def solve_single(dims: OCPDims, qp: OCPQP, cfg: ipm.IPMConfig, z0=None,
     return type(sol)(*[x[0] for x in sol])
 
 
-#: ROADMAP.md item that ports each soft engine not available yet
-_SOFT_NOT_PORTED = {
-    "soft_resident": "Queue 2 row 1s (the soft resident kernel)",
-    "soft_flat": "Queue 1 #7 (ipm_soft_fast folds into the lanes engine)",
-    "soft_structured": "Queue 1 #10 (the structured soft ipm_soft.solve)",
-}
-
-
 def broadcast_soft(soft, batch: int):
     """Tile one :class:`~..models.ipm_soft.SoftSpec` into a batch (leading
     axis; views, no copies)."""
@@ -195,15 +184,20 @@ def solve_batched_soft(dims: OCPDims, qp: OCPQP, soft, cfg: ipm.IPMConfig,
     :class:`~..models.ipm_soft.SoftSolution`.
 
     ``idxbs``: the static (N+1, NS) padded-z soft coordinates shared by
-    every instance (the soft analogue of ``dims.idxb``).  The
-    ``"soft_lanes"`` engine is ported; the others raise
-    ``NotImplementedError`` naming their ROADMAP item."""
+    every instance (the soft analogue of ``dims.idxb``).  The opt-in
+    ``"soft_resident"`` engine raises ``NotImplementedError`` naming its
+    ROADMAP item."""
     NS = soft.ns_mask.shape[-1]
     engine = select_soft_engine(dims, cfg, qp.dtype, NS, idxbs)
-    if engine != "soft_lanes":
+    if engine == "soft_resident":
         raise NotImplementedError(
-            f"soft engine {engine!r} is not ported yet: ROADMAP "
-            f"{_SOFT_NOT_PORTED[engine]}")
+            "soft engine 'soft_resident' is not ported yet: ROADMAP Queue 1 "
+            "#10b, Queue 2 row 1s (the soft resident kernel)")
+    if engine == "soft_structured":
+        from ..models import ipm_soft
+
+        return ipm_soft.solve(dims, qp, soft, cfg,
+                              exact_mehrotra_soft=exact_mehrotra_soft)
     from ..models import ipm_soft_lanes
 
     idxbs_t = tuple(tuple(int(i) for i in row) for row in idxbs)
@@ -218,13 +212,10 @@ def _solve_two_stage(dims, qp, cfg, engine, z0, pi0) -> ipm.IPMSolution:
     unrefined to mu <= ``iter_ref_mu_thr``, then hands its whole
     primal-dual state to the lanes engine, which finishes with the
     mu-gated refinement; kk and the stat rows continue across the
-    hand-off.  ``HPMPC_STAGE2_LANES=0`` (the flat stage 2) raises."""
+    hand-off.  ``HPMPC_STAGE2_LANES=0`` runs stage 2 on the lanes engine's
+    flat form (the JAX package's flat stage 2)."""
     from ..models import ipm_lanes
 
-    if os.environ.get("HPMPC_STAGE2_LANES", "1") != "1":
-        raise NotImplementedError(
-            f"two-stage route with the flat stage 2: ROADMAP "
-            f"{_NOT_PORTED['flat']}")
     cfg1 = dataclasses.replace(
         cfg, iter_ref=0,
         mu_tol=max(float(cfg.mu_tol), float(cfg.iter_ref_mu_thr)))
@@ -235,4 +226,6 @@ def _solve_two_stage(dims, qp, cfg, engine, z0, pi0) -> ipm.IPMSolution:
                                                    z0=z0, pi0=pi0)
     else:
         sol1 = ipm_lanes.solve_batched_lanes(dims, qp, cfg1, z0=z0, pi0=pi0)
-    return ipm_lanes.solve_batched_lanes(dims, qp, cfg, state0=sol1)
+    return ipm_lanes.solve_batched_lanes(
+        dims, qp, cfg, state0=sol1,
+        flat=os.environ.get("HPMPC_STAGE2_LANES", "1") != "1")

@@ -3,8 +3,8 @@ PyTorch port vs the JAX package's ``solve_batched`` on the resident route
 (``HPMPC_RESIDENT=1``, Pallas in interpret mode), the dispatch rule, the
 default-tolerance route into the lanes engine, the structured route (the
 library's default ``IPMConfig()``, and ``use_pallas`` without a static
-``idxb``), the float32 escalation, ``solve_single``, and the
-not-yet-ported engines."""
+``idxb``), the float32 escalation, ``solve_single``, the engines folded
+into the lanes engine, and the fused sweeps that still raise."""
 
 import dataclasses
 
@@ -122,17 +122,29 @@ def test_select_engine_agrees_with_jax(monkeypatch, ci, f32, env):
          dtype=torch.float64),                              # -> flat
     dict(mu_tol=0.0, iter_ref=1, iter_ref_mu_thr=1e-3, use_pallas=True,
          env={"HPMPC_STAGE2_LANES": "0"}),    # -> two-stage, flat stage 2
+    dict(mu_tol=0.0, iter_ref=1, use_pallas=True,
+         env={"HPMPC_FUSED_SWEEPS": "1"}, match="#7b"),  # rows 17-18
 ])
 def test_unported_engines_raise(monkeypatch, kw):
+    """The engines the port folded in run (the flat form of the lanes
+    engine: a finite solution); the fused sweeps still raise, naming their
+    ROADMAP item."""
     monkeypatch.delenv("HPMPC_RESIDENT", raising=False)
     kw = dict(kw)
     for k, v in kw.pop("env", {}).items():
         monkeypatch.setenv(k, v)
+    match = kw.pop("match", None)
     dims, qp = mass_spring_qp(8, 3, 4, dtype=kw.pop("dtype", torch.float32),
                               device="cpu")
     qpb = tbatch.broadcast_qp(qp, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tbatch.solve_batched(dims, qpb, IPMConfig(k_max=2, **kw))
+    if match:
+        with pytest.raises(NotImplementedError, match=match):
+            tbatch.solve_batched(dims, qpb, IPMConfig(k_max=2, **kw))
+        return
+    sol = tbatch.solve_batched(dims, qpb, IPMConfig(k_max=2, **kw))
+    assert int(sol.kk.min()) == 2
+    assert all(bool(torch.isfinite(x).all()) for x in sol
+               if x.is_floating_point())
 
 
 def test_solve_batched_default_tolerances_run_lanes(monkeypatch):

@@ -120,11 +120,12 @@ _SIX = [(stk, n) for n in ("prep_flat", "alpha_sums_flat", "corr_geff_flat")
                                "refine_flat_fused")]
 
 
-def _capture(monkeypatch, dims, qpb, cfg, targets):
+def _capture(monkeypatch, dims, qpb, cfg, targets, **kw):
     """Arguments of the first call of each wrapper ``(module, name)`` of
-    ``targets`` in one lanes-engine solve: {(name, phase2, with_dl0):
-    (args, kwargs)}; phase2 is None for the sweeps, which take no phase,
-    and with_dl0 marks the alpha pass with the phase-1 centering stream."""
+    ``targets`` in one lanes-engine solve (``kw``: the engine's keywords):
+    {(name, phase2, with_dl0): (args, kwargs)}; phase2 is None for the
+    sweeps, which take no phase, and with_dl0 marks the alpha pass with the
+    phase-1 centering stream."""
     calls = {}
     for mod, name in targets:
         def spy(*a, _name=name, _fn=getattr(mod, name), **k):
@@ -134,7 +135,7 @@ def _capture(monkeypatch, dims, qpb, cfg, targets):
             return _fn(*a, **k)
 
         monkeypatch.setattr(mod, name, spy)
-    ipm_lanes.solve_batched_lanes(dims, qpb, cfg)
+    ipm_lanes.solve_batched_lanes(dims, qpb, cfg, **kw)
     monkeypatch.undo()
     return calls
 
@@ -387,10 +388,12 @@ def _soft_capture(monkeypatch, batch, cfg, targets, exact):
 @pytest.mark.parametrize("exact", [True, False])
 def test_soft_kernels_match_plain(cuda, monkeypatch, dtype, ng, exact):
     """Each soft kernel (rows 21, 22, 6, 7, 8) on the arguments of the soft
-    engine's first call of it (the initial iterate; the 6-kernel loop with
-    HPMPC_MEGA_SWEEPS=0), B=37; one call, so the mega kernels' tolerance."""
+    engine's first call of it (the initial iterate; the mega route with
+    HPMPC_MEGA_SWEEPS=1, the 6-kernel loop with =0), B=37; one call, so
+    the mega kernels' tolerance."""
     batch = _soft_batch(cuda, dtype, 5, ng, 37)
     cfg = IPMConfig(k_max=1, mu0=100.0, use_pallas=True)
+    monkeypatch.setenv("HPMPC_MEGA_SWEEPS", "1")
     calls = _soft_capture(monkeypatch, batch, cfg, _SOFT_MEGA, exact)
     monkeypatch.setenv("HPMPC_MEGA_SWEEPS", "0")
     calls.update(_soft_capture(monkeypatch, batch, cfg, _SOFT_STEP, exact))
@@ -449,6 +452,7 @@ def test_soft_route_on_card_matches_cpu(cuda, monkeypatch, mega):
 def test_soft_wrappers_reject_bad_inputs(cuda, monkeypatch):
     batch = _soft_batch(cuda, torch.float32, 5, True, 16)
     cfg = IPMConfig(k_max=1, mu0=100.0, use_pallas=True)
+    monkeypatch.setenv("HPMPC_MEGA_SWEEPS", "1")
     calls = _soft_capture(monkeypatch, batch, cfg, _SOFT_MEGA, True)
     monkeypatch.setenv("HPMPC_MEGA_SWEEPS", "0")
     calls.update(_soft_capture(monkeypatch, batch, cfg, _SOFT_STEP, True))
@@ -605,3 +609,109 @@ def test_structured_wrappers_reject_bad_inputs(cuda, monkeypatch):
             fn(*bad)
     with pytest.raises(ValueError):                   # ng term missing
         sk.factor_solve_folded(H, dvec, None, ids, g, F, b, NU)
+
+
+_UNFUSED = [(sk, "resid_terms_flat"), (sk, "solve_flat_pb")]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("ngN", [0, 4])
+@pytest.mark.parametrize("phase2", [False, True])
+def test_unfused_refine_kernels_match_plain(cuda, monkeypatch, dtype, ngN,
+                                            phase2):
+    """Rows 12 and 11 (the unfused refinement pass) on the arguments of the
+    flat form's first refinement of one phase (phase 2 alone with
+    mu_switch=1e9), B=37 so the last warp and block are ragged; one call
+    each, so the tolerance of the mega kernels' check."""
+    dims, qpb = _batch(cuda, dtype, 4, ngN, 37)
+    kw = dict(mu_switch=1e9) if phase2 else {}
+    calls = _capture(monkeypatch, dims, qpb,
+                     IPMConfig(k_max=1, iter_ref=1, use_pallas=True, **kw),
+                     _UNFUSED, flat=True)
+    assert sorted(k[0] for k in calls) == ["resid_terms_flat",
+                                           "solve_flat_pb"], sorted(calls)
+    for (name, _, _), (a, k) in sorted(calls.items()):
+        n0 = sk.LAUNCHES[name]
+        out_k = getattr(sk, name)(*a, **k)
+        torch.cuda.synchronize()
+        assert sk.LAUNCHES[name] == n0 + 1, name
+        out_p = getattr(sk, name + "_ref")(*a, **k)
+        assert len(out_k) == len(out_p), name
+        for i, (x, y) in enumerate(zip(out_k, out_p)):
+            assert x.shape == y.shape, (name, i)
+            assert bool(torch.isfinite(x).all()), (name, i)
+            scale = max(1.0, float(y.abs().max()))
+            assert float((x - y).abs().max()) <= _MEGA_TOL[dtype] * scale, (
+                name, i)
+
+
+def test_flat_engine_on_card_matches_cpu(cuda):
+    """The lanes engine's flat form (6-kernel loop, unfused refinement:
+    rows 3-5, 9-12) on the card vs the same call on the CPU (plain
+    versions): float64, both phases, the ngN=4 block at N=16, as the
+    6-kernel check above; the fused pass (row 13) never runs."""
+    dims, qpb = _batch(cuda, torch.float64, 16, 4, 40)
+    cfg = IPMConfig(k_max=12, mu_tol=1e-10, iter_ref=1, use_pallas=True)
+    names = [n for _, n in _SIX[3:5] + _UNFUSED]
+    n0 = {n: sk.LAUNCHES[n] for n in names + ["refine_flat_fused"]}
+    sol_g = ipm_lanes.solve_batched_lanes(dims, qpb, cfg, flat=True)
+    assert all(sk.LAUNCHES[n] > n0[n] for n in names)
+    assert sk.LAUNCHES["refine_flat_fused"] == n0["refine_flat_fused"]
+    sol_c = ipm_lanes.solve_batched_lanes(dims, qpb.to("cpu"), cfg,
+                                          flat=True)
+    assert torch.equal(sol_g.kk.cpu(), sol_c.kk)
+    assert torch.equal(sol_g.status.cpu(), sol_c.status)
+    for f in ("z", "pi", "lam_b", "t_b", "lam_g", "t_g", "stat",
+              "inf_norm_res"):
+        g, c = getattr(sol_g, f).cpu(), getattr(sol_c, f)
+        scale = max(1.0, float(c.abs().max()))
+        assert float((g - c).abs().max()) <= 1e-6 * scale, f
+
+
+def test_structured_soft_route_on_card_matches_cpu(cuda):
+    """The structured soft IPM on the kernel backend (rows 16/15) on the
+    card vs the same call on the CPU, float64, the soft problem at N=5,
+    ``k_max=6`` (ROADMAP Queue 3, "Soft multipliers")."""
+    dims, qp, soft = mass_spring_soft_qp(8, 3, 5, Z=10.0, device=cuda)
+    qpb, sb = pbatch.broadcast_qp(qp, 40), pbatch.broadcast_soft(soft, 40)
+    rng = np.random.default_rng(0)
+    qpb = dataclasses.replace(qpb, g=qpb.g * torch.as_tensor(
+        1 + 0.02 * rng.standard_normal(40), device=cuda)[:, None, None])
+    cfg = IPMConfig(k_max=6, mu0=100.0, mu_tol=1e-10, use_pallas=True)
+    n0 = {n: sk.LAUNCHES[n] for _, n in _STRUCT}
+    sol_g = ipm_soft.solve(dims, qpb, sb, cfg)
+    assert all(sk.LAUNCHES[n] > n0[n] for n in n0)
+    sol_c = ipm_soft.solve(dims, qpb.to("cpu"),
+                           type(sb)(*[x.cpu() for x in sb]), cfg)
+    assert torch.equal(sol_g.kk.cpu(), sol_c.kk)
+    assert torch.equal(sol_g.status.cpu(), sol_c.status)
+    for f in ("z", "pi", "lam_b", "t_b", "lam_s", "t_s", "stat"):
+        g, c = getattr(sol_g, f).cpu(), getattr(sol_c, f)
+        scale = max(1.0, float(c.abs().max()))
+        assert float((g - c).abs().max()) <= 1e-8 * scale, f
+
+
+def test_unfused_wrappers_reject_bad_inputs(cuda, monkeypatch):
+    dims, qpb = _batch(cuda, torch.float32, 4, 4, 16)
+    calls = _capture(monkeypatch, dims, qpb,
+                     IPMConfig(k_max=1, iter_ref=1, use_pallas=True),
+                     _UNFUSED, flat=True)
+    for (name, _, _), (a, k) in sorted(calls.items()):
+        fn = getattr(sk, name)
+        i = 2                                          # z / the gradient
+        bad = list(a)
+        bad[i] = a[i].double()
+        with pytest.raises(TypeError):
+            fn(*bad, **k)
+        bad = list(a)
+        bad[i] = a[i][..., :8].contiguous()            # batch
+        with pytest.raises(ValueError):
+            fn(*bad, **k)
+        bad = list(a)
+        bad[1] = a[1].cpu()                            # another device
+        with pytest.raises(ValueError):
+            fn(*bad, **k)
+        bad = list(a)
+        bad[-1] = a[-1].transpose(0, 1).contiguous().transpose(0, 1)
+        with pytest.raises(ValueError):                # non-contiguous
+            fn(*bad, **k)

@@ -29,7 +29,18 @@ both correctors off (phase 1 without ``corrector_low``, phase 2 without
 iterate with ``return_carry`` on the kernel backend (the JAX ``KKTCarry``
 brought over with ``convert.carry_from_numpy``).  The unconstrained
 route (``n_constr == 0``) and the golden ``ipm_ms_nx8_nu3_N10`` trace have
-tests of their own.  The JAX references are compiled without XLA's
+tests of their own.
+
+The lanes engine's flat form (``ipm_lanes.solve_batched_lanes(flat=
+True)``: the 6-kernel loop with the unfused refinement, rows 12 + 11) is
+held against the same JAX solves on the ``ms`` batch, with ``_compare``'s
+tolerances: the ``"flat"`` engine of ``solve_batched`` (float64
+``use_pallas`` with a static ``idxb``) without and with ``iter_ref`` (the
+JAX solves of ``defaults`` and ``iter_ref``), the unfused refinement on
+the lanes engine (``HPMPC_FUSED_REFINE=0``) and the two-stage route with
+the flat stage 2 (``HPMPC_STAGE2_LANES=0``), both against ``iter_ref``.
+The wrappers' call counters show the route: rows 11/12 run, the fused
+pass (row 13) and the mega kernels (rows 19/20) do not.  The JAX references are compiled without XLA's
 backend optimisations (``_FAST_COMPILE``: no fast-math either way).
 """
 
@@ -48,8 +59,10 @@ from hpmpc_tpu.models import ipm as jipm  # noqa: E402
 from hpmpc_tpu.parallel import batch as jbatch  # noqa: E402
 from hpmpc_tpu.utils.mass_spring import mass_spring_qp as j_mass_spring  # noqa: E402
 from hpmpc_tpu_torch.convert import QP_FIELDS, carry_from_numpy, qp_from_numpy  # noqa: E402
-from hpmpc_tpu_torch.models import ipm  # noqa: E402
+from hpmpc_tpu_torch.models import ipm, ipm_lanes  # noqa: E402
+from hpmpc_tpu_torch.ops import mega_kernel as mk  # noqa: E402
 from hpmpc_tpu_torch.ops import stage_kernel as sk  # noqa: E402
+from hpmpc_tpu_torch.parallel import batch as tbatch  # noqa: E402
 from hpmpc_tpu_torch.parallel.batch import broadcast_qp  # noqa: E402
 from hpmpc_tpu_torch.utils.mass_spring import mass_spring_qp  # noqa: E402
 
@@ -172,6 +185,65 @@ def test_structured_solve_matches_jax(case):
             scale = max(1.0, float(b.abs().max()))
             np.testing.assert_allclose(_np(a), _np(b), rtol=0,
                                        atol=1e-8 * scale, err_msg=f)
+
+
+_FLAT_ROWS = ("resid_terms_flat", "solve_flat_pb", "refine_flat_fused",
+              "factor_solve_folded_flat", "solve_flat")
+# case: (config beside use_pallas, environment)
+FLAT_CASES = {
+    "flat": ({}, {}),
+    "flat_iter_ref": (dict(iter_ref=1), {}),
+    "unfused_refine": (dict(iter_ref=1), {"HPMPC_FUSED_REFINE": "0"}),
+    "flat_stage2": (dict(iter_ref=1, iter_ref_mu_thr=1e-3),
+                    {"HPMPC_STAGE2_LANES": "0"}),
+}
+
+
+def _flat_counts():
+    return ({k: sk.PLAIN_CALLS[k] for k in _FLAT_ROWS},
+            {k: sum(v) for k, v in mk.PLAIN_CALLS.items()})
+
+
+@pytest.mark.parametrize("case", list(FLAT_CASES))
+def test_flat_form_matches_jax(monkeypatch, case):
+    kw, env = FLAT_CASES[case]
+    for k in ("HPMPC_RESIDENT", "HPMPC_LANES_LOOP", "HPMPC_MEGA_SWEEPS",
+              "HPMPC_FUSED_REFINE", "HPMPC_STAGE2_LANES"):
+        monkeypatch.delenv(k, raising=False)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    dims, qpb, qpt = _twin("ms")
+    B = qpt.g.shape[0]
+    cfg = ipm.IPMConfig(use_pallas=True, **kw)
+    n0 = _flat_counts()
+    if case == "unfused_refine":
+        sol_t = ipm_lanes.solve_batched_lanes(dims, qpt, cfg)
+    elif case == "flat_stage2":
+        assert tbatch.select_engine(dims, cfg, B, torch.float32) == \
+            "two_stage_resident"
+        sol_t = tbatch._solve_two_stage(dims, qpt, cfg, "two_stage_lanes",
+                                        None, None)
+    else:
+        assert tbatch.select_engine(dims, cfg, B, torch.float64) == "flat"
+        sol_t = tbatch.solve_batched(dims, qpt, cfg)
+    n1 = _flat_counts()
+    ran = {k: n1[0][k] - n0[0][k] for k in _FLAT_ROWS}
+    ran_mega = {k: n1[1][k] - n0[1][k] for k in n1[1]}
+    assert ran["refine_flat_fused"] == 0, ran
+    if case != "flat_stage2":      # stage 1 of the two-stage route is mega
+        assert max(ran_mega.values()) == 0, ran_mega
+    assert ran["factor_solve_folded_flat"] == ran["solve_flat"] >= 1, ran
+    if kw.get("iter_ref"):
+        # one unfused pass after each of the two solves of an iteration
+        assert (ran["resid_terms_flat"] == ran["solve_flat_pb"]
+                == 2 * ran["factor_solve_folded_flat"]), ran
+    else:
+        assert ran["resid_terms_flat"] == ran["solve_flat_pb"] == 0, ran
+    kw_j = {k: v for k, v in kw.items() if k != "iter_ref_mu_thr"}
+    sol_j = _jax_solve(dims, qpb, "ms", kw_j, None, None, False)
+    _compare(sol_t, sol_j)
+    assert bool((sol_t.status == 0).all())
+    assert len(set(_np(sol_t.kk).tolist())) > 1   # mixed exit iterations
 
 
 def test_unconstrained_route_matches_jax():

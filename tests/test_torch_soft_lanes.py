@@ -215,20 +215,26 @@ def test_compute_residuals_matches_jax(f64_case):
 
 
 @pytest.mark.parametrize("case", [
-    dict(),                                                   # -> soft_lanes
+    dict(engine="soft_lanes"),
+    dict(env={"HPMPC_MEGA_SWEEPS": "1"}, engine="soft_lanes", mega=True),
     dict(env={"HPMPC_RESIDENT": "1"}, match="row 1s"),
-    dict(env={"HPMPC_LANES_LOOP": "0"}, match="#7"),
-    dict(dtype=torch.float64, match="#7"),
-    dict(use_pallas=False, match="#10"),
+    dict(env={"HPMPC_LANES_LOOP": "0"}, engine="soft_flat"),
+    dict(dtype=torch.float64, engine="soft_flat"),
+    dict(use_pallas=False, engine="soft_structured"),
+    dict(env={"HPMPC_FUSED_SWEEPS": "1"}, match="#7b"),
 ])
 def test_solve_batched_soft_dispatch(monkeypatch, case):
+    """Every soft engine but the opt-in soft resident runs: the soft lanes
+    engine on its default 6-kernel loop (``HPMPC_MEGA_SWEEPS=1``: the mega
+    route), its flat form, and the structured soft solver; the soft
+    resident and the fused sweeps raise, naming their ROADMAP items."""
     for k in ("HPMPC_RESIDENT", "HPMPC_LANES_LOOP", "HPMPC_MEGA_SWEEPS"):
         monkeypatch.delenv(k, raising=False)
     for k, v in case.get("env", {}).items():
         monkeypatch.setenv(k, v)
-    dims, qp, soft = mass_spring_soft_qp(
-        8, 3, 3, Z=10.0, dtype=case.get("dtype", torch.float32),
-        device="cpu")
+    dt = case.get("dtype", torch.float32)
+    dims, qp, soft = mass_spring_soft_qp(8, 3, 3, Z=10.0, dtype=dt,
+                                         device="cpu")
     qpb, sb = tbatch.broadcast_qp(qp, 4), tbatch.broadcast_soft(soft, 4)
     cfg = IPMConfig(k_max=1, mu0=100.0,
                     use_pallas=case.get("use_pallas", True))
@@ -237,11 +243,20 @@ def test_solve_batched_soft_dispatch(monkeypatch, case):
         with pytest.raises(NotImplementedError, match=case["match"]):
             tbatch.solve_batched_soft(dims, qpb, sb, cfg, idxbs=idxbs)
         return
-    assert tbatch.select_soft_engine(dims, cfg, torch.float32, 8,
-                                     idxbs) == "soft_lanes"
-    n0 = dict(mk.SOFT_PLAIN_CALLS)
+    assert tbatch.select_soft_engine(dims, cfg, dt, 8,
+                                     idxbs) == case["engine"]
+    n_mega, n_six = dict(mk.SOFT_PLAIN_CALLS), dict(stk.SOFT_PLAIN_CALLS)
+    n_fold = sk.PLAIN_CALLS["factor_solve_folded"]
     sol = tbatch.solve_batched_soft(dims, qpb, sb, cfg, idxbs=idxbs)
-    assert all(mk.SOFT_PLAIN_CALLS[k] == n0[k] + 1 for k in n0)
+    ran_mega = all(mk.SOFT_PLAIN_CALLS[k] == n_mega[k] + 1 for k in n_mega)
+    ran_six = all(stk.SOFT_PLAIN_CALLS[k] > n_six[k] for k in n_six)
+    if case["engine"] == "soft_structured":
+        assert not ran_mega and not ran_six
+        assert sk.PLAIN_CALLS["factor_solve_folded"] == n_fold
+        _check_f64(sol, ipm_soft.solve(dims, qpb, sb, cfg), ("z",))
+    else:
+        assert (ran_mega, ran_six) == ((True, False) if case.get("mega")
+                                       else (False, True))
     assert int(sol.kk.max()) == 1
     assert all(bool(torch.isfinite(x).all()) for x in sol
                if x.is_floating_point())
