@@ -72,6 +72,23 @@ solve_batched`` (the f64 lanes runs call the engine directly):
     ``"soft_flat"`` engine: the soft 6-kernel loop) to mu <= 1e-8.  The
     soft lanes engine's two routes are timed side by side in float32 and
     float64 (its default is the 6-kernel loop).
+  * the flat engine on a problem with general rows and no box rows
+    (section I0: the chain nx=4 nu=2 N=16 with its bounds as C/D rows,
+    f64) against the structured solver;
+  * the public API (sections I-K): row 23, the dense latency kernel
+    (``ops/dense_kernel.dense_ipm``), against its plain version at the
+    box-only flagship's dense plan (``mass_spring_qp(8, 3, 30)``: nz=90,
+    ngd=120) in f32 (k_max=8, mu_tol=1e-4) and f64 (mu_tol=1e-8), cold and
+    warm, and on a QP with an unboxed input against the reference; then, counted from 0, ``api.solve_ocp`` on the golden
+    ``ipm_ms_nx8_nu3_N30_ngN8`` problem (f64, read from ``tests/golden/``
+    as data: kk and ux against the file), with ``N2=5`` against the direct
+    solve, ``OCPSession.solve_new_rhs`` / ``single_newton`` / ``solve``
+    along a short x0 sequence against fresh solves, and a closed loop of
+    warm ``OCPSession.dense_tick`` s on the box-only flagship (one launch
+    of row 23 a tick, u0 against fresh solves); then solve_ocp's wall time,
+    the dense tick's latency (cold and warm, f32 and f64, and through the
+    session), a tick's profile, row 23 alone with its bound, and one
+    ``torch.linalg`` Cholesky + solve of the same Hbar as context.
 
 Each path runs with the launch counters set to 0 just before and read just
 after, and its answer is held against a float64 host residual oracle (the
@@ -298,7 +315,7 @@ PROFILED = ("ipm_resident", "resid_full", "factor_solve_mega", "solve_mega",
             "prep_flat", "alpha_sums_flat", "corr_geff_flat",
             "factor_solve_flat", "solve_flat_pb", "solve_flat",
             "refine_flat", "resid_terms_flat") + SOFT_MEGA + SOFT_STEP + (
-                "factor_solve_folded", "solve_batched")
+                "factor_solve_folded", "solve_batched", "dense_ipm")
 _PATTERNS = {k: rf"\b{k}_kernel\b" for k in PROFILED}
 _PATTERNS["solve_flat_pb"] = r"\bsolve_flat_kernel<\w+, true>"
 
@@ -571,6 +588,380 @@ def _soft_oracle(torch, dims, qpb, soft, sol, primal_max, what):
     return rmax["mu"]
 
 
+# row 23 (the dense latency kernel) vs its plain version: equal kk and
+# status; y within these of its scale.  f32: the TPU kernel's own test
+# holds the Pallas kernel to its oracle at 2e-4 in y (tests/test_ipm_dense.
+# py), the kernel and the plain version sum the fold and the products in
+# another order and the barrier conditioning (~1/mu) amplifies that
+# roundoff; f64 at mu_tol 1e-8: 1e-10 (a host build of the kernel against
+# the plain version: 1.7e-15 at the flagship, 4.4e-8 on a random dense QP
+# at nz = ngd = 128, whose fold is far from symmetric in roundoff)
+DENSE_TOL = {"float32": 2e-4, "float64": 1e-10}
+# the API section's tolerances: the golden file's solution (tests/
+# test_api.py: 1e-8, stat rtol 1e-6); N2=5 against the direct solve at
+# mu_tol 1e-8 (1.0e-6 on the CPU; tests/test_cond.py holds the ngN=8
+# problem at N2=5 to 8e-6 at mu_tol 1e-9); each dense tick's u0 against a
+# fresh solve's (tests/test_api.py::test_session_dense_tick: 2e-3); the
+# retained-factor re-solve and the RTI step against fresh solves of the
+# new x0 (tests/test_api.py: 2e-4 and 5e-3 for the same kind of step)
+API_TOL = dict(golden=1e-8, n2=1e-5, tick=2e-3, new_rhs=2e-4, rti=5e-3,
+               warm=1e-6)
+DENSE_TICKS = 24
+F64_OPS = 67e12     # H100 SXM float64 peak (tensor cores; data sheet)
+
+
+def _dense_ops(nz: int, ngd: int, kk: int) -> float:
+    """Operations one dense tick of ``kk`` iterations needs (a multiply-add
+    counts 2): per iteration the symmetric fold's lower triangle
+    ngd nz (nz + 1), the Cholesky nz^3/3, four triangular substitutions
+    4 nz^2 and four G / G' products 8 ngd nz; the initial G y0 once."""
+    it = ngd * nz * (nz + 1) + nz ** 3 / 3 + 4 * nz * nz + 8 * ngd * nz
+    return kk * it + 2 * ngd * nz
+
+
+def _flat_no_box(torch, np, dev):
+    """Section I0: the flat engine on a problem with general rows and no box
+    rows (the mass-spring chain nx=4 nu=2 N=16 with its bounds as C/D
+    rows), f64, 256 instances with b scaled per instance, against the
+    structured solver's plain backend on the same batch (tests/
+    test_torch_ipm_structured.py's tolerances): the kernels of the flat
+    form must ignore the one masked box slot they are handed."""
+    from hpmpc_tpu_torch import api
+    from hpmpc_tpu_torch.models import ipm
+    from hpmpc_tpu_torch.models.ipm import IPMConfig
+    from hpmpc_tpu_torch.parallel import batch as pbatch
+    from hpmpc_tpu_torch.utils.mass_spring import mass_spring_data
+
+    dims, qp = api.pack_problem(**mass_spring_data(4, 2, 16,
+                                                   bounds_as_rows=True),
+                                device=dev)
+    nb = 256
+    sc = torch.as_tensor(1.0 + 0.05 * np.random.default_rng(SEED)
+                         .standard_normal(nb), device=dev)
+    qpb = pbatch.broadcast_qp(qp, nb)
+    qpb = dataclasses.replace(qpb, b=qpb.b * sc[:, None, None])
+    cfg = IPMConfig(use_pallas=True)
+    engine = pbatch.select_engine(dims, cfg, nb, torch.float64)
+    if engine != "flat" or sum(dims.nb) != 0:
+        _fail(f"no-box problem: engine {engine}, nb {dims.nb}")
+    sol = pbatch.solve_batched(dims, qpb, cfg)
+    ref = ipm.solve(dims, qpb, IPMConfig())
+    dz = _maxdiff(torch, sol.z, ref.z)
+    same = bool(torch.equal(sol.kk, ref.kk)) and bool(
+        torch.equal(sol.status, ref.status))
+    print(f"flat, no box rows (nx=4 nu=2 N=16, ng only, f64, {nb} "
+          f"instances): engine {engine}, kk equal to the structured "
+          f"solver's {same}, converged {int((sol.status == 0).sum())}, max "
+          f"|dz| {dz:.3e} (tol 1e-8)", flush=True)
+    if not same or dz > 1e-8 or not bool((sol.status == 0).all()):
+        _fail("the flat engine on a problem without box rows disagrees "
+              "with the structured solver")
+
+
+def _api_and_dense(torch, np, dev, card, repo, reset_counts, read_counts,
+                   total, section_done, t_sec):
+    """Sections I-K: row 23 vs its plain version at the flagship dense plan;
+    the public API on the card end to end (counted from 0); the dense
+    tick's latency, solve_ocp's wall time and row 23 alone.  Returns (row
+    23's kernels-line entry, t_sec)."""
+    from hpmpc_tpu_torch import api
+    from hpmpc_tpu_torch.models import ipm_dense
+    from hpmpc_tpu_torch.models.ipm import IPMConfig
+    from hpmpc_tpu_torch.ops import dense_kernel as dk
+    from hpmpc_tpu_torch.utils.mass_spring import (mass_spring_ab,
+                                                   mass_spring_data,
+                                                   mass_spring_qp)
+
+    _flat_no_box(torch, np, dev)
+
+    # ---- I. row 23 vs its plain version, f32 and f64, cold and warm ------
+    cfg_d = {torch.float32: IPMConfig(k_max=8, mu_tol=1e-4),
+             torch.float64: IPMConfig(k_max=30, mu_tol=1e-8)}
+    plans, err23, inputs = {}, 0.0, {}
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype).split(".")[-1]
+        dims_d, qp_d = mass_spring_qp(8, 3, N_HORIZON, dtype=dtype,
+                                      device=dev)
+        plan = ipm_dense.plan_dense(dims_d, qp_d)
+        if (plan.nz, plan.ngd) != (90, 120):
+            _fail(f"dense plan {name}: nz={plan.nz}, ngd={plan.ngd}, "
+                  "expected 90, 120")
+        plans[dtype] = (dims_d, qp_d, plan)
+        bflat = qp_d.b.reshape(-1)
+        y_cold = None
+        for warm in (False, True):
+            b_ = bflat * 1.01 if warm else bflat
+            args = dk.dense_inputs(plan, b_, y_cold if warm else None)
+            kw = dk.dense_config(plan, cfg_d[dtype])
+            out_k = dk.dense_ipm(*args, **kw)
+            torch.cuda.synchronize()
+            out_p = dk.dense_ipm_plain(*args, **kw)
+            kk_k, st_k = int(out_k[1]), int(out_k[3])
+            kk_p, st_p = int(out_p[1]), int(out_p[3])
+            dy = _maxdiff(torch, out_k[0], out_p[0])
+            scale = max(1.0, float(out_p[0].abs().max()))
+            tag = f"{name} {'warm' if warm else 'cold'}"
+            print(f"dense_ipm {tag}: kernel kk {kk_k} status {st_k} mu "
+                  f"{float(out_k[2]):.4e}; plain kk {kk_p} status {st_p} mu "
+                  f"{float(out_p[2]):.4e}; max|dy| {dy:.3e} (tol "
+                  f"{DENSE_TOL[name]:.0e} of scale {scale:.3f})", flush=True)
+            if not bool(torch.isfinite(out_k[0]).all()):
+                _fail(f"dense_ipm {tag}: non-finite y")
+            if (kk_k, st_k) != (kk_p, st_p) or st_k != 0:
+                _fail(f"dense_ipm {tag}: kk/status {kk_k}/{st_k} against "
+                      f"the plain version's {kk_p}/{st_p}")
+            if dy > DENSE_TOL[name] * scale:
+                _fail(f"dense_ipm {tag} disagrees with its plain version")
+            err23 = max(err23, dy)
+            if not warm:
+                y_cold = out_k[0]
+                inputs[dtype] = (args, kw, kk_k, out_k)
+    # a QP with an unboxed input (the N=6 chain, input 2 unboxed), where
+    # the port departs from the TPU kernel (it pins unboxed coordinates
+    # to 0): kernel, plain version and reference agree, f64
+    d6 = mass_spring_data(8, 3, 6)
+    for n in range(6):
+        keep = [k for k, j in enumerate(d6["idxb"][n]) if j != 2]
+        for key in ("idxb", "lb", "ub"):
+            d6[key][n] = d6[key][n][keep]
+    dims6, qp6 = api.pack_problem(**d6, device=dev)
+    plan6 = ipm_dense.plan_dense(dims6, qp6)
+    args = dk.dense_inputs(plan6, qp6.b.reshape(-1))
+    kw = dk.dense_config(plan6, cfg_d[torch.float64])
+    out_k = dk.dense_ipm(*args, **kw)
+    torch.cuda.synchronize()
+    out_p = dk.dense_ipm_plain(*args, **kw)
+    ref = ipm_dense.solve_dense_ref(plan6, qp6.b.reshape(-1),
+                                    cfg_d[torch.float64])
+    d_kp = _maxdiff(torch, out_k[0], out_p[0])
+    d_kr = _maxdiff(torch, out_k[0], ref.y)
+    print(f"dense_ipm f64, an unboxed input (N=6, nz {plan6.nz}, nb "
+          f"{plan6.nb}): kernel kk {int(out_k[1])} status {int(out_k[3])}, "
+          f"max|dy| vs plain {d_kp:.3e}, vs the reference (kk "
+          f"{int(ref.kk)}) {d_kr:.3e}; u0 {out_k[0][-3:].tolist()}",
+          flush=True)
+    if (int(out_k[1]), int(out_k[3])) != (int(out_p[1]), 0) or max(
+            d_kp, d_kr) > 1e-8:
+        _fail("dense_ipm on an unboxed input disagrees with its plain "
+              "version or the reference")
+    t_sec = section_done("I row 23 vs plain", t_sec)
+
+    # ---- J. the public API on the card, f64, counted from 0 -------------
+    g = json.loads((repo / "tests" / "golden"
+                    / "ipm_ms_nx8_nu3_N30_ngN8.json").read_text())
+    c = g["config"]
+    nx, nu, N = c["nx"], c["nu"], c["N"]
+    A = np.array(g["A_colmajor"]).reshape(nx, nx, order="F")
+    Bm = np.array(g["B_colmajor"]).reshape(nx, nu, order="F")
+    data = mass_spring_data(nx, nu, N, ngN=c["ngN"], A=A, B=Bm)
+    gcfg = dict(k_max=c["k_max"], mu0=c["mu0"], mu_tol=c["mu_tol"],
+                alpha_min=c["alpha_min"])
+
+    def ux(res):
+        return [np.concatenate([res.u[n], res.x[n]]) for n in range(N + 1)]
+
+    def maxdiff(a, b):
+        return max(float(np.abs(x - y).max()) for x, y in zip(a, b))
+
+    reset_counts()
+    dk.LAUNCHES = 0
+    plain0 = dk.PLAIN_CALLS
+    res, sess = api.solve_ocp(**data, **gcfg, return_session=True)
+    d_gold = maxdiff(ux(res), [np.array(v) for v in g["ux"]])
+    stat_ref = np.array(g["stat"]).reshape(-1, 5)[:g["kk"]]
+    if (res.kk, res.status) != (g["kk"], 0) or d_gold > API_TOL["golden"]:
+        _fail(f"solve_ocp golden: kk {res.kk} (golden {g['kk']}), status "
+              f"{res.status}, max |ux - golden| {d_gold:.3e}")
+    if not np.allclose(res.stat, stat_ref, rtol=1e-6, atol=1e-9):
+        _fail("solve_ocp golden: stat trace disagrees with the golden file")
+    part = api.solve_ocp(**data, **gcfg, N2=5)
+    d_n2 = maxdiff(ux(part), ux(res))
+    if part.status != 0 or d_n2 > API_TOL["n2"]:
+        _fail(f"solve_ocp(N2=5): status {part.status}, max |ux - direct| "
+              f"{d_n2:.3e}")
+    print(f"api golden ipm_ms_nx8_nu3_N30_ngN8 f64: kk {res.kk} (golden "
+          f"{g['kk']}), max |ux - golden| {d_gold:.3e}; N2=5 kk {part.kk}, "
+          f"max |ux - direct| {d_n2:.3e}", flush=True)
+
+    # the session's re-solves along a short x0 sequence, each against a
+    # fresh solve of the new x0
+    rng = np.random.default_rng(SEED)
+    x0 = data["x0"]
+    for step in range(2):
+        x0 = x0 + 0.01 * rng.standard_normal(nx)
+        fresh = api.solve_ocp(**{**data, "x0": x0}, **gcfg)
+        quick = sess.solve_new_rhs(x0=x0)
+        d_q = maxdiff(ux(quick), ux(fresh))
+        rti = sess.single_newton(k=1, x0=x0)
+        d_r = float(np.abs(rti.u[0] - fresh.u[0]).max())
+        warm = sess.solve(x0=x0)
+        d_w = maxdiff(ux(warm), ux(fresh))
+        print(f"api session step {step}: solve_new_rhs max |ux - fresh| "
+              f"{d_q:.3e}; single_newton |u0 - fresh| {d_r:.3e}; solve "
+              f"(warm) kk {warm.kk} (fresh {fresh.kk}), max |ux - fresh| "
+              f"{d_w:.3e}", flush=True)
+        if (d_q > API_TOL["new_rhs"] or d_r > API_TOL["rti"]
+                or d_w > API_TOL["warm"] or warm.status != 0):
+            _fail(f"api session step {step}: a re-solve strayed from the "
+                  "fresh solve")
+
+    # the dense tick in closed loop on the box-only flagship: each warm
+    # tick launches row 23 once; its u0 against a fresh solve_ocp of the
+    # same x0 (run after the loop, so that the tick counts stay clean)
+    dbox = mass_spring_data(8, 3, N_HORIZON)
+    _, sess_d = api.solve_ocp(**dbox, return_session=True)
+    Ad, Bd = mass_spring_ab(8, 3)
+    x = dbox["x0"].copy()
+    xs, u0s, kks = [], [], []
+    for t in range(DENSE_TICKS):
+        n0 = dk.LAUNCHES
+        u0, r_ = sess_d.dense_tick(x0=x)
+        if dk.LAUNCHES != n0 + 1:
+            _fail(f"dense tick {t}: row 23 launched {dk.LAUNCHES - n0} "
+                  "times")
+        if int(r_.status) != 0:
+            _fail(f"dense tick {t}: status {int(r_.status)}")
+        xs.append(x.copy())
+        u0s.append(u0)
+        kks.append(int(r_.kk))
+        x = Ad @ x + Bd @ u0 + 0.01 * rng.standard_normal(8)
+    counts = read_counts()
+    launches_23 = dk.LAUNCHES
+    other = {k: total(v) for k, v in counts.items() if total(v)}
+    if launches_23 != DENSE_TICKS or dk.PLAIN_CALLS != plain0 or other:
+        _fail(f"api main path: row 23 launches {launches_23} (expected "
+              f"{DENSE_TICKS}), plain calls {dk.PLAIN_CALLS - plain0}, "
+              f"other kernels {other}")
+    du = 0.0
+    for xx, u0 in zip(xs, u0s):
+        fresh = api.solve_ocp(**{**dbox, "x0": xx})
+        if fresh.status != 0:
+            _fail("a fresh solve of a tick's x0 did not converge")
+        du = max(du, float(np.abs(u0 - fresh.u[0]).max()))
+    print(f"api dense tick: {DENSE_TICKS} warm ticks, row 23 launches "
+          f"{launches_23} (one a tick, no plain call, no other kernel), kk "
+          f"{kks}, max |u0 - fresh solve_ocp| {du:.3e} (tol "
+          f"{API_TOL['tick']:.0e}), final |x| {np.linalg.norm(x):.4f}",
+          flush=True)
+    if du > API_TOL["tick"]:
+        _fail("dense ticks disagree with fresh solves")
+    t_sec = section_done("J api main path", t_sec)
+
+    # ---- K. latency and timings ----------------------------------------
+    def call_ms(fn, reps):
+        """Median ms of ``reps`` calls, each between two CUDA events (a
+        tick ends with u0 on the host, so the events bracket all of it)."""
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        out = []
+        for r in range(reps):
+            torch.cuda.synchronize()
+            start.record()
+            fn(r)
+            end.record()
+            torch.cuda.synchronize()
+            out.append(start.elapsed_time(end))
+        return float(np.median(out)), out
+
+    ms_solve, all_solve = call_ms(lambda r: api.solve_ocp(**data, **gcfg), 3)
+    print(f"api.solve_ocp [{card}] f64 golden problem: "
+          f"{ms_solve:.3f} ms per call (CUDA events, median of 3: "
+          + ", ".join(f"{v:.3f}" for v in all_solve) + ")", flush=True)
+    for warm in (False, True):
+        xq = dbox["x0"]
+        ms_t, _ = call_ms(lambda r: sess_d.dense_tick(
+            warm=warm, x0=xq * (1.0 + 1e-4 * (r % 7))), 200)
+        print(f"api OCPSession.dense_tick [{card}] f64 "
+              f"{'warm' if warm else 'cold'}: {ms_t:.4f} ms per tick "
+              "(median of 200, CUDA events: b packed on the host, the "
+              "vector maps, row 23, u0 to the host)", flush=True)
+    # the same warm tick with b taken from a repack of the whole problem
+    # (pack_problem, as the JAX session's tick does), to weigh the
+    # session's b-only packing
+    plan_s, y_s = sess_d._dense_plan, sess_d._dense_y
+    ms_r, _ = call_ms(lambda r: ipm_dense.solve_dense_tick(
+        plan_s, sess_d._repack(
+            x0=dbox["x0"] * (1.0 + 1e-4 * (r % 7))).b.reshape(-1),
+        sess_d.cfg, y0=y_s).u0.cpu(), 200)
+    print(f"api dense tick [{card}] f64 warm, b from a full repack: "
+          f"{ms_r:.4f} ms per tick (median of 200, CUDA events; the "
+          f"session's b-only packing: {ms_t:.4f} ms)", flush=True)
+    pr = _profile(torch, lambda r: sess_d.dense_tick(
+        x0=dbox["x0"] * (1.0 + 1e-4 * r)), reps=20)
+    print(_profile_line("api dense tick f64 warm", card, pr), flush=True)
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype).split(".")[-1]
+        _, qp_d, plan = plans[dtype]
+        bflat = qp_d.b.reshape(-1)
+        y_w = ipm_dense.solve_dense_tick(plan, bflat, cfg_d[dtype]).y
+        for warm in (False, True):
+            ms_t, _ = call_ms(lambda r: ipm_dense.solve_dense_tick(
+                plan, bflat * (1.0 + 1e-4 * (r % 7)), cfg_d[dtype],
+                y0=y_w if warm else None).u0.cpu(), 200)
+            print(f"dense tick [{card}] {name} {'warm' if warm else 'cold'}"
+                  f" (k_max {cfg_d[dtype].k_max}, mu_tol "
+                  f"{cfg_d[dtype].mu_tol:.0e}): {ms_t:.4f} ms per tick "
+                  "(median of 200, CUDA events: the vector maps, row 23, "
+                  "u0 to the host)", flush=True)
+
+    # row 23 alone: CUDA events over 50 launches, the plain version over 2,
+    # at the flagship's cold inputs; the kernels line's entry is f32
+    row = None
+    for dtype in (torch.float64, torch.float32):
+        name = str(dtype).split(".")[-1]
+        args, kw, kk, out = inputs[dtype]
+        nz, ngd = args[0].shape[0], args[1].shape[0]
+        ms = _time_ms(torch, lambda r: dk.dense_ipm(*args, **kw), reps=50)
+        ms_p = _time_ms(torch, lambda r: dk.dense_ipm_plain(*args, **kw),
+                        reps=2, warmup=0)
+        nbytes = _nbytes(args, out)
+        ops = _dense_ops(nz, ngd, kk)
+        peak = F32_OPS if dtype == torch.float32 else F64_OPS
+        bound_ms = max(nbytes / HBM_BPS, ops / peak) * 1e3
+        bound_by = "bytes" if nbytes / HBM_BPS >= ops / peak else "operations"
+        sm_ms = ops / (peak / 132) * 1e3
+        print(f"dense_ipm [{card}] {name}: kernel {ms:.4f} ms, plain "
+              f"{ms_p:.4f} ms, bound {bound_ms:.6f} ms ({bound_by}: {nbytes} "
+              f"B, {ops:.4e} ops at kk {kk}; {bound_ms / ms:.3%} of bound), "
+              f"one SM's share of the peak {sm_ms:.4f} ms ({sm_ms / ms:.2%});"
+              f" sequential depth {kk * 5 * nz} steps ({5 * nz} an iteration"
+              f": {nz} Cholesky columns + 4 x {nz} substitution steps), "
+              f"{ms / (kk * 5 * nz) * 1e6:.1f} ns a step (nz {nz}, ngd "
+              f"{ngd})", flush=True)
+        if dtype == torch.float32:
+            row = {"name": "dense_ipm", "route": "cuda",
+                   "source": "hpmpc_tpu_torch/csrc/dense_ipm.cu",
+                   "replaces": "hpmpc_tpu/ops/dense_kernel.py:396",
+                   "launches": launches_23, "max_abs_err": err23, "ms": ms,
+                   "plain_ms": ms_p, "bound_ms": bound_ms,
+                   "bound_by": bound_by, "library_ms": None}
+    # context only (the port never calls them): one Cholesky + solve of the
+    # flagship's first Hbar (f32) by torch.linalg
+    seen = []
+    chol = dk._chol_cols
+
+    def spy(A_, tiny):
+        seen.append(A_.clone())
+        return chol(A_, tiny)
+
+    dk._chol_cols = spy
+    try:
+        args, kw, _, _ = inputs[torch.float32]
+        dk.dense_ipm_plain(*args, **dict(kw, k_max=1))
+    finally:
+        dk._chol_cols = chol
+    Hbar = seen[0]
+    rhs = torch.ones(Hbar.shape[0], 1, dtype=Hbar.dtype, device=dev)
+    ms_lib = _time_ms(torch, lambda r: torch.cholesky_solve(
+        rhs, torch.linalg.cholesky(Hbar)), reps=50)
+    print(f"context [{card}]: torch.linalg.cholesky + torch.cholesky_solve "
+          f"of the flagship's first Hbar (f32, {Hbar.shape[0]}x"
+          f"{Hbar.shape[0]}): {ms_lib:.4f} ms; row 23 per iteration "
+          f"{row['ms'] / inputs[torch.float32][2]:.4f} ms", flush=True)
+    t_sec = section_done("K api and dense timings", t_sec)
+    return row, t_sec
+
+
 def main() -> int:
     repo = pathlib.Path(__file__).resolve().parent
     if not (repo / "hpmpc_tpu_torch" / "csrc").is_dir():
@@ -717,7 +1108,13 @@ def main() -> int:
              ("refine_flat", dict(d2, NG=dims.NG)), ("resid_terms_flat", d2),
              ("factor_solve_soft_mega", ds), ("solve_soft_mega", ds),
              ("soft_step_flat", dict(NZ=dims_s.NZ, NB=dims_s.NB, NS=NS)),
-             ("factor_solve_folded", d2), ("solve_batched", d2)]
+             ("factor_solve_folded", d2), ("solve_batched", d2),
+             ("dense_ipm", {}),
+             # the flat engine on the no-box chain of section I0
+             ("step_flat", dict(NZ=6, NB=1)),
+             ("factor_solve_flat", dict(NU=2, NX=4)),
+             ("solve_flat", dict(NU=2, NX=4)),
+             ("resid_full", dict(NU=2, NX=4, NB=1))]
     t0 = time.perf_counter()
     _build.build_all(specs)
     print(f"build: {time.perf_counter() - t0:.1f} s ({len(specs)} "
@@ -1507,6 +1904,10 @@ def main() -> int:
           f"{launches_14}", flush=True)
     t_sec = section_done("11-13 structured routes", t_sec)
 
+    # ---- I-K. the public API and the dense latency tick (row 23) ---------
+    row23, t_sec = _api_and_dense(torch, np, dev, card, repo, reset_counts,
+                                  read_counts, total, section_done, t_sec)
+
     # ---- 14. timings --------------------------------------------------------
     def solve_rep(q0, d, c, fn, field="b"):
         def run(r):
@@ -1809,6 +2210,7 @@ def main() -> int:
                         "ms": ms, "plain_ms": ms_plain,
                         "bound_ms": bound_ms, "bound_by": bound_by,
                         "library_ms": None})
+    kernels.append(row23)
     print(f"launches per call: parity path {launches_p}", flush=True)
     section_done("15 kernels alone", t_sec)
     print(f"chip_smoke: total {time.perf_counter() - t_script:.1f} s ("

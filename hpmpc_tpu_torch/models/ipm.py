@@ -290,16 +290,29 @@ def _absmax(x):
 
 
 def init_vars(dims: OCPDims, qp: OCPQP, cfg: IPMConfig, z0=None, pi0=None,
-              carry0: KKTCarry | None = None) -> IPMState:
+              carry0: KKTCarry | None = None, iterate0=None) -> IPMState:
     """The reference's initial iterate: z from ``z0`` (with
     ``cfg.warm_start``) or zero with its box-violating coordinates moved
     inside, box slacks clamped at 0.1 (including the reference's stale-slack
-    quirk), general slacks from the corrected iterate, lam = mu0 / t.  (The
-    JAX function's ``iterate0`` warm Newton start arrives with
-    ``solve_single_newton``, ROADMAP Queue 1 #11.)"""
+    quirk), general slacks from the corrected iterate, lam = mu0 / t.
+
+    ``iterate0`` = ``(z, pi, lam_b, t_b, lam_g, t_g)``, batch-first, is the
+    full warm start of ``solve_single_newton`` (the reference's
+    ``d_init_var_mpc_hard_tv_single_newton``, ``d_aux_ip_hard_lib4.c:154``):
+    the iterate as given, mu = mu0."""
     dt, dev = qp.dtype, qp.device
     B = qp.b.shape[0]
     N, NZ, NX = dims.N, dims.NZ, dims.NX
+    full = lambda v: torch.full((B,), v, dtype=dt, device=dev)  # noqa: E731
+    if iterate0 is not None:
+        z, pi, lam_b, t_b, lam_g, t_g = (x.to(dt) for x in iterate0)
+        return IPMState(
+            z=z, pi=pi, lam_b=lam_b, t_b=t_b, lam_g=lam_g, t_g=t_g,
+            mu=full(cfg.mu0), alpha=full(1.0),
+            kk=torch.zeros(B, dtype=torch.int32, device=dev),
+            sigma=full(0.0),
+            stat=torch.zeros(B, cfg.k_max, 5, dtype=dt, device=dev),
+            carry=carry0, lam_ref=full(float("inf")))
     thr0 = torch.tensor(0.1, dtype=dt, device=dev)
     mu0 = torch.tensor(cfg.mu0, dtype=dt, device=dev)
     if cfg.warm_start and z0 is not None:
@@ -338,7 +351,6 @@ def init_vars(dims: OCPDims, qp: OCPQP, cfg: IPMConfig, z0=None, pi0=None,
         pi = pi0.to(dt)
     else:
         pi = torch.zeros(B, N, NX, dtype=dt, device=dev)
-    full = lambda v: torch.full((B,), v, dtype=dt, device=dev)  # noqa: E731
     return IPMState(
         z=z, pi=pi, lam_b=lam_b, t_b=t_b, lam_g=lam_g, t_g=t_g,
         mu=full(cfg.mu0), alpha=full(1.0),
@@ -523,16 +535,14 @@ def solve(dims: OCPDims, qp: OCPQP, cfg: IPMConfig, z0=None, pi0=None,
     backend, as in JAX) factors and re-solves with the hand-written kernels;
     else the plain batched Riccati.  With ``return_carry=True`` also
     returns a :class:`KKTCarry` (batch-first).  ``backend`` replaces the
-    chain backend.  ``iterate0`` / ``rti_mode`` (the warm Newton start of
-    ``solve_single_newton``) are not ported yet: ROADMAP Queue 1 #11.
+    chain backend.  ``iterate0`` = ``(z, pi, lam_b, t_b, lam_g, t_g)``
+    starts from that full iterate (:func:`init_vars`); ``rti_mode`` skips
+    phase 1 and runs phase 2 for exactly ``cfg.k_max`` iterations with no
+    tolerance exits (the reference's ``single_newton_step``,
+    ``d_ip2_res_hard.c:1686``): :func:`solve_single_newton`.
 
     Runs on the device of ``qp``; float32 matrix products at full
     precision (the package pins TF32 off)."""
-    if iterate0 is not None or rti_mode:
-        raise NotImplementedError(
-            "ipm.solve(iterate0=..., rti_mode=True): the warm Newton start "
-            "arrives with solve_single_newton, kkt_solve_new_rhs and "
-            "OCPSession, ROADMAP Queue 1 #11")
     dt, dev = qp.dtype, qp.device
     B = qp.b.shape[0]
     N, NU, NZ, NX = dims.N, dims.NU, dims.NZ, dims.NX
@@ -586,7 +596,8 @@ def solve(dims: OCPDims, qp: OCPQP, cfg: IPMConfig, z0=None, pi0=None,
             t_b_bkp=torch.ones(B, N + 1, 2, dims.NB, dtype=dt, device=dev),
             lam_g_bkp=zeros(B, N + 1, 2, dims.NG),
             t_g_bkp=torch.ones(B, N + 1, 2, dims.NG, dtype=dt, device=dev))
-    state0 = init_vars(dims, qp, cfg, z0=z0, pi0=pi0, carry0=carry0)
+    state0 = init_vars(dims, qp, cfg, z0=z0, pi0=pi0, carry0=carry0,
+                       iterate0=iterate0)
 
     def alpha_all(dtb, dtg, dlam_b, dlam_g, t_b, t_g, lam_b, lam_g):
         a = torch.ones(B, dtype=dt, device=dev)
@@ -703,7 +714,7 @@ def solve(dims: OCPDims, qp: OCPQP, cfg: IPMConfig, z0=None, pi0=None,
                       lam_g_new, t_g_new, a2, sigma)[1]
 
     s = state0
-    while True:
+    while not rti_mode:    # RTI: no phase 1 (single_newton_step, :1686)
         live = (s.kk < k_max) & (s.mu > mu_tol_low) & (s.alpha >= alpha_min)
         if not bool(live.any()):
             break
@@ -801,7 +812,9 @@ def solve(dims: OCPDims, qp: OCPQP, cfg: IPMConfig, z0=None, pi0=None,
         return s_new, _gate(ok, res_new, res)
 
     while True:
-        live = (s.kk < k_max) & (s.mu > mu_tol) & (s.alpha >= alpha_min)
+        live = s.kk < k_max
+        if not rti_mode:   # RTI: a fixed count, no tolerance exits
+            live = live & (s.mu > mu_tol) & (s.alpha >= alpha_min)
         if not bool(live.any()):
             break
         s_new, res_new = phase2_body(s, res)
@@ -818,3 +831,84 @@ def solve(dims: OCPDims, qp: OCPQP, cfg: IPMConfig, z0=None, pi0=None,
     if return_carry:
         return solution, s.carry
     return solution
+
+
+# --------------------------------------------------------------------------
+# re-solve with the retained factorization for a new right-hand side
+# (d_kkt_solve_new_rhs_res_mpc_hard_tv, d_ip2_res_hard.c:1922)
+# --------------------------------------------------------------------------
+
+
+def kkt_solve_new_rhs(dims: OCPDims, qp_new: OCPQP,
+                      carry: KKTCarry) -> IPMSolution:
+    """One warm Newton step for changed vector data (b, g, bounds) reusing
+    the Riccati factor of the last IPM iteration (batch-first ``carry``,
+    as :func:`solve` returns it with ``return_carry``), as
+    :func:`hpmpc_tpu.models.ipm.kkt_solve_new_rhs`: the backup iterate, its
+    residuals against the new data (:2193), the constraint-gradient fold
+    (``d_update_gradient_res``, :2214), the triangular re-solve with Pb
+    recomputed for the new rb (:2223), dt/dlam
+    (``d_compute_dt_dlam_res``, :2234) and a full step (alpha = 1, :2237).
+    Matrix data (A, B, Q, R, S, C) must be unchanged.  kk = 1, status 0,
+    one zero stat row, per instance."""
+    qp = qp_new
+    dt, dev = qp.dtype, qp.device
+    B = qp.b.shape[0]
+    mu_scal = torch.tensor(1.0 / max(dims.n_constr, 1), dtype=dt, device=dev)
+    oh = _box_onehot(qp)
+    mb2, mg2 = qp.nb_mask[:, :, None, :], qp.ng_mask[:, :, None, :]
+    z, pi = carry.z_bkp, carry.pi_bkp
+    lam_b, t_b = carry.lam_b_bkp, carry.t_b_bkp
+    lam_g, t_g = carry.lam_g_bkp, carry.t_g_bkp
+
+    res = compute_residuals(qp, oh, mu_scal, z, pi, lam_b, t_b, lam_g, t_g)
+    t_inv_b = torch.where(mb2 > 0, 1.0 / t_b, 0.0)
+    t_inv_g = torch.where(mg2 > 0, 1.0 / t_g, 0.0)
+    qx_b = (t_inv_b[:, :, 0] * (res.rm_b[:, :, 0]
+                                - lam_b[:, :, 0] * res.rd_b[:, :, 0])
+            - t_inv_b[:, :, 1] * (res.rm_b[:, :, 1]
+                                  + lam_b[:, :, 1] * res.rd_b[:, :, 1])
+            ) * qp.nb_mask
+    qx_g = (t_inv_g[:, :, 0] * (res.rm_g[:, :, 0]
+                                - lam_g[:, :, 0] * res.rd_g[:, :, 0])
+            - t_inv_g[:, :, 1] * (res.rm_g[:, :, 1]
+                                  + lam_g[:, :, 1] * res.rd_g[:, :, 1])
+            ) * qp.ng_mask
+    ng_stages = tuple(n for n in range(dims.N + 1) if dims.ng[n] > 0)
+    g_eff = _build_geff(qp, oh, res.rq, qx_b, qx_g, ng_stages)
+    sol, _ = riccati.solve(carry.L, g_eff, qp.F, res.rb, dims.NU)
+    dz, dpi = sol.z, sol.pi
+
+    dzb = _gather_box(oh, dz)
+    dtb = torch.stack([dzb - res.rd_b[:, :, 0],
+                       -dzb + res.rd_b[:, :, 1]], 2) * mb2
+    cdz = _cz(qp, dz)
+    dtg = torch.stack([cdz - res.rd_g[:, :, 0],
+                       -cdz + res.rd_g[:, :, 1]], 2) * mg2
+    dlam_b = -t_inv_b * (lam_b * dtb + res.rm_b) * mb2
+    dlam_g = -t_inv_g * (lam_g * dtg + res.rm_g) * mg2
+
+    new = (z + dz, pi + dpi, lam_b + dlam_b, t_b + dtb, lam_g + dlam_g,
+           t_g + dtg)
+    r = compute_residuals(qp, oh, mu_scal, *new)
+    inf_norm_res = torch.stack([
+        _absmax(r.rq), _absmax(r.rb),
+        torch.maximum(_absmax(r.rd_b), _absmax(r.rd_g)), r.mu], 1)
+    return IPMSolution(
+        *new, kk=torch.ones(B, dtype=torch.int32, device=dev),
+        status=torch.zeros(B, dtype=torch.int32, device=dev),
+        stat=torch.zeros(B, 1, 5, dtype=dt, device=dev),
+        inf_norm_res=inf_norm_res)
+
+
+def solve_single_newton(dims: OCPDims, qp: OCPQP, cfg: IPMConfig, z0, pi0,
+                        lam_b0, t_b0, lam_g0, t_g0,
+                        return_carry: bool = False):
+    """RTI-style warm Newton iterations
+    (``d_ip2_res_mpc_hard_tv_single_newton_step``, ``d_ip2_res_hard.c:1348``):
+    from the given full iterate (batch-first, typically the previous
+    solution), exactly ``cfg.k_max`` residual-phase iterations with no
+    tolerance exits (``k_max=1``: classic RTI)."""
+    return solve(dims, qp, cfg,
+                 iterate0=(z0, pi0, lam_b0, t_b0, lam_g0, t_g0),
+                 rti_mode=True, return_carry=return_carry)

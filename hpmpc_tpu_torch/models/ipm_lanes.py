@@ -331,7 +331,9 @@ def solve_batched_lanes(dims: OCPDims, qp: OCPQP, cfg, z0=None, pi0=None,
     the two knobs say.  float32 and float64 both run.  Liveness is per
     instance: the loops run while any instance is live (one host sync per
     iteration), and an instance that is not live keeps its state (a
-    select).  Needs box constraints and a static ``dims.idxb``.
+    select).  Needs a static ``dims.idxb``; a problem with general rows
+    and no box rows runs with one masked box slot (``OCPDims.NB`` is at
+    least 1, ``nb_mask`` 0), which every kernel of both forms ignores.
 
     Not ported yet: ``HPMPC_FUSED_SWEEPS=1`` (ROADMAP Queue 2 rows 17-18)
     raises ``NotImplementedError``."""
@@ -348,9 +350,8 @@ def solve_batched_lanes(dims: OCPDims, qp: OCPQP, cfg, z0=None, pi0=None,
     dt = qp.dtype
     if dt not in (torch.float32, torch.float64):
         raise TypeError(f"lanes engine takes float32/float64, got {dt}")
-    if dims.NB == 0 or dims.idxb is None:
-        raise ValueError("lanes engine needs box constraints with a static "
-                         "dims.idxb")
+    if dims.idxb is None:
+        raise ValueError("lanes engine needs a static dims.idxb")
     dev = qp.device
     N, NU, NX, NZ, NB, NG = (dims.N, dims.NU, dims.NX, dims.NZ, dims.NB,
                              dims.NG)

@@ -163,6 +163,16 @@ def resolve_device(device=None) -> torch.device:
     return torch.device("cuda") if device is None else torch.device(device)
 
 
+def pack_offsets(dims: OCPDims, b: Sequence[np.ndarray]) -> np.ndarray:
+    """The dynamics offsets ``b[n]`` (n < N) padded to ``(N, NX)`` float64,
+    as :func:`pack_ocp` stores them."""
+    bb = np.zeros((dims.N, dims.NX))
+    for n in range(dims.N):
+        nx1 = dims.nx[n + 1]
+        bb[n, :nx1] = np.asarray(b[n]).reshape(nx1)
+    return bb
+
+
 def pack_ocp(
     dims: OCPDims,
     A: Sequence[np.ndarray],
@@ -196,14 +206,13 @@ def pack_ocp(
     NX, NU, NZ, NB, NG = dims.NX, dims.NU, dims.NZ, dims.NB, dims.NG
 
     F = np.zeros((N, NZ, NX))
-    bb = np.zeros((N, NX))
     for n in range(N):
         nxn, nun, nx1 = dims.nx[n], dims.nu[n], dims.nx[n + 1]
         Bn = np.asarray(B[n]).reshape(nx1, nun) if nun else np.zeros((nx1, 0))
         An = np.asarray(A[n]).reshape(nx1, nxn) if nxn else np.zeros((nx1, 0))
         F[n, :nun, :nx1] = Bn.T
         F[n, NU : NU + nxn, :nx1] = An.T
-        bb[n, :nx1] = np.asarray(b[n]).reshape(nx1)
+    bb = pack_offsets(dims, b)
 
     H = np.zeros((N + 1, NZ, NZ))
     gg = np.zeros((N + 1, NZ))

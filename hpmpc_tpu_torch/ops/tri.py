@@ -9,8 +9,7 @@ Hessian that loses positive-definiteness to roundoff gives a huge but
 finite factor (the IPM then retreats through its step-length guards)
 instead of NaN.  Its sums run in the same order as the JAX recursion.
 
-``getrf``/``getrs`` are not ported yet: they arrive with condensing and MHE
-(ROADMAP Queue 1 items 12 and 16).
+``getrf``/``getrs`` are the pivoted LU and its solve, batch-first.
 """
 
 from __future__ import annotations
@@ -93,3 +92,55 @@ def cholesky(M):
     top = torch.cat([L11, M.new_zeros(M.shape[:-2] + (k, n - k))], dim=-1)
     bot = torch.cat([L21, L22], dim=-1)
     return torch.cat([top, bot], dim=-2)
+
+
+def getrf(A):
+    """LU factorization with partial pivoting (the JAX package's
+    ``getrf``, the reference's ``dgetrf_pivot_lib``).
+
+    Returns ``(LU, piv)``: unit-lower L and U packed in one matrix, and
+    ``piv[..., k]`` the row swapped into position k at step k (LAPACK's
+    ipiv convention, 0-based, int32).  Batched over leading dims.
+    Right-looking elimination: at step k the largest |entry| of column k
+    on or below the diagonal (the first one on a tie) is swapped into row
+    k, the multipliers below the pivot are stored in column k (a zero
+    pivot stores zero multipliers' quotient by 1), and only the columns
+    past k take the rank-1 update, so the stored multipliers ride along
+    with later swaps."""
+    n = A.shape[-1]
+    LU = A.clone()
+    piv = torch.zeros(A.shape[:-1], dtype=torch.int32, device=A.device)
+    iota = torch.arange(n, device=A.device)
+    for k in range(n):
+        col = torch.where(iota >= k, LU[..., :, k].abs(),
+                          torch.full_like(LU[..., :, k], float("-inf")))
+        p = torch.argmax(col, dim=-1)
+        piv[..., k] = p.to(torch.int32)
+        row_k = LU[..., k, :].clone()
+        row_p = torch.take_along_dim(LU, p[..., None, None], dim=-2)[..., 0, :]
+        is_p = (iota == p[..., None])[..., None]
+        LU = torch.where(is_p, row_k[..., None, :], LU)
+        LU[..., k, :] = row_p
+        pivval = LU[..., k, k]
+        safe = torch.where(pivval.abs() > 0, pivval, torch.ones_like(pivval))
+        below = (iota > k).to(A.dtype)
+        mult = LU[..., :, k] / safe[..., None] * below
+        LU[..., :, k + 1:] -= mult[..., :, None] * LU[..., k:k + 1, k + 1:]
+        LU[..., k + 1:, k] = mult[..., k + 1:]
+    return LU, piv
+
+
+def getrs(LU, piv, b):
+    """Solve ``A x = b`` (``b`` (..., n)) with a :func:`getrf`
+    factorization: the recorded row swaps applied to ``b`` in order, then
+    the unit-lower and upper triangular solves."""
+    n = LU.shape[-1]
+    b = b.clone()
+    for k in range(n):
+        p = piv[..., k].long()[..., None]
+        bk = b[..., k:k + 1].clone()
+        bp = torch.take_along_dim(b, p, dim=-1)
+        b.scatter_(-1, p, bk)
+        b[..., k:k + 1] = bp
+    L = torch.tril(LU, -1) + torch.eye(n, dtype=LU.dtype, device=LU.device)
+    return solve_triu(torch.triu(LU), solve_tril(L, b))

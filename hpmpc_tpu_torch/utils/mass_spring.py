@@ -198,3 +198,63 @@ def mass_spring_soft_qp(
         ns_mask=as_t(ns_mask),
     )
     return dims, qp, soft
+
+
+def mass_spring_data(nx: int, nu: int, N: int, ngN: int = 0,
+                     A: np.ndarray | None = None,
+                     B: np.ndarray | None = None,
+                     bounds_as_rows: bool = False) -> dict:
+    """The per-stage fortran-order data of :func:`mass_spring_qp` for the
+    public API (:func:`..api.solve_ocp` keyword arguments, ``N`` included):
+    the free initial state x0=(2.5, 2.5, 0, ...) passed as ``x0``, u in
+    [-0.5, 0.5], the first nx/2 states in [-4, 4] (stage 0's state bounds
+    dropped with x0, as the API does), Q=I, R=2I, S=0, q=0.1, r=0.2,
+    b=0.1; ``ngN`` > 0 adds the terminal equality x[0:ngN] == 0.
+
+    ``bounds_as_rows``: the same bounds as general rows (``D`` rows for
+    u, ``C`` rows for x) and no box rows (``idxb`` one empty list per
+    stage): a problem with general rows and no box rows."""
+    if A is None or B is None:
+        A, B = mass_spring_ab(nx, nu)
+    x0 = np.zeros(nx)
+    x0[0] = x0[1] = 2.5
+    data = dict(
+        N=N, A=[A] * N, B=[B] * N, b=[0.1 * np.ones(nx)] * N,
+        Q=[np.eye(nx)] * (N + 1),
+        S=[np.zeros((nu, nx))] * N + [np.zeros((0, nx))],
+        R=[2.0 * np.eye(nu)] * N + [np.zeros((0, 0))],
+        q=[0.1 * np.ones(nx)] * (N + 1),
+        r=[0.2 * np.ones(nu)] * N + [np.zeros(0)], x0=x0)
+    # logical [u; x] indices and bounds per stage (stage 0's state bounds
+    # go with the eliminated x0)
+    idx = [list(range(nu + (nx // 2 if n else 0))) if n < N
+           else list(range(nx // 2)) for n in range(N + 1)]
+    lo = [np.array([-0.5 if (j < nu and n < N) else -4.0 for j in idx[n]])
+          for n in range(N + 1)]
+    rows_C = [np.zeros((0, nx))] * (N + 1)
+    rows_D = [np.zeros((0, nu if n < N else 0)) for n in range(N + 1)]
+    rows_lo = [np.zeros(0)] * (N + 1)
+    if bounds_as_rows:
+        rows_C, rows_D, rows_lo = [], [], lo
+        for n in range(N + 1):
+            nun = nu if n < N else 0
+            Cn, Dn = np.zeros((len(idx[n]), nx)), np.zeros((len(idx[n]), nun))
+            for i, j in enumerate(idx[n]):
+                if j < nun:
+                    Dn[i, j] = 1.0
+                else:
+                    Cn[i, j - nun] = 1.0
+            rows_C.append(Cn)
+            rows_D.append(Dn)
+        idx = [[] for _ in range(N + 1)]
+        lo = [np.zeros(0)] * (N + 1)
+    if ngN:
+        rows_C[N] = np.vstack([rows_C[N], np.eye(ngN, nx)])
+        rows_D[N] = np.zeros((rows_C[N].shape[0], 0))
+        rows_lo[N] = np.concatenate([rows_lo[N], np.zeros(ngN)])
+    data.update(idxb=[np.array(i, dtype=np.int32) for i in idx], lb=lo,
+                ub=[-v for v in lo])
+    if bounds_as_rows or ngN:
+        ug = [np.where(v == 0, 0.0, -v) for v in rows_lo]
+        data.update(C=rows_C, D=rows_D, lg=rows_lo, ug=ug)
+    return data

@@ -715,3 +715,116 @@ def test_unfused_wrappers_reject_bad_inputs(cuda, monkeypatch):
         bad[-1] = a[-1].transpose(0, 1).contiguous().transpose(0, 1)
         with pytest.raises(ValueError):                # non-contiguous
             fn(*bad, **k)
+
+
+def _dense_case(dev, dtype, unboxed):
+    """The dense plan of the N=6 chain (input 2 unboxed at every stage
+    with ``unboxed``) and its tick inputs."""
+    from hpmpc_tpu_torch import api
+    from hpmpc_tpu_torch.models import ipm_dense
+    from hpmpc_tpu_torch.ops import dense_kernel as dk
+    from hpmpc_tpu_torch.utils.mass_spring import mass_spring_data
+
+    d = mass_spring_data(8, 3, 6)
+    if unboxed:
+        for n in range(6):
+            keep = [k for k, j in enumerate(d["idxb"][n]) if j != 2]
+            for key in ("idxb", "lb", "ub"):
+                d[key][n] = d[key][n][keep]
+    dims, qp = api.pack_problem(**d, dtype=dtype, device=dev)
+    plan = ipm_dense.plan_dense(dims, qp)
+    cfg = IPMConfig(k_max=30, mu_tol=1e-8 if dtype == torch.float64
+                    else 1e-4)
+    return plan, dk.dense_inputs(plan, qp.b.reshape(-1)), dk.dense_config(
+        plan, cfg)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("unboxed", [False, True])
+def test_dense_ipm_kernel_matches_plain(cuda, dtype, unboxed):
+    """Row 23 vs its plain version: equal kk and status, y within 1e-10
+    (f64) / 2e-4 (f32, chip_smoke.py's DENSE_TOL)."""
+    from hpmpc_tpu_torch.ops import dense_kernel as dk
+
+    _, args, kw = _dense_case(cuda, dtype, unboxed)
+    n0 = dk.LAUNCHES
+    out_k = dk.dense_ipm(*args, **kw)
+    torch.cuda.synchronize()
+    assert dk.LAUNCHES == n0 + 1
+    out_p = dk.dense_ipm_plain(*args, **kw)
+    assert (int(out_k[1]), int(out_k[3])) == (int(out_p[1]), int(out_p[3]))
+    assert int(out_k[3]) == 0
+    tol = 1e-10 if dtype == torch.float64 else 2e-4
+    torch.testing.assert_close(out_k[0], out_p[0], rtol=0, atol=tol)
+
+
+def test_dense_ipm_envelope_edge_f64(cuda):
+    """Row 23 at the envelope's edge, nz = ngd = 128 in f64, where Hbar and
+    G do not fit in shared memory together, so G is read from global
+    memory (the kernel's other branch): a random SPD dense QP (3 of 4
+    coordinates boxed), against the plain version.  kk and status equal;
+    y within 3e-7: relative perturbations of 1e-15 in Hd and G move the
+    plain version's y by up to 1.3e-8 at this QP's final mu (8.0e-9, kk
+    8), and the kernel's summation order is such a perturbation."""
+    from hpmpc_tpu_torch.ops import dense_kernel as dk
+
+    nz = ngd = dk.MAX_DIM
+    # csrc/dense_ipm.cu's smem_bytes: Hbar (odd stride), 24 vectors, G
+    hbar_vecs = (nz * (nz | 1) + 24 * dk.MAX_DIM) * 8
+    assert hbar_vecs <= 232448 < hbar_vecs + ngd * nz * 8
+    rng = np.random.default_rng(0)
+    M = rng.standard_normal((nz, nz))
+    r = np.abs(rng.standard_normal(ngd))
+    mz = (np.arange(nz) % 4 != 3).astype(float)
+    data = (M @ M.T / nz + np.eye(nz),
+            rng.standard_normal((ngd, nz)) / np.sqrt(nz),
+            rng.standard_normal(nz), -0.5 * np.ones(nz), 0.5 * np.ones(nz),
+            mz, -0.2 - r, 0.2 + r, np.zeros(nz))
+    args = [torch.as_tensor(a, dtype=torch.float64, device=cuda)
+            for a in data]
+    kw = dict(k_max=30, mu0=2.0, mu_tol=1e-8, alpha_min=1e-8,
+              mu_scal=1.0 / (2 * (int(mz.sum()) + ngd)))
+    n0 = dk.LAUNCHES
+    out_k = dk.dense_ipm(*args, **kw)
+    torch.cuda.synchronize()
+    assert dk.LAUNCHES == n0 + 1
+    out_p = dk.dense_ipm_plain(*args, **kw)
+    assert (int(out_k[1]), int(out_k[3])) == (int(out_p[1]), int(out_p[3]))
+    assert int(out_k[3]) == 0
+    torch.testing.assert_close(out_k[0], out_p[0], rtol=0, atol=3e-7)
+
+
+def test_dense_ipm_rejects_bad_inputs(cuda):
+    from hpmpc_tpu_torch.ops import dense_kernel as dk
+
+    plan, args, kw = _dense_case(cuda, torch.float64, False)
+    with pytest.raises(TypeError):
+        dk.dense_ipm(args[0], args[1].float(), *args[2:], **kw)
+    with pytest.raises(ValueError):
+        dk.dense_ipm(args[0], args[1][:, :-1].contiguous(), *args[2:], **kw)
+    with pytest.raises(ValueError):
+        dk.dense_ipm(args[0].t().contiguous().t(), *args[1:], **kw)
+    with pytest.raises(ValueError, match="envelope"):
+        big = torch.zeros(129, 129, dtype=torch.float64, device=cuda)
+        dk.dense_ipm(big, *args[1:], **kw)
+
+
+def test_api_on_card_matches_cpu(cuda):
+    """solve_ocp on the card (device=None) against the CPU, and a dense
+    tick of the card's session (row 23) against the CPU session's (the
+    kernel's plain version)."""
+    from hpmpc_tpu_torch import api
+    from hpmpc_tpu_torch.utils.mass_spring import mass_spring_data
+
+    data = mass_spring_data(8, 3, 10)
+    res_g, sess_g = api.solve_ocp(**data, return_session=True)
+    res_c, sess_c = api.solve_ocp(**data, return_session=True,
+                                  device="cpu")
+    assert (res_g.kk, res_g.status) == (res_c.kk, res_c.status)
+    for a, b in zip(res_g.x + res_g.u, res_c.x + res_c.u):
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-10)
+    x0 = data["x0"] * 0.9
+    u_g, r_g = sess_g.dense_tick(x0=x0)
+    u_c, r_c = sess_c.dense_tick(x0=x0)
+    assert (int(r_g.kk), int(r_g.status)) == (int(r_c.kk), int(r_c.status))
+    np.testing.assert_allclose(u_g, u_c, rtol=0, atol=1e-10)

@@ -294,6 +294,19 @@ def test_golden_stat_trace():
 
 
 def test_iterate0_and_rti_mode_raise():
+    """``rti_mode`` and ``iterate0`` no longer raise (ported with
+    ``solve_single_newton``; held against JAX in test_torch_ipm_rti.py):
+    rti_mode skips phase 1 and runs exactly k_max residual-phase
+    iterations with no tolerance exit, per instance; iterate0 starts from
+    the given iterate."""
     dims, _, qpt = _twin("ms")
-    with pytest.raises(NotImplementedError, match="Queue 1 #11"):
-        ipm.solve(dims, qpt, ipm.IPMConfig(), rti_mode=True)
+    sol = ipm.solve(dims, qpt, ipm.IPMConfig(k_max=3, mu_tol=1.0),
+                    rti_mode=True)
+    assert bool((sol.kk == 3).all())
+    assert all(bool(torch.isfinite(x).all()) for x in sol
+               if x.is_floating_point())
+    it = (sol.z, sol.pi, sol.lam_b, sol.t_b, sol.lam_g, sol.t_g)
+    sol0 = ipm.solve(dims, qpt, ipm.IPMConfig(k_max=0), iterate0=it,
+                     rti_mode=True)
+    for a, b in zip(sol0[:6], it):
+        assert torch.equal(a, b)
