@@ -88,7 +88,21 @@ solve_batched`` (the f64 lanes runs call the engine directly):
     of row 23 a tick, u0 against fresh solves); then solve_ocp's wall time,
     the dense tick's latency (cold and warm, f32 and f64, and through the
     session), a tick's profile, row 23 alone with its bound, and one
-    ``torch.linalg`` Cholesky + solve of the same Hbar as context.
+    ``torch.linalg`` Cholesky + solve of the same Hbar as context;
+  * the scenario tree (section T) at ``tools/bench_tree.py``'s width:
+    ``mass_spring_tree_qp(nx=4, nu=2)``, 4096 instances with ``b`` scaled
+    by ``1 + 0.02 N(0,1)``, f32, ``IPMConfig(k_max=8, mu_tol=0,
+    use_pallas=True)``.  Rows 26-28 (``csrc/tree_sweeps.cu``,
+    ``csrc/tree_resid_terms.cu``) against their plain versions on the
+    reference's 71-node tree (md=2 Nr=3 Nh=10) with general rows on nodes
+    0 and 5, f32 and f64, at the flat engine's first and last calls; then,
+    counted from 0, ``parallel.batch.solve_batched_tree`` on the 71-node
+    tree (rows 26-28 and the step kernels, no other kernel) against the
+    f64 structured ``tree.solve_tree_ipm`` on 64 instances and an f64
+    host ``tree_residuals``; a warm tree-RTI re-solve on the 31-node tree
+    that stays on the flat engine; the 255-node tree once; ms per batch at
+    31, 71 and 255 nodes, the structured route at 71, a profile, and each
+    kernel alone.
 
 Each path runs with the launch counters set to 0 just before and read just
 after, and its answer is held against a float64 host residual oracle (the
@@ -315,7 +329,9 @@ PROFILED = ("ipm_resident", "resid_full", "factor_solve_mega", "solve_mega",
             "prep_flat", "alpha_sums_flat", "corr_geff_flat",
             "factor_solve_flat", "solve_flat_pb", "solve_flat",
             "refine_flat", "resid_terms_flat") + SOFT_MEGA + SOFT_STEP + (
-                "factor_solve_folded", "solve_batched", "dense_ipm")
+                "factor_solve_folded", "solve_batched", "dense_ipm",
+                "tree_factor_solve_flat", "tree_solve_flat",
+                "tree_resid_terms_flat")
 _PATTERNS = {k: rf"\b{k}_kernel\b" for k in PROFILED}
 _PATTERNS["solve_flat_pb"] = r"\bsolve_flat_kernel<\w+, true>"
 
@@ -961,6 +977,286 @@ def _api_and_dense(torch, np, dev, card, repo, reset_counts, read_counts,
     t_sec = section_done("K api and dense timings", t_sec)
     return row, t_sec
 
+# the scenario-tree section (T).  Rows 26-28 against their plain versions
+# on the flat tree engine's first and last calls of a k_max=8 solve on the
+# 71-node tree with general rows on nodes 0 and 5, f32 and f64: the same
+# algorithm in another summation order (nvcc contracts multiply-adds into
+# FMAs).  Host builds of the three kernels against the plain versions
+# there (B=64): <= 5.1e-7 of a field's scale in f32, <= 9.5e-16 in f64, at
+# the first call and at the last (mu ~2e-8: the tree's depth-10 recursion
+# and the barrier Hessian amplified the roundoff less than at the first
+# call), so MEGA_TOL.  The main path (f32, k_max 8, mu ~2e-8 at the end)
+# against the f64 structured route on ORACLE_SUBSAMPLE instances: equal
+# status, max |dz| below TREE_TOL["z"] (the plain versions on the CPU:
+# 3.7e-5, f32 roundoff through the barrier Hessian); the f64 host tree
+# residuals of its iterate against the engine's own report as _oracle holds
+# the chain's (rtol 1e-2, atol 1e-5), the primal ones below 1e-3.
+TREE_TOL = dict(z=1e-3)
+TREE_NAMES = ("tree_factor_solve_flat", "tree_solve_flat",
+              "tree_resid_terms_flat")
+# the shapes tools/bench_tree.py times, (md, Nr, Nh): 31 nodes (the
+# tree_mpc example), 71 (the reference's tree benchmark,
+# test_d_tree_ip_hard_libstr.c:61-66), 255 (a full binary tree)
+TREE_TOPOS = ((2, 2, 8), (2, 3, 10), (2, 7, 7))
+
+
+def _tree_ops(NU, NX, n, n_ng, want_pi):
+    """Operations per instance of rows 26-28 on an n-node tree (a
+    multiply-add counts 2), from the loops of csrc/tree_sweeps.cu and
+    csrc/tree_resid_terms.cu: {name: ops}."""
+    NZ = NU + NX
+    NT = NZ * (NZ + 1) // 2
+    o = _stage_ops(NU, NX, 1, 0)
+    chol = sum(2 + (NZ - j) + sum(2 * (NZ - jj) for jj in range(j + 1, NZ))
+               for j in range(NZ))
+    eupx = NU * NU + 2 * NX * NU
+    fwd_z = NU + 2 * NU * NX + NU * NU + 2 * NX * NZ
+    pi = 2 * NX * NX + NX
+    # per node: dvec, the accumulator's M and m, chol, eu/px; per edge:
+    # W = F Lxx, Pb, F (Pb + px), the packed W W' and the parent's RMW
+    node = NZ + NT + NZ + chol + eupx
+    edge = (NZ * NX * (NX + 1) + 2 * NX * NX + 2 * NZ * NX + NX
+            + NT * 2 * NX + NT + NZ)
+    factor = (n * (node + fwd_z) + (n - 1) * (edge + want_pi * pi)
+              + o["root"] + n_ng * o["ng_factor"])
+    solve = (n * (NZ + eupx + NU + fwd_z) + (n - 1) * (2 * NZ * NX + NX + NZ
+                                                      + pi) + o["root"])
+    resid = n * o["hz"] + (n - 1) * o["f_terms"]
+    return dict(zip(TREE_NAMES, (factor, solve, resid)))
+
+
+def _tree(torch, np, dev, card, reset_counts, read_counts, total,
+          section_done, t_sec):
+    """Sections T1-T3, the scenario tree at tools/bench_tree.py's width
+    (``mass_spring_tree_qp(nx=4, nu=2)``, 4096 instances, ``b`` scaled by
+    ``1 + 0.02 N(0,1)``, f32, ``IPMConfig(k_max=8, mu_tol=0,
+    use_pallas=True)``): rows 26-28 vs their plain versions; the main path
+    ``solve_batched_tree`` on the 71-node tree (counted from 0) against the
+    f64 structured route and an f64 host check of ``tree_residuals``; a
+    warm tree-RTI re-solve on the 31-node tree; the 255-node tree once;
+    then ms per batch, a profile and each kernel alone.  Returns (the
+    kernels-line entries of rows 26-28, t_sec)."""
+    from hpmpc_tpu_torch.models import tree
+    from hpmpc_tpu_torch.models.ipm import IPMConfig, _box_onehot
+    from hpmpc_tpu_torch.ops import tree_kernel as tk
+    from hpmpc_tpu_torch.parallel import batch as pbatch
+    from hpmpc_tpu_torch.utils.mass_spring import mass_spring_tree_qp
+
+    tscales = 1.0 + 0.02 * np.random.default_rng(SEED).standard_normal(B)
+
+    def tree_batch(topo, dtype, ng_nodes=()):
+        md, Nr, Nh = topo
+        tdef, dims, qp = mass_spring_tree_qp(md=md, Nr=Nr, Nh=Nh, nx=4,
+                                             nu=2, ng_nodes=ng_nodes,
+                                             dtype=dtype, device=dev)
+        qpb = pbatch.broadcast_qp(qp, B)
+        sc = torch.as_tensor(tscales, dtype=dtype, device=dev)
+        return tdef, dims, dataclasses.replace(qpb,
+                                               b=qpb.b * sc[:, None, None])
+
+    cfg_t = IPMConfig(k_max=8, mu_tol=0.0, use_pallas=True)
+    mods = {n: tk for n in TREE_NAMES}
+    targets = [(tk, n) for n in TREE_NAMES]
+    path_names = TREE_NAMES + STEP_NAMES
+
+    # ---- T1. rows 26-28 vs their plain versions, f32 and f64 ------------
+    errs = {}
+    for dtype in (torch.float64, torch.float32):
+        name = str(dtype).split(".")[-1]
+        tdef, dims, qpb = tree_batch(TREE_TOPOS[1], dtype, ng_nodes=(0, 5))
+        if tdef.n_nodes != 71:
+            _fail(f"the reference's tree has {tdef.n_nodes} nodes, not 71")
+        e_ = {}
+        for last in (False, True):
+            what = (f"{name} tree 71 nodes, ng nodes (0, 5), "
+                    f"{'last' if last else 'first'} call of k_max 8")
+            with _capture(targets, last=last) as calls:
+                tree.solve_tree_ipm_flat(tdef, dims, qpb, cfg_t)
+            if len(calls) != 3:
+                _fail(f"tree {what}: captured calls {sorted(calls)}")
+            a, k = calls[("tree_factor_solve_flat", "")]
+            # the WANT_PI form, which the flat engine does not run
+            calls[("tree_factor_solve_flat", "want_pi")] = (
+                a, dict(k, want_pi=True))
+            _check_calls(torch, calls, mods, MEGA_TOL[name], what, e_)
+            del calls
+        if dtype == torch.float32:
+            errs = e_
+    t_sec = section_done("T1 tree kernels vs plain", t_sec)
+
+    # ---- T2. the main path: solve_batched_tree, 71 nodes, f32 ------------
+    tdef, dims, qpb = tree_batch(TREE_TOPOS[1], torch.float32)
+    plain0 = dict(tk.PLAIN_CALLS)
+    reset_counts()
+    sol = pbatch.solve_batched_tree(tdef, dims, qpb, cfg_t)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    launches = {n: total(counts[n]) for n in path_names}
+    others = {n: v for n, v in counts.items()
+              if total(v) and n not in launches}
+    if min(launches.values()) < 1 or others or tk.PLAIN_CALLS != plain0:
+        _fail(f"tree main path: launches {launches}, other kernels "
+              f"{others}, plain calls {tk.PLAIN_CALLS} (before {plain0})")
+    _check_solution(torch, sol, dims, cfg_t.k_max, "tree main path")
+    status = torch.bincount(sol.status, minlength=3).tolist()
+    print(f"tree main path (solve_batched_tree, md=2 Nr=3 Nh=10: 71 nodes, "
+          f"f32, B={B}): launches {launches} (no other port kernel, no "
+          f"plain call), mean kk {float(sol.kk.double().mean()):.3f}, status "
+          f"counts {status}, max mu {float(sol.inf_norm_res[:, 3].max()):.3e}",
+          flush=True)
+    sub = torch.arange(0, B, B // ORACLE_SUBSAMPLE, device=dev)
+
+    def pick64(x):
+        x = x[sub]
+        return x.double() if x.is_floating_point() else x
+
+    q64 = type(qpb)(**{f.name: pick64(getattr(qpb, f.name))
+                       for f in dataclasses.fields(qpb)})
+    s64 = type(sol)(*[pick64(x) for x in sol])
+    ref = tree.solve_tree_ipm(tdef, dims, q64, cfg_t)
+    dz = _maxdiff(torch, s64.z, ref.z)
+    du0 = _maxdiff(torch, s64.z[:, 0, :dims.NU], ref.z[:, 0, :dims.NU])
+    same = bool(torch.equal(s64.status, ref.status))
+    mu_scal = torch.tensor(1.0 / dims.n_constr, dtype=torch.float64,
+                           device=dev)
+    res = tree.tree_residuals(tdef, q64, _box_onehot(q64), mu_scal, s64.z,
+                              s64.pi, s64.lam_b, s64.t_b, s64.lam_g,
+                              s64.t_g, q64.b)
+
+    def amax(x):
+        return x.abs().flatten(1).amax(1)
+
+    orc = torch.stack([amax(res.rq), amax(res.rb),
+                       torch.maximum(amax(res.rd_b), amax(res.rd_g)),
+                       res.mu], 1).cpu().numpy()
+    eng = s64.inf_norm_res.cpu().numpy()
+    print(f"tree main path vs the f64 structured route "
+          f"({ORACLE_SUBSAMPLE} instances, kk {sorted(set(ref.kk.tolist()))}"
+          f"): status equal {same}, max |dz| {dz:.3e}, max |du0| {du0:.3e} "
+          f"(tol {TREE_TOL['z']:.0e}); f64 host tree_residuals: max |rq| "
+          f"{orc[:, 0].max():.3e}, |rb| {orc[:, 1].max():.3e}, |rd| "
+          f"{orc[:, 2].max():.3e}, mu {orc[:, 3].max():.3e}, max |oracle - "
+          f"engine| {np.abs(orc - eng).max():.3e}", flush=True)
+    if not same or dz > TREE_TOL["z"]:
+        _fail("the tree main path disagrees with the f64 structured route")
+    if (not np.all(np.isfinite(orc))
+            or not np.allclose(orc, eng, rtol=1e-2, atol=1e-5)
+            or orc[:, 1].max() > 1e-3 or orc[:, 2].max() > 1e-3):
+        _fail("the tree main path's f64 residuals disagree with its own "
+              "report or are too large")
+    del ref, res, q64, s64
+
+    # ---- T3. a warm tree-RTI re-solve (31 nodes) and the 255-node tree ---
+    tdef31, dims31, q31 = tree_batch(TREE_TOPOS[0], torch.float32)
+    cfg_c = IPMConfig(k_max=12, mu_tol=1e-4, use_pallas=True)
+    cfg_w = dataclasses.replace(cfg_c, warm_start=True)
+    cold = pbatch.solve_batched_tree(tdef31, dims31, q31, cfg_c)
+    qw = dataclasses.replace(q31, b=q31.b * (1.0 + 1e-3))
+    reset_counts()
+    warm = pbatch.solve_batched_tree(tdef31, dims31, qw, cfg_w, z0=cold.z,
+                                     pi0=cold.pi)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    ran = {n: total(v) for n, v in counts.items() if total(v)}
+    kk_c, kk_w = float(cold.kk.double().mean()), float(warm.kk.double().mean())
+    n_conv = int((warm.status == 0).sum())
+    print(f"tree warm re-solve (31 nodes, f32, mu_tol 1e-4, b x 1.001 from "
+          f"the cold solution): launches {ran}; mean kk cold {kk_c:.3f} "
+          f"(converged {int((cold.status == 0).sum())}), warm {kk_w:.3f} "
+          f"(converged {n_conv} of {B})", flush=True)
+    if (set(ran) != set(path_names) or n_conv != B or not kk_w < kk_c):
+        _fail("the warm tree re-solve left the flat engine or did not "
+              "converge faster than the cold solve")
+    tdef255, dims255, q255 = tree_batch(TREE_TOPOS[2], torch.float32)
+    reset_counts()
+    s255 = pbatch.solve_batched_tree(tdef255, dims255, q255, cfg_t)
+    torch.cuda.synchronize()
+    ran = {n: total(v) for n, v in read_counts().items() if total(v)}
+    _check_solution(torch, s255, dims255, cfg_t.k_max, "tree 255 nodes")
+    print(f"tree 255 nodes (md=2 Nr=7 Nh=7, f32, B={B}): launches {ran}, "
+          f"mean kk {float(s255.kk.double().mean()):.3f}, status counts "
+          f"{torch.bincount(s255.status, minlength=3).tolist()}, max mu "
+          f"{float(s255.inf_norm_res[:, 3].max()):.3e}", flush=True)
+    if set(ran) != set(path_names) or tdef255.n_nodes != 255:
+        _fail("the 255-node tree left the flat engine")
+    del cold, warm, s255
+    t_sec = section_done("T2-T3 tree main path", t_sec)
+
+    # ---- timings: ms per batch, a profile, each kernel alone -------------
+    def tree_rep(td, d, q0, c):
+        def run(r):
+            q = dataclasses.replace(q0, b=q0.b * (1.0 + 1e-4 * r))
+            return pbatch.solve_batched_tree(td, d, q, c)
+        return run
+
+    @contextlib.contextmanager
+    def plain_tree():
+        saved = [(n, getattr(tk, n)) for n in TREE_NAMES]
+        for n, _ in saved:
+            setattr(tk, n, getattr(tk, n + "_ref"))
+        try:
+            yield
+        finally:
+            for n, fn in saved:
+                setattr(tk, n, fn)
+
+    for topo in TREE_TOPOS:
+        td, d, q0 = ((tdef, dims, qpb) if topo == TREE_TOPOS[1]
+                     else tree_batch(topo, torch.float32))
+        ms = _time_ms(torch, tree_rep(td, d, q0, cfg_t), reps=5)
+        line = (f"tree main path [{card}], {td.n_nodes} nodes (md={topo[0]} "
+                f"Nr={topo[1]} Nh={topo[2]}), f32, k_max 8: {ms:.3f} ms per "
+                f"{B}-batch ({B / ms * 1e3:.1f} solves/s)")
+        if topo == TREE_TOPOS[1]:
+            with plain_tree():
+                ms_p = _time_ms(torch, tree_rep(td, d, q0, cfg_t), reps=1,
+                                warmup=0)
+            ms_s = _time_ms(torch, tree_rep(
+                td, d, q0, dataclasses.replace(cfg_t, use_pallas=False)),
+                reps=2, warmup=0)
+            line += (f"; plain versions {ms_p:.3f} ms; the structured "
+                     f"route (use_pallas=False, solve_tree_ipm) {ms_s:.3f} "
+                     "ms")
+        print(line, flush=True)
+    pr = _profile(torch, tree_rep(tdef, dims, qpb, cfg_t), reps=3)
+    print(_profile_line("tree 71 nodes f32", card, pr), flush=True)
+
+    # each kernel alone, on the main path's first calls (f32, 71 nodes)
+    with _capture(targets) as calls:
+        pbatch.solve_batched_tree(tdef, dims, qpb, cfg_t)
+    ops = _tree_ops(dims.NU, dims.NX, tdef.n_nodes, 0, False)
+    repl = {"tree_factor_solve_flat": "hpmpc_tpu/ops/tree_kernel.py:490",
+            "tree_solve_flat": "hpmpc_tpu/ops/tree_kernel.py:570",
+            "tree_resid_terms_flat": "hpmpc_tpu/ops/tree_kernel.py:614"}
+    srcs = {"tree_factor_solve_flat": "tree_sweeps",
+            "tree_solve_flat": "tree_sweeps",
+            "tree_resid_terms_flat": "tree_resid_terms"}
+    rows = []
+    for name in TREE_NAMES:
+        a, k = calls[(name, "")]
+        fast, plain = getattr(tk, name), getattr(tk, name + "_ref")
+        out = fast(*a, **k)
+        nbytes = _nbytes(a, out)
+        if name == "tree_solve_flat":   # Lxx: its lower triangle is read
+            nbytes += _tril_nbytes(a[2], dims.NX) - _nbytes([a[2]])
+        n_ops = B * ops[name]
+        bound_ms, bound_by = _bound(nbytes, n_ops)
+        ms = _time_ms(torch, lambda r: fast(*a, **k), reps=20)
+        ms_p = _time_ms(torch, lambda r: plain(*a, **k), reps=2)
+        print(f"{name} [{card}]: kernel {ms:.4f} ms, plain {ms_p:.4f} ms, "
+              f"bound {bound_ms:.4f} ms ({bound_by}: {nbytes} B, "
+              f"{n_ops:.4e} ops; {bound_ms / ms:.2%} of bound) (float32, "
+              f"B={B}, {tdef.n_nodes} nodes); launches on the main path "
+              f"{launches[name]}", flush=True)
+        rows.append({"name": name, "route": "cuda",
+                     "source": f"hpmpc_tpu_torch/csrc/{srcs[name]}.cu",
+                     "replaces": repl[name], "launches": launches[name],
+                     "max_abs_err": errs[name], "ms": ms, "plain_ms": ms_p,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": None})
+    t_sec = section_done("T timings", t_sec)
+    return rows, t_sec
+
 
 def main() -> int:
     repo = pathlib.Path(__file__).resolve().parent
@@ -985,6 +1281,7 @@ def main() -> int:
     from hpmpc_tpu_torch.ops import resident_kernel as rk
     from hpmpc_tpu_torch.ops import stage_kernel as sk
     from hpmpc_tpu_torch.ops import step_kernel as stk
+    from hpmpc_tpu_torch.ops import tree_kernel as tk
     from hpmpc_tpu_torch.parallel import batch as pbatch
     from hpmpc_tpu_torch.utils.mass_spring import (mass_spring_qp,
                                                    mass_spring_soft_qp)
@@ -1041,7 +1338,8 @@ def main() -> int:
         for d in (stk.LAUNCHES, mk.LAUNCHES):
             for v in d.values():
                 v[:] = [0, 0]
-        for d in (sk.LAUNCHES, mk.SOFT_LAUNCHES, stk.SOFT_LAUNCHES):
+        for d in (sk.LAUNCHES, mk.SOFT_LAUNCHES, stk.SOFT_LAUNCHES,
+                  tk.LAUNCHES):
             for n in d:
                 d[n] = 0
 
@@ -1054,6 +1352,7 @@ def main() -> int:
         out.update(sk.LAUNCHES)
         out.update(mk.SOFT_LAUNCHES)
         out.update(stk.SOFT_LAUNCHES)
+        out.update(tk.LAUNCHES)
         return out
 
     def total(v):
@@ -1114,7 +1413,11 @@ def main() -> int:
              ("step_flat", dict(NZ=6, NB=1)),
              ("factor_solve_flat", dict(NU=2, NX=4)),
              ("solve_flat", dict(NU=2, NX=4)),
-             ("resid_full", dict(NU=2, NX=4, NB=1))]
+             ("resid_full", dict(NU=2, NX=4, NB=1)),
+             # the scenario tree (nx=4 nu=2: NZ=6, NB=2) of section T
+             ("tree_sweeps", dict(NU=2, NX=4)),
+             ("tree_resid_terms", dict(NU=2, NX=4)),
+             ("step_flat", dict(NZ=6, NB=2))]
     t0 = time.perf_counter()
     _build.build_all(specs)
     print(f"build: {time.perf_counter() - t0:.1f} s ({len(specs)} "
@@ -1908,6 +2211,10 @@ def main() -> int:
     row23, t_sec = _api_and_dense(torch, np, dev, card, repo, reset_counts,
                                   read_counts, total, section_done, t_sec)
 
+    # ---- T. the scenario tree (rows 26-28) --------------------------------
+    tree_rows, t_sec = _tree(torch, np, dev, card, reset_counts, read_counts,
+                             total, section_done, t_sec)
+
     # ---- 14. timings --------------------------------------------------------
     def solve_rep(q0, d, c, fn, field="b"):
         def run(r):
@@ -2211,6 +2518,7 @@ def main() -> int:
                         "bound_ms": bound_ms, "bound_by": bound_by,
                         "library_ms": None})
     kernels.append(row23)
+    kernels += tree_rows
     print(f"launches per call: parity path {launches_p}", flush=True)
     section_done("15 kernels alone", t_sec)
     print(f"chip_smoke: total {time.perf_counter() - t_script:.1f} s ("

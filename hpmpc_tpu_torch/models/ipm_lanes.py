@@ -311,7 +311,8 @@ def _hot_state(state0, qp, cm, ngh, ng_stages, mu_scal, dt) -> _LState:
 
 
 def solve_batched_lanes(dims: OCPDims, qp: OCPQP, cfg, z0=None, pi0=None,
-                        state0=None, flat: bool = False) -> _ipm.IPMSolution:
+                        state0=None, flat: bool = False,
+                        kkt_factory=None) -> _ipm.IPMSolution:
     """Batched two-phase solve on the lanes engine (the JAX package's
     ``solve_batched_lanes``).
 
@@ -335,13 +336,29 @@ def solve_batched_lanes(dims: OCPDims, qp: OCPQP, cfg, z0=None, pi0=None,
     and no box rows runs with one masked box slot (``OCPDims.NB`` is at
     least 1, ``nb_mask`` 0), which every kernel of both forms ignores.
 
+    ``kkt_factory(dims, qp, ng_stages, Hl, Fl)`` (the flat form only, no
+    ``iter_ref``: the JAX engine's hook, ``ipm_fast.solve_batched_flat``)
+    swaps the KKT kernels while the step, alpha, gating and trace machinery
+    stays: it returns a namespace with ``factor(dvec, ngl, g, b) -> (dz,
+    dpi, fstate)``, ``resolve(fstate, g, b) -> (dz, dpi)``,
+    ``resid_terms(z, pi) -> (hz, fz, fpi)`` (the Newton residual's node
+    and edge products) and ``apply_fpi(rq, fpi)`` (fpi onto the rows it
+    belongs to), every stream batch-last; ``Hl`` and ``Fl`` are the
+    engine's packed H and F streams.  Used by the scenario tree
+    (:func:`.tree.solve_tree_ipm_flat`); None is the chain.
+
     Not ported yet: ``HPMPC_FUSED_SWEEPS=1`` (ROADMAP Queue 2 rows 17-18)
     raises ``NotImplementedError``."""
     iter_ref = int(cfg.iter_ref)
     ref_thr = float(cfg.iter_ref_mu_thr)
     mega = (not flat and iter_ref == 0
             and os.environ.get("HPMPC_MEGA_SWEEPS", "1") == "1")
-    if not mega and os.environ.get("HPMPC_FUSED_SWEEPS", "0") == "1":
+    if kkt_factory is not None and (not flat or iter_ref
+                                    or state0 is not None):
+        raise ValueError("a kkt_factory runs on the flat form, without "
+                         "iter_ref and state0")
+    if (not mega and kkt_factory is None
+            and os.environ.get("HPMPC_FUSED_SWEEPS", "0") == "1"):
         raise NotImplementedError(
             "lanes engine: the fused sweeps (HPMPC_FUSED_SWEEPS=1) need "
             "ROADMAP Queue 1 #7b, Queue 2 rows 17 and 18")
@@ -373,6 +390,8 @@ def solve_batched_lanes(dims: OCPDims, qp: OCPQP, cfg, z0=None, pi0=None,
     pdregL, Hl, Fl = cm.pdregL, cm.Hl, cm.Fl
     zmaskL, xmaskL = to_lanes(qp.z_mask), to_lanes(qp.x_mask[:, 1:])
     ngh = make_ng_lanes(dims, qp, ng_stages, dt, B)
+    kkt = (kkt_factory(dims, qp, ng_stages, Hl, Fl)
+           if kkt_factory is not None else None)
     mgF, dg_cat, mg2, sgn_g = ngh.mgF, ngh.dg_cat, ngh.mg2, ngh.sgn_g
     cz_of, fold_g = ngh.cz_of, ngh.fold_g
     cat2 = lambda v: torch.cat([v, v], 1)  # noqa: E731
@@ -447,9 +466,12 @@ def solve_batched_lanes(dims: OCPDims, qp: OCPQP, cfg, z0=None, pi0=None,
                                      phase2=phase2)
         if n_ng:
             geffL = ngh.ct_add_lanes(geffL, qx_g)
-        dzL, dpiL, fstate = sk.factor_solve_folded_flat(
-            Hl, dvecL, ngl, ng_stages, geffL, Fl, rhsL, want_pi=iter_ref > 0,
-            **ks)
+        if kkt is not None:
+            dzL, dpiL, fstate = kkt.factor(dvecL, ngl, geffL, rhsL)
+        else:
+            dzL, dpiL, fstate = sk.factor_solve_folded_flat(
+                Hl, dvecL, ngl, ng_stages, geffL, Fl, rhsL,
+                want_pi=iter_ref > 0, **ks)
         fstate = fstate + (dvecL,)
         if do_ref:
             dzL, _ = refine(fstate, Qx_g, geffL, rhsL, dzL, dpiL)
@@ -475,7 +497,10 @@ def solve_batched_lanes(dims: OCPDims, qp: OCPQP, cfg, z0=None, pi0=None,
                                          phase2=phase2)
         if n_ng:
             geff2L = ngh.ct_add_lanes(geff2L, qx_g2)
-        dz2L, dpi2L = sk.solve_flat(*fstate[:3], geff2L, Fl, rhsL, **ks)
+        if kkt is not None:
+            dz2L, dpi2L = kkt.resolve(fstate[:3], geff2L, rhsL)
+        else:
+            dz2L, dpi2L = sk.solve_flat(*fstate[:3], geff2L, Fl, rhsL, **ks)
         if do_ref:
             dz2L, dpi2L = refine(fstate, Qx_g, geff2L, rhsL, dz2L, dpi2L)
         dt2L, dl2L, *parts = stk.alpha_sums_flat(
@@ -578,11 +603,35 @@ def solve_batched_lanes(dims: OCPDims, qp: OCPQP, cfg, z0=None, pi0=None,
         s = gate(live, phase1_body(s, do_ref), s)
 
     # ---- residuals (one kernel + the ng rows) ----------------------------
+    if kkt is not None:
+        idx_box = idxT.long()[:, :, None].expand(Np1, NB, B)
+        sgnL = torch.cat([torch.ones(NB, 1, dtype=dt, device=dev),
+                          -torch.ones(NB, 1, dtype=dt, device=dev)])
+
+    def kkt_residuals(zL, piL, lamL, tL):
+        """The hook's residuals: its node and edge products, assembled
+        elementwise as the JAX engine's ``residuals`` assembles them (the
+        terms of ``resid_full``: rb on the edges, the box rows per
+        stage)."""
+        hzL, fzL, fpiL = kkt.resid_terms(zL, piL)
+        rqL = kkt.apply_fpi(gL + hzL, fpiL)
+        rqL[1:, NU:] -= piL
+        lam_f = (lamL[:, NB:] - lamL[:, :NB]) * mbL[:, :NB]
+        rqL = rqL.scatter_add(1, idx_box, lam_f) * zmaskL
+        rbL = (bL + fzL - zL[1:, NU:]) * xmaskL
+        zb = torch.gather(zL, 1, idx_box)
+        rdL = (dcatL - torch.cat([zb, zb], 1) + sgnL * tL) * mbL
+        rmL = lamL * tL * mbL
+        return rqL, rbL, rdL, rmL, rmL.sum(1)
+
     def residuals(zL, piL, lamL, tL, lam_g, t_g):
-        rqL, rbL, rdL, rmL, musumL = stk.resid_full(
-            idxT, Hl, Fl, zL, piL, gL, bL, lamL, tL, dcatL, mbL, zmaskL,
-            xmaskL, **kd)
-        rbL = rbL[:N]
+        if kkt is not None:
+            rqL, rbL, rdL, rmL, musumL = kkt_residuals(zL, piL, lamL, tL)
+        else:
+            rqL, rbL, rdL, rmL, musumL = stk.resid_full(
+                idxT, Hl, Fl, zL, piL, gL, bL, lamL, tL, dcatL, mbL, zmaskL,
+                xmaskL, **kd)
+            rbL = rbL[:N]
         mu = musumL.sum(0)
         rd_g = rm_g = empty
         if n_ng:

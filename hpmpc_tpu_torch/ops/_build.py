@@ -39,7 +39,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _LIBS: dict = {}
-_NG_TABLES: dict = {}
+_INT_TABLES: dict = {}
 #: library file name -> the ptxas report of its build in this process
 PTXAS_LOG: dict = {}
 
@@ -136,7 +136,9 @@ ENTRIES = {"step_flat": ("prep_flat", "alpha_sums_flat", "corr_geff_flat"),
            "solve_flat": ("solve_flat", "solve_flat_pb"),
            "refine_flat": ("refine_flat_fused",),
            "factor_solve_folded": ("factor_solve_folded",
-                                   "factor_solve_batched")}
+                                   "factor_solve_batched"),
+           "tree_sweeps": ("tree_factor_solve_flat", "tree_solve_flat"),
+           "tree_resid_terms": ("tree_resid_terms_flat",)}
 
 
 def load(kernel: str, **dims) -> ctypes.CDLL:
@@ -207,16 +209,17 @@ def check_tensors(dev, dt, named: dict, shapes: dict) -> None:
                              f"expected {shapes[name]}")
 
 
-def ng_table(ng_stage_ids, dev):
-    """The (n_ng,) int32 table of the stages that carry general
-    constraints, on ``dev``, made once per process so that a launch makes
-    no host-to-device copy."""
-    key = (tuple(ng_stage_ids), str(dev))
-    tab = _NG_TABLES.get(key)
+def int_table(values, dev):
+    """The int32 table of the tuple ``values`` (the stages that carry
+    general constraints, a tree's parents; an empty tuple gives ``[0]``)
+    on ``dev``, made once per process so that a launch makes no
+    host-to-device copy."""
+    key = (tuple(values), str(dev))
+    tab = _INT_TABLES.get(key)
     if tab is None:
-        tab = torch.tensor(list(ng_stage_ids) or [0], dtype=torch.int32,
+        tab = torch.tensor(list(values) or [0], dtype=torch.int32,
                            device=dev)
-        _NG_TABLES[key] = tab
+        _INT_TABLES[key] = tab
     return tab
 
 

@@ -161,8 +161,8 @@ def factor_solve_mega(idx_tab, lam, t, A, M, mb, base, pdreg, H, ngl, ngadd,
     amin, s0, s1, s2 = new(4, Np1, B).unbind(0)
     work = new(Np1 * (NU + NX), B)
     ptrs = (idx_tab, lam, t, A, M, mb, base, pdreg, H, ngl, ngadd,
-            _build.ng_table(ng_stage_ids, dev), F, b, Ll, Lxx, Pb, z, dtl, dll,
-            amin, s0, s1, s2, work)
+            _build.int_table(ng_stage_ids, dev), F, b, Ll, Lxx, Pb, z, dtl,
+            dll, amin, s0, s1, s2, work)
     a = _FactorArgs(*[_build.ptr(x) for x in ptrs], B, N, n_ng, ph)
     _build.launch(name, name, a, dev, dt, NU=NU, NX=NX, NB=NB)
     LAUNCHES[name][ph] += 1
@@ -211,7 +211,7 @@ def solve_mega(idx_tab, fstate, lam, t, A, M, mb, dtb, dlb, smv, base,
     amin, s0, s1, s2 = new(4, Np1, B).unbind(0)
     work = new(Np1 * (NU + NX + NB2), B)
     ptrs = (idx_tab, lam, t, A, M, mb, dtb, dlb, smv, base, ngadd,
-            _build.ng_table(ng_stage_ids, dev), Ll, Lxx, Pb, F, b, z, pi, dtl,
+            _build.int_table(ng_stage_ids, dev), Ll, Lxx, Pb, F, b, z, pi, dtl,
             dll, amin, s0, s1, s2, work)
     a = _SolveArgs(*[_build.ptr(x) for x in ptrs], B, N, n_ng, ph)
     _build.launch(name, name, a, dev, dt, NU=NU, NX=NX, NB=NB)
@@ -350,7 +350,7 @@ def factor_solve_soft_mega(idx_tab, idxs_tab, lam, t, A, mb, lam_s, t_s,
     amin, s0, s1, s2 = new(4, Np1, B).unbind(0)
     work = new(Np1 * (NU + NX), B)
     ptrs = (idx_tab, idxs_tab, lam, t, A, mb, lam_s, t_s, soft_c, ms, base,
-            pdreg, H, ngl, ngadd, _build.ng_table(ng_stage_ids, dev), F, b,
+            pdreg, H, ngl, ngadd, _build.int_table(ng_stage_ids, dev), F, b,
             Ll, Lxx, Pb, z, dtb, dlb, dts, dls, amin, s0, s1, s2, work)
     a = _SoftFactorArgs(*[_build.ptr(x) for x in ptrs], B, N,
                         len(ng_stage_ids))
@@ -397,7 +397,7 @@ def solve_soft_mega(idx_tab, idxs_tab, fstate, lam, t, A, mb, lam_s, t_s,
     work = new(Np1 * (NU + NX + 2 * NB + 4 * NS), B)
     ptrs = (idx_tab, idxs_tab, lam, t, A, mb, lam_s, t_s, soft_c, ms, dtb,
             dlb, dts, dls, smv, base, ngadd,
-            _build.ng_table(ng_stage_ids, dev), Ll, Lxx, Pb, F, b, z, pi,
+            _build.int_table(ng_stage_ids, dev), Ll, Lxx, Pb, F, b, z, pi,
             dt2b, dl2b, dt2s, dl2s, amin, s0, s1, s2, work)
     a = _SoftSolveArgs(*[_build.ptr(x) for x in ptrs], B, N,
                        len(ng_stage_ids), int(bool(exact)))

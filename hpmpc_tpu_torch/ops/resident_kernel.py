@@ -342,7 +342,7 @@ def ipm_resident(idx_tab, lam0, t0, z0, pi0, base, pdreg, H, F, b, dcat, mb,
     stat = new(K, 5, B)
     lamg, tg = new(n_ng, NG2, B), new(n_ng, NG2, B)
     work = new(int(fn_rows(N, n_ng)), B)
-    ng_stage = _build.ng_table(ng_stage_ids, dev)
+    ng_stage = _build.int_table(ng_stage_ids, dev)
     ptrs = [named.get(k) for k in ("idx_tab", "lam0", "t0", "z0", "pi0",
                                    "base", "pdreg", "H", "F", "b", "dcat",
                                    "mb", "Cg", "dgg", "mgg", "lamg0", "tg0")]

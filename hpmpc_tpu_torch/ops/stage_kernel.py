@@ -265,8 +265,8 @@ def factor_solve_folded_flat(H, dvec, ngl, ng_stage_ids, g, F, b, *, NU, NZ,
     z = new(Np1, NZ, B)
     pi = new(N, NX, B) if want_pi else None
     work = new(Np1 * (NU + NX), B)
-    ptrs = (H, dvec, ngl, _build.ng_table(ng_stage_ids, H.device), g, F, b, Ll,
-            Lxx, Pb, z, pi, work)
+    ptrs = (H, dvec, ngl, _build.int_table(ng_stage_ids, H.device), g, F, b,
+            Ll, Lxx, Pb, z, pi, work)
     a = _FactorArgs(*[_build.ptr(x) for x in ptrs], B, N, n_ng,
                     int(bool(want_pi)))
     _build.launch("factor_solve_flat", name, a, H.device, H.dtype, NU=NU,
@@ -331,7 +331,7 @@ def refine_flat_fused(H, dvec, C, qxg, ng_stage_ids, g, F, b, z, pi, Ll, Lxx,
     new = lambda *s: torch.empty(*s, dtype=z.dtype, device=z.device)  # noqa: E731
     z_new, pi_new = new(Np1, NZ, B), new(N, NX, B)
     work = new(Np1 * (NU + 2 * NX), B)
-    ptrs = (H, dvec, C, qxg, _build.ng_table(ng_stage_ids, z.device), g, F, b,
+    ptrs = (H, dvec, C, qxg, _build.int_table(ng_stage_ids, z.device), g, F, b,
             z, pi, Ll, Lxx, z_new, pi_new, work)
     a = _RefineArgs(*[_build.ptr(x) for x in ptrs], B, N, n_ng)
     _build.launch("refine_flat", name, a, z.device, z.dtype, NU=NU, NX=NX,
@@ -507,7 +507,7 @@ def _launch_folded(name, H, dvec, ngl, ng_stage_ids, g, F, b, NU):
     L, eu, px, Pb = new(Np1, NZ, NZ, B), new(Np1, NZ, B), new(Np1, NX, B), \
         new(N, NX, B)
     z, pi = new(Np1, NZ, B), new(N, NX, B)
-    ptrs = (H, dvec, ngl, _build.ng_table(ng_stage_ids, g.device), g, F, b, L,
+    ptrs = (H, dvec, ngl, _build.int_table(ng_stage_ids, g.device), g, F, b, L,
             eu, px, Pb, z, pi)
     a = _FoldedArgs(*[_build.ptr(x) for x in ptrs], B, N, n_ng)
     _build.launch("factor_solve_folded", name, a, g.device, g.dtype, NU=NU,

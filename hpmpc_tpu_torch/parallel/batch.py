@@ -13,7 +13,9 @@ the library's default ``IPMConfig()`` reaches), with the f32 escalation
 (:func:`_escalate_stalled`) and :func:`solve_single`; on the soft path
 (:func:`solve_batched_soft`) ``"soft_lanes"`` and ``"soft_flat"`` (both
 the soft lanes engine, whose default 6-kernel loop is the flat form) and
-``"soft_structured"`` (the batch-native :func:`~..models.ipm_soft.solve`).  The opt-in soft resident engine raises
+``"soft_structured"`` (the batch-native :func:`~..models.ipm_soft.solve`);
+on the scenario tree (:func:`solve_batched_tree`) the flat tree engine or
+the structured tree IPM.  The opt-in soft resident engine raises
 ``NotImplementedError`` naming its ROADMAP item instead of quietly running
 something else.
 """
@@ -204,6 +206,30 @@ def solve_batched_soft(dims: OCPDims, qp: OCPQP, soft, cfg: ipm.IPMConfig,
     return ipm_soft_lanes.solve_batched_soft_lanes(
         dims, qp, soft, cfg, idxbs_t,
         exact_mehrotra_soft=exact_mehrotra_soft)
+
+
+def solve_batched_tree(tdef, dims: OCPDims, qp: OCPQP, cfg: ipm.IPMConfig,
+                       z0=None, pi0=None) -> ipm.IPMSolution:
+    """Tree twin of :func:`solve_batched`: a batch of scenario-tree QPs
+    (node/edge arrays, :mod:`..models.tree`, with a leading instance axis).
+    With ``cfg.use_pallas``, a static ``dims.idxb``, float32 data and no
+    ``iter_ref``, the flat tree engine (:func:`~..models.tree.
+    solve_tree_ipm_flat`: the lanes engine's flat form with the tree
+    kernels); otherwise the batch-native structured tree IPM
+    (:func:`~..models.tree.solve_tree_ipm`), float64 included, as in JAX.
+    The JAX rule's TPU gates (the ``B % 1024`` block, the VMEM fit of the
+    accumulator) are dropped.
+
+    ``z0`` (B, n_nodes, NZ) / ``pi0`` (B, n_nodes-1, NX) with
+    ``cfg.warm_start`` seed the node iterate on both routes: closed-loop
+    tree-RTI re-solves stay on the flat engine (the reference tree
+    solver's ``warm_start`` argument, ``d_tree_ip2_res_hard_libstr.c:80``)."""
+    from ..models import tree as _tree
+
+    if (cfg.use_pallas and dims.idxb is not None
+            and qp.dtype == torch.float32 and int(cfg.iter_ref) == 0):
+        return _tree.solve_tree_ipm_flat(tdef, dims, qp, cfg, z0=z0, pi0=pi0)
+    return _tree.solve_tree_ipm(tdef, dims, qp, cfg, z0=z0, pi0=pi0)
 
 
 def _solve_two_stage(dims, qp, cfg, engine, z0, pi0) -> ipm.IPMSolution:

@@ -18,7 +18,12 @@ It reports:
   * whether the two runs' solutions are equal bit for bit, and each run's
     max and median control error (per instance, max |u| difference over
     the stages) against the f64 lanes engine at the same budget, beside
-    the unrefined route's: chip_smoke.py section 6's measure.
+    the unrefined route's: chip_smoke.py section 6's measure;
+  * whether the chain's flat form (``solve_batched_lanes(..., flat=True)``
+    at ``IPMConfig(k_max=8, mu_tol=0, use_pallas=True)``, without and with
+    ``iter_ref=1``: the 6-kernel loop, its unfused refinement and
+    ``resid_full``) gives the two checkouts the same solution bit for
+    bit.
 
 Imports no JAX.  ``--other`` is a directory holding the other checkout's
 ``hpmpc_tpu_torch/`` (for the parent commit: ``git archive HEAD~1
@@ -128,7 +133,8 @@ def main() -> int:
                  ("factor_solve_mega", d3), ("solve_mega", d3),
                  ("step_flat", dict(NZ=dims.NZ, NB=dims.NB)),
                  ("factor_solve_flat", d2), ("solve_flat", d2),
-                 ("refine_flat", dict(d2, NG=dims.NG))]
+                 ("refine_flat", dict(d2, NG=dims.NG)),
+                 ("resid_terms_flat", d2)]
         errors = []
 
         def build(m):
@@ -216,6 +222,23 @@ def main() -> int:
     out["route_bitwise_equal"] = all(fields.values())
     print(f"parity route, this vs other: bitwise equal per field {fields}",
           flush=True)
+
+    # the chain's flat form, unrefined and with the unfused refinement
+    out["flat_bitwise_equal"] = {}
+    for iter_ref in (0, 1):
+        sols = []
+        for m in trees.values():
+            dims, qpb = flagship(m, torch.float32)
+            cfg = m["ipm"].IPMConfig(k_max=8, mu_tol=0.0, iter_ref=iter_ref,
+                                     use_pallas=True)
+            sols.append(m["lanes"].solve_batched_lanes(dims, qpb, cfg,
+                                                       flat=True))
+        fields = {f: _diff(getattr(sols[0], f), getattr(sols[1], f))[0]
+                  for f in sols[0]._fields}
+        out["flat_bitwise_equal"][f"iter_ref={iter_ref}"] = all(
+            fields.values())
+        print(f"flat form iter_ref={iter_ref}, this vs other: bitwise equal "
+              f"per field {fields}", flush=True)
     print(json.dumps(out), flush=True)
     return 0
 

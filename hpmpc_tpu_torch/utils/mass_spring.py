@@ -5,7 +5,8 @@ nx/2 masses in a chain connected by unit springs, nu forces on the first
 masses, zero-order-hold discretization at Ts.  The arrays are built in
 float64 numpy exactly as the JAX fixture builds them and cast once, so
 both packages see the same numbers bit for bit; :func:`mass_spring_soft_qp`
-is the reference's soft benchmark problem on the same plant.
+is the reference's soft benchmark problem on the same plant and
+:func:`mass_spring_tree_qp` its scenario-tree problem.
 """
 
 from __future__ import annotations
@@ -258,3 +259,85 @@ def mass_spring_data(nx: int, nu: int, N: int, ngN: int = 0,
         ug = [np.where(v == 0, 0.0, -v) for v in rows_lo]
         data.update(C=rows_C, D=rows_D, lg=rows_lo, ug=ug)
     return data
+
+
+def mass_spring_tree_qp(md=2, Nr=1, Nh=3, nx=4, nu=2, u_max=0.35,
+                        ng_nodes=(), dtype=torch.float32, device=None):
+    """Input-boxed scenario-tree QP on the mass-spring plant (twin of
+    :func:`hpmpc_tpu.utils.mass_spring.mass_spring_tree_qp`): the
+    reference's tree topology ``setup_tree(md, Nr, Nh)``
+    (``test_problems/test_d_tree_ric_libstr.c:61-93``), per-EDGE dynamics
+    and offsets (edge e into node e+1: A scaled by ``1 + 0.03 (e+1 mod
+    5)``, ``b[e, 0]`` grows with e), node costs with ``rng(3)`` diagonal
+    jitter in Q, and an optional general row (input sum + 0.3 state sum in
+    [-1.2, 1.2]) on ``ng_nodes``.
+
+    Returns ``(tdef, dims, qp)`` with node/edge arrays as in
+    :mod:`..models.tree`, built in float64 numpy as the JAX fixture builds
+    them and cast once, on ``device`` (by default the CUDA card)."""
+    from ..models import tree as _tree
+    from ..ocp import resolve_device
+
+    A, B_ = mass_spring_ab(nx, nu)
+    tdef = _tree.TreeDef.from_md_nr_nh(md, Nr, Nh)
+    n, dad = tdef.n_nodes, tdef.dad
+    is_leaf = [True] * n
+    for k in range(1, n):
+        is_leaf[dad[k]] = False
+
+    nx_v = [0] + [nx] * (n - 1)
+    nu_v = [0 if is_leaf[k] else nu for k in range(n)]
+    nb_v = list(nu_v)
+    ng_v = [1 if k in ng_nodes else 0 for k in range(n)]
+    idxb = [np.arange(m, dtype=np.int32) for m in nb_v]
+    dims = OCPDims.create(n - 1, nx_v, nu_v, nb_v, ng_v, idxb=idxb)
+    NU, NX, NZ, NB, NG = dims.NU, dims.NX, dims.NZ, dims.NB, dims.NG
+
+    F = np.zeros((n - 1, NZ, NX))
+    for k in range(1, n):
+        p = dad[k]
+        Ak = A * (1.0 + 0.03 * (k % 5))
+        F[k - 1, : nu_v[p], :nx] = B_.T[: nu_v[p]]
+        F[k - 1, NU : NU + nx_v[p], :nx] = Ak.T[: nx_v[p]]
+    b = np.zeros((n - 1, NX))
+    b[:, :nx] = 0.1
+    b[:, 0] += 0.02 * np.arange(n - 1)
+
+    H = np.zeros((n, NZ, NZ))
+    rng = np.random.default_rng(3)
+    for k in range(n):
+        H[k, : nu_v[k], : nu_v[k]] = 0.5 * np.eye(nu_v[k])
+        Qk = np.eye(nx_v[k]) + 0.05 * np.diag(rng.random(nx_v[k]))
+        H[k, NU : NU + nx_v[k], NU : NU + nx_v[k]] = Qk
+    g = np.zeros((n, NZ))
+    g[:, NU : NU + nx] = 0.05
+
+    idxb_p = np.zeros((n, NB), dtype=np.int32)
+    d_lb = np.zeros((n, NB))
+    d_ub = np.zeros((n, NB))
+    for k in range(n):
+        idxb_p[k, : nb_v[k]] = np.arange(nb_v[k])
+        d_lb[k, : nb_v[k]] = -u_max
+        d_ub[k, : nb_v[k]] = u_max
+
+    C = np.zeros((n, NG, NZ))
+    d_lg = np.zeros((n, NG))
+    d_ug = np.zeros((n, NG))
+    for k in ng_nodes:
+        C[k, 0, : nu_v[k]] = 1.0
+        C[k, 0, NU : NU + nx_v[k]] = 0.3
+        d_lg[k, 0] = -1.2
+        d_ug[k, 0] = 1.2
+
+    device = resolve_device(device)
+
+    def as_t(x):
+        return torch.as_tensor(x).to(device=device, dtype=dtype)
+
+    qp = OCPQP(
+        F=as_t(F), b=as_t(b), H=as_t(H), g=as_t(g),
+        idxb=torch.as_tensor(idxb_p, device=device), d_lb=as_t(d_lb),
+        d_ub=as_t(d_ub), C=as_t(C), d_lg=as_t(d_lg), d_ug=as_t(d_ug),
+        z_mask=as_t(dims.z_mask()), x_mask=as_t(dims.x_mask()),
+        nb_mask=as_t(dims.nb_mask()), ng_mask=as_t(dims.ng_mask()))
+    return tdef, dims, qp

@@ -4,7 +4,9 @@ PyTorch port vs the JAX package's ``solve_batched`` on the resident route
 default-tolerance route into the lanes engine, the structured route (the
 library's default ``IPMConfig()``, and ``use_pallas`` without a static
 ``idxb``), the float32 escalation, ``solve_single``, the engines folded
-into the lanes engine, and the fused sweeps that still raise."""
+into the lanes engine, and the fused sweeps that still raise.  The
+JAX references compile without XLA's backend optimisations
+(tests/test_torch_ipm_structured.py's ``jit_fast``)."""
 
 import dataclasses
 
@@ -24,6 +26,7 @@ from hpmpc_tpu_torch.convert import QP_FIELDS, qp_from_numpy  # noqa: E402
 from hpmpc_tpu_torch.models.ipm import IPMConfig  # noqa: E402
 from hpmpc_tpu_torch.parallel import batch as tbatch  # noqa: E402
 from hpmpc_tpu_torch.utils.mass_spring import mass_spring_qp  # noqa: E402
+from test_torch_ipm_structured import jit_fast  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -64,7 +67,7 @@ def test_solve_batched_matches_jax(interpret_pallas, monkeypatch):
     cfg_j, cfg_t = jipm.IPMConfig(**kw), IPMConfig(**kw)
     assert jbatch.select_engine(dims, cfg_j, B, jnp.float32) == "resident"
     assert tbatch.select_engine(dims, cfg_t, B, torch.float32) == "resident"
-    sol_j = jax.jit(lambda q: jbatch.solve_batched(dims, q, cfg_j))(qpb)
+    sol_j = jit_fast(jbatch.solve_batched, dims, qpb, cfg_j)
     sol_t = tbatch.solve_batched(dims, qp_t, cfg_t)
 
     np.testing.assert_array_equal(_np(sol_t.kk), _np(sol_j.kk))

@@ -20,7 +20,9 @@ the same inputs and against the reference C solver's golden files.
   against it per instance.
 
 Every QP goes batch-first through the port; JAX's condense and expand run
-under ``jax.jit`` on the unbatched QP (the plan static).
+under ``jax.jit`` on the unbatched QP (the plan static), compiled without
+XLA's backend optimisations (tests/test_torch_ipm_structured.py's
+``_FAST_COMPILE``).
 """
 
 import json
@@ -43,6 +45,7 @@ from hpmpc_tpu_torch.models import cond, ipm  # noqa: E402
 from hpmpc_tpu_torch.ocp import OCPDims, pack_ocp  # noqa: E402
 from hpmpc_tpu_torch.ops import tri  # noqa: E402
 from hpmpc_tpu_torch.utils.mass_spring import mass_spring_qp  # noqa: E402
+from test_torch_ipm_structured import _FAST_COMPILE  # noqa: E402
 
 torch.set_num_threads(1)
 GOLDEN = pathlib.Path(__file__).parent / "golden"
@@ -103,8 +106,8 @@ def test_condense_matches_jax():
     N2 = 4
     dims, qp_j = j_mass_spring(8, 3, 8, ng=2, ngN=4)
     qp_t = _port_qp(dims, qp_j)
-    q2j = jax.jit(jcond.condense, static_argnums=1)(qp_j,
-                                                     jcond.plan(dims, N2))
+    q2j = jax.jit(jcond.condense, static_argnums=1,
+                  compiler_options=_FAST_COMPILE)(qp_j, jcond.plan(dims, N2))
     q2t = cond.condense(qp_t, cond.plan(dims, N2))
     for f in QP_FIELDS:
         a, b = _np(getattr(q2t, f))[0], np.asarray(getattr(q2j, f))
@@ -233,8 +236,8 @@ def test_expand_and_condense_rhs_match():
     assert int(sol2.status[0]) == 0
     exp_t = cond.expand_solution(qp_t, pl_t, sol2)
     sol2_j = jipm.IPMSolution(*[jnp.asarray(_np(x)[0]) for x in sol2])
-    exp_j = jax.jit(jcond.expand_solution, static_argnums=1)(qp_j, pl_j,
-                                                             sol2_j)
+    exp_j = jax.jit(jcond.expand_solution, static_argnums=1,
+                    compiler_options=_FAST_COMPILE)(qp_j, pl_j, sol2_j)
     for f in exp_t._fields:
         np.testing.assert_allclose(_np(getattr(exp_t, f))[0],
                                    np.asarray(getattr(exp_j, f)), rtol=0,

@@ -828,3 +828,125 @@ def test_api_on_card_matches_cpu(cuda):
     u_c, r_c = sess_c.dense_tick(x0=x0)
     assert (int(r_g.kk), int(r_g.status)) == (int(r_c.kk), int(r_c.status))
     np.testing.assert_allclose(u_g, u_c, rtol=0, atol=1e-10)
+
+
+def _tree_case(dev, dtype, ng_nodes, n_inst=37, topo=(2, 3, 10)):
+    from hpmpc_tpu_torch.utils.mass_spring import mass_spring_tree_qp
+
+    md, Nr, Nh = topo
+    tdef, dims, qp = mass_spring_tree_qp(md=md, Nr=Nr, Nh=Nh,
+                                         ng_nodes=ng_nodes, dtype=dtype,
+                                         device=dev)
+    qpb = pbatch.broadcast_qp(qp, n_inst)
+    rng = np.random.default_rng(0)
+    sc = torch.as_tensor(1 + 0.02 * rng.standard_normal(n_inst),
+                         dtype=dtype, device=dev)
+    return tdef, dims, dataclasses.replace(qpb, b=qpb.b * sc[:, None, None])
+
+
+def _tree_calls(monkeypatch, tdef, dims, qpb, k_max):
+    """The first call of each tree wrapper in a flat tree solve."""
+    from hpmpc_tpu_torch.models import tree
+    from hpmpc_tpu_torch.ops import tree_kernel as tk
+
+    calls = {}
+    for name in ("tree_factor_solve_flat", "tree_solve_flat",
+                 "tree_resid_terms_flat"):
+        fn = getattr(tk, name)
+
+        def spy(*a, _n=name, _fn=fn, **k):
+            calls.setdefault(_n, (a, k))
+            return _fn(*a, **k)
+        monkeypatch.setattr(tk, name, spy)
+    tree.solve_tree_ipm_flat(tdef, dims, qpb,
+                             IPMConfig(k_max=k_max, use_pallas=True))
+    monkeypatch.undo()
+    return calls
+
+
+def _flat_out(out):
+    """A wrapper's output tensors, the factor state unpacked, None
+    dropped."""
+    if len(out) == 3 and isinstance(out[2], tuple):
+        out = (*out[:2], *out[2])
+    return [x for x in out if x is not None]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("ng_nodes", [(), (0, 5)])
+def test_tree_kernels_match_plain(cuda, monkeypatch, dtype, ng_nodes):
+    """Rows 26-28 vs their plain versions on the flat tree engine's first
+    calls (71 nodes, B=37), both forms of row 26: f64 within 1e-11 of a
+    field's scale, f32 5e-5 (chip_smoke.py's MEGA_TOL)."""
+    from hpmpc_tpu_torch.ops import tree_kernel as tk
+
+    tdef, dims, qpb = _tree_case(cuda, dtype, ng_nodes)
+    calls = _tree_calls(monkeypatch, tdef, dims, qpb, 2)
+    a, k = calls["tree_factor_solve_flat"]
+    calls["tree_factor_solve_flat/want_pi"] = (a, dict(k, want_pi=True))
+    tol = 1e-11 if dtype == torch.float64 else 5e-5
+    for key, (a, k) in calls.items():
+        name = key.split("/")[0]
+        n0 = tk.LAUNCHES[name]
+        out_k = getattr(tk, name)(*a, **k)
+        torch.cuda.synchronize()
+        assert tk.LAUNCHES[name] == n0 + 1
+        out_p = getattr(tk, name + "_ref")(*a, **k)
+        for x, y in zip(_flat_out(out_k), _flat_out(out_p)):
+            scale = max(1.0, float(y.abs().max()))
+            torch.testing.assert_close(x, y, rtol=0, atol=tol * scale)
+
+
+def test_tree_engine_on_card_matches_cpu(cuda):
+    """solve_batched_tree (f32, use_pallas: the flat tree engine, rows
+    26-28 on the card) against the same call on the CPU (the plain
+    versions): equal kk and status, z within 1e-3; and the f64 flat engine
+    on the card against the f64 structured route within 1e-8."""
+    from hpmpc_tpu_torch.models import tree
+    from hpmpc_tpu_torch.ops import tree_kernel as tk
+
+    cfg = IPMConfig(k_max=8, mu_tol=0.0, use_pallas=True)
+    tdef, dims, qpb = _tree_case(cuda, torch.float32, (), n_inst=64,
+                                 topo=(2, 2, 8))
+    n0 = dict(tk.LAUNCHES)
+    sol_g = pbatch.solve_batched_tree(tdef, dims, qpb, cfg)
+    assert all(tk.LAUNCHES[k] > n0[k] for k in n0)
+    sol_c = pbatch.solve_batched_tree(tdef, dims, qpb.to(device="cpu"), cfg)
+    assert torch.equal(sol_g.kk.cpu(), sol_c.kk)
+    assert torch.equal(sol_g.status.cpu(), sol_c.status)
+    torch.testing.assert_close(sol_g.z.cpu(), sol_c.z, rtol=0, atol=1e-3)
+    q64 = qpb.to(dtype=torch.float64)
+    cfg64 = IPMConfig(k_max=30, use_pallas=True)
+    sol_f = tree.solve_tree_ipm_flat(tdef, dims, q64, cfg64)
+    sol_s = tree.solve_tree_ipm(tdef, dims, q64, cfg64)
+    assert torch.equal(sol_f.kk, sol_s.kk)
+    assert bool((sol_f.status == 0).all())
+    torch.testing.assert_close(sol_f.z, sol_s.z, rtol=0, atol=1e-8)
+
+
+def test_tree_wrappers_reject_bad_inputs(cuda, monkeypatch):
+    from hpmpc_tpu_torch.ops import tree_kernel as tk
+
+    tdef, dims, qpb = _tree_case(cuda, torch.float64, (0, 5), n_inst=8)
+    calls = _tree_calls(monkeypatch, tdef, dims, qpb, 1)
+    a, k = calls["tree_resid_terms_flat"]
+    fn = tk.tree_resid_terms_flat
+    bad = list(a)
+    bad[3] = a[3].float()                              # dtype
+    with pytest.raises(TypeError):
+        fn(*bad, **k)
+    bad = list(a)
+    bad[3] = a[3][..., :4].contiguous()                # batch
+    with pytest.raises(ValueError):
+        fn(*bad, **k)
+    bad = list(a)
+    bad[1] = a[1].cpu()                                # another device
+    with pytest.raises(ValueError):
+        fn(*bad, **k)
+    bad = list(a)
+    bad[0] = (-1, 0, 3) + tuple(a[0][3:])              # not breadth-first
+    with pytest.raises(ValueError, match="breadth-first"):
+        fn(*bad, **k)
+    a, k = calls["tree_factor_solve_flat"]
+    with pytest.raises(ValueError, match="ngl"):       # ng nodes, no ngl
+        tk.tree_factor_solve_flat(a[0], a[1], a[2], None, *a[4:], **k)

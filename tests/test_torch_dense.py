@@ -21,6 +21,10 @@ unrolls the kernel's nz-column loops, so its compilation grows with nz).
 
 The JAX plan and the interpret-mode kernel (one compilation, the warm
 start an argument) are shared by the module.
+
+The JAX references compile without XLA's backend optimisations
+(tests/test_torch_ipm_structured.py's ``jit_fast`` /
+``_FAST_COMPILE``).
 """
 
 import dataclasses
@@ -43,6 +47,7 @@ from hpmpc_tpu.utils.mass_spring import mass_spring_qp as j_mass_spring  # noqa:
 from hpmpc_tpu_torch.models import ipm, ipm_dense  # noqa: E402
 from hpmpc_tpu_torch.ops import dense_kernel as dk  # noqa: E402
 from hpmpc_tpu_torch.utils.mass_spring import mass_spring_qp  # noqa: E402
+from test_torch_ipm_structured import _FAST_COMPILE  # noqa: E402
 
 torch.set_num_threads(1)
 N_SMALL = 4
@@ -87,7 +92,8 @@ def interpret_tick(plans):
     mp.setattr(pl, "pallas_call", patched)
     cfg = jipm.IPMConfig(**CFG)
     fn = jax.jit(lambda bf, y0: jdense.solve_dense_tick(plans[0], bf, cfg,
-                                                        y0=y0))
+                                                        y0=y0),
+                 compiler_options=_FAST_COMPILE)
     yield fn
     mp.undo()
 
@@ -107,7 +113,7 @@ def test_plan_dense_matches_jax(plans):
 def test_solve_dense_ref_matches_jax(plans):
     pj, pt, bj, bt = plans
     rj = jax.jit(lambda bf: jdense.solve_dense_ref(
-        pj, bf, jipm.IPMConfig(**CFG)))(bj)
+        pj, bf, jipm.IPMConfig(**CFG)), compiler_options=_FAST_COMPILE)(bj)
     rt = ipm_dense.solve_dense_ref(pt, bt, ipm.IPMConfig(**CFG))
     assert (int(rt.kk), int(rt.status)) == (int(rj.kk), int(rj.status))
     assert int(rt.status) == 0

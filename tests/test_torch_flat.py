@@ -20,6 +20,10 @@
   The float64 soft batch through ``solve_batched_soft`` (``"soft_flat"``)
   is held against ``jax.vmap(ipm_soft.solve)`` in
   tests/test_torch_ipm_soft.py (``test_soft_flat_matches_jax``).
+
+The JAX references compile without XLA's backend optimisations
+(tests/test_torch_ipm_structured.py's ``jit_fast`` /
+``_FAST_COMPILE``).
 """
 
 import dataclasses
@@ -39,6 +43,7 @@ from hpmpc_tpu_torch.ops import stage_kernel as sk  # noqa: E402
 from hpmpc_tpu_torch.ops.layout import sym_compress, to_lanes  # noqa: E402
 from hpmpc_tpu_torch.parallel import batch as tbatch  # noqa: E402
 from hpmpc_tpu_torch.utils.mass_spring import mass_spring_qp  # noqa: E402
+from test_torch_ipm_structured import jit_fast  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -84,10 +89,10 @@ def kernel_case():
         orig = pl.pallas_call
         mp.setattr(pl, "pallas_call",
                    lambda *a, **k: orig(*a, **{**k, "interpret": True}))
-        pb = jsk.solve_flat_pb(J(Ll), J(Lxx), J(p["rq"]), J(p["F"]),
-                               J(p["rb"]), NU, NZ, NX, lanes_io=True)
-        terms = jsk.resid_terms_flat(J(p["H"]), J(p["F"]), J(p["z"]),
-                                     J(p["pi"]), NZ, NX, lanes_io=True)
+        pb = jit_fast(jsk.solve_flat_pb, J(Ll), J(Lxx), J(p["rq"]),
+                      J(p["F"]), J(p["rb"]), NU, NZ, NX, lanes_io=True)
+        terms = jit_fast(jsk.resid_terms_flat, J(p["H"]), J(p["F"]),
+                         J(p["z"]), J(p["pi"]), NZ, NX, lanes_io=True)
     return p, pb, terms
 
 

@@ -19,6 +19,9 @@ the PyTorch port (``models.ipm``: ``solve(iterate0=..., rti_mode=True)``,
 * The RTI contract (``tests/test_ipm.py::test_single_newton_step_rti``):
   one warm step from a centred solution cuts the dynamics residual of a
   shifted problem below 5% of the stale iterate's.
+
+The JAX references compile without XLA's backend optimisations
+(tests/test_torch_ipm_structured.py's ``jit_fast``).
 """
 
 import dataclasses
@@ -36,6 +39,7 @@ from hpmpc_tpu.models import ipm as jipm  # noqa: E402
 from hpmpc_tpu_torch.convert import QP_FIELDS  # noqa: E402
 from hpmpc_tpu_torch.models import ipm  # noqa: E402
 from hpmpc_tpu_torch.utils.mass_spring import mass_spring_qp  # noqa: E402
+from test_torch_ipm_structured import jit_fast  # noqa: E402
 
 torch.set_num_threads(1)
 # pi of the re-solve against the golden file: tests/test_ipm.py's 1e-5,
@@ -114,8 +118,7 @@ def test_kkt_solve_new_rhs_golden_and_jax(name):
 
     # JAX's re-solve on the port's retained factor and backup iterate
     carry_j = jipm.KKTCarry(*[jnp.asarray(_np(x)[0]) for x in carry])
-    sol_j = jax.jit(lambda q, cc: jipm.kkt_solve_new_rhs(dims, q, cc))(
-        _jqp(qp_new), carry_j)
+    sol_j = jit_fast(jipm.kkt_solve_new_rhs, dims, _jqp(qp_new), carry_j)
     for f in ("z", "pi", "lam_b", "t_b", "lam_g", "t_g"):
         _close_to_scale(_np(getattr(sol, f))[0],
                         np.asarray(getattr(sol_j, f)), 1e-6, f)
@@ -148,9 +151,8 @@ def test_single_newton_rti_matches_jax():
 
     assert rb(sol1) < 0.05 * rb(sol0)
     it_j = [jnp.asarray(_np(x)[0]) for x in it]
-    sol_j = jax.jit(lambda q, *a: jipm.solve_single_newton(
-        dims, q, jipm.IPMConfig(k_max=1, mu_tol=1e-10), *a))(
-        _jqp(qp_new), *it_j)
+    sol_j = jit_fast(jipm.solve_single_newton, dims, _jqp(qp_new),
+                     jipm.IPMConfig(k_max=1, mu_tol=1e-10), *it_j)
     assert int(sol_j.kk) == 1
     for f in ("z", "pi", "lam_b", "t_b", "lam_g", "t_g", "stat"):
         _close_to_scale(_np(getattr(sol1, f))[0],

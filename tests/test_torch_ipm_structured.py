@@ -126,6 +126,26 @@ _JAX = {}
 _FAST_COMPILE = {"xla_backend_optimization_level": 0}
 
 
+def jit_fast(f, *args, **kw):
+    """``f(*args, **kw)`` under ``jax.jit``, compiled with
+    ``_FAST_COMPILE``: the array leaves of the arguments are traced, every
+    other leaf (static sizes, flags, configs) is closed over.  The JAX
+    references of the port's tests run through it: XLA's backend
+    optimisations change how fast the reference compiles, not what it
+    computes (no fast-math either way)."""
+    leaves, tree = jax.tree_util.tree_flatten((args, kw))
+    is_arr = [isinstance(x, (jax.Array, np.ndarray)) for x in leaves]
+    arrs = [x for x, m in zip(leaves, is_arr) if m]
+
+    def g(*xs):
+        it = iter(xs)
+        a, k = jax.tree_util.tree_unflatten(
+            tree, [next(it) if m else x for x, m in zip(leaves, is_arr)])
+        return f(*a, **k)
+
+    return jax.jit(g).lower(*arrs).compile(_FAST_COMPILE)(*arrs)
+
+
 def _jax_solve(dims, qpb, size, kw, z0, pi0, carry):
     """``jax.vmap(ipm.solve)`` of the case's config without ``use_pallas``
     (see the module doc), compiled once per module."""

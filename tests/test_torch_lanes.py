@@ -18,6 +18,9 @@ ran.
   (b) float32, phase 2 only (``mu_switch=1e9``) with the ngN=4 block, the
       setup of tests/test_ipm_lanes.py::test_lanes_engine_mega_phase2_ng:
       kk on at least 15 of 16 instances, z within 2e-3 where kk agrees.
+
+The JAX references compile without XLA's backend optimisations
+(tests/test_torch_ipm_structured.py's ``jit_fast``).
 """
 
 import dataclasses
@@ -37,6 +40,7 @@ from hpmpc_tpu_torch.convert import QP_FIELDS, qp_from_numpy  # noqa: E402
 from hpmpc_tpu_torch.models import ipm_lanes  # noqa: E402
 from hpmpc_tpu_torch.models.ipm import IPMConfig  # noqa: E402
 from hpmpc_tpu_torch.ops import mega_kernel as mk  # noqa: E402
+from test_torch_ipm_structured import jit_fast  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -59,7 +63,7 @@ def _solve_both(N, B, ngN, jdt, tdt, kw):
     port's plain-call counts per phase during its solve."""
     dims, qpb, qpt = _twin(N, B, ngN, jdt, tdt)
     cfg = jipm.IPMConfig(**kw)
-    sol_x = jax.jit(jax.vmap(lambda q: jipm.solve(dims, q, cfg)))(qpb)
+    sol_x = jit_fast(jax.vmap(lambda q: jipm.solve(dims, q, cfg)), qpb)
     before = {k: list(v) for k, v in mk.PLAIN_CALLS.items()}
     sol_t = ipm_lanes.solve_batched_lanes(dims, qpt,
                                           IPMConfig(use_pallas=True, **kw))

@@ -16,6 +16,10 @@ the port's plain versions sum the stage products in torch's order, which
 leaves up to ~4e-7 of the field's scale (Pb 1.9e-5 at |Pb| 78, the
 corrector's s2 2.2e-3 at 4875) and ~2.5e-6 in the alpha minimum (a ratio
 of two rounded values), measured on these inputs.
+
+The JAX references compile without XLA's backend optimisations
+(tests/test_torch_ipm_structured.py's ``jit_fast`` /
+``_FAST_COMPILE``).
 """
 
 import numpy as np
@@ -30,6 +34,7 @@ from hpmpc_tpu.ops import mega_kernel as jmk  # noqa: E402
 from hpmpc_tpu.ops import stage_kernel as jsk  # noqa: E402
 from hpmpc_tpu_torch.ops import mega_kernel as mk  # noqa: E402
 from hpmpc_tpu_torch.ops.layout import sym_compress, to_lanes  # noqa: E402
+from test_torch_ipm_structured import jit_fast  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -117,16 +122,16 @@ def cases():
             p = _problem(10 + int(phase2), with_ng)
             j = _jax_streams(p)
             M = j["M"] if phase2 else None
-            fj = jmk.factor_solve_mega(
-                j["idx"], j["lam"], j["t"], j["A"], M, j["mb"], j["base"],
-                j["pdreg"], j["H"], j["ngl"], j["ngadd"], p["ng_ids"],
-                j["F"], j["b"], phase2=phase2, **DIMS)
+            fj = jit_fast(
+                jmk.factor_solve_mega, j["idx"], j["lam"], j["t"], j["A"], M,
+                j["mb"], j["base"], j["pdreg"], j["H"], j["ngl"], j["ngadd"],
+                p["ng_ids"], j["F"], j["b"], phase2=phase2, **DIMS)
             sm_l = jnp.asarray(
                 p["sm"].numpy().reshape(-1, jsk.SUBS, jsk.LANES)[:, None])
-            sj = jmk.solve_mega(
-                j["idx"], fj[1], j["lam"], j["t"], j["A"], M, j["mb"],
-                fj[2], fj[3], sm_l, j["base"], j["ngadd"], p["ng_ids"],
-                j["F"], j["b"], phase2=phase2, **DIMS)
+            sj = jit_fast(
+                jmk.solve_mega, j["idx"], fj[1], j["lam"], j["t"], j["A"], M,
+                j["mb"], fj[2], fj[3], sm_l, j["base"], j["ngadd"],
+                p["ng_ids"], j["F"], j["b"], phase2=phase2, **DIMS)
             out[(phase2, with_ng)] = (p, fj, sj)
     return out
 

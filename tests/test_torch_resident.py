@@ -9,6 +9,9 @@ numpy (seeded) and handed to both packages.
   (b)-(d) f64 vs the vmapped JAX structured ``ipm.solve`` pinned to phase
       1 (``mu_switch = mu_tol``), the golden-parity solver, at
       tests/test_ipm_lanes.py's tolerances.
+
+The JAX references compile without XLA's backend optimisations
+(tests/test_torch_ipm_structured.py's ``jit_fast``).
 """
 
 import dataclasses
@@ -29,6 +32,7 @@ from hpmpc_tpu_torch.convert import qp_from_numpy  # noqa: E402
 from hpmpc_tpu_torch.models import ipm_resident  # noqa: E402
 from hpmpc_tpu_torch.models.ipm import IPMConfig  # noqa: E402
 from hpmpc_tpu_torch.utils.mass_spring import mass_spring_qp  # noqa: E402
+from test_torch_ipm_structured import jit_fast  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -61,7 +65,7 @@ def _twin_batch(N, B, ngN, jdt, tdt, nx=8, nu=3):
 
 def _structured(dims, qpb, k_max, mu_tol):
     cfg = jipm.IPMConfig(k_max=k_max, mu_tol=mu_tol, mu_switch=mu_tol)
-    return jax.jit(jax.vmap(lambda q: jipm.solve(dims, q, cfg)))(qpb)
+    return jit_fast(jax.vmap(lambda q: jipm.solve(dims, q, cfg)), qpb)
 
 
 def _np(x):
@@ -82,8 +86,7 @@ def test_resident_f32_ng_matches_jax_resident(interpret_pallas):
                                  nx=4, nu=2)
     cfg_j = jipm.IPMConfig(k_max=3, mu_tol=1e-4, use_pallas=True)
     assert os.environ.get("JAX_PLATFORMS") == "cpu"
-    sol_j = jax.jit(
-        lambda q: j_resident.solve_batched_resident(dims, q, cfg_j))(qpb)
+    sol_j = jit_fast(j_resident.solve_batched_resident, dims, qpb, cfg_j)
     cfg_t = IPMConfig(k_max=3, mu_tol=1e-4, use_pallas=True)
     sol_t = ipm_resident.solve_batched_resident(dims, qpt, cfg_t)
 

@@ -20,6 +20,10 @@ pair with and without general-constraint rows (stages 1 and N).
 Tolerance, of a field's largest magnitude: 1e-12 (float64, the same
 arithmetic in another summation order, through five stages of a
 well-conditioned factorization).
+
+The JAX references compile without XLA's backend optimisations
+(tests/test_torch_ipm_structured.py's ``jit_fast`` /
+``_FAST_COMPILE``).
 """
 
 import numpy as np
@@ -36,6 +40,7 @@ from hpmpc_tpu.ops import step_kernel as jstk  # noqa: E402
 from hpmpc_tpu_torch.ops import mega_kernel as mk  # noqa: E402
 from hpmpc_tpu_torch.ops import step_kernel as stk  # noqa: E402
 from hpmpc_tpu_torch.ops.layout import sym_compress, to_lanes  # noqa: E402
+from test_torch_ipm_structured import jit_fast  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -129,17 +134,18 @@ def case():
         orig = pl.pallas_call
         mp.setattr(pl, "pallas_call",
                    lambda *a, **k: orig(*a, **{**k, "interpret": True}))
-        out["prep"] = jstk.soft_prep_flat(*soft, J(p["base"]), J(p["pdreg"]),
-                                          **SDIMS)
-        aff = jstk.soft_alpha_sums_flat(*soft[:2], J(p["dz"]), *soft[2:],
-                                        None, None, corrector=False, **SDIMS)
+        out["prep"] = jit_fast(jstk.soft_prep_flat, *soft, J(p["base"]),
+                               J(p["pdreg"]), **SDIMS)
+        aff = jit_fast(jstk.soft_alpha_sums_flat, *soft[:2], J(p["dz"]),
+                       *soft[2:], None, None, corrector=False, **SDIMS)
         out["alpha", False] = aff
-        out["alpha", True] = jstk.soft_alpha_sums_flat(
-            *soft[:2], J(p["dz"]), *soft[2:], J(p["dl0b"]), J(p["dl2s"]),
-            corrector=True, **SDIMS)
+        out["alpha", True] = jit_fast(
+            jstk.soft_alpha_sums_flat, *soft[:2], J(p["dz"]), *soft[2:],
+            J(p["dl0b"]), J(p["dl2s"]), corrector=True, **SDIMS)
         for exact in (True, False):
-            out["corr", exact] = jstk.soft_corr_flat(
-                *soft, *aff[:4], sm_l, J(p["base"]), exact=exact, **SDIMS)
+            out["corr", exact] = jit_fast(
+                jstk.soft_corr_flat, *soft, *aff[:4], sm_l, J(p["base"]),
+                exact=exact, **SDIMS)
         for with_ng in (False, True):
             ids, ngl, ngadd = _ng(p, with_ng)
             if not with_ng:
@@ -147,16 +153,17 @@ def case():
                 ngadd = jnp.zeros((nb, 1, NZ, jsk.SUBS, jsk.LANES))
             else:
                 ngl, ngadd = J(ngl), J(ngadd)
-            fac = jmk.factor_solve_soft_mega(
-                *soft, J(p["base"]), J(p["pdreg"]), J(p["H"]), ngl, ngadd,
-                ids, J(p["F"]), J(p["b"]), **MDIMS)
+            fac = jit_fast(
+                jmk.factor_solve_soft_mega, *soft, J(p["base"]),
+                J(p["pdreg"]), J(p["H"]), ngl, ngadd, ids, J(p["F"]),
+                J(p["b"]), **MDIMS)
             out["factor", with_ng] = fac
             for exact in (True, False):
                 if (exact, with_ng) in SOLVE_CASES:
-                    out["solve", exact, with_ng] = jmk.solve_soft_mega(
-                        *soft[:2], fac[1], *soft[2:], *fac[2:6], sm_l,
-                        J(p["base"]), ngadd, ids, J(p["F"]), J(p["b"]),
-                        exact=exact, **MDIMS)
+                    out["solve", exact, with_ng] = jit_fast(
+                        jmk.solve_soft_mega, *soft[:2], fac[1], *soft[2:],
+                        *fac[2:6], sm_l, J(p["base"]), ngadd, ids, J(p["F"]),
+                        J(p["b"]), exact=exact, **MDIMS)
     return p, out
 
 

@@ -23,6 +23,9 @@ counters show which route ran.
   (c) float32, ``k_max=4``: kk on more than 99% of the instances, z within
       rtol 1e-3 / atol 2e-3 where kk agrees
       (tests/test_ipm_soft_lanes.py:102-107).
+
+The JAX references compile without XLA's backend optimisations
+(tests/test_torch_ipm_structured.py's ``jit_fast``).
 """
 
 import dataclasses
@@ -48,6 +51,7 @@ from hpmpc_tpu_torch.ops import stage_kernel as sk  # noqa: E402
 from hpmpc_tpu_torch.ops import step_kernel as stk  # noqa: E402
 from hpmpc_tpu_torch.parallel import batch as tbatch  # noqa: E402
 from hpmpc_tpu_torch.utils.mass_spring import mass_spring_soft_qp  # noqa: E402
+from test_torch_ipm_structured import jit_fast  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -98,8 +102,8 @@ def _twin(jdt, tdt, ng=False, seed=5):
 
 def _structured(dims, qpb, sb, kw, exact=True):
     cfg = jipm.IPMConfig(**kw)
-    return jax.jit(jax.vmap(lambda q, s: jsoft.solve(
-        dims, q, s, cfg, exact_mehrotra_soft=exact)))(qpb, sb)
+    return jit_fast(jax.vmap(lambda q, s: jsoft.solve(
+        dims, q, s, cfg, exact_mehrotra_soft=exact)), qpb, sb)
 
 
 @pytest.fixture(scope="module")
@@ -202,8 +206,8 @@ def test_compute_residuals_matches_jax(f64_case):
     """The port's batched soft oracle on the JAX solution (ng rows on)
     against the JAX package's, vmapped: within 1e-12."""
     (dims, qpb, sb, qpt, st, _), sol_x = f64_case[True, True]
-    res_j = jax.jit(jax.vmap(lambda q, s, x: jsoft.compute_residuals(
-        dims, q, s, x)))(qpb, sb, sol_x)
+    res_j = jit_fast(jax.vmap(lambda q, s, x: jsoft.compute_residuals(
+        dims, q, s, x)), qpb, sb, sol_x)
     sol = ipm_soft.SoftSolution(*[
         torch.as_tensor(np.array(x)) for x in sol_x])
     res_t = ipm_soft.compute_residuals(dims, qpt, st, sol)

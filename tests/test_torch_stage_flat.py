@@ -19,6 +19,10 @@ Tolerance, of a field's largest magnitude: float64 1e-12 (the same
 algorithm in another summation order, through three stages of a
 well-conditioned factorization); float32 rtol 1e-5 and 1e-5 of the scale,
 as tests/test_torch_mega.py.
+
+The JAX references compile without XLA's backend optimisations
+(tests/test_torch_ipm_structured.py's ``jit_fast`` /
+``_FAST_COMPILE``).
 """
 
 import numpy as np
@@ -32,6 +36,7 @@ from jax.experimental import pallas as pl  # noqa: E402
 from hpmpc_tpu.ops import stage_kernel as jsk  # noqa: E402
 from hpmpc_tpu_torch.ops import stage_kernel as sk  # noqa: E402
 from hpmpc_tpu_torch.ops.layout import sym_compress, to_lanes  # noqa: E402
+from test_torch_ipm_structured import jit_fast  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -100,15 +105,17 @@ def cases():
             ngl = (J(p["ngl"]) if with_ng else
                    jnp.zeros((B // jsk.BI, 1, NT, jsk.SUBS, jsk.LANES),
                              getattr(jnp, dt)))
-            fac = jsk.factor_solve_folded_flat(
-                J(p["H"]), J(p["dvec"]), ngl, p["ng_ids"], J(p["g"]),
-                J(p["F"]), J(p["b"]), NU, NZ, NX, want_pi=True, lanes_io=True)
+            fac = jit_fast(
+                jsk.factor_solve_folded_flat, J(p["H"]), J(p["dvec"]), ngl,
+                p["ng_ids"], J(p["g"]), J(p["F"]), J(p["b"]), NU, NZ, NX,
+                want_pi=True, lanes_io=True)
             z, pi, (Ll, Lxx, Pb) = fac
-            solve = jsk.solve_flat(Ll, Lxx, Pb, J(p["g2"]), J(p["F"]),
-                                   J(p["b"]), NU, NZ, NX, lanes_io=True)
+            solve = jit_fast(jsk.solve_flat, Ll, Lxx, Pb, J(p["g2"]),
+                             J(p["F"]), J(p["b"]), NU, NZ, NX, lanes_io=True)
             zc, pic = z + J(p["dz"]), pi + J(p["dpi"])
-            ref = jsk.refine_flat_fused(
-                J(p["H"]), J(p["dvec"]), J(p["C"]) if with_ng else None,
+            ref = jit_fast(
+                jsk.refine_flat_fused, J(p["H"]), J(p["dvec"]),
+                J(p["C"]) if with_ng else None,
                 J(p["qxg"]) if with_ng else None, p["ng_ids"], J(p["g"]),
                 J(p["F"]), J(p["b"]), zc, pic, Ll, Lxx, NU, NZ, NX)
             out[(dt, with_ng)] = (p, fac, solve, (zc, pic), ref)

@@ -13,6 +13,10 @@ stream ``dl0``; phase 2 with ``M`` (rm).
 Tolerance, of a field's largest magnitude: float64 1e-13 (both sides do
 the same elementwise arithmetic, the sums over 2NB slots in other orders);
 float32 rtol 1e-5 and 1e-5 of the scale, as tests/test_torch_mega.py.
+
+The JAX references compile without XLA's backend optimisations
+(tests/test_torch_ipm_structured.py's ``jit_fast`` /
+``_FAST_COMPILE``).
 """
 
 import numpy as np
@@ -27,6 +31,7 @@ from hpmpc_tpu.ops import stage_kernel as jsk  # noqa: E402
 from hpmpc_tpu.ops import step_kernel as jstk  # noqa: E402
 from hpmpc_tpu_torch.ops import step_kernel as stk  # noqa: E402
 from hpmpc_tpu_torch.ops.layout import to_lanes  # noqa: E402
+from test_torch_ipm_structured import jit_fast  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -90,20 +95,21 @@ def cases():
             idx = jnp.asarray(p["idx"].numpy())
             M = j["M"] if phase2 else None
             kw = dict(DIMS, phase2=phase2)
-            prep = jstk.prep_flat(idx, j["lam"], j["t"], j["A"], M, j["mb"],
-                                  j["base"], j["pdreg"], **kw)
-            alpha = {False: jstk.alpha_sums_flat(
-                idx, j["dz"], j["lam"], j["t"], j["A"], M, None, j["mb"],
-                **kw)}
+            prep = jit_fast(jstk.prep_flat, idx, j["lam"], j["t"], j["A"], M,
+                            j["mb"], j["base"], j["pdreg"], **kw)
+            alpha = {False: jit_fast(
+                jstk.alpha_sums_flat, idx, j["dz"], j["lam"], j["t"], j["A"],
+                M, None, j["mb"], **kw)}
             if not phase2:
-                alpha[True] = jstk.alpha_sums_flat(
-                    idx, j["dz"], j["lam"], j["t"], j["A"], None, j["dl0"],
-                    j["mb"], **kw)
+                alpha[True] = jit_fast(
+                    jstk.alpha_sums_flat, idx, j["dz"], j["lam"], j["t"],
+                    j["A"], None, j["dl0"], j["mb"], **kw)
             sm_l = jnp.asarray(p["sm"].numpy().reshape(
                 -1, jsk.SUBS, jsk.LANES)[:, None])
-            corr = jstk.corr_geff_flat(
-                idx, j["lam"], j["t"], j["A"], M, alpha[False][0],
-                alpha[False][1], sm_l, j["base"], j["mb"], **kw)
+            corr = jit_fast(
+                jstk.corr_geff_flat, idx, j["lam"], j["t"], j["A"], M,
+                alpha[False][0], alpha[False][1], sm_l, j["base"], j["mb"],
+                **kw)
             out[(dt, phase2)] = (p, prep, alpha, corr)
     return out
 

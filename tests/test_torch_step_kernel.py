@@ -5,7 +5,12 @@ the JAX ``resid_full_flat`` Pallas kernel run in interpret mode, float64,
 on the 2-mass chain (nx=4, nu=2; its interpret-mode compilation grows with
 the unrolled stage width), N=3 (4 grid steps), on a mid-solve iterate —
 the port's own resident solve stopped after two iterations.  Plus the per-stage helpers of
-``ops/stage_math.py`` against numpy."""
+``ops/stage_math.py`` against numpy.
+
+The JAX references compile without XLA's backend optimisations
+(tests/test_torch_ipm_structured.py's ``jit_fast`` /
+``_FAST_COMPILE``).
+"""
 
 import dataclasses
 
@@ -28,6 +33,7 @@ from hpmpc_tpu_torch.models import ipm_resident  # noqa: E402
 from hpmpc_tpu_torch.models.ipm import IPMConfig  # noqa: E402
 from hpmpc_tpu_torch.ops import stage_math as sm  # noqa: E402
 from hpmpc_tpu_torch.ops import step_kernel as stk  # noqa: E402
+from test_torch_ipm_structured import jit_fast  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -70,9 +76,10 @@ def test_resid_full_matches_jax(interpret_pallas):
     out_t = stk.resid_full(*r_args, **r_kw)
 
     cj = jl.make_lanes_common(dims, qpb, jipm.IPMConfig())
-    out_j = jstk.resid_full_flat(
-        cj.idxT, cj.Hl, cj.Fl, jnp.asarray(_lanes(z)), jnp.asarray(_lanes(pi)),
-        cj.gL, cj.bL, jnp.asarray(_lanes(lam)), jnp.asarray(_lanes(t)),
+    out_j = jit_fast(
+        jstk.resid_full_flat, cj.idxT, cj.Hl, cj.Fl, jnp.asarray(_lanes(z)),
+        jnp.asarray(_lanes(pi)), cj.gL, cj.bL, jnp.asarray(_lanes(lam)),
+        jnp.asarray(_lanes(t)),
         cj.dcatL, cj.mbL, cj.to_lanes3(qpb.z_mask),
         cj.to_lanes3(qpb.x_mask[:, 1:]),
         NB=dims.NB, NU=dims.NU, NZ=dims.NZ, NX=dims.NX)

@@ -16,6 +16,10 @@ JAX wrappers batch-first arrays and the dense one: the same numbers.
 Tolerance: 1e-12 of a field's largest magnitude (the same algorithm in
 another summation order; the TPU wrappers' stage-N tail solves u_N by
 substitution in XLA, the port in the kernel's reciprocal form).
+
+The JAX references compile without XLA's backend optimisations
+(tests/test_torch_ipm_structured.py's ``jit_fast`` /
+``_FAST_COMPILE``).
 """
 
 import numpy as np
@@ -29,6 +33,7 @@ from jax.experimental import pallas as pl  # noqa: E402
 from hpmpc_tpu.ops import stage_kernel as jsk  # noqa: E402
 from hpmpc_tpu_torch.ops import stage_kernel as sk  # noqa: E402
 from hpmpc_tpu_torch.ops.layout import sym_compress, to_lanes  # noqa: E402
+from test_torch_ipm_structured import jit_fast  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -88,7 +93,7 @@ def jax_folded(problem):
     p = problem
     with pytest.MonkeyPatch.context() as mp:
         _interpret(mp)
-        return jsk.factor_solve_folded(
+        return jit_fast(jsk.factor_solve_folded,
             jnp.asarray(p["H"]), jnp.asarray(p["dvec"]),
             jnp.asarray(p["ngterm"]), NG_IDS, jnp.asarray(p["g"]),
             jnp.asarray(p["F"]), jnp.asarray(p["b"]), NU)
@@ -99,7 +104,7 @@ def jax_batched(problem):
     p = problem
     with pytest.MonkeyPatch.context() as mp:
         _interpret(mp)
-        return jsk.factor_solve_batched(
+        return jit_fast(jsk.factor_solve_batched,
             jnp.asarray(p["H_eff"]), jnp.asarray(p["g"]), jnp.asarray(p["F"]),
             jnp.asarray(p["b"]), NU)
 
@@ -110,8 +115,8 @@ def jax_trs(problem, jax_folded):
     _, _, L, _, _, Pb = jax_folded
     with pytest.MonkeyPatch.context() as mp:
         _interpret(mp)
-        return jsk.solve_batched(L, jnp.asarray(p["g2"]), jnp.asarray(p["F"]),
-                                 jnp.asarray(p["b"]), Pb, NU)
+        return jit_fast(jsk.solve_batched, L, jnp.asarray(p["g2"]),
+                        jnp.asarray(p["F"]), jnp.asarray(p["b"]), Pb, NU)
 
 
 _OUT = ("z", "pi", "L", "eu", "px", "Pb")

@@ -24,6 +24,9 @@ wrappers run their plain versions; their call counters show which ran.
       ``convert.solution_from_numpy``, continued by the port's lanes
       engine (``state0``) ends where the JAX structured solve run from the
       start ends: kk and status equal, z within 1e-8.
+
+The JAX references compile without XLA's backend optimisations
+(tests/test_torch_ipm_structured.py's ``jit_fast``).
 """
 
 import dataclasses
@@ -47,6 +50,7 @@ from hpmpc_tpu_torch.ops import mega_kernel as mk  # noqa: E402
 from hpmpc_tpu_torch.ops import stage_kernel as sk  # noqa: E402
 from hpmpc_tpu_torch.ops import step_kernel as stk  # noqa: E402
 from hpmpc_tpu_torch.parallel import batch as tbatch  # noqa: E402
+from test_torch_ipm_structured import jit_fast  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -66,7 +70,7 @@ def _twin(N, B, ngN, jdt, tdt):
 
 def _structured(dims, qpb, **kw):
     cfg = jipm.IPMConfig(**kw)
-    return jax.jit(jax.vmap(lambda q: jipm.solve(dims, q, cfg)))(qpb)
+    return jit_fast(jax.vmap(lambda q: jipm.solve(dims, q, cfg)), qpb)
 
 
 def _np(x):
