@@ -103,6 +103,19 @@ solve_batched`` (the f64 lanes runs call the engine directly):
     that stays on the flat engine; the 255-node tree once; ms per batch at
     31, 71 and 255 nodes, the structured route at 71, a profile, and each
     kernel alone.
+  * the large-NZ band (section L) at ``tools/bench_size_sweep.py``'s
+    problem and config: rows 24-25 (``csrc/batch_chol.cu``) against their
+    plain versions at n = 72, 144 and 288 in f32 and f64 (a clamped pivot
+    included); then, counted from 0, ``solve_batched`` on
+    ``mass_spring_qp(64, 8, 30)`` (NZ=72), 1024 f32 instances with ``b``
+    scaled by ``1 + 0.02 N(0,1)``, ``IPMConfig(k_max=8, mu_tol=0,
+    alpha_min=1e-8, use_pallas=True)``: ``"structured"`` on the blocked
+    Riccati, row 24 and no other kernel, no per-thread library built at
+    that shape, against the f64 and f32 plain structured routes and the
+    f64 host oracle; the same at nx=128 nu=16 (B=512) and at nx=64 in f64;
+    ``solve_batched_soft`` on ``mass_spring_soft_qp(64, 8, 30, Z=10)``;
+    then ms per batch, a profile, and rows 24-25 alone beside their plain
+    versions and ``torch.linalg.cholesky``.
 
 Each path runs with the launch counters set to 0 just before and read just
 after, and its answer is held against a float64 host residual oracle (the
@@ -331,7 +344,7 @@ PROFILED = ("ipm_resident", "resid_full", "factor_solve_mega", "solve_mega",
             "refine_flat", "resid_terms_flat") + SOFT_MEGA + SOFT_STEP + (
                 "factor_solve_folded", "solve_batched", "dense_ipm",
                 "tree_factor_solve_flat", "tree_solve_flat",
-                "tree_resid_terms_flat")
+                "tree_resid_terms_flat", "cholesky", "panel")
 _PATTERNS = {k: rf"\b{k}_kernel\b" for k in PROFILED}
 _PATTERNS["solve_flat_pb"] = r"\bsolve_flat_kernel<\w+, true>"
 
@@ -1258,6 +1271,341 @@ def _tree(torch, np, dev, card, reset_counts, read_counts, total,
     return rows, t_sec
 
 
+# the large-NZ band (section L).  Rows 24-25 against their plain versions
+# on the card: random SPD matrices (A A' + n I, A standard normal: condition
+# ~5), 64 of them at each n of LARGE_N, and one whose row and column 3 are
+# zero, so the clamp catches its pivot (tiny in place of 0: L's column 3 is
+# 0 where an unclamped 1/sqrt(0) would give NaN).  The kernel multiplies
+# and subtracts in another rounding (nvcc contracts them into FMAs) and
+# reads the lower triangle where the plain version reads the matrix, so the
+# two agree to roundoff: a few n eps of L's scale (the plain versions
+# against JAX on the CPU: 1e-12 in f64 at n <= 40), held at CHOL_TOL.  The
+# main path (f32, k_max 8 at nx=64: mu ~13, far from the f32 floor) against
+# the f64 and the f32 plain structured routes on 64 instances: equal kk and
+# status, max |dz| below LARGE_TOL["z32"] (the plain versions on the CPU,
+# 8 instances: 2.1e-5 against f64); in f64 against the f64 route: below
+# LARGE_TOL["z64"] (CPU: 3.3e-14).  At nx=128 the problem's mu grows in
+# f64 too (2.4 to 1.9e3 in 8 iterations) and f32 freezes after 4 on either
+# backend, so the f64 comparison runs to the first freeze.
+LARGE_N = (72, 144, 288)
+CHOL_TOL = {"float32": 1e-4, "float64": 1e-12}
+LARGE_TOL = dict(z32=1e-3, z64=1e-9)
+# (nx, nu, B) of the band's main paths: tools/bench_size_sweep.py's rows
+LARGE_SIZES = ((64, 8, 1024), (128, 16, 512))
+
+
+def _band_oracle(torch, np, qpb, sol, dev, dtype, what):
+    """The f64 host oracle (utils/resid64) on ORACLE_SUBSAMPLE instances of
+    a band solve.  k_max 8 leaves nx=64 mid-path (mu ~13, |rb| ~1.9), so
+    the primal residuals are not held small: the oracle's rb, rd and mu
+    must agree with the engine's report (f32: rtol 1e-2, atol 1e-5; f64:
+    1e-6, 1e-9) and its backward-error-relative rq stay below 1e-4
+    (tools/bench_size_sweep.py's floor; the mid-path iterate's own rq is
+    ~7e-7 of scale in either type on the CPU).  The engine's own
+    rq is f32 cancellation noise of the dual magnitudes at this width
+    (utils/resid64's module doc), so it is not compared."""
+    from hpmpc_tpu_torch.utils.resid64 import true_residuals_sol
+
+    Bn = sol.z.shape[0]
+    sub = torch.arange(0, Bn, Bn // ORACLE_SUBSAMPLE, device=dev)
+    qs = type(qpb)(**{f.name: getattr(qpb, f.name)[sub]
+                      for f in dataclasses.fields(qpb)})
+    res, rel = true_residuals_sol(qs, type(sol)(*[x[sub] for x in sol]))
+    eng = sol.inf_norm_res[sub].double().cpu().numpy()
+    f32 = dtype == torch.float32
+    rtol, atol, rq_max = (1e-2, 1e-5, 1e-4) if f32 else (1e-6, 1e-9, 1e-4)
+    print(f"{what}: f64 oracle ({len(sub)} instances): max |rq| "
+          f"{res[:, 0].max():.3e} (relative {rel[:, 0].max():.3e}, limit "
+          f"{rq_max:.0e}), |rb| {res[:, 1].max():.3e}, |rd| "
+          f"{res[:, 2].max():.3e}, mu {res[:, 3].max():.3e}; max |oracle - "
+          f"engine| over rb, rd, mu {np.abs(res - eng)[:, 1:].max():.3e}",
+          flush=True)
+    if (not np.all(np.isfinite(res)) or rel[:, 0].max() > rq_max
+            or not np.allclose(res[:, 1:], eng[:, 1:], rtol=rtol,
+                               atol=atol)):
+        _fail(f"{what}: the f64 oracle disagrees")
+
+
+def _chol_ops(n: int) -> float:
+    """Operations of one n x n Cholesky in the table's convention: n^3/3
+    multiply-adds, 2 operations each."""
+    return 2.0 * n ** 3 / 3.0
+
+
+def _large_nz(torch, np, dev, card, reset_counts, read_counts, total,
+              section_done, t_sec):
+    """Section L, the large-NZ band: rows 24-25 vs their plain versions at
+    n = 72, 144, 288 (f32, f64); the main path ``solve_batched`` at nx=64
+    nu=8 N=30 B=1024, f32, ``IPMConfig(k_max=8, mu_tol=0, alpha_min=1e-8,
+    use_pallas=True)`` (tools/bench_size_sweep.py's config), counted from
+    0, against the f64 plain structured route and the f64 host oracle; the
+    same at nx=128 nu=16 B=512 and at nx=64 in f64; the soft problem at
+    NZ=72 through ``solve_batched_soft``; then ms per batch, a profile
+    and rows 24-25 alone beside their plain versions and the library.
+    Returns (the kernels-line entries of rows 24-25, t_sec)."""
+    from hpmpc_tpu_torch.models.ipm import IPMConfig
+    from hpmpc_tpu_torch.ops import _build
+    from hpmpc_tpu_torch.ops import batch_chol as bc
+    from hpmpc_tpu_torch.parallel import batch as pbatch
+    from hpmpc_tpu_torch.utils.mass_spring import (mass_spring_qp,
+                                                   mass_spring_soft_qp)
+
+    rng = np.random.default_rng(SEED)
+
+    def spd(n, dtype, count=64, clamp=False):
+        A = rng.standard_normal((count, n, n))
+        M = A @ A.transpose(0, 2, 1) + n * np.eye(n)
+        if clamp:
+            M[:, 3, :] = 0.0
+            M[:, :, 3] = 0.0
+        return torch.as_tensor(M, dtype=dtype, device=dev)
+
+    # ---- L1. rows 24-25 vs their plain versions, f32 and f64 ------------
+    errs = {"cholesky": 0.0, "panel_factor": 0.0}
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype).split(".")[-1]
+        for n in LARGE_N:
+            for clamp in (False, True):
+                M = spd(n, dtype, 1 if clamp else 64, clamp)
+                pairs = [("cholesky", bc.cholesky(M), bc.cholesky_ref(M))]
+                if not clamp:
+                    for p in (8, 16):
+                        P = M[:, :p, :p].contiguous()
+                        pairs.append(("panel_factor", bc.panel_factor(P),
+                                      bc.panel_factor_ref(P)))
+                torch.cuda.synchronize()
+                for kname, out_k, out_p in pairs:
+                    out_k, out_p = _flat([out_k]), _flat([out_p])
+                    if not all(bool(torch.isfinite(x).all()) for x in out_k):
+                        _fail(f"{kname} n={n} {name}: non-finite output")
+                    if not all(bool((torch.triu(x, 1) == 0).all())
+                               for x in out_k):
+                        _fail(f"{kname} n={n} {name}: upper part not 0")
+                    dabs = max(_maxdiff(torch, x, y)
+                               for x, y in zip(out_k, out_p))
+                    rel = max(_maxdiff(torch, x, y)
+                              / max(1.0, float(y.abs().max()))
+                              for x, y in zip(out_k, out_p))
+                    what = (f"{kname} n={n} {name}"
+                            + (" (clamped pivot)" if clamp else "")
+                            + (f" (p={out_k[0].shape[-1]})"
+                               if kname == "panel_factor" else ""))
+                    print(f"{what}: max|d| {dabs:.3e}, max |d|/scale "
+                          f"{rel:.3e} (tol {CHOL_TOL[name]:.0e})", flush=True)
+                    if rel > CHOL_TOL[name]:
+                        _fail(f"{what} disagrees with its plain version")
+                    if dtype == torch.float32:
+                        errs[kname] = max(errs[kname], dabs)
+                # row 25 inside the blocked Cholesky, against row 24's
+                if not clamp and n == LARGE_N[0]:
+                    Lb = bc.cholesky_blocked(M, p=8)
+                    dl = _maxdiff(torch, Lb, pairs[0][2]) / float(
+                        pairs[0][2].abs().max())
+                    print(f"cholesky_blocked n={n} {name} (p=8) vs row 24's "
+                          f"plain version: max |d|/scale {dl:.3e}",
+                          flush=True)
+                    if dl > CHOL_TOL[name]:
+                        _fail("cholesky_blocked disagrees with row 24")
+    t_sec = section_done("L1 rows 24-25 vs plain", t_sec)
+
+    # ---- L2. the main path: solve_batched on the blocked band -----------
+    cfg_l = IPMConfig(k_max=8, mu_tol=0.0, alpha_min=1e-8, use_pallas=True)
+    if (torch.backends.cuda.matmul.allow_tf32
+            or torch.get_float32_matmul_precision() != "highest"):
+        _fail("float32 matrix products are not pinned to full precision")
+
+    def band_batch(nx, nu, Bn, dtype):
+        dims, qp = mass_spring_qp(nx, nu, N_HORIZON, dtype=dtype, device=dev)
+        qpb = pbatch.broadcast_qp(qp, Bn)
+        sc = 1 + 0.02 * np.random.default_rng(SEED).standard_normal(Bn)
+        return dims, dataclasses.replace(qpb, b=qpb.b * torch.as_tensor(
+            sc, dtype=dtype, device=dev)[:, None, None])
+
+    def counted(fn, what):
+        """``fn()`` with the counters set to 0 just before and read just
+        after: row 24 must run, no other kernel, no plain version."""
+        plain0 = dict(bc.PLAIN_CALLS)
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        ran = {n: total(v) for n, v in counts.items() if total(v)}
+        if set(ran) != {"cholesky"} or bc.PLAIN_CALLS != plain0:
+            _fail(f"{what}: launches {ran}, plain calls {bc.PLAIN_CALLS} "
+                  f"(before {plain0})")
+        return out, ran["cholesky"]
+
+    def finite(sol, what):
+        for f in sol._fields:
+            x = getattr(sol, f)
+            if x.is_floating_point() and not bool(torch.isfinite(x).all()):
+                _fail(f"{what}: solution field {f} is not finite")
+
+    launches, sols = {}, {}
+    for nx, nu, Bn in LARGE_SIZES:
+        for dtype in ((torch.float32, torch.float64) if nx == 64
+                      else (torch.float32,)):
+            dname = str(dtype).split(".")[-1]
+            what = f"band nx={nx} nu={nu} B={Bn} {dname}"
+            dims, qpb = band_batch(nx, nu, Bn, dtype)
+            eng = pbatch.select_engine(dims, cfg_l, Bn, dtype)
+            if eng != "structured":
+                _fail(f"{what}: select_engine chose {eng!r}")
+            sol, n24 = counted(lambda: pbatch.solve_batched(dims, qpb, cfg_l),
+                               what)
+            finite(sol, what)
+            if tuple(sol.z.shape) != (Bn, N_HORIZON + 1, dims.NZ):
+                _fail(f"{what}: z has shape {tuple(sol.z.shape)}")
+            shapes = f"NU{nu}_NX{nx}"
+            built = [k for k in _build.PTXAS_LOG if shapes in k]
+            if built:
+                _fail(f"{what}: per-thread libraries built: {built}")
+            sub = torch.arange(0, Bn, Bn // ORACLE_SUBSAMPLE, device=dev)
+
+            def pick(q, dt_):
+                return type(q)(**{f.name: getattr(q, f.name)[sub].to(dt_)
+                                  if getattr(q, f.name).is_floating_point()
+                                  else getattr(q, f.name)[sub]
+                                  for f in dataclasses.fields(q)})
+
+            # against the f64 plain route up to the first freeze (f32 at
+            # nx=128 freezes after 4 iterations, on either backend: the
+            # problem's mu grows in f64 too), and in f32 against the f32
+            # plain route at the full budget
+            K = int(sol.kk.min())
+            solK = sol if K == cfg_l.k_max else pbatch.solve_batched(
+                dims, qpb, dataclasses.replace(cfg_l, k_max=K))
+            refs = [("f64", torch.float64, solK, K)]
+            if dtype == torch.float32:
+                refs.append(("f32", torch.float32, sol, cfg_l.k_max))
+            tol = LARGE_TOL["z32" if dtype == torch.float32 else "z64"]
+            for rname, rdt, mine, k_ in refs:
+                ref = pbatch.solve_batched(dims, pick(qpb, rdt), dataclasses
+                                           .replace(cfg_l, use_pallas=False,
+                                                    k_max=k_))
+                s_sub = type(mine)(*[x[sub] for x in mine])
+                dz = _maxdiff(torch, s_sub.z, ref.z)
+                same = (bool(torch.equal(s_sub.status, ref.status))
+                        and bool(torch.equal(s_sub.kk, ref.kk)))
+                print(f"{what} vs the {rname} plain structured route at k_max "
+                      f"{k_} ({ORACLE_SUBSAMPLE} instances): kk and status "
+                      f"equal {same}, max |dz| {dz:.3e} (tol {tol:.0e})",
+                      flush=True)
+                if not same or dz > tol:
+                    _fail(f"{what} disagrees with the {rname} plain "
+                          "structured route")
+            print(f"{what} (solve_batched -> structured, blocked band): row "
+                  f"24 launched {n24} times, no other kernel, no per-thread "
+                  f"library at {shapes}; status counts "
+                  f"{torch.bincount(sol.status.long(), minlength=3).tolist()}"
+                  f", kk {int(sol.kk.min())}..{int(sol.kk.max())}, max mu "
+                  f"{float(sol.inf_norm_res[:, 3].max()):.3e}", flush=True)
+            _band_oracle(torch, np, qpb, sol, dev, dtype, what)
+            launches[(nx, dname)] = n24
+            sols[(nx, dname)] = (dims, qpb)
+            del sol, solK, ref
+
+    # the soft problem at NZ=72: solve_batched_soft -> "soft_structured"
+    dims_s, qp_s, soft = mass_spring_soft_qp(64, 8, N_HORIZON, Z=10.0,
+                                             dtype=torch.float32, device=dev)
+    Bs = LARGE_SIZES[0][2]
+    qps = pbatch.broadcast_qp(qp_s, Bs)
+    sc = 1 + 0.02 * np.random.default_rng(SEED).standard_normal(Bs)
+    qps = dataclasses.replace(qps, g=qps.g * torch.as_tensor(
+        sc, dtype=torch.float32, device=dev)[:, None, None])
+    sb = pbatch.broadcast_soft(soft, Bs)
+    cfg_s = IPMConfig(k_max=8, mu0=100.0, mu_tol=0.0, use_pallas=True)
+    idxbs = soft.idxbs.cpu().numpy()
+    eng = pbatch.select_soft_engine(dims_s, cfg_s, torch.float32,
+                                    soft.ns_mask.shape[-1], idxbs)
+    if eng != "soft_structured":
+        _fail(f"soft band: select_soft_engine chose {eng!r}")
+    sol_s, n24s = counted(lambda: pbatch.solve_batched_soft(
+        dims_s, qps, sb, cfg_s, idxbs=idxbs), "soft band")
+    finite(sol_s, "soft band")
+    print(f"soft band (mass_spring_soft_qp(64, 8, 30, Z=10), f32, B={Bs}, "
+          f"solve_batched_soft -> soft_structured): row 24 launched {n24s} "
+          f"times, no other kernel; status counts "
+          f"{torch.bincount(sol_s.status.long(), minlength=3).tolist()}",
+          flush=True)
+    del sol_s
+    t_sec = section_done("L2 large-NZ main paths", t_sec)
+
+    # ---- L3. timings: ms per batch, a profile, rows 24-25 alone --------
+    def band_rep(d, q0, c=cfg_l):
+        def run(r):
+            q = dataclasses.replace(q0, b=q0.b * (1.0 + 1e-4 * r))
+            return pbatch.solve_batched(d, q, c)
+        return run
+
+    e2e = {}
+    for key in ((64, "float32"), (128, "float32"), (64, "float64")):
+        d, q0 = sols[key]
+        ms = _time_ms(torch, band_rep(d, q0), reps=2)
+        e2e[key] = ms
+        print(f"main path band [{card}], nx={key[0]} nu={d.NU} N="
+              f"{N_HORIZON} B={q0.b.shape[0]} {key[1]}, k_max 8: {ms:.3f} ms "
+              f"per batch ({q0.b.shape[0] / ms * 1e3:.1f} solves/s)",
+              flush=True)
+    pr = _profile(torch, band_rep(*sols[(64, "float32")]), reps=1)
+    print(_profile_line("band nx=64 f32", card, pr), flush=True)
+
+    # row 24 alone on the main path's first Cholesky batch (f32); row 25's
+    # panel kernel alone on that batch's first panel at cholesky_blocked's
+    # default p=8, the first input cholesky_blocked gives it
+    with _capture([(bc, "cholesky")]) as ccalls:
+        pbatch.solve_batched(*sols[(64, "float32")],
+                             dataclasses.replace(cfg_l, k_max=1))
+    M = ccalls[("cholesky", "")][0][0]
+    Bc, n = M.shape[0], M.shape[-1]
+    P = M[:, :8, :8].contiguous()
+    p = P.shape[-1]
+    item = M.element_size()
+    rows = []
+    for kname, X, fast, plain, lib, nbytes, ops in (
+            ("cholesky", M, lambda: bc.cholesky(M),
+             lambda: bc.cholesky_ref(M), lambda: torch.linalg.cholesky(M),
+             Bc * (n * (n + 1) // 2 + n * n) * item, Bc * _chol_ops(n)),
+            # L and L^-1 written; n^3/3 + n^3/6 multiply-adds; no single
+            # library call gives both (torch.linalg.cholesky gives L only)
+            ("panel_factor", P, lambda: bc.panel_factor(P),
+             lambda: bc.panel_factor_ref(P), None,
+             Bc * (p * (p + 1) // 2 + 2 * p * p) * item, Bc * 1.0 * p ** 3)):
+        bound_ms, bound_by = _bound(nbytes, ops)
+        ms = _time_ms(torch, lambda r: fast(), reps=50)
+        ms_p = _time_ms(torch, lambda r: plain(), reps=2)
+        ms_l = None if lib is None else _time_ms(torch, lambda r: lib(),
+                                                 reps=20)
+        row24 = kname == "cholesky"
+        # row 25 is ported and timed, not routed (as in JAX): 0 launches
+        n_launch = launches[(64, "float32")] if row24 else 0
+        print(f"{'row 24 (cholesky)' if row24 else 'row 25 (panel_factor)'}"
+              f" [{card}]: {ms:.4f} ms, plain {ms_p:.4f} ms, library "
+              f"{'none' if ms_l is None else f'{ms_l:.4f} ms'}, bound "
+              f"{bound_ms:.4f} ms ({bound_by}: {nbytes} B, {ops:.4e} ops; "
+              f"{bound_ms / ms:.2%} of bound) (float32, {tuple(X.shape)}); "
+              f"launches on the main path {n_launch}", flush=True)
+        rows.append({"name": kname, "route": "cuda",
+                     "source": "hpmpc_tpu_torch/csrc/batch_chol.cu",
+                     "replaces": ("hpmpc_tpu/ops/batch_chol.py:243" if row24
+                                  else "hpmpc_tpu/ops/batch_chol.py:153"),
+                     "launches": n_launch,
+                     "max_abs_err": errs[kname], "ms": ms, "plain_ms": ms_p,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": ms_l})
+    # context: torch.linalg.cholesky on the panels (L without L^-1), and
+    # the blocked Cholesky around row 25 (its trsm and syrk are
+    # torch.matmul) beside row 24 on the same batch
+    ms_pl = _time_ms(torch, lambda r: torch.linalg.cholesky(P), reps=20)
+    ms_b = _time_ms(torch, lambda r: bc.cholesky_blocked(M, p=8), reps=10)
+    print(f"torch.linalg.cholesky on row 25's panels {tuple(P.shape)} "
+          f"[{card}]: {ms_pl:.4f} ms; cholesky_blocked(p=8) on "
+          f"{tuple(M.shape)}: {ms_b:.4f} ms (row 24: {rows[0]['ms']:.4f} "
+          f"ms)", flush=True)
+    t_sec = section_done("L3 large-NZ timings", t_sec)
+    return rows, t_sec
+
+
 def main() -> int:
     repo = pathlib.Path(__file__).resolve().parent
     if not (repo / "hpmpc_tpu_torch" / "csrc").is_dir():
@@ -1277,6 +1625,7 @@ def main() -> int:
     from hpmpc_tpu_torch.models.ipm import IPMConfig
     from hpmpc_tpu_torch.ocp import OCPDims
     from hpmpc_tpu_torch.ops import _build
+    from hpmpc_tpu_torch.ops import batch_chol as bc
     from hpmpc_tpu_torch.ops import mega_kernel as mk
     from hpmpc_tpu_torch.ops import resident_kernel as rk
     from hpmpc_tpu_torch.ops import stage_kernel as sk
@@ -1339,7 +1688,7 @@ def main() -> int:
             for v in d.values():
                 v[:] = [0, 0]
         for d in (sk.LAUNCHES, mk.SOFT_LAUNCHES, stk.SOFT_LAUNCHES,
-                  tk.LAUNCHES):
+                  tk.LAUNCHES, bc.LAUNCHES):
             for n in d:
                 d[n] = 0
 
@@ -1353,6 +1702,7 @@ def main() -> int:
         out.update(mk.SOFT_LAUNCHES)
         out.update(stk.SOFT_LAUNCHES)
         out.update(tk.LAUNCHES)
+        out.update(bc.LAUNCHES)
         return out
 
     def total(v):
@@ -1417,7 +1767,9 @@ def main() -> int:
              # the scenario tree (nx=4 nu=2: NZ=6, NB=2) of section T
              ("tree_sweeps", dict(NU=2, NX=4)),
              ("tree_resid_terms", dict(NU=2, NX=4)),
-             ("step_flat", dict(NZ=6, NB=2))]
+             ("step_flat", dict(NZ=6, NB=2)),
+             # the large-NZ band of section L (n is runtime: one library)
+             ("batch_chol", {})]
     t0 = time.perf_counter()
     _build.build_all(specs)
     print(f"build: {time.perf_counter() - t0:.1f} s ({len(specs)} "
@@ -2215,6 +2567,10 @@ def main() -> int:
     tree_rows, t_sec = _tree(torch, np, dev, card, reset_counts, read_counts,
                              total, section_done, t_sec)
 
+    # ---- L. the large-NZ band (rows 24-25) -------------------------------
+    band_rows, t_sec = _large_nz(torch, np, dev, card, reset_counts,
+                                 read_counts, total, section_done, t_sec)
+
     # ---- 14. timings --------------------------------------------------------
     def solve_rep(q0, d, c, fn, field="b"):
         def run(r):
@@ -2519,6 +2875,7 @@ def main() -> int:
                         "library_ms": None})
     kernels.append(row23)
     kernels += tree_rows
+    kernels += band_rows
     print(f"launches per call: parity path {launches_p}", flush=True)
     section_done("15 kernels alone", t_sec)
     print(f"chip_smoke: total {time.perf_counter() - t_script:.1f} s ("

@@ -10,7 +10,9 @@ Its KKT backend (:func:`chain_backend`) is the plain batched Riccati of
 :mod:`.riccati` or, with ``use_pallas``, the hand-written kernels
 :func:`~..ops.stage_kernel.factor_solve_folded` and
 :func:`~..ops.stage_kernel.solve_batched` (:func:`make_kernel_chain_kkt`,
-the JAX package's ``make_pallas_chain_kkt``).
+the JAX package's ``make_pallas_chain_kkt``), and past their size envelope
+the blocked Riccati of :mod:`.riccati_blocked` on the batched Cholesky
+kernel (the large-NZ band).
 
 Every QP leaf carries a leading instance axis B, and so does every field of
 the state: the per-instance scalars (mu, alpha, sigma, kk, the guard's
@@ -37,7 +39,7 @@ import torch
 from ..ocp import OCPDims, OCPQP
 from ..ops import stage_kernel as sk
 from ..ops.layout import from_lanes, sym_compress, to_lanes
-from . import riccati
+from . import riccati, riccati_blocked
 
 
 @dataclasses.dataclass(frozen=True)
@@ -403,25 +405,34 @@ def compute_residuals(qp: OCPQP, oh, mu_scal, z, pi, lam_b, t_b, lam_g,
 
 
 def make_kernel_chain_kkt(qp: OCPQP, ng_stages: tuple, NU: int):
-    """The (factor_solve, resolve) pair of the chain KKT system on the
-    hand-written kernels (the JAX package's ``make_pallas_chain_kkt``
-    without its ``custom_vmap``: the port is batch-native, so the batched
-    case is the only one, and without the TPU gates ``BI``,
-    ``engine_fits`` and the blocked large-NZ band, ROADMAP Queue 1 #14).
+    """The (factor_solve, resolve, carry_factor) triple of the chain KKT
+    system on the hand-written kernels (the JAX package's
+    ``make_pallas_chain_kkt`` without its ``custom_vmap``: the port is
+    batch-native, so the batched case is the only one, and without the
+    TPU's ``BI`` gate).
 
-    The effective Hessian travels DECOMPOSED -- the constant ``H`` + the
+    Inside the per-thread kernels' size envelope
+    (:func:`~..ops.stage_kernel.engine_fits`, measured on the H100) the
+    effective Hessian travels DECOMPOSED -- the constant ``H`` + the
     diagonal ``dvec`` + the ng-stage barrier term -- and is assembled in
     the factorization kernel (:func:`~..ops.stage_kernel.
-    factor_solve_folded`); :func:`~..ops.stage_kernel.solve_batched` re-
-    solves on the retained factor with its Pb.  H and F are packed and
-    made batch-last once here, per solve; the factor state ``(L, Pb)``
-    stays batch-last.  Shared by the hard structured route and the
-    structured soft IPM (:func:`.ipm_soft.solve`)."""
+    factor_solve_folded`, Queue 2 row 16); :func:`~..ops.stage_kernel.
+    solve_batched` (row 15) re-solves on the retained factor with its Pb.
+    H and F are packed and made batch-last once here, per solve; the
+    factor state ``(L, Pb)`` stays batch-last.  Past the envelope the
+    large-NZ band takes over: the blocked batched Riccati
+    (:func:`.riccati_blocked.factor_solve_folded` / :func:`.riccati_blocked.
+    solve`) on the batched Cholesky kernel (Queue 2 row 24), batch first,
+    its factor state ``(L, Pb)`` batch first too.  ``carry_factor`` gives
+    the factor batch first either way.  Shared by the hard structured route
+    and the structured soft IPM (:func:`.ipm_soft.solve`)."""
+    NZ = qp.H.shape[-1]
+    if not sk.engine_fits(NZ - NU, NU):
+        return _blocked_chain_kkt(qp, NU)
     Hl = to_lanes(sym_compress(qp.H))
     Fl = to_lanes(qp.F)
     idx = _stage_index(ng_stages, qp.device) if ng_stages else None
     if ng_stages:
-        NZ = qp.H.shape[-1]
         r, c = torch.tril_indices(NZ, NZ, device=qp.device)
         C_act = qp.C[:, idx]                           # (B, n_ng, NG, NZ)
         C_i, C_j = C_act[..., r], C_act[..., c]        # (B, n_ng, NG, NT)
@@ -441,7 +452,33 @@ def make_kernel_chain_kkt(qp: OCPQP, ng_stages: tuple, NU: int):
                                  NU)
         return from_lanes(z), from_lanes(pi)
 
-    return factor_solve, resolve
+    def carry_factor(fstate):
+        return fstate[0].movedim(-1, 0)          # the kernels' L is batch-last
+
+    return factor_solve, resolve, carry_factor
+
+
+def _blocked_chain_kkt(qp: OCPQP, NU: int):
+    """:func:`make_kernel_chain_kkt`'s large-NZ band: the blocked batched
+    Riccati, batch first (JAX ``make_pallas_chain_kkt``'s blocked branch,
+    ``hpmpc_tpu/models/ipm.py:565-581,600-604``).  ``Qx_g`` arrives masked
+    to the active rows, so the C' diag(Qx_g) C term vanishes off the ng
+    stages."""
+
+    def factor_solve(dvec, Qx_g, g_eff, rhs_b):
+        sol, L, _, _, Pb = riccati_blocked.factor_solve_folded(
+            qp.H, dvec, qp.C, Qx_g, g_eff, qp.F, rhs_b, NU)
+        return sol.z, sol.pi, (L, Pb)
+
+    def resolve(fstate, g_eff, rhs_b):
+        sol, _ = riccati_blocked.solve(fstate[0], g_eff, qp.F, rhs_b, NU,
+                                       Pb=fstate[1])
+        return sol.z, sol.pi
+
+    def carry_factor(fstate):
+        return fstate[0]
+
+    return factor_solve, resolve, carry_factor
 
 
 def chain_backend(dims: OCPDims, qp: OCPQP, oh, mu_scal,
@@ -457,16 +494,11 @@ def chain_backend(dims: OCPDims, qp: OCPQP, oh, mu_scal,
     ng_stages = tuple(n for n in range(dims.N + 1) if dims.ng[n] > 0)
 
     if use_pallas:
-        fs, trs = make_kernel_chain_kkt(qp, ng_stages, NU)
+        fs, resolve, carry_factor = make_kernel_chain_kkt(qp, ng_stages, NU)
 
         def factor_solve(Qx_b, Qx_g, g_eff, rhs_b):
             dvec = _scatter_box(oh, Qx_b) + qp.pad_diag + reg_eps
             return fs(dvec, Qx_g * qp.ng_mask, g_eff, rhs_b)
-
-        resolve = trs
-
-        def carry_factor(fstate):
-            return fstate[0].movedim(-1, 0)      # the kernels' L is batch-last
     else:
 
         def _refine(L, H_eff, g_eff, rhs_b, z, pi):

@@ -122,7 +122,7 @@ def solve(dims, qp: OCPQP, soft: SoftSpec, cfg, exact_mehrotra_soft=True,
     scatter, gather, cz_of = _ipm._scatter_box, _ipm._gather_box, _ipm._cz
 
     if cfg.use_pallas:
-        fs, trs = _ipm.make_kernel_chain_kkt(qp, ng_stages, NU)
+        fs, trs, _ = _ipm.make_kernel_chain_kkt(qp, ng_stages, NU)
 
         def kkt_factor_solve(Qx_b, Qx_s, Qx_g, g_eff):
             dvec = (scatter(oh_b, Qx_b) + scatter(oh_s, Qx_s) + qp.pad_diag

@@ -21,11 +21,13 @@ pivots.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import pathlib
 import shutil
+import signal
 import subprocess
 import tempfile
 
@@ -79,8 +81,10 @@ def _start(kernel: str, dims: dict):
     os.close(fd)
     cmd = [_nvcc(), *NVCC_FLAGS, *defs, "-I", str(CSRC), "-o", tmp,
            str(CSRC / f"{kernel}.cu")]
+    # its own process group, so that kill() also ends cicc and ptxas
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.PIPE, text=True)
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
     return out, (proc, cmd, tmp)
 
 
@@ -98,12 +102,19 @@ def _finish(out: pathlib.Path, job) -> pathlib.Path:
         PTXAS_LOG[out.name] = stderr
         os.replace(tmp, out)
     finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
+        kill(proc)
         if os.path.exists(tmp):
             os.unlink(tmp)
     return out
+
+
+def kill(proc) -> None:
+    """End a running nvcc of :func:`_start` and the compilers it started
+    (its process group)."""
+    if proc.poll() is None:
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
 
 
 def build(kernel: str, dims: dict) -> pathlib.Path:
@@ -121,9 +132,8 @@ def build_all(specs) -> list:
         return [_finish(out, job) for out, job in jobs]
     finally:
         for _, job in jobs:   # left running when an earlier build failed
-            if job is not None and job[0].poll() is None:
-                job[0].kill()
-                job[0].wait()
+            if job is not None:
+                kill(job[0])
             if job is not None and os.path.exists(job[2]):
                 os.unlink(job[2])
 
@@ -138,7 +148,8 @@ ENTRIES = {"step_flat": ("prep_flat", "alpha_sums_flat", "corr_geff_flat"),
            "factor_solve_folded": ("factor_solve_folded",
                                    "factor_solve_batched"),
            "tree_sweeps": ("tree_factor_solve_flat", "tree_solve_flat"),
-           "tree_resid_terms": ("tree_resid_terms_flat",)}
+           "tree_resid_terms": ("tree_resid_terms_flat",),
+           "batch_chol": ("cholesky", "panel_factor")}
 
 
 def load(kernel: str, **dims) -> ctypes.CDLL:

@@ -37,7 +37,9 @@ folded barrier diagonal; None when there are no such stages.
 
 Three serve the structured IPM's kernel backend
 (:func:`..models.ipm.make_kernel_chain_kkt`, the JAX package's
-``make_pallas_chain_kkt``) with the FULL factor:
+``make_pallas_chain_kkt``) with the FULL factor, inside the per-thread
+engines' size envelope (:func:`engine_fits`; past it the backend takes the
+blocked band, :mod:`..models.riccati_blocked`):
 
   * :func:`factor_solve_folded` (``_bwd_kernel_folded`` unsplit +
     ``_fwd_kernel``) — the folded factorization of H + diag(dvec) (+ the
@@ -73,6 +75,25 @@ LAUNCHES = {"factor_solve_folded_flat": 0, "solve_flat": 0,
             "factor_solve_batched": 0, "solve_batched": 0}
 #: calls of each wrapper that ran the plain version (CPU tensors)
 PLAIN_CALLS = dict.fromkeys(LAUNCHES, 0)
+
+#: the per-thread engines' size envelope on the H100: the largest stage
+#: width NZ = NX + NU that the resident, lanes, flat and rows 16/15 engines
+#: serve.  Drawn from hpmpc_tpu_torch/tools/size_sweep.py's table (PERF.md
+#: section 5, NVIDIA H100 80GB HBM3 at 700 W): a per-thread engine keeps a
+#: size only where it built within 300 s and was no slower than the
+#: structured route on the blocked band.  NZ = 19 is the last size where
+#: every engine's libraries built, and there each engine beat the band;
+#: from NZ = 27 the lanes, flat and rows 16/15 builds run over.  One bound
+#: serves them all (JAX's TPU rule has a second one for the lanes engine);
+#: NZ 20-26 is not measured.
+ENGINE_MAX_NZ = 19
+
+
+def engine_fits(NX: int, NU: int) -> bool:
+    """Whether the per-thread kernel engines serve stage width NX + NU
+    (the twin of JAX's ``stage_kernel.engine_fits``, whose bound is the
+    TPU's VMEM; here the card's measured envelope)."""
+    return NX + NU <= ENGINE_MAX_NZ
 
 
 class _FactorArgs(ctypes.Structure):

@@ -3,8 +3,11 @@
 
 The batch is a first-class leading axis on every QP leaf.
 :func:`select_engine` keeps the JAX package's rule and engine names, minus
-the gates that are TPU measurements (the ``B % 1024`` block, the VMEM fit
-gates, the NZ 19..22 mega fence; nothing here chunks at 4096 either).
+the gates that are TPU measurements (the ``B % 1024`` block, the NZ 19..22
+mega fence; nothing here chunks at 4096 either).  Its size gate
+(:func:`..ops.stage_kernel.engine_fits`) is the card's own: past the per-thread engines'
+envelope measured on the H100 every batch takes ``"structured"``, whose
+kernel backend runs the blocked large-NZ band.
 Every engine of :func:`solve_batched` is ported: ``"resident"``,
 ``"lanes"``, ``"flat"`` (the lanes engine's flat form, into which the
 JAX package's flat engine ``ipm_fast`` folds), the two two-stage engines
@@ -29,6 +32,7 @@ import torch
 
 from ..models import ipm
 from ..ocp import OCPDims, OCPQP
+from ..ops import stage_kernel as sk
 
 
 def broadcast_qp(qp: OCPQP, batch: int) -> OCPQP:
@@ -42,11 +46,15 @@ def broadcast_qp(qp: OCPQP, batch: int) -> OCPQP:
 def select_engine(dims: OCPDims, cfg: ipm.IPMConfig, B: int, dtype) -> str:
     """The hard-path dispatch rule: ``"resident"``, ``"lanes"``,
     ``"flat"``, ``"two_stage_resident"``, ``"two_stage_lanes"`` or
-    ``"structured"``, as in :func:`hpmpc_tpu.parallel.batch.select_engine`.
+    ``"structured"``, as in :func:`hpmpc_tpu.parallel.batch.select_engine`,
+    with the H100's size envelope (:func:`..ops.stage_kernel.engine_fits`)
+    where JAX has its VMEM one: past it, ``"structured"``, whose kernel
+    backend runs the blocked large-NZ band.
 
     Env knobs as in the JAX package: ``HPMPC_RESIDENT=0`` disables the
     resident engine, ``HPMPC_LANES_LOOP=0`` the lanes engine."""
-    if not (cfg.use_pallas and dims.n_constr > 0 and dims.idxb is not None):
+    if not (cfg.use_pallas and dims.n_constr > 0 and dims.idxb is not None
+            and sk.engine_fits(int(dims.NX), int(dims.NU))):
         return "structured"
     f32 = dtype == torch.float32
     iter_ref = int(cfg.iter_ref)
@@ -161,12 +169,14 @@ def broadcast_soft(soft, batch: int):
 def select_soft_engine(dims: OCPDims, cfg: ipm.IPMConfig, dtype, NS: int,
                        idxbs) -> str:
     """The soft-path dispatch rule of
-    :func:`hpmpc_tpu.parallel.batch.solve_batched_soft`, minus the TPU
-    gates (the ``B % 1024`` block and the VMEM fit gates):
+    :func:`hpmpc_tpu.parallel.batch.solve_batched_soft`, minus the TPU's
+    ``B % 1024`` block, with the H100's size envelope
+    (:func:`..ops.stage_kernel.engine_fits`) where JAX has its VMEM one:
     ``"soft_resident"`` (opt-in, ``HPMPC_RESIDENT=1``), ``"soft_lanes"``,
     ``"soft_flat"`` or ``"soft_structured"``.  ``HPMPC_LANES_LOOP=0``
     (without ``HPMPC_MEGA_SWEEPS=1``) leaves the lanes engine."""
-    if not (cfg.use_pallas and dims.idxb is not None and idxbs is not None):
+    if not (cfg.use_pallas and dims.idxb is not None and idxbs is not None
+            and sk.engine_fits(int(dims.NX), int(dims.NU))):
         return "soft_structured"
     soft_f32 = dims.NB > 0 and NS > 0 and dtype == torch.float32
     if (os.environ.get("HPMPC_RESIDENT") == "1" and soft_f32

@@ -950,3 +950,91 @@ def test_tree_wrappers_reject_bad_inputs(cuda, monkeypatch):
     a, k = calls["tree_factor_solve_flat"]
     with pytest.raises(ValueError, match="ngl"):       # ng nodes, no ngl
         tk.tree_factor_solve_flat(a[0], a[1], a[2], None, *a[4:], **k)
+
+
+# ---- the large-NZ band: rows 24-25 and the blocked Riccati ---------------
+
+def _spd_batch(dev, dtype, B, n, seed=0):
+    A = np.random.default_rng(seed).standard_normal((B, n, n))
+    return torch.as_tensor(A @ A.transpose(0, 2, 1) + n * np.eye(n),
+                           dtype=dtype, device=dev)
+
+
+# the kernel and the plain version round the update apart (FMA) and read
+# different triangles of a symmetric input: roundoff of L's scale
+_CHOL_TOL = {torch.float64: 1e-12, torch.float32: 1e-4}
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n", [1, 5, 72, 250])
+def test_batch_chol_kernel_matches_plain(cuda, dtype, n):
+    """Row 24: shared-memory triangle (n <= ~240 in f64), device-memory
+    form past it (n=250 in f64)."""
+    from hpmpc_tpu_torch.ops import batch_chol as bc
+
+    M = _spd_batch(cuda, dtype, 9, n).reshape(3, 3, n, n)
+    n0 = bc.LAUNCHES["cholesky"]
+    L = bc.cholesky(M)
+    torch.cuda.synchronize()
+    assert bc.LAUNCHES["cholesky"] == n0 + 1 and L.shape == M.shape
+    Lp = bc.cholesky_ref(M)
+    assert bool((torch.triu(L, 1) == 0).all())
+    scale = float(Lp.abs().max())
+    assert float((L - Lp).abs().max()) <= _CHOL_TOL[dtype] * scale
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("p", [1, 8, 16, 32])
+def test_panel_factor_kernel_matches_plain(cuda, dtype, p):
+    from hpmpc_tpu_torch.ops import batch_chol as bc
+
+    A = _spd_batch(cuda, dtype, 37, p)
+    n0 = bc.LAUNCHES["panel_factor"]
+    L, Li = bc.panel_factor(A)
+    torch.cuda.synchronize()
+    assert bc.LAUNCHES["panel_factor"] == n0 + 1
+    for x, y in zip((L, Li), bc.panel_factor_ref(A)):
+        scale = max(1.0, float(y.abs().max()))
+        assert float((x - y).abs().max()) <= _CHOL_TOL[dtype] * scale
+    Lb = bc.cholesky_blocked(_spd_batch(cuda, dtype, 5, 45), p=p)
+    Lr = bc.cholesky_ref(_spd_batch(cuda, dtype, 5, 45))
+    assert float((Lb - Lr).abs().max()) <= _CHOL_TOL[dtype] * float(
+        Lr.abs().max())
+
+
+def test_batch_chol_wrappers_reject_bad_inputs(cuda):
+    from hpmpc_tpu_torch.ops import batch_chol as bc
+
+    M = _spd_batch(cuda, torch.float32, 4, 8)
+    with pytest.raises(TypeError):
+        bc.cholesky(M.half())
+    with pytest.raises(ValueError):
+        bc.cholesky(M[:, :, :7])
+    with pytest.raises(TypeError):
+        bc.panel_factor(M.half())
+    with pytest.raises(ValueError):
+        bc.panel_factor(_spd_batch(cuda, torch.float32, 2, 33))
+
+
+def test_band_on_card_matches_cpu(cuda, monkeypatch):
+    """The structured IPM on the blocked band (the envelope forced shut)
+    on the card vs the same call on the CPU: float64, the ngN=4 block at
+    N=16, 40 instances, 1e-6 of a field's scale (as the kernel backend's
+    check); row 24 launches, the per-thread kernels do not."""
+    from hpmpc_tpu_torch.ops import batch_chol as bc
+
+    monkeypatch.setattr(sk, "engine_fits", lambda *a, **k: False)
+    dims, qpb = _batch(cuda, torch.float64, 16, 4, 40)
+    cfg = IPMConfig(k_max=12, mu_tol=1e-10, use_pallas=True)
+    n0 = bc.LAUNCHES["cholesky"]
+    s0 = {n: sk.LAUNCHES[n] for _, n in _STRUCT}
+    sol_g = ipm.solve(dims, qpb, cfg)
+    assert bc.LAUNCHES["cholesky"] > n0
+    assert all(sk.LAUNCHES[n] == s0[n] for n in s0)
+    sol_c = ipm.solve(dims, qpb.to("cpu"), cfg)
+    assert torch.equal(sol_g.kk.cpu(), sol_c.kk)
+    assert torch.equal(sol_g.status.cpu(), sol_c.status)
+    for f in ("z", "pi", "lam_b", "t_b", "stat", "inf_norm_res"):
+        g, c = getattr(sol_g, f).cpu(), getattr(sol_c, f)
+        scale = max(1.0, float(c.abs().max()))
+        assert float((g - c).abs().max()) <= 1e-6 * scale, f
