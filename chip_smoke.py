@@ -116,6 +116,18 @@ solve_batched`` (the f64 lanes runs call the engine directly):
     ``solve_batched_soft`` on ``mass_spring_soft_qp(64, 8, 30, Z=10)``;
     then ms per batch, a profile, and rows 24-25 alone beside their plain
     versions and ``torch.linalg.cholesky``.
+  * the fused sweeps (section S, ``HPMPC_FUSED_SWEEPS=1``): rows 18 and 17
+    (the fused forms of ``csrc/factor_solve_flat.cu`` and
+    ``csrc/solve_flat.cu``) against their plain versions and against rows
+    9 and 10 on the same inputs, on the 6-kernel loops' first and last
+    calls, hard and soft flagship, f32 and f64; then, counted from 0, the
+    soft path at ``tools/bench_soft.py``'s flagship (the slice's main
+    path: rows 6-8, 18 and 17, neither row 9 nor 10), the lanes 6-kernel
+    loop at the default tolerances, routes E (no refinement) and D and
+    the parity line under the switch, each against the f64 oracle and
+    against the same path without the switch (bit for bit); ms a batch
+    with and without the switch; the two kernels alone beside rows 9 and
+    10.
 
 Each path runs with the launch counters set to 0 just before and read just
 after, and its answer is held against a float64 host residual oracle (the
@@ -143,6 +155,7 @@ import pathlib
 import subprocess
 import sys
 import time
+import types
 
 B = 4096
 N_HORIZON = 30
@@ -341,6 +354,7 @@ def _ptxas_lines(log: str):
 PROFILED = ("ipm_resident", "resid_full", "factor_solve_mega", "solve_mega",
             "prep_flat", "alpha_sums_flat", "corr_geff_flat",
             "factor_solve_flat", "solve_flat_pb", "solve_flat",
+            "factor_solve_flat_fused", "solve_flat_fused",
             "refine_flat", "resid_terms_flat") + SOFT_MEGA + SOFT_STEP + (
                 "factor_solve_folded", "solve_batched", "dense_ipm",
                 "tree_factor_solve_flat", "tree_solve_flat",
@@ -518,6 +532,42 @@ def _check_vs_f64(torch, calls, mods, factor, floor, what):
         if e_k > max(factor * e_p, floor):
             _fail(f"{kname} {what}: the kernel's f32 error exceeds "
                   f"{factor:.0f} times its plain version's")
+
+
+def _check_vs_floor(torch, calls, mods, factor, floor, what):
+    """Each captured call on ill-conditioned inputs: the kernel against its
+    plain version, beside the plain version's own move when every floating
+    input is moved by one ulp (x (1 + eps)), the floor any change of
+    rounding meets there.  The kernel's largest difference, relative to
+    each output's scale, must be at most ``factor`` times that move, or
+    ``floor``."""
+    def bump(x):
+        if hasattr(x, "is_floating_point") and x.is_floating_point():
+            return x * (1.0 + torch.finfo(x.dtype).eps)
+        return x
+
+    for (kname, _), (a, k) in sorted(calls.items()):
+        plain = getattr(mods[kname], kname + "_ref")
+        out_k = _flat(getattr(mods[kname], kname)(*a, **k))
+        torch.cuda.synchronize()
+        out_p = _flat(plain(*a, **k))
+        out_e = _flat(plain(*[bump(x) for x in a],
+                            **{n: bump(v) for n, v in k.items()}))
+        if not all(bool(torch.isfinite(x).all()) for x in out_k):
+            _fail(f"{kname} {what}: non-finite output")
+
+        def rel(out):
+            return max(_maxdiff(torch, x, y) / max(1.0, float(y.abs().max()))
+                       for x, y in zip(out, out_p))
+
+        e_k, e_e = rel(out_k), rel(out_e)
+        print(f"{kname} {what}: vs its plain version, max |d|/scale "
+              f"{e_k:.3e}; the plain version on inputs moved by one ulp "
+              f"{e_e:.3e} (ratio {e_k / max(e_e, 1e-300):.2f}, limit "
+              f"{factor:.0f} or {floor:.0e})", flush=True)
+        if e_k > max(factor * e_e, floor):
+            _fail(f"{kname} {what}: the kernel's error exceeds {factor:.0f} "
+                  "times the plain version's one-ulp move")
 
 
 def _oracle(torch, np, qpb, sol, dev, rtol, atol, primal_max, what):
@@ -1268,6 +1318,275 @@ def _tree(torch, np, dev, card, reset_counts, read_counts, total,
                      "bound_ms": bound_ms, "bound_by": bound_by,
                      "library_ms": None})
     t_sec = section_done("T timings", t_sec)
+    return rows, t_sec
+
+
+# the fused sweeps (section S, HPMPC_FUSED_SWEEPS=1: rows 18 and 17).  Each
+# fused kernel against its plain version (the same function as rows 9
+# without pi and 10) on the 6-kernel loops' first and last calls of a
+# TOL["k_max"]-iteration run, hard flagship (ng rows) and soft flagship, f32
+# and f64: at MEGA_TOL on the first call; on the last, past the first
+# iterate, the barrier conditioning amplifies any two summation orders
+# (section 2), in f64 too at the hard flagship (PERF.md section 6, PR 11),
+# so there the f32 kernel and its plain version are each held against the
+# f64 plain version, as section 2 holds rows 14-16, and the f64 kernel
+# against the plain version's own move on inputs moved by one ulp.
+# Against rows 9 and 10 on the same inputs: the same sweep code with the
+# eu/px slab elsewhere, so equal bit for bit; a difference (nvcc's FMA
+# contraction) is printed and held to FUSED_TOL of the scale.  Each path
+# under the switch against the same path without it: bit-equal where the
+# kernels are, else equal kk and status and z within FUSED_TOL of its scale.
+FUSED_TOL = {"float32": 1e-5, "float64": 1e-12}
+FUSED_NAMES = ("factor_solve_folded_flat_fused", "solve_flat_fused")
+#: each fused kernel's global-scratch twin (row 9 without pi, row 10)
+UNFUSED_TWIN = {"factor_solve_folded_flat_fused": ("factor_solve_folded_flat",
+                                                   dict(want_pi=False)),
+                "solve_flat_fused": ("solve_flat", {})}
+
+
+def _fused_sweeps(torch, np, dev, card, reset_counts, read_counts, total,
+                  section_done, t_sec, cx):
+    """Sections S1-S3, the fused sweeps under ``HPMPC_FUSED_SWEEPS=1``:
+    rows 18 and 17 against their plain versions and rows 9 and 10; then,
+    counted from 0, the soft main path (``solve_batched_soft`` at
+    tools/bench_soft.py's flagship) and the hard paths (the lanes 6-kernel
+    loop at the default tolerances, route E without ``iter_ref``, route D,
+    the parity line), each against the f64 oracle and against the same path
+    without the switch (``cx``: the main paths' data, configs and
+    switch-off solutions); then each path's ms a batch with and without the
+    switch and the two kernels alone beside rows 9 and 10.  Returns (the
+    kernels-line entries of rows 18 and 17, t_sec)."""
+    from hpmpc_tpu_torch.models import ipm_lanes, ipm_soft_lanes
+    from hpmpc_tpu_torch.models.ipm import IPMConfig
+    from hpmpc_tpu_torch.ops import stage_kernel as sk
+    from hpmpc_tpu_torch.parallel import batch as pbatch
+
+    mods = {n: sk for n in FUSED_NAMES}
+    targets = [(sk, n) for n in FUSED_NAMES]
+    bit_equal = True
+
+    def vs_unfused(calls, tol, what):
+        """Each captured fused call against its global-scratch twin on the
+        same inputs: equal bit for bit, or within ``tol`` of the scale."""
+        nonlocal bit_equal
+        for (kname, _), (a, k) in sorted(calls.items()):
+            twin, extra = UNFUSED_TWIN[kname]
+            out_f = _flat(getattr(sk, kname)(*a, **k))
+            out_u = _flat(getattr(sk, twin)(*a, **k, **extra))
+            torch.cuda.synchronize()
+            same = all(torch.equal(x, y) for x, y in zip(out_f, out_u))
+            rel = max(_maxdiff(torch, x, y) / max(1.0, float(y.abs().max()))
+                      for x, y in zip(out_f, out_u))
+            print(f"{kname} {what} vs {twin} on the same inputs: "
+                  + ("equal bit for bit" if same else
+                     f"max |d|/scale {rel:.3e} (tol {tol:.0e})"), flush=True)
+            bit_equal &= same
+            if rel > tol:
+                _fail(f"{kname} {what} disagrees with {twin}")
+
+    # ---- S1. rows 18 and 17 vs their plain versions and rows 9, 10 -------
+    errs = {}
+    for dtype in (torch.float64, torch.float32):
+        name = str(dtype).split(".")[-1]
+        K = TOL[name]["k_max"]
+        dims, qpb = cx.flagship(dtype)
+        soft_c = cx.soft_problem(dtype)
+        runs = (
+            ("hard flagship (ng rows)", lambda: ipm_lanes.solve_batched_lanes(
+                dims, qpb, IPMConfig(k_max=K, use_pallas=True))),
+            ("soft flagship", lambda: ipm_soft_lanes.solve_batched_soft_lanes(
+                *soft_c[:3], IPMConfig(k_max=K, mu0=100.0, use_pallas=True),
+                soft_c[3])))
+        e_ = {}
+        for label, run in runs:
+            for last in (False, True):
+                what = (f"{name} {label}, {'last' if last else 'first'} call "
+                        f"of k_max {K}")
+                with _env(HPMPC_MEGA_SWEEPS="0", HPMPC_FUSED_SWEEPS="1"), \
+                        _capture(targets, last=last) as calls:
+                    run()
+                if len(calls) != 2:
+                    _fail(f"fused sweeps {what}: captured calls "
+                          f"{sorted(calls)}")
+                if last and dtype == torch.float32:
+                    _check_vs_f64(torch, calls, mods, COND_FACTOR,
+                                  MEGA_TOL[name], what)
+                elif last:
+                    _check_vs_floor(torch, calls, mods, COND_FACTOR,
+                                    MEGA_TOL[name], what)
+                else:
+                    _check_calls(torch, calls, mods, MEGA_TOL[name], what,
+                                 e_)
+                vs_unfused(calls, FUSED_TOL[name], what)
+                del calls
+        if dtype == torch.float32:
+            errs = e_
+        del soft_c
+    t_sec = section_done("S1 fused sweeps vs plain and rows 9-10", t_sec)
+
+    # ---- S2. the paths under the switch, counted from 0 --------------------
+    steps = ("prep_flat", "alpha_sums_flat", "corr_geff_flat")
+    soft_steps = ("soft_prep_flat", "soft_alpha_sums_flat", "soft_corr_flat")
+    rows910 = ("factor_solve_folded_flat", "solve_flat")
+    mega = ("factor_solve_mega", "solve_mega", "factor_solve_soft_mega",
+            "solve_soft_mega")
+    paths = (
+        # label, run, oracle, switch-off solution, kernels it must launch,
+        # kernels it must not
+        ("soft path f32 (the slice's main path)",
+         lambda: pbatch.solve_batched_soft(cx.dims_s, cx.qpb_s, cx.sb_s,
+                                           cx.cfg_soft, idxbs=cx.idxbs_s),
+         "soft", cx.sol_s6, soft_steps + FUSED_NAMES, rows910 + mega),
+        ("lanes f32, 6-kernel loop, default tolerances",
+         lambda: pbatch.solve_batched(cx.dims, cx.qpb, cx.cfg_lanes), "f32",
+         None, steps + FUSED_NAMES + ("resid_full",),
+         rows910 + mega + ("refine_flat_fused",)),
+        ("route E f64, no refinement",
+         lambda: pbatch.solve_batched(cx.dims64, cx.qpb64, cx.cfg_e0), "f64",
+         cx.sol_e0, steps + FUSED_NAMES + ("resid_full",),
+         rows910 + mega + UNFUSED + ("refine_flat_fused",)),
+        ("route D f32", lambda: pbatch.solve_batched(cx.dims, cx.qpb,
+                                                      cx.cfg_d), "f32",
+         cx.sol_d, steps + ("factor_solve_folded_flat", "solve_flat_fused",
+                            "resid_full") + UNFUSED,
+         ("solve_flat", "factor_solve_folded_flat_fused",
+                     "refine_flat_fused") + mega),
+        ("parity path f32", lambda: pbatch.solve_batched(cx.dims, cx.qpb,
+                                                          cx.cfg_par), "f32",
+         cx.sol_p, ("ipm_resident", "resid_full") + steps
+         + ("factor_solve_folded_flat", "solve_flat_fused",
+            "refine_flat_fused"),
+         ("solve_flat", "factor_solve_folded_flat_fused") + mega))
+    launches, soft_calls = {}, None
+    for label, run, oracle, ref, need, banned in paths:
+        if ref is None:        # the lanes 6-kernel loop, without the switch
+            with _env(HPMPC_MEGA_SWEEPS="0"):
+                ref = run()
+        reset_counts()
+        with _env(HPMPC_MEGA_SWEEPS="0", HPMPC_FUSED_SWEEPS="1"), \
+                _capture(targets) as calls:
+            sol = run()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        lau = {n: total(counts[n]) for n in need + banned}
+        if (min(lau[n] for n in need) < 1 or any(lau[n] for n in banned)
+                or any(total(v) for n, v in counts.items()
+                       if n not in lau and total(v))):
+            _fail(f"{label} under the switch: launches "
+                  f"{ {n: total(v) for n, v in counts.items() if total(v)} }"
+                  f", must launch {need} and none of {banned}")
+        launches[label] = {n: v for n, v in lau.items() if v}
+        if oracle == "soft":
+            soft_calls = calls
+            _check_soft_solution(torch, sol, cx.dims_s, cx.NS,
+                                 cx.cfg_soft.k_max, label)
+            _soft_oracle(torch, cx.dims_s, cx.qpb_s, cx.sb_s, sol, 1e-3,
+                         label)
+        else:
+            d_, q_ = ((cx.dims64, cx.qpb64) if oracle == "f64"
+                      else (cx.dims, cx.qpb))
+            _check_solution(torch, sol, d_, int(ref.stat.shape[1]), label)
+            tol_o = (1e-6, 1e-9, 1e-6) if oracle == "f64" else (1e-2, 1e-5,
+                                                                 1e-3)
+            _oracle(torch, np, q_, sol, dev, *tol_o, label)
+        same = all(torch.equal(x, y) for x, y in zip(sol, ref))
+        dz = _maxdiff(torch, sol.z, ref.z) / max(1.0, float(ref.z.abs().max()))
+        kk_eq = bool(torch.equal(sol.kk, ref.kk) and torch.equal(sol.status,
+                                                                 ref.status))
+        print(f"{label} under HPMPC_FUSED_SWEEPS=1: launches "
+              f"{launches[label]}, status counts "
+              f"{torch.bincount(sol.status, minlength=3).tolist()}; vs the "
+              "same path without the switch: "
+              + ("equal bit for bit" if same else
+                 f"kk and status equal {kk_eq}, max |dz|/scale {dz:.3e}"),
+              flush=True)
+        tol = FUSED_TOL["float64" if oracle == "f64" else "float32"]
+        if not same and (bit_equal or not kk_eq or dz > tol):
+            _fail(f"{label}: the switch changes the answer")
+        del sol, ref
+    t_sec = section_done("S2 paths under the fused sweeps", t_sec)
+
+    # ---- S3. ms a batch with and without the switch; the kernels alone ----
+    def rep(run_q, q0, field):
+        def run(r):
+            return run_q(dataclasses.replace(
+                q0, **{field: getattr(q0, field) * (1.0 + 1e-4 * r)}))
+        return run
+
+    timed = (
+        ("soft path f32", rep(lambda q: pbatch.solve_batched_soft(
+            cx.dims_s, q, cx.sb_s, cx.cfg_soft, idxbs=cx.idxbs_s), cx.qpb_s,
+            "g"), 5),
+        ("lanes f32, 6-kernel loop", rep(lambda q: pbatch.solve_batched(
+            cx.dims, q, cx.cfg_lanes), cx.qpb, "b"), 5),
+        ("route E f64, no refinement", rep(lambda q: pbatch.solve_batched(
+            cx.dims64, q, cx.cfg_e0), cx.qpb64, "b"), 3),
+        ("route D f32", rep(lambda q: pbatch.solve_batched(
+            cx.dims, q, cx.cfg_d), cx.qpb, "b"), 5),
+        ("parity path f32", rep(lambda q: pbatch.solve_batched(
+            cx.dims, q, cx.cfg_par), cx.qpb, "b"), 5))
+    for label, run, reps in timed:
+        ms = {"0": [], "1": []}
+        for sw in ("0", "1", "1", "0"):      # off, on, on, off
+            with _env(HPMPC_MEGA_SWEEPS="0", HPMPC_FUSED_SWEEPS=sw):
+                ms[sw].append(_time_ms(torch, run, reps=reps))
+        on, off = sum(ms["1"]) / 2, sum(ms["0"]) / 2
+        lk = next(k for k in launches if k.startswith(label))
+        print(f"fused sweeps [{card}], {label}: {on:.3f} ms per {B}-batch "
+              f"with HPMPC_FUSED_SWEEPS=1 ({ms['1'][0]:.3f}, "
+              f"{ms['1'][1]:.3f}), {off:.3f} ms without ({ms['0'][0]:.3f}, "
+              f"{ms['0'][1]:.3f}); launches per call under the switch "
+              f"{launches[lk]}", flush=True)
+
+    # rows 18 and 17 alone on the soft main path's first calls (f32), each
+    # beside its global-scratch twin on the same inputs (twin, fused,
+    # fused, twin)
+    ops = _stage_ops(cx.dims_s.NU, cx.dims_s.NX, cx.dims_s.NB,
+                     cx.dims_s.NG)
+    NX = cx.dims_s.NX
+    BS = B * (SOFT_N + 1)
+    pi_ops = 2 * NX * NX + NX
+    n_ops = {"factor_solve_folded_flat_fused":
+             BS * (ops["factor_flat"] - pi_ops) + B * ops["root"],
+             "solve_flat_fused": BS * ops["solve_flat"] + B * ops["root"]}
+    repl = {"factor_solve_folded_flat_fused":
+            "hpmpc_tpu/ops/stage_kernel.py:2162",
+            "solve_flat_fused": "hpmpc_tpu/ops/stage_kernel.py:1947"}
+    srcs = {"factor_solve_folded_flat_fused": "factor_solve_flat",
+            "solve_flat_fused": "solve_flat"}
+    main = launches[next(iter(launches))]
+    rows = []
+    for name in FUSED_NAMES:
+        a, k = soft_calls[(name, "")]
+        twin, extra = UNFUSED_TWIN[name]
+        fast, plain = getattr(sk, name), getattr(sk, name + "_ref")
+        slow = getattr(sk, twin)
+        out = fast(*a, **k)
+        nbytes = _nbytes(a, out)
+        if name == "solve_flat_fused":     # Lxx: its lower triangle is read
+            nbytes += _tril_nbytes(a[1], NX) - _nbytes([a[1]])
+        bound_ms, bound_by = _bound(nbytes, n_ops[name])
+        t_tw = [_time_ms(torch, lambda r: slow(*a, **k, **extra), reps=20)]
+        ms = [_time_ms(torch, lambda r: fast(*a, **k), reps=20)
+              for _ in range(2)]
+        t_tw.append(_time_ms(torch, lambda r: slow(*a, **k, **extra),
+                             reps=20))
+        ms_k, ms_t = sum(ms) / 2, sum(t_tw) / 2
+        ms_p = _time_ms(torch, lambda r: plain(*a, **k), reps=2)
+        print(f"{name} [{card}]: kernel {ms_k:.4f} ms ({ms[0]:.4f}, "
+              f"{ms[1]:.4f}), {twin} on the same inputs {ms_t:.4f} ms "
+              f"({t_tw[0]:.4f}, {t_tw[1]:.4f}), plain {ms_p:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}: {nbytes} B, "
+              f"{n_ops[name]:.4e} ops; {bound_ms / ms_k:.2%} of bound) "
+              f"(float32, B={B}, N={SOFT_N}, the soft main path's first "
+              f"call); launches on the main path {main[name]}", flush=True)
+        rows.append({"name": name, "route": "cuda",
+                     "source": f"hpmpc_tpu_torch/csrc/{srcs[name]}.cu",
+                     "replaces": repl[name], "launches": main[name],
+                     "max_abs_err": errs[name], "ms": ms_k,
+                     "plain_ms": ms_p, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": None})
+    t_sec = section_done("S3 fused sweeps timings", t_sec)
     return rows, t_sec
 
 
@@ -2559,6 +2878,16 @@ def main() -> int:
           f"{launches_14}", flush=True)
     t_sec = section_done("11-13 structured routes", t_sec)
 
+    # ---- S. the fused sweeps (rows 18 and 17) ---------------------------
+    fused_rows, t_sec = _fused_sweeps(
+        torch, np, dev, card, reset_counts, read_counts, total, section_done,
+        t_sec, types.SimpleNamespace(
+            flagship=flagship, soft_problem=soft_problem, dims=dims, qpb=qpb,
+            dims64=dims64, qpb64=qpb64, dims_s=dims_s, qpb_s=qpb_s,
+            sb_s=sb_s, idxbs_s=idxbs_s, NS=NS, cfg_lanes=cfg_lanes,
+            cfg_e0=cfg_e0, cfg_d=cfg_d, cfg_par=cfg_par, cfg_soft=cfg_soft,
+            sol_p=sol_p, sol_d=sol_d, sol_e0=sol_e0, sol_s6=sol_s6))
+
     # ---- I-K. the public API and the dense latency tick (row 23) ---------
     row23, t_sec = _api_and_dense(torch, np, dev, card, repo, reset_counts,
                                   read_counts, total, section_done, t_sec)
@@ -2873,6 +3202,7 @@ def main() -> int:
                         "ms": ms, "plain_ms": ms_plain,
                         "bound_ms": bound_ms, "bound_by": bound_by,
                         "library_ms": None})
+    kernels += fused_rows
     kernels.append(row23)
     kernels += tree_rows
     kernels += band_rows

@@ -1,6 +1,6 @@
 // Retained-factor re-solve of a batch of OCP KKT systems in ONE kernel:
 // backward substitution + forward recovery with pi, one CUDA thread per
-// instance.  Two forms (template PB_FROM_LXX):
+// instance.  Three forms:
 //
 //   * hp_solve_flat reads the cached Pb of the factorization.  Replaces:
 //     hpmpc_tpu/ops/stage_kernel.py::solve_flat, two TPU calls: the
@@ -14,6 +14,11 @@
 //     stream.  Replaces: hpmpc_tpu/ops/stage_kernel.py::solve_flat_pb
 //     (_bwd_trs_pb_kernel + _forward_from_lanes).  Plain version:
 //     hpmpc_tpu_torch/ops/stage_kernel.py::solve_flat_pb_ref.
+//   * hp_solve_flat_fused (solve_flat_fused_kernel) is hp_solve_flat with
+//     the eu/px slab in shared memory instead of global scratch.
+//     Replaces: hpmpc_tpu/ops/stage_kernel.py::solve_flat_fused
+//     (_trs_fwd_fused_kernel, one two-phase-grid call that keeps eu and px
+//     in VMEM slabs).  Plain version: solve_flat_ref (the same function).
 //
 // What bounds it on the H100: per instance and stage it reads Ll twice, g,
 // F twice, Pb, b and Lxx, and writes z and pi -- ~330 scalars at the
@@ -22,17 +27,25 @@
 // memory bound in principle, latency bound with one thread per instance
 // (128 warps at B=4096).  The Pb form reads Lxx_{k+1} instead of Pb in
 // the backward loop (the lower triangle, 36 scalars a stage instead of 8)
-// and adds ~2 NX^2 flops a stage.
+// and adds ~2 NX^2 flops a stage.  The global-scratch forms also write
+// and read back the eu/px slab, (N+1)(NU+NX) scalars an instance; the
+// fused form keeps it on the SM.
 //
 // Design: csrc/solve_mega.cu without the corrector prep and the alpha
 // epilogue: stages N..0 run hp::trs_stage on the gradient with the Pb + px
-// carry (px in registers), eu/px go to per-instance global scratch in
-// batch-last layout (the TPU's VMEM slabs); stages 0..N recover x from the
-// root solve, pi_{s-1} = Lxx_s (Lxx_s' x_s) + px_s, u and z.  Pb has N rows
-// and is read for k < N only; F/b clip to N-1 at the terminal stage.  The
-// Pb form loads Lxx_{k+1} from the retained factor at stage k (the TPU
-// kernel carries it in VMEM from the step before; here registers are the
-// scarce resource), as csrc/refine_flat.cu does.
+// carry (px in registers) and put eu/px into the slab (the TPU's VMEM
+// slabs); stages 0..N recover x from the root solve, pi_{s-1} = Lxx_s
+// (Lxx_s' x_s) + px_s, u and z.  Pb has N rows and is read for k < N only;
+// F/b clip to N-1 at the terminal stage.  The Pb form loads Lxx_{k+1} from
+// the retained factor at stage k (the TPU kernel carries it in VMEM from
+// the step before; here registers are the scarce resource), as
+// csrc/refine_flat.cu does.  The slab is laid out [stage][k][instance]:
+// per-instance global scratch in batch-last layout (coalesced), or the
+// block's dynamic shared memory with the thread index last (a warp's
+// accesses hit 32 consecutive words: no bank conflict), (N+1)(NU+NX) x 32
+// scalars a block, set at launch from N; the three forms run the same
+// sweep code (solve_flat_sweeps), so the fused form rounds as
+// hp_solve_flat does.
 //
 // Specialisation: NU, NX compile-time (-D, one library per shape); N
 // runtime.
@@ -62,18 +75,20 @@ struct SolveFlatArgs {
   const void* b;    // (N, NX, B)
   void* z;          // (N+1, NZ, B)
   void* pi;         // (N, NX, B)
-  void* work;       // ((N+1)(NU+NX), B): eu, px
+  void* work;       // ((N+1)(NU+NX), B): eu, px; NULL in the fused form
   int64_t B;
   int64_t N;
 };
 
+// The two sweeps of instance bi; eus / pxs: its eu (N+1, NU) and px
+// (N+1, NX) slab.
 template <typename T, bool PB_FROM_LXX>
-__global__ void __launch_bounds__(BLOCK) solve_flat_kernel(SolveFlatArgs a) {
+__device__ __forceinline__ void solve_flat_sweeps(const SolveFlatArgs& a,
+                                                  int64_t bi,
+                                                  const hp::Col<T>& eus,
+                                                  const hp::Col<T>& pxs) {
   using hp::Col;
   const int64_t B = a.B;
-  const int64_t bi = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-  if (bi >= B) return;
   const int N = static_cast<int>(a.N);
   auto in = [&](const void* p) {
     return Col<const T>{static_cast<const T*>(p) + bi, B};
@@ -82,9 +97,6 @@ __global__ void __launch_bounds__(BLOCK) solve_flat_kernel(SolveFlatArgs a) {
   const Col<const T> Llc = in(a.Ll), Lxxc = in(a.Lxx), Pbc = in(a.Pb),
                      gc = in(a.g), Fc = in(a.F), bc = in(a.b);
   const Col<T> zo = out(a.z), pio = out(a.pi);
-  T* w = static_cast<T*>(a.work);
-  const Col<T> eus{w + bi, B};
-  const Col<T> pxs{w + static_cast<int64_t>(N + 1) * NU * B + bi, B};
 
   auto load_ll = [&](int n, T (&Ll)[NZ][NU]) {
 #pragma unroll
@@ -168,6 +180,33 @@ __global__ void __launch_bounds__(BLOCK) solve_flat_kernel(SolveFlatArgs a) {
   }
 }
 
+// eu/px in the per-instance global scratch a.work (batch-last)
+template <typename T, bool PB_FROM_LXX>
+__global__ void __launch_bounds__(BLOCK) solve_flat_kernel(SolveFlatArgs a) {
+  const int64_t B = a.B;
+  const int64_t bi = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+  if (bi >= B) return;
+  T* w = static_cast<T*>(a.work);
+  solve_flat_sweeps<T, PB_FROM_LXX>(
+      a, bi, hp::Col<T>{w + bi, B},
+      hp::Col<T>{w + (a.N + 1) * NU * B + bi, B});
+}
+
+// eu/px in the block's dynamic shared memory, [stage][k][thread]
+template <typename T>
+__global__ void __launch_bounds__(BLOCK)
+    solve_flat_fused_kernel(SolveFlatArgs a) {
+  extern __shared__ __align__(16) unsigned char slab_raw[];
+  const int64_t bi = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+  if (bi >= a.B) return;
+  T* s = reinterpret_cast<T*>(slab_raw) + threadIdx.x;
+  solve_flat_sweeps<T, false>(
+      a, bi, hp::Col<T>{s, BLOCK},
+      hp::Col<T>{s + (a.N + 1) * NU * BLOCK, BLOCK});
+}
+
 template <typename T, bool PB_FROM_LXX>
 static int launch(const SolveFlatArgs& a, cudaStream_t stream) {
   const int64_t blocks = (a.B + BLOCK - 1) / BLOCK;
@@ -176,10 +215,26 @@ static int launch(const SolveFlatArgs& a, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+static int launch_fused(const SolveFlatArgs& a, cudaStream_t stream) {
+  const int64_t blocks = (a.B + BLOCK - 1) / BLOCK;
+  const int64_t smem = (a.N + 1) * NZ * BLOCK * static_cast<int64_t>(sizeof(T));
+  const int rc = hp::allow_smem(solve_flat_fused_kernel<T>, smem);
+  if (rc != 0) return rc;
+  solve_flat_fused_kernel<T><<<static_cast<unsigned>(blocks), BLOCK,
+                               static_cast<size_t>(smem), stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+static int check(const SolveFlatArgs* a) {
+  return a->B <= 0 || a->N <= 0 ? static_cast<int>(cudaErrorInvalidValue)
+                                : 0;
+}
+
 template <bool PB_FROM_LXX>
 static int dispatch(const SolveFlatArgs* a, int dtype_code,
                     cudaStream_t stream) {
-  if (a->B <= 0 || a->N <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (const int rc = check(a)) return rc;
   if (dtype_code == 0) return launch<float, PB_FROM_LXX>(*a, stream);
   if (dtype_code == 1) return launch<double, PB_FROM_LXX>(*a, stream);
   return static_cast<int>(cudaErrorInvalidValue);
@@ -193,6 +248,14 @@ extern "C" int hp_solve_flat(const SolveFlatArgs* a, int dtype_code,
 extern "C" int hp_solve_flat_pb(const SolveFlatArgs* a, int dtype_code,
                                 cudaStream_t stream) {
   return dispatch<true>(a, dtype_code, stream);
+}
+
+extern "C" int hp_solve_flat_fused(const SolveFlatArgs* a, int dtype_code,
+                                   cudaStream_t stream) {
+  if (const int rc = check(a)) return rc;
+  if (dtype_code == 0) return launch_fused<float>(*a, stream);
+  if (dtype_code == 1) return launch_fused<double>(*a, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" const char* hp_error_string(int code) {

@@ -747,4 +747,19 @@ __device__ __forceinline__ void soft_alpha_pass(
   alpha_sums<T, 4 * NS>(lam_s, t_s, S.ms4, dts, dls, amin, s0, s1, s2);
 }
 
+// ---------------------------------------------------------------------------
+// launch helper
+// ---------------------------------------------------------------------------
+
+// Let `kernel` take `bytes` of dynamic shared memory: past the default 48 KB
+// a kernel has to opt in, up to the card's per-block maximum.  Returns a
+// CUDA error code (cudaFuncSetAttribute's, 0 below 48 KB).
+template <typename K>
+inline int allow_smem(K kernel, int64_t bytes) {
+  if (bytes <= 48 * 1024) return 0;
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes)));
+}
+
 }  // namespace hp

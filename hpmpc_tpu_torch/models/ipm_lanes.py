@@ -347,8 +347,13 @@ def solve_batched_lanes(dims: OCPDims, qp: OCPQP, cfg, z0=None, pi0=None,
     engine's packed H and F streams.  Used by the scenario tree
     (:func:`.tree.solve_tree_ipm_flat`); None is the chain.
 
-    Not ported yet: ``HPMPC_FUSED_SWEEPS=1`` (ROADMAP Queue 2 rows 17-18)
-    raises ``NotImplementedError``."""
+    ``HPMPC_FUSED_SWEEPS=1`` (off by default, as in the JAX package) runs
+    the 6-kernel sequence's sweeps in both forms on their fused kernels,
+    which keep the backward sweep's eu/px slab on the SM: the re-solve on
+    :func:`~..ops.stage_kernel.solve_flat_fused` and, without ``iter_ref``
+    (whose refinement reads the affine pi), the factorization on
+    :func:`~..ops.stage_kernel.factor_solve_folded_flat_fused`.  The mega
+    kernels and a ``kkt_factory`` ignore it."""
     iter_ref = int(cfg.iter_ref)
     ref_thr = float(cfg.iter_ref_mu_thr)
     mega = (not flat and iter_ref == 0
@@ -357,11 +362,7 @@ def solve_batched_lanes(dims: OCPDims, qp: OCPQP, cfg, z0=None, pi0=None,
                                     or state0 is not None):
         raise ValueError("a kkt_factory runs on the flat form, without "
                          "iter_ref and state0")
-    if (not mega and kkt_factory is None
-            and os.environ.get("HPMPC_FUSED_SWEEPS", "0") == "1"):
-        raise NotImplementedError(
-            "lanes engine: the fused sweeps (HPMPC_FUSED_SWEEPS=1) need "
-            "ROADMAP Queue 1 #7b, Queue 2 rows 17 and 18")
+    fused = os.environ.get("HPMPC_FUSED_SWEEPS", "0") == "1"
     fused_refine = (not flat
                     and os.environ.get("HPMPC_FUSED_REFINE", "1") == "1")
     dt = qp.dtype
@@ -468,6 +469,9 @@ def solve_batched_lanes(dims: OCPDims, qp: OCPQP, cfg, z0=None, pi0=None,
             geffL = ngh.ct_add_lanes(geffL, qx_g)
         if kkt is not None:
             dzL, dpiL, fstate = kkt.factor(dvecL, ngl, geffL, rhsL)
+        elif fused and not iter_ref:
+            dzL, dpiL, fstate = sk.factor_solve_folded_flat_fused(
+                Hl, dvecL, ngl, ng_stages, geffL, Fl, rhsL, **ks)
         else:
             dzL, dpiL, fstate = sk.factor_solve_folded_flat(
                 Hl, dvecL, ngl, ng_stages, geffL, Fl, rhsL,
@@ -500,7 +504,8 @@ def solve_batched_lanes(dims: OCPDims, qp: OCPQP, cfg, z0=None, pi0=None,
         if kkt is not None:
             dz2L, dpi2L = kkt.resolve(fstate[:3], geff2L, rhsL)
         else:
-            dz2L, dpi2L = sk.solve_flat(*fstate[:3], geff2L, Fl, rhsL, **ks)
+            resolve = sk.solve_flat_fused if fused else sk.solve_flat
+            dz2L, dpi2L = resolve(*fstate[:3], geff2L, Fl, rhsL, **ks)
         if do_ref:
             dz2L, dpi2L = refine(fstate, Qx_g, geff2L, rhsL, dz2L, dpi2L)
         dt2L, dl2L, *parts = stk.alpha_sums_flat(

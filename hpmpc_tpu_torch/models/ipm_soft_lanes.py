@@ -73,14 +73,15 @@ def solve_batched_soft_lanes(dims, qp, soft, cfg, idxbs_static,
     select).  Needs box constraints (NB > 0), soft rows (NS > 0) and a
     static ``dims.idxb``.
 
-    Not ported yet: ``HPMPC_FUSED_SWEEPS=1`` (ROADMAP Queue 2 rows 17-18)
-    raises ``NotImplementedError``."""
+    ``HPMPC_FUSED_SWEEPS=1`` (off by default, as in the JAX package) runs
+    the 6-kernel sequence's sweeps on their fused kernels, which keep the
+    backward sweep's eu/px slab on the SM
+    (:func:`~..ops.stage_kernel.factor_solve_folded_flat_fused`,
+    :func:`~..ops.stage_kernel.solve_flat_fused`); the mega route ignores
+    it."""
     exact = bool(exact_mehrotra_soft)
     mega = os.environ.get("HPMPC_MEGA_SWEEPS", "0") == "1"
-    if not mega and os.environ.get("HPMPC_FUSED_SWEEPS", "0") == "1":
-        raise NotImplementedError(
-            "soft lanes engine: the fused sweeps (HPMPC_FUSED_SWEEPS=1) need "
-            "ROADMAP Queue 1 #7b, Queue 2 rows 17 and 18")
+    fused = os.environ.get("HPMPC_FUSED_SWEEPS", "0") == "1"
     dt = qp.dtype
     if dt not in (torch.float32, torch.float64):
         raise TypeError(f"soft lanes engine takes float32/float64, got {dt}")
@@ -148,8 +149,13 @@ def solve_batched_soft_lanes(dims, qp, soft, cfg, idxbs_static,
         dvecL, geffL = stk.soft_prep_flat(*soft_in(s), gL, pdregL, **sd)
         if n_ng:
             geffL = ngh.ct_add_lanes(geffL, qx_g)
-        dzL, _, fstate = sk.factor_solve_folded_flat(
-            Hl, dvecL, ngl, ng_stages, geffL, Fl, bL, want_pi=False, **ks)
+        if fused:
+            dzL, _, fstate = sk.factor_solve_folded_flat_fused(
+                Hl, dvecL, ngl, ng_stages, geffL, Fl, bL, **ks)
+        else:
+            dzL, _, fstate = sk.factor_solve_folded_flat(
+                Hl, dvecL, ngl, ng_stages, geffL, Fl, bL, want_pi=False,
+                **ks)
         idx_t, idx_s, *rest = soft_in(s)
         aff = stk.soft_alpha_sums_flat(idx_t, idx_s, dzL, *rest, None, None,
                                        corrector=False, **sd)
@@ -170,7 +176,8 @@ def solve_batched_soft_lanes(dims, qp, soft, cfg, idxbs_static,
             *soft_in(s), *aff[:4], smv, gL, exact=exact, **sd)
         if n_ng:
             geff2L = ngh.ct_add_lanes(geff2L, qx_g2)
-        dz2L, dpi2L = sk.solve_flat(*fstate, geff2L, Fl, bL, **ks)
+        resolve = sk.solve_flat_fused if fused else sk.solve_flat
+        dz2L, dpi2L = resolve(*fstate, geff2L, Fl, bL, **ks)
         idx_t, idx_s, *rest = soft_in(s)
         corr = stk.soft_alpha_sums_flat(idx_t, idx_s, dz2L, *rest, dl2bL,
                                         dl2sL, corrector=True, **sd)

@@ -1,8 +1,8 @@
 """Riccati sweep kernels: CUDA kernels + plain versions.
 
-Port of six wrappers of ``hpmpc_tpu/ops/stage_kernel.py`` (each two
-``pallas_call`` s on the TPU, backward sweep then forward recovery, and
-one launch here).  Three serve the 6-kernel lanes loop and its
+Port of the sweep wrappers of ``hpmpc_tpu/ops/stage_kernel.py`` (each one
+or two ``pallas_call`` s on the TPU, backward sweep then forward recovery,
+and one launch here).  Three serve the 6-kernel lanes loop and its
 refinement pass:
 
   * :func:`factor_solve_folded_flat` (TPU bodies ``_bwd_kernel_folded``,
@@ -17,6 +17,16 @@ refinement pass:
     pass (reference ``d_ip2_res_hard.c:1093-1131``): the Newton residuals
     (rq, rb) of the current iterate, the correction re-solve with Pb
     recomputed from the retained Lxx, and ``(z + dz, pi + dpi)``.
+
+Two are the fused-sweep forms of the first two (``HPMPC_FUSED_SWEEPS=1``,
+the JAX package's ``*_fused`` kernels): the same functions in one launch
+each, with the backward sweep's eu/px slab kept in shared memory instead of
+a global scratch stream:
+
+  * :func:`factor_solve_folded_flat_fused` (``_sv_fwd_fused_kernel``) —
+    :func:`factor_solve_folded_flat` without pi;
+  * :func:`solve_flat_fused` (``_trs_fwd_fused_kernel``) —
+    :func:`solve_flat`.
 
 Two serve the same pass unfused (the flat form of the lanes engine, the
 JAX package's flat engine ``ipm_fast``):
@@ -70,6 +80,7 @@ from .layout import from_lanes, sym_expand, sym_nt, to_lanes
 
 #: launches of each CUDA kernel in this process
 LAUNCHES = {"factor_solve_folded_flat": 0, "solve_flat": 0,
+            "factor_solve_folded_flat_fused": 0, "solve_flat_fused": 0,
             "refine_flat_fused": 0, "resid_terms_flat": 0,
             "solve_flat_pb": 0, "factor_solve_folded": 0,
             "factor_solve_batched": 0, "solve_batched": 0}
@@ -78,12 +89,13 @@ PLAIN_CALLS = dict.fromkeys(LAUNCHES, 0)
 
 #: the per-thread engines' size envelope on the H100: the largest stage
 #: width NZ = NX + NU that the resident, lanes, flat and rows 16/15 engines
-#: serve.  Drawn from hpmpc_tpu_torch/tools/size_sweep.py's table (PERF.md
-#: section 5, NVIDIA H100 80GB HBM3 at 700 W): a per-thread engine keeps a
-#: size only where it built within 300 s and was no slower than the
-#: structured route on the blocked band.  NZ = 19 is the last size where
-#: every engine's libraries built, and there each engine beat the band;
-#: from NZ = 27 the lanes, flat and rows 16/15 builds run over.  One bound
+#: and the scenario tree's flat engine serve.  Drawn from
+#: hpmpc_tpu_torch/tools/size_sweep.py's tables (PERF.md section 5): a
+#: per-thread engine keeps a size only where it built within 300 s and was
+#: no slower than the structured route (on the blocked band for the chain).
+#: NZ = 19 is the last size where every engine's libraries built, the tree
+#: kernels' included, and there each engine beat the structured route; at
+#: NZ = 27 the lanes, flat, rows 16/15 and tree builds run over.  One bound
 #: serves them all (JAX's TPU rule has a second one for the lanes engine);
 #: NZ 20-26 is not measured.
 ENGINE_MAX_NZ = 19
@@ -210,6 +222,18 @@ def solve_flat_ref(Ll, Lxx, Pb, g, F, b, *, NU, NZ, NX):
     return to_lanes(z), to_lanes(pi)
 
 
+def factor_solve_folded_flat_fused_ref(H, dvec, ngl, ng_stage_ids, g, F, b,
+                                       *, NU, NZ, NX):
+    """Plain PyTorch version of :func:`factor_solve_folded_flat_fused`:
+    :func:`factor_solve_folded_flat_ref` without pi."""
+    return factor_solve_folded_flat_ref(H, dvec, ngl, ng_stage_ids, g, F, b,
+                                        NU=NU, NZ=NZ, NX=NX, want_pi=False)
+
+
+#: plain PyTorch version of :func:`solve_flat_fused` (the same function)
+solve_flat_fused_ref = solve_flat_ref
+
+
 def refine_flat_fused_ref(H, dvec, C, qxg, ng_stage_ids, g, F, b, z, pi, Ll,
                           Lxx, *, NU, NZ, NX):
     """Plain PyTorch version of :func:`refine_flat_fused`: the Newton
@@ -274,6 +298,16 @@ def factor_solve_folded_flat(H, dvec, ngl, ng_stage_ids, g, F, b, *, NU, NZ,
         PLAIN_CALLS[name] += 1
         return factor_solve_folded_flat_ref(H, dvec, ngl, tuple(ng_stage_ids),
                                             g, F, b, **kw)
+    return _launch_factor_flat(name, H, dvec, ngl, ng_stage_ids, g, F, b,
+                               **kw)
+
+
+def _launch_factor_flat(name, H, dvec, ngl, ng_stage_ids, g, F, b, *, NU, NZ,
+                        NX, want_pi):
+    """Check and launch one form of ``csrc/factor_solve_flat.cu``: the
+    global-scratch one or (``name`` ending in ``_fused``, no pi) the one
+    with the eu/px slab in shared memory."""
+    fused = name.endswith("_fused")
     Np1, B = H.shape[0], H.shape[-1]
     N, n_ng = Np1 - 1, len(ng_stage_ids)
     named = dict(H=H, dvec=dvec, ngl=ngl, g=g, F=F, b=b)
@@ -281,11 +315,13 @@ def factor_solve_folded_flat(H, dvec, ngl, ng_stage_ids, g, F, b, *, NU, NZ,
                   ngl=(n_ng, sym_nt(NZ), B), g=(Np1, NZ, B),
                   F=(N, NZ, NX, B), b=(N, NX, B))
     _cuda_check(name, H, ng_stage_ids, named, shapes)
+    if fused:
+        _slab_fits(name, H.device, H.dtype, Np1, NU, NX)
     new = lambda *s: torch.empty(*s, dtype=H.dtype, device=H.device)  # noqa: E731
     Ll, Lxx, Pb = new(Np1, NZ, NU, B), new(Np1, NX, NX, B), new(N, NX, B)
     z = new(Np1, NZ, B)
     pi = new(N, NX, B) if want_pi else None
-    work = new(Np1 * (NU + NX), B)
+    work = None if fused else new(Np1 * (NU + NX), B)
     ptrs = (H, dvec, ngl, _build.int_table(ng_stage_ids, H.device), g, F, b,
             Ll, Lxx, Pb, z, pi, work)
     a = _FactorArgs(*[_build.ptr(x) for x in ptrs], B, N, n_ng,
@@ -308,19 +344,79 @@ def solve_flat(Ll, Lxx, Pb, g, F, b, *, NU, NZ, NX):
     if g.device.type == "cpu":
         PLAIN_CALLS[name] += 1
         return solve_flat_ref(Ll, Lxx, Pb, g, F, b, NU=NU, NZ=NZ, NX=NX)
+    return _launch_solve_flat(name, Ll, Lxx, Pb, g, F, b, NU=NU, NZ=NZ, NX=NX)
+
+
+def _launch_solve_flat(name, Ll, Lxx, Pb, g, F, b, *, NU, NZ, NX):
+    """Check and launch one form of ``csrc/solve_flat.cu``: the cached-Pb
+    one, the Pb form (``Pb`` None) or (``name`` ending in ``_fused``) the
+    cached-Pb one with the eu/px slab in shared memory."""
+    fused = name.endswith("_fused")
     Np1, B = g.shape[0], g.shape[-1]
     N = Np1 - 1
     named = dict(Ll=Ll, Lxx=Lxx, Pb=Pb, g=g, F=F, b=b)
     shapes = dict(Ll=(Np1, NZ, NU, B), Lxx=(Np1, NX, NX, B), Pb=(N, NX, B),
                   g=(Np1, NZ, B), F=(N, NZ, NX, B), b=(N, NX, B))
     _cuda_check(name, g, (), named, shapes)
+    if fused:
+        _slab_fits(name, g.device, g.dtype, Np1, NU, NX)
     new = lambda *s: torch.empty(*s, dtype=g.dtype, device=g.device)  # noqa: E731
-    z, pi, work = new(Np1, NZ, B), new(N, NX, B), new(Np1 * (NU + NX), B)
+    z, pi = new(Np1, NZ, B), new(N, NX, B)
+    work = None if fused else new(Np1 * (NU + NX), B)
     a = _SolveArgs(*[_build.ptr(x) for x in (Ll, Lxx, Pb, g, F, b, z, pi,
                                              work)], B, N)
-    _build.launch(name, name, a, g.device, g.dtype, NU=NU, NX=NX)
+    _build.launch("solve_flat", name, a, g.device, g.dtype, NU=NU, NX=NX)
     LAUNCHES[name] += 1
     return z, pi
+
+
+def _slab_fits(name, dev, dt, Np1, NU, NX):
+    """Raise unless the fused sweeps' eu/px slab, (N+1)(NU+NX) scalars for
+    each of a block's 32 threads (csrc/solve_flat.cu), fits in the shared
+    memory a block of this card can take."""
+    nbytes = Np1 * (NU + NX) * 32 * torch.finfo(dt).bits // 8
+    limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    if nbytes > limit:
+        raise ValueError(
+            f"{name}: the eu/px slab of N+1={Np1} stages, NU={NU}, NX={NX} "
+            f"in {dt} takes {nbytes} bytes of shared memory a block, more "
+            f"than the {limit} a block can have on this card")
+
+
+def factor_solve_folded_flat_fused(H, dvec, ngl, ng_stage_ids, g, F, b, *,
+                                   NU, NZ, NX):
+    """:func:`factor_solve_folded_flat` without pi, in one launch that keeps
+    the backward sweep's eu/px slab in shared memory (Queue 2 row 18, the
+    JAX package's ``factor_solve_folded_flat_fused``).  Same inputs;
+    returns ``(z, None, (Ll, Lxx, Pb))``.
+
+    CPU tensors run :func:`factor_solve_folded_flat_fused_ref`; CUDA tensors
+    launch the fused form of ``csrc/factor_solve_flat.cu`` (no sync), and a
+    shape whose slab does not fit in a block's shared memory raises."""
+    name = "factor_solve_folded_flat_fused"
+    kw = dict(NU=NU, NZ=NZ, NX=NX)
+    if H.device.type == "cpu":
+        PLAIN_CALLS[name] += 1
+        return factor_solve_folded_flat_fused_ref(
+            H, dvec, ngl, tuple(ng_stage_ids), g, F, b, **kw)
+    return _launch_factor_flat(name, H, dvec, ngl, ng_stage_ids, g, F, b,
+                               **kw, want_pi=False)
+
+
+def solve_flat_fused(Ll, Lxx, Pb, g, F, b, *, NU, NZ, NX):
+    """:func:`solve_flat` in one launch that keeps the backward sweep's
+    eu/px slab in shared memory (Queue 2 row 17, the JAX package's
+    ``solve_flat_fused``).  Same inputs and outputs ``(z, pi)``.
+
+    CPU tensors run :func:`solve_flat_fused_ref`; CUDA tensors launch the
+    fused form of ``csrc/solve_flat.cu`` (no sync), and a shape whose slab
+    does not fit in a block's shared memory raises."""
+    name = "solve_flat_fused"
+    if g.device.type == "cpu":
+        PLAIN_CALLS[name] += 1
+        return solve_flat_fused_ref(Ll, Lxx, Pb, g, F, b, NU=NU, NZ=NZ,
+                                    NX=NX)
+    return _launch_solve_flat(name, Ll, Lxx, Pb, g, F, b, NU=NU, NZ=NZ, NX=NX)
 
 
 def refine_flat_fused(H, dvec, C, qxg, ng_stage_ids, g, F, b, z, pi, Ll, Lxx,
@@ -426,19 +522,8 @@ def solve_flat_pb(Ll, Lxx, g, F, b, *, NU, NZ, NX):
     if g.device.type == "cpu":
         PLAIN_CALLS[name] += 1
         return solve_flat_pb_ref(Ll, Lxx, g, F, b, NU=NU, NZ=NZ, NX=NX)
-    Np1, B = g.shape[0], g.shape[-1]
-    N = Np1 - 1
-    named = dict(Ll=Ll, Lxx=Lxx, g=g, F=F, b=b)
-    shapes = dict(Ll=(Np1, NZ, NU, B), Lxx=(Np1, NX, NX, B), g=(Np1, NZ, B),
-                  F=(N, NZ, NX, B), b=(N, NX, B))
-    _cuda_check(name, g, (), named, shapes)
-    new = lambda *s: torch.empty(*s, dtype=g.dtype, device=g.device)  # noqa: E731
-    z, pi, work = new(Np1, NZ, B), new(N, NX, B), new(Np1 * (NU + NX), B)
-    a = _SolveArgs(*[_build.ptr(x) for x in (Ll, Lxx, None, g, F, b, z, pi,
-                                             work)], B, N)
-    _build.launch("solve_flat", name, a, g.device, g.dtype, NU=NU, NX=NX)
-    LAUNCHES[name] += 1
-    return z, pi
+    return _launch_solve_flat(name, Ll, Lxx, None, g, F, b, NU=NU, NZ=NZ,
+                              NX=NX)
 
 
 # ---------------------------------------------------------------------------

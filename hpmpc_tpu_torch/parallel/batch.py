@@ -222,13 +222,15 @@ def solve_batched_tree(tdef, dims: OCPDims, qp: OCPQP, cfg: ipm.IPMConfig,
                        z0=None, pi0=None) -> ipm.IPMSolution:
     """Tree twin of :func:`solve_batched`: a batch of scenario-tree QPs
     (node/edge arrays, :mod:`..models.tree`, with a leading instance axis).
-    With ``cfg.use_pallas``, a static ``dims.idxb``, float32 data and no
-    ``iter_ref``, the flat tree engine (:func:`~..models.tree.
-    solve_tree_ipm_flat`: the lanes engine's flat form with the tree
-    kernels); otherwise the batch-native structured tree IPM
-    (:func:`~..models.tree.solve_tree_ipm`), float64 included, as in JAX.
-    The JAX rule's TPU gates (the ``B % 1024`` block, the VMEM fit of the
-    accumulator) are dropped.
+    With ``cfg.use_pallas``, a static ``dims.idxb``, float32 data, no
+    ``iter_ref`` and a stage width inside the per-thread kernels' envelope
+    (:func:`..ops.stage_kernel.engine_fits`), the flat tree engine
+    (:func:`~..models.tree.solve_tree_ipm_flat`: the lanes engine's flat
+    form with the tree kernels); otherwise the batch-native structured tree
+    IPM (:func:`~..models.tree.solve_tree_ipm`, plain torch, no per-shape
+    build), float64 included, as in JAX.  The card's envelope takes the
+    place of the JAX rule's TPU gates (the ``B % 1024`` block, the VMEM fit
+    of the accumulator).
 
     ``z0`` (B, n_nodes, NZ) / ``pi0`` (B, n_nodes-1, NX) with
     ``cfg.warm_start`` seed the node iterate on both routes: closed-loop
@@ -237,7 +239,8 @@ def solve_batched_tree(tdef, dims: OCPDims, qp: OCPQP, cfg: ipm.IPMConfig,
     from ..models import tree as _tree
 
     if (cfg.use_pallas and dims.idxb is not None
-            and qp.dtype == torch.float32 and int(cfg.iter_ref) == 0):
+            and qp.dtype == torch.float32 and int(cfg.iter_ref) == 0
+            and sk.engine_fits(int(dims.NX), int(dims.NU))):
         return _tree.solve_tree_ipm_flat(tdef, dims, qp, cfg, z0=z0, pi0=pi0)
     return _tree.solve_tree_ipm(tdef, dims, qp, cfg, z0=z0, pi0=pi0)
 

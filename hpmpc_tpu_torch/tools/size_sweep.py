@@ -19,6 +19,21 @@ use_pallas=True)``:
     (``models/riccati_blocked`` on Queue 2 row 24), the envelope forced
     shut.
 
+The scenario tree's two engines run on ``mass_spring_tree_qp`` with the
+reference's 71-node tree (md=2 Nr=3 Nh=10, tools/bench_tree.py's) at each
+(nx, nu) of ``TREE_SIZES`` (stage widths NZ 11, 17, 19 and 27), B=1024,
+``b`` scaled as above, the same config:
+
+  * ``tree_flat``: ``tree.solve_tree_ipm_flat`` (Queue 2 rows 26-28 and
+    the step kernels, per-shape builds), called directly: past the
+    envelope ``parallel.batch.solve_batched_tree`` does not take it;
+  * ``tree_structured``: ``tree.solve_tree_ipm`` (plain torch, no build).
+
+Their oracle is the float64 host tree residuals (``tree.tree_residuals``)
+on 64 instances: ``ok`` when finite, agreeing with the engine's report
+(rtol 1e-2, atol 1e-5) and with primal residuals (rb, rd) below 1e-3, as
+chip_smoke.py section T holds the tree's main path.
+
 Per engine and size it records the nvcc seconds of each library the engine
 needs (all of a size's libraries built at once, one nvcc each, each capped
 at ``CAP_S`` = 300 seconds: a build that runs over is killed with the
@@ -39,6 +54,8 @@ engines' rq).
         --engines blocked     # one size, one engine
     python3 -m hpmpc_tpu_torch.tools.size_sweep --sizes 8,3,64,10 \\
         --device cpu          # plain versions, no build: a rehearsal
+    python3 -m hpmpc_tpu_torch.tools.size_sweep \\
+        --engines tree_flat,tree_structured   # the tree rows only
 
 One JSON line per (size, engine) goes to stdout (and to
 ``--out FILE``); the last line is a JSON object with the card and the
@@ -64,6 +81,11 @@ SIZES = ((8, 3, 1024, 30), (16, 1, 1024, 30), (16, 3, 1024, 30),
          (24, 3, 1024, 30), (32, 4, 1024, 30), (48, 6, 1024, 30),
          (64, 8, 1024, 30), (128, 16, 512, 30))
 ENGINES = ("resident", "lanes", "flat", "rows16_15", "blocked")
+# (nx, nu) of the tree rows: NZ 11, 17, 19 (the chain's envelope) and 27;
+# the reference's 71-node tree, (md, Nr, Nh), at B instances
+TREE_SIZES = ((8, 3), (16, 1), (16, 3), (24, 3))
+TREE_ENGINES = ("tree_flat", "tree_structured")
+TREE_TOPO, TREE_B = (2, 3, 10), 1024
 K_MAX = 8
 SUBSAMPLE = 64
 #: seconds a per-shape build may take; timed calls after the warm-up
@@ -85,6 +107,9 @@ def _libs(engine: str, dims) -> list:
                  ("resid_full", d3)],
         "rows16_15": [("factor_solve_folded", d2), ("solve_batched", d2)],
         "blocked": [("batch_chol", {})],
+        "tree_flat": [("tree_sweeps", d2), ("tree_resid_terms", d2),
+                      ("step_flat", dict(NZ=dims.NZ, NB=dims.NB))],
+        "tree_structured": [],
     }[engine]
 
 
@@ -206,6 +231,130 @@ def _oracle(qpb, sol, sub) -> dict:
                 agrees=agree)
 
 
+def _build_row(dev, engine, dims, builds, **size) -> dict:
+    """The row of ``engine`` at ``dims`` before it runs: its libraries'
+    build seconds, status, registers and spills."""
+    libs = [builds.get((k, tuple(sorted(d.items()))))
+            for k, d in _libs(engine, dims)]
+    row = dict(size, NZ=dims.NZ, engine=engine,
+               build_s=max((b["s"] for b in libs if b), default=None),
+               build=("ok" if all(b and b["status"] in ("ok", "cached")
+                                  for b in libs) else "not built")
+               if dev.type == "cuda" else "cpu",
+               regs=max((b["regs"] or 0 for b in libs if b), default=None),
+               spill_bytes=(sum(b["spill_bytes"] or 0 for b in libs if b)
+                            if libs and libs[0] else None))
+    if any(b and b["status"] == "over" for b in libs):
+        row["build"] = f"over {CAP_S:.0f} s"
+    elif any(b and b["status"] == "failed" for b in libs):
+        row["build"] = "failed"
+    return row
+
+
+def _timed(torch, np, dev, row, run, qpb):
+    """Run ``run`` on ``qpb`` once and ``REPS`` times more with ``b``
+    perturbed; ms a batch into ``row``; returns the first solution."""
+    ms_of = _timer(torch, dev)
+    first, sol = ms_of(lambda: run(qpb))
+    times = [first]
+    for r in range(REPS if first < 5000 else 0):
+        q = dataclasses.replace(qpb, b=qpb.b * (1 + 1e-4 * (r + 1)))
+        times.append(ms_of(lambda: run(q))[0])
+    row["ms"] = float(np.mean(times[1:] or times))
+    row["first_ms"] = first
+    row["mean_kk"] = float(sol.kk.double().mean())
+    row["status_counts"] = torch.bincount(sol.status.long(),
+                                          minlength=3).tolist()
+    return sol
+
+
+def _tree_oracle(torch, tdef, dims, qpb, sol, sub) -> dict:
+    """The float64 host tree residuals of instances ``sub``: finite,
+    agreeing with the engine's report (rtol 1e-2, atol 1e-5), rb and rd
+    below 1e-3."""
+    import numpy as np
+
+    from ..models import tree
+    from ..models.ipm import _box_onehot
+
+    def pick(x):
+        x = x[sub]
+        return x.double() if x.is_floating_point() else x
+
+    q = type(qpb)(**{f.name: pick(getattr(qpb, f.name))
+                     for f in dataclasses.fields(qpb)})
+    s = type(sol)(*[pick(x) for x in sol])
+    mu_scal = torch.tensor(1.0 / dims.n_constr, dtype=torch.float64,
+                           device=q.b.device)
+    res = tree.tree_residuals(tdef, q, _box_onehot(q), mu_scal, s.z, s.pi,
+                              s.lam_b, s.t_b, s.lam_g, s.t_g, q.b)
+
+    def amax(x):
+        return x.abs().flatten(1).amax(1)
+
+    orc = torch.stack([amax(res.rq), amax(res.rb),
+                       torch.maximum(amax(res.rd_b), amax(res.rd_g)),
+                       res.mu], 1).cpu().numpy()
+    eng = s.inf_norm_res.cpu().numpy()
+    ok = bool(np.all(np.isfinite(orc))
+              and np.allclose(orc, eng, rtol=1e-2, atol=1e-5)
+              and orc[:, 1].max() <= 1e-3 and orc[:, 2].max() <= 1e-3)
+    return dict(oracle="ok" if ok else "fail",
+                max_rb=float(orc[:, 1].max()), max_rd=float(orc[:, 2].max()))
+
+
+def sweep_tree(torch, np, dev, size, engines, emit):
+    """The tree rows at (nx, nu) = ``size``: both tree engines on the
+    71-node tree, the flat engine's libraries built first (capped)."""
+    from ..models import tree
+    from ..models.ipm import IPMConfig
+    from ..ops import _build
+    from ..parallel import batch as pbatch
+    from ..utils.mass_spring import mass_spring_tree_qp
+
+    nx, nu = size
+    md, Nr, Nh = TREE_TOPO
+    tdef, dims, qp = mass_spring_tree_qp(md=md, Nr=Nr, Nh=Nh, nx=nx, nu=nu,
+                                         dtype=torch.float32, device=dev)
+    qpb = pbatch.broadcast_qp(qp, TREE_B)
+    sc = 1 + 0.02 * np.random.default_rng(0).standard_normal(TREE_B)
+    qpb = dataclasses.replace(qpb, b=qpb.b * torch.as_tensor(
+        sc, dtype=torch.float32, device=dev)[:, None, None])
+    cfg = IPMConfig(k_max=K_MAX, mu_tol=0.0, alpha_min=1e-8, use_pallas=True)
+    builds = {}
+    if dev.type == "cuda":
+        builds = build_capped([s for e in engines for s in _libs(e, dims)],
+                              CAP_S)
+    sub = torch.arange(0, TREE_B, max(1, TREE_B // SUBSAMPLE), device=dev)
+    rows, sols = {}, {}
+    for engine in engines:
+        row = _build_row(dev, engine, dims, builds, nx=nx, nu=nu, B=TREE_B,
+                         nodes=tdef.n_nodes)
+        if row["build"] in ("ok", "cpu"):
+            fn = (tree.solve_tree_ipm_flat if engine == "tree_flat"
+                  else tree.solve_tree_ipm)
+            try:
+                sols[engine] = _timed(torch, np, dev, row,
+                                      lambda q: fn(tdef, dims, q, cfg), qpb)
+                row.update(_tree_oracle(torch, tdef, dims, qpb,
+                                        sols[engine], sub))
+            except (RuntimeError, torch.cuda.OutOfMemoryError) as e:
+                row["error"] = str(e)[:300]
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+        rows[engine] = row
+    if len(sols) == 2:          # the two engines' answers side by side
+        a, b = sols["tree_flat"], sols["tree_structured"]
+        rows["tree_flat"]["vs_structured"] = dict(
+            status_equal=float((a.status == b.status).double().mean()),
+            max_dz=float((a.z.double() - b.z.double()).abs().max()))
+    for row in rows.values():
+        row.setdefault("oracle", "not run")
+        emit(row)
+    _build._LIBS.clear()
+    return rows
+
+
 def sweep_size(torch, np, dev, size, engines, emit):
     from ..models.ipm import IPMConfig
     from ..ops import _build
@@ -224,38 +373,14 @@ def sweep_size(torch, np, dev, size, engines, emit):
         specs = [s for e in engines for s in _libs(e, dims)]
         builds = build_capped(specs, CAP_S)
     sub = torch.arange(0, B, max(1, B // SUBSAMPLE), device=dev)
-    ms_of = _timer(torch, dev)
     rows = {}
     for engine in engines:
-        libs = [builds.get((k, tuple(sorted(d.items()))))
-                for k, d in _libs(engine, dims)]
-        row = dict(nx=nx, nu=nu, NZ=dims.NZ, B=B, N=N, engine=engine,
-                   build_s=max((b["s"] for b in libs if b), default=None),
-                   build=("ok" if all(b and b["status"] in ("ok", "cached")
-                                      for b in libs) else "not built")
-                   if dev.type == "cuda" else "cpu",
-                   regs=max((b["regs"] or 0 for b in libs if b), default=None),
-                   spill_bytes=sum(b["spill_bytes"] or 0
-                                   for b in libs if b) if libs[0] else None)
-        if any(b and b["status"] == "over" for b in libs):
-            row["build"] = f"over {CAP_S:.0f} s"
-        elif any(b and b["status"] == "failed" for b in libs):
-            row["build"] = "failed"
+        row = _build_row(dev, engine, dims, builds, nx=nx, nu=nu, B=B, N=N)
         if row["build"] in ("ok", "cpu"):
             run = _runner(engine, dims, cfg)
             try:
-                first, sol = ms_of(lambda: run(qpb))
-                times = [first]
-                for r in range(REPS if first < 5000 else 0):
-                    q = dataclasses.replace(qpb,
-                                            b=qpb.b * (1 + 1e-4 * (r + 1)))
-                    times.append(ms_of(lambda: run(q))[0])
-                row["ms"] = float(np.mean(times[1:] or times))
-                row["first_ms"] = first
+                sol = _timed(torch, np, dev, row, run, qpb)
                 row.update(_oracle(qpb, sol, sub))
-                row["mean_kk"] = float(sol.kk.double().mean())
-                row["status_counts"] = torch.bincount(
-                    sol.status.long(), minlength=3).tolist()
             except (RuntimeError, torch.cuda.OutOfMemoryError) as e:
                 row["error"] = str(e)[:300]
             del run
@@ -282,7 +407,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--sizes", nargs="*", default=None,
                     help="nx,nu,B,N tuples (default: SIZES)")
-    ap.add_argument("--engines", default=",".join(ENGINES))
+    ap.add_argument("--engines", default=",".join(ENGINES + TREE_ENGINES))
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--out", default=None,
                     help="also write the JSON lines to this file")
@@ -297,6 +422,8 @@ def main(argv=None) -> int:
     sizes = (tuple(tuple(int(v) for v in s.split(",")) for s in args.sizes)
              if args.sizes else SIZES)
     engines = tuple(args.engines.split(","))
+    chain = tuple(e for e in engines if e in ENGINES)
+    tree_e = tuple(e for e in engines if e in TREE_ENGINES)
     card = "cpu"
     if dev.type == "cuda":
         card = subprocess.run(
@@ -319,9 +446,10 @@ def main(argv=None) -> int:
 
     table = []
     t0 = time.perf_counter()
-    for size in sizes:
-        rows = sweep_size(torch, np, dev, size, engines, emit)
-        table += list(rows.values())
+    for size in sizes if chain else ():
+        table += list(sweep_size(torch, np, dev, size, chain, emit).values())
+    for size in TREE_SIZES if tree_e else ():
+        table += list(sweep_tree(torch, np, dev, size, tree_e, emit).values())
     print(json.dumps({"card": card, "seconds": time.perf_counter() - t0,
                       "table": table}), flush=True)
     if fh:

@@ -26,7 +26,7 @@ from hpmpc_tpu_torch.convert import QP_FIELDS, qp_from_numpy  # noqa: E402
 from hpmpc_tpu_torch.models.ipm import IPMConfig  # noqa: E402
 from hpmpc_tpu_torch.parallel import batch as tbatch  # noqa: E402
 from hpmpc_tpu_torch.utils.mass_spring import mass_spring_qp  # noqa: E402
-from test_torch_ipm_structured import jit_fast  # noqa: E402
+from test_torch_ipm_structured import jax_batch, jit_fast  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -55,11 +55,8 @@ def test_solve_batched_matches_jax(interpret_pallas, monkeypatch):
     monkeypatch.setenv("HPMPC_RESIDENT", "1")
     B = 1024
     dims, qp_j = j_mass_spring(4, 2, 3, dtype=jnp.float32)
-    qpb = jbatch.broadcast_qp(qp_j, B)
     rng = np.random.default_rng(0)
-    qpb = dataclasses.replace(
-        qpb, b=qpb.b * jnp.asarray(1 + 0.02 * rng.standard_normal(B),
-                                   jnp.float32)[:, None, None])
+    qpb = jax_batch(qp_j, B, b=1 + 0.02 * rng.standard_normal(B))
     qp_t = qp_from_numpy(dims, {f: np.asarray(getattr(qpb, f))
                                 for f in QP_FIELDS}, device="cpu",
                          dtype=torch.float32)
@@ -126,25 +123,33 @@ def test_select_engine_agrees_with_jax(monkeypatch, ci, f32, env):
     dict(mu_tol=0.0, iter_ref=1, iter_ref_mu_thr=1e-3, use_pallas=True,
          env={"HPMPC_STAGE2_LANES": "0"}),    # -> two-stage, flat stage 2
     dict(mu_tol=0.0, iter_ref=1, use_pallas=True,
-         env={"HPMPC_FUSED_SWEEPS": "1"}, match="#7b"),  # rows 17-18
+         env={"HPMPC_FUSED_SWEEPS": "1"}),   # -> flat, row 9 + row 17
 ])
 def test_unported_engines_raise(monkeypatch, kw):
     """The engines the port folded in run (the flat form of the lanes
-    engine: a finite solution); the fused sweeps still raise, naming their
-    ROADMAP item."""
+    engine: a finite solution), the fused sweeps too: under
+    ``HPMPC_FUSED_SWEEPS=1`` the f32 ``iter_ref`` batch's flat engine
+    re-solves on row 17 (``solve_flat_fused``) and, as its refinement reads
+    the affine pi, keeps row 9 for the factorization."""
     monkeypatch.delenv("HPMPC_RESIDENT", raising=False)
+    monkeypatch.delenv("HPMPC_FUSED_SWEEPS", raising=False)
     kw = dict(kw)
-    for k, v in kw.pop("env", {}).items():
+    env = kw.pop("env", {})
+    for k, v in env.items():
         monkeypatch.setenv(k, v)
-    match = kw.pop("match", None)
+    from hpmpc_tpu_torch.ops import stage_kernel as sk
+
     dims, qp = mass_spring_qp(8, 3, 4, dtype=kw.pop("dtype", torch.float32),
                               device="cpu")
     qpb = tbatch.broadcast_qp(qp, 8)
-    if match:
-        with pytest.raises(NotImplementedError, match=match):
-            tbatch.solve_batched(dims, qpb, IPMConfig(k_max=2, **kw))
-        return
+    n0 = dict(sk.PLAIN_CALLS)
     sol = tbatch.solve_batched(dims, qpb, IPMConfig(k_max=2, **kw))
+    ran = {k: v - n0[k] for k, v in sk.PLAIN_CALLS.items()}
+    if env.get("HPMPC_FUSED_SWEEPS"):   # both iterations on rows 9 and 17
+        assert ran["factor_solve_folded_flat"] == ran["solve_flat_fused"] \
+            == 2, ran
+        assert ran["factor_solve_folded_flat_fused"] == ran["solve_flat"] \
+            == 0, ran
     assert int(sol.kk.min()) == 2
     assert all(bool(torch.isfinite(x).all()) for x in sol
                if x.is_floating_point())

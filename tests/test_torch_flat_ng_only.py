@@ -14,8 +14,6 @@ engine runs its stage kernels' plain versions with one masked box slot
 ``_compare`` tolerances.
 """
 
-import dataclasses
-
 import numpy as np
 import pytest
 
@@ -33,7 +31,8 @@ from hpmpc_tpu_torch.models import ipm  # noqa: E402
 from hpmpc_tpu_torch.ops import stage_kernel as sk  # noqa: E402
 from hpmpc_tpu_torch.parallel import batch as tbatch  # noqa: E402
 from hpmpc_tpu_torch.utils.mass_spring import mass_spring_data  # noqa: E402
-from test_torch_ipm_structured import _FAST_COMPILE, _compare  # noqa: E402
+from test_torch_ipm_structured import (  # noqa: E402
+    _FAST_COMPILE, _compare, jax_batch)
 
 torch.set_num_threads(1)
 
@@ -49,8 +48,7 @@ def test_flat_no_box_rows_matches_jax(monkeypatch):
                                                    dims.idxb)
     assert all(len(r) == 0 for r in dims.idxb)
     sc = np.asarray([1.0, 0.5, 0.7, 0.9])
-    qpb = jbatch.broadcast_qp(qp_j, len(sc))
-    qpb = dataclasses.replace(qpb, b=qpb.b * jnp.asarray(sc)[:, None, None])
+    qpb = jax_batch(qp_j, len(sc), b=sc)
     qpt = qp_from_numpy(dims_t, {f: np.asarray(getattr(qpb, f))
                                  for f in QP_FIELDS}, device="cpu")
     cfg = ipm.IPMConfig(use_pallas=True)

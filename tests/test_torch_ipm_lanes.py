@@ -4,8 +4,6 @@ constant streams, the d_init_var initial iterate and the ng init.  Plain
 XLA on the JAX side (no Pallas call), compiled as one function
 (``jax.jit``) rather than op by op, so this is cheap."""
 
-import dataclasses
-
 import numpy as np
 import pytest
 
@@ -17,11 +15,11 @@ import jax.numpy as jnp  # noqa: E402
 from hpmpc_tpu.models import ipm as jipm  # noqa: E402
 from hpmpc_tpu.models import ipm_lanes as jl  # noqa: E402
 from hpmpc_tpu.ops import stage_kernel as jsk  # noqa: E402
-from hpmpc_tpu.parallel import batch as jbatch  # noqa: E402
 from hpmpc_tpu.utils.mass_spring import mass_spring_qp as j_mass_spring  # noqa: E402
 from hpmpc_tpu_torch.convert import QP_FIELDS, qp_from_numpy  # noqa: E402
 from hpmpc_tpu_torch.models import ipm_lanes as tl  # noqa: E402
 from hpmpc_tpu_torch.models.ipm import IPMConfig  # noqa: E402
+from test_torch_ipm_structured import jax_batch  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -38,11 +36,8 @@ def _lanes(x):
 @pytest.mark.parametrize("warm", [False, True])
 def test_lanes_common_matches_jax(warm):
     dims, qp_j = j_mass_spring(8, 3, 4, ngN=4, dtype=jnp.float64)
-    qpb = jbatch.broadcast_qp(qp_j, B)
     rng = np.random.default_rng(0)
-    qpb = dataclasses.replace(
-        qpb, b=qpb.b * jnp.asarray(1 + 0.02 * rng.standard_normal(B))[
-            :, None, None])
+    qpb = jax_batch(qp_j, B, b=1 + 0.02 * rng.standard_normal(B))
     qp_t = qp_from_numpy(dims, {f: np.asarray(getattr(qpb, f))
                                 for f in QP_FIELDS}, device="cpu")
     z0 = pi0 = None

@@ -55,6 +55,7 @@ from hpmpc_tpu_torch.ops import stage_kernel as sk  # noqa: E402
 from hpmpc_tpu_torch.parallel.batch import (  # noqa: E402
     broadcast_qp, broadcast_soft, select_soft_engine, solve_batched_soft)
 from hpmpc_tpu_torch.utils.mass_spring import mass_spring_soft_qp  # noqa: E402
+from test_torch_ipm_structured import jax_batch  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -95,11 +96,8 @@ def cases():
         dims, qp, soft = j_soft_qp(8, 3, N, Z=10.0, dtype=jnp.float64)
         if warm_ng:
             dims, qp = _with_ng(dims, qp)
-        bc = lambda x: jnp.broadcast_to(x, (len(SCALES),) + x.shape)  # noqa: E731
-        qpb = jax.tree_util.tree_map(bc, qp)
-        sb = jax.tree_util.tree_map(bc, soft)
-        qpb = dataclasses.replace(
-            qpb, b=qpb.b * jnp.asarray(SCALES)[:, None, None])
+        qpb = jax_batch(qp, len(SCALES), b=SCALES)
+        sb = jax_batch(soft, len(SCALES))
         z0 = pi0 = None
         if warm_ng:
             rng = np.random.default_rng(3)

@@ -38,9 +38,13 @@ tolerances: the ``"flat"`` engine of ``solve_batched`` (float64
 ``use_pallas`` with a static ``idxb``) without and with ``iter_ref`` (the
 JAX solves of ``defaults`` and ``iter_ref``), the unfused refinement on
 the lanes engine (``HPMPC_FUSED_REFINE=0``) and the two-stage route with
-the flat stage 2 (``HPMPC_STAGE2_LANES=0``), both against ``iter_ref``.
-The wrappers' call counters show the route: rows 11/12 run, the fused
-pass (row 13) and the mega kernels (rows 19/20) do not.  The JAX references are compiled without XLA's
+the flat stage 2 (``HPMPC_STAGE2_LANES=0``), both against ``iter_ref``;
+and the ``"flat"`` engine without and with ``iter_ref`` under
+``HPMPC_FUSED_SWEEPS=1``, on the same JAX solves.  The wrappers' call
+counters show the route: rows 11/12 run, the fused pass (row 13) and the
+mega kernels (rows 19/20) do not; under the switch the re-solve takes the
+fused sweep (row 17) and, without ``iter_ref``, so does the factorization
+(row 18), in place of rows 10 and 9.  The JAX references are compiled without XLA's
 backend optimisations (``_FAST_COMPILE``: no fast-math either way).
 """
 
@@ -56,7 +60,6 @@ import jax.numpy as jnp  # noqa: E402
 
 from conftest import golden_ab, load_golden  # noqa: E402
 from hpmpc_tpu.models import ipm as jipm  # noqa: E402
-from hpmpc_tpu.parallel import batch as jbatch  # noqa: E402
 from hpmpc_tpu.utils.mass_spring import mass_spring_qp as j_mass_spring  # noqa: E402
 from hpmpc_tpu_torch.convert import QP_FIELDS, carry_from_numpy, qp_from_numpy  # noqa: E402
 from hpmpc_tpu_torch.models import ipm, ipm_lanes  # noqa: E402
@@ -88,8 +91,7 @@ def _twin(size):
     (nx, nu, N, ngN), sc = SIZES[size]
     sc = np.asarray(sc)
     dims, qp = j_mass_spring(nx, nu, N, ngN=ngN)
-    qpb = jbatch.broadcast_qp(qp, len(sc))
-    qpb = dataclasses.replace(qpb, b=qpb.b * jnp.asarray(sc)[:, None, None])
+    qpb = jax_batch(qp, len(sc), b=sc)
     qpt = qp_from_numpy(dims, {f: np.asarray(getattr(qpb, f))
                                for f in QP_FIELDS}, device="cpu")
     return dims, qpb, qpt
@@ -124,6 +126,22 @@ def _compare(sol_t, sol_j):
 
 _JAX = {}
 _FAST_COMPILE = {"xla_backend_optimization_level": 0}
+
+
+def jax_batch(tree, B, **scales):
+    """The JAX QP or soft spec ``tree`` tiled to ``B`` instances, each field
+    named in ``scales`` multiplied per instance by its (B,) factors in the
+    field's dtype: the arrays of ``jbatch.broadcast_qp`` and ``x *
+    jnp.asarray(s, x.dtype)[:, None, None]``, built in numpy and handed to
+    JAX leaf by leaf (eagerly, JAX compiles one small program per leaf
+    shape for the tiling)."""
+    tiled = jax.tree_util.tree_map(
+        lambda x: np.broadcast_to(np.asarray(x), (B,) + np.shape(x)), tree)
+    for f, sc in scales.items():
+        x = getattr(tiled, f)
+        tiled = dataclasses.replace(tiled, **{f: x * np.asarray(
+            sc, x.dtype).reshape((B,) + (1,) * (x.ndim - 1))})
+    return jax.tree_util.tree_map(jnp.asarray, tiled)
 
 
 def jit_fast(f, *args, **kw):
@@ -208,7 +226,9 @@ def test_structured_solve_matches_jax(case):
 
 
 _FLAT_ROWS = ("resid_terms_flat", "solve_flat_pb", "refine_flat_fused",
-              "factor_solve_folded_flat", "solve_flat")
+              "factor_solve_folded_flat", "solve_flat",
+              "factor_solve_folded_flat_fused", "solve_flat_fused")
+_FUSED = {"HPMPC_FUSED_SWEEPS": "1"}
 # case: (config beside use_pallas, environment)
 FLAT_CASES = {
     "flat": ({}, {}),
@@ -216,6 +236,8 @@ FLAT_CASES = {
     "unfused_refine": (dict(iter_ref=1), {"HPMPC_FUSED_REFINE": "0"}),
     "flat_stage2": (dict(iter_ref=1, iter_ref_mu_thr=1e-3),
                     {"HPMPC_STAGE2_LANES": "0"}),
+    "flat_fused": ({}, _FUSED),
+    "flat_iter_ref_fused": (dict(iter_ref=1), _FUSED),
 }
 
 
@@ -228,7 +250,8 @@ def _flat_counts():
 def test_flat_form_matches_jax(monkeypatch, case):
     kw, env = FLAT_CASES[case]
     for k in ("HPMPC_RESIDENT", "HPMPC_LANES_LOOP", "HPMPC_MEGA_SWEEPS",
-              "HPMPC_FUSED_REFINE", "HPMPC_STAGE2_LANES"):
+              "HPMPC_FUSED_REFINE", "HPMPC_STAGE2_LANES",
+              "HPMPC_FUSED_SWEEPS"):
         monkeypatch.delenv(k, raising=False)
     for k, v in env.items():
         monkeypatch.setenv(k, v)
@@ -252,11 +275,19 @@ def test_flat_form_matches_jax(monkeypatch, case):
     assert ran["refine_flat_fused"] == 0, ran
     if case != "flat_stage2":      # stage 1 of the two-stage route is mega
         assert max(ran_mega.values()) == 0, ran_mega
-    assert ran["factor_solve_folded_flat"] == ran["solve_flat"] >= 1, ran
+    # the factorization and the re-solve, once an iteration: rows 9 and 10,
+    # or under the switch row 17 and (without iter_ref) row 18
+    fused = bool(env.get("HPMPC_FUSED_SWEEPS"))
+    factor = ("factor_solve_folded_flat_fused"
+              if fused and not kw.get("iter_ref")
+              else "factor_solve_folded_flat")
+    resolve = "solve_flat_fused" if fused else "solve_flat"
+    assert ran[factor] == ran[resolve] >= 1, ran
+    assert sum(ran[k] for k in _FLAT_ROWS[3:]) == 2 * ran[factor], ran
     if kw.get("iter_ref"):
         # one unfused pass after each of the two solves of an iteration
         assert (ran["resid_terms_flat"] == ran["solve_flat_pb"]
-                == 2 * ran["factor_solve_folded_flat"]), ran
+                == 2 * ran[factor]), ran
     else:
         assert ran["resid_terms_flat"] == ran["solve_flat_pb"] == 0, ran
     kw_j = {k: v for k, v in kw.items() if k != "iter_ref_mu_thr"}

@@ -26,13 +26,12 @@ import jax.numpy as jnp  # noqa: E402
 from jax.experimental import pallas as pl  # noqa: E402
 
 from hpmpc_tpu.models import ipm as jipm  # noqa: E402
-from hpmpc_tpu.parallel import batch as jbatch  # noqa: E402
 from hpmpc_tpu.utils.mass_spring import mass_spring_qp as j_mass_spring  # noqa: E402
 from hpmpc_tpu_torch.convert import qp_from_numpy  # noqa: E402
 from hpmpc_tpu_torch.models import ipm_resident  # noqa: E402
 from hpmpc_tpu_torch.models.ipm import IPMConfig  # noqa: E402
 from hpmpc_tpu_torch.utils.mass_spring import mass_spring_qp  # noqa: E402
-from test_torch_ipm_structured import jit_fast  # noqa: E402
+from test_torch_ipm_structured import jax_batch, jit_fast  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -53,11 +52,8 @@ def _twin_batch(N, B, ngN, jdt, tdt, nx=8, nu=3):
     """The same perturbed batch for both packages: (dims, jax qp, port qp)."""
     _, qp_j = j_mass_spring(nx, nu, N, ngN=ngN, dtype=jdt)
     dims, _ = mass_spring_qp(nx, nu, N, ngN=ngN, device="cpu")
-    qpb = jbatch.broadcast_qp(qp_j, B)
     rng = np.random.default_rng(0)
-    qpb = dataclasses.replace(
-        qpb, b=qpb.b * jnp.asarray(1 + 0.02 * rng.standard_normal(B),
-                                   jdt)[:, None, None])
+    qpb = jax_batch(qp_j, B, b=1 + 0.02 * rng.standard_normal(B))
     arrays = {f.name: np.asarray(getattr(qpb, f.name))
               for f in dataclasses.fields(qpb)}
     return dims, qpb, qp_from_numpy(dims, arrays, device="cpu", dtype=tdt)

@@ -24,7 +24,9 @@ dispatch rules' size envelope.
     the band ran, the per-thread kernels' counters that it did not.
   * ``select_engine`` / ``select_soft_engine`` pick ``"structured"`` /
     ``"soft_structured"`` at nx=64 nu=8 (NZ=72) and the engines they picked
-    before the envelope at the sizes the port drives.
+    before the envelope at the sizes the port drives; ``solve_batched_tree``
+    sends a float32 ``use_pallas`` tree at NZ=72 to the structured tree IPM
+    (no tree kernel, no build) and keeps the NZ=6 tree on the flat engine.
 
 The JAX references compile once per module (``jit_fast``: no XLA backend
 optimisations), at NZ <= 10 in interpret mode.
@@ -56,7 +58,8 @@ from hpmpc_tpu_torch.ops import stage_kernel as sk  # noqa: E402
 from hpmpc_tpu_torch.parallel import batch as tbatch  # noqa: E402
 from hpmpc_tpu_torch.utils.mass_spring import (  # noqa: E402
     mass_spring_qp, mass_spring_soft_qp)
-from test_torch_ipm_structured import _compare, jit_fast  # noqa: E402
+from test_torch_ipm_structured import (  # noqa: E402
+    _compare, jax_batch, jit_fast)
 from test_torch_ipm_soft import _compare as _compare_soft  # noqa: E402
 
 torch.set_num_threads(1)
@@ -178,21 +181,15 @@ _PER_THREAD = ("factor_solve_folded", "solve_batched")
 def band_refs():
     """The hard and soft batches (port side) and their JAX solves."""
     dims, qp = j_mass_spring(4, 2, 16)
-    qpb = jax.tree_util.tree_map(
-        lambda x: jnp.broadcast_to(x, (len(SCALES),) + x.shape), qp)
-    qpb = dataclasses.replace(qpb, b=qpb.b * jnp.asarray(SCALES)[:, None,
-                                                                   None])
+    qpb = jax_batch(qp, len(SCALES), b=SCALES)
     cfg = jipm.IPMConfig()
     sol_h = jit_fast(jax.vmap(lambda q: jipm.solve(dims, q, cfg)), qpb)
     qpt = qp_from_numpy(dims, {f: np.asarray(getattr(qpb, f))
                                for f in QP_FIELDS}, device="cpu")
 
     dims_s, qp_s, soft = j_soft_qp(8, 3, 5, Z=10.0, dtype=jnp.float64)
-    bcast = lambda x: jnp.broadcast_to(x, (len(SOFT_SCALES),) + x.shape)  # noqa: E731
-    qps = jax.tree_util.tree_map(bcast, qp_s)
-    sb = jax.tree_util.tree_map(bcast, soft)
-    qps = dataclasses.replace(qps, b=qps.b * jnp.asarray(SOFT_SCALES)[
-        :, None, None])
+    qps = jax_batch(qp_s, len(SOFT_SCALES), b=SOFT_SCALES)
+    sb = jax_batch(soft, len(SOFT_SCALES))
     cfg_s = jipm.IPMConfig(**SOFT_CFG)
     sol_s = jit_fast(jax.vmap(lambda q, s: jsoft.solve(dims_s, q, s, cfg_s)),
                      qps, sb)
@@ -290,3 +287,36 @@ def test_rules_keep_driven_sizes(monkeypatch):
         "soft_lanes"
     assert tbatch.select_soft_engine(dims_s, cfg, f64, ns, idxbs) == \
         "soft_flat"
+
+
+def test_tree_rule_keeps_to_the_envelope(monkeypatch):
+    """A float32 ``use_pallas`` tree past the envelope (nx=64 nu=8: NZ=72,
+    three nodes, B=2, k_max 1) takes the structured tree IPM: no tree
+    kernel runs and nothing is built; the NZ=6 tree of the tree tests
+    keeps the flat engine (stubbed here: its route, not its answer)."""
+    from hpmpc_tpu_torch.models import tree
+    from hpmpc_tpu_torch.ops import _build
+    from hpmpc_tpu_torch.ops import tree_kernel as tk
+    from hpmpc_tpu_torch.utils.mass_spring import mass_spring_tree_qp
+
+    def no_build(*a, **k):
+        raise AssertionError(f"a per-shape build was started: {a}")
+
+    monkeypatch.setattr(_build, "_start", no_build)
+    cfg = ipm.IPMConfig(k_max=1, mu_tol=0.0, use_pallas=True)
+    tdef, dims, qp = mass_spring_tree_qp(md=2, Nr=1, Nh=1, nx=64, nu=8,
+                                         device="cpu")
+    assert dims.NZ == 72 and not sk.engine_fits(dims.NX, dims.NU)
+    plain0 = dict(tk.PLAIN_CALLS)
+    sol = tbatch.solve_batched_tree(tdef, dims, tbatch.broadcast_qp(qp, 2),
+                                    cfg)
+    assert tk.PLAIN_CALLS == plain0
+    assert int(sol.kk.min()) == 1 and bool(torch.isfinite(sol.z).all())
+
+    routes = []
+    monkeypatch.setattr(tree, "solve_tree_ipm_flat",
+                        lambda *a, **k: routes.append("flat"))
+    tdef6, dims6, qp6 = mass_spring_tree_qp(md=2, Nr=1, Nh=3, device="cpu")
+    assert dims6.NZ == 6
+    tbatch.solve_batched_tree(tdef6, dims6, tbatch.broadcast_qp(qp6, 2), cfg)
+    assert routes == ["flat"]

@@ -9,9 +9,10 @@ counters show which route ran.
 
   (a) float64, B=16, N=5 (the reference's soft problem,
       ``mass_spring_soft_qp(8, 3, 5, Z=10)``, ``g`` scaled by 1 + 0.02
-      N(0,1)), both routes (mega, ``HPMPC_MEGA_SWEEPS=0``) and both
-      ``exact_mehrotra_soft`` values: kk and status equal, z, lam_s and t_s
-      within 1e-8.  The budget is ``k_max=6`` (mu ~1e-7): deeper, the
+      N(0,1)), both routes (mega, ``HPMPC_MEGA_SWEEPS=0``; the 6-kernel
+      loop also under ``HPMPC_FUSED_SWEEPS=1``, on the fused sweeps, rows
+      18 and 17) and both ``exact_mehrotra_soft`` values: kk and status
+      equal, z, lam_s and t_s within 1e-8.  The budget is ``k_max=6`` (mu ~1e-7): deeper, the
       multipliers of the active soft bounds are recovered from slacks of
       ~1e-10 and carry ~1e-4 relative roundoff in any summation order
       (measured: lam_s 2e-7 apart at ``k_max=7``, 4e-3 at convergence,
@@ -51,7 +52,7 @@ from hpmpc_tpu_torch.ops import stage_kernel as sk  # noqa: E402
 from hpmpc_tpu_torch.ops import step_kernel as stk  # noqa: E402
 from hpmpc_tpu_torch.parallel import batch as tbatch  # noqa: E402
 from hpmpc_tpu_torch.utils.mass_spring import mass_spring_soft_qp  # noqa: E402
-from test_torch_ipm_structured import jit_fast  # noqa: E402
+from test_torch_ipm_structured import jax_batch, jit_fast  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -87,12 +88,9 @@ def _twin(jdt, tdt, ng=False, seed=5):
     dims, qp, soft = j_soft_qp(8, 3, N, Z=10.0, dtype=jdt)
     if ng:
         dims, qp = _with_ng(dims, qp)
-    bc = lambda x: jnp.broadcast_to(x, (B,) + x.shape)  # noqa: E731
-    qpb = jax.tree_util.tree_map(bc, qp)
-    sb = jax.tree_util.tree_map(bc, soft)
     rng = np.random.default_rng(seed)
-    qpb = dataclasses.replace(qpb, g=qpb.g * jnp.asarray(
-        1 + 0.02 * rng.standard_normal(B), jdt)[:, None, None])
+    qpb = jax_batch(qp, B, g=1 + 0.02 * rng.standard_normal(B))
+    sb = jax_batch(soft, B)
     qpt = qp_from_numpy(dims, {f: np.asarray(getattr(qpb, f))
                                for f in QP_FIELDS}, device="cpu", dtype=tdt)
     st = soft_from_numpy({f: np.asarray(getattr(sb, f)) for f in sb._fields},
@@ -117,21 +115,31 @@ def f64_case():
     return out
 
 
+_SWEEPS = ("factor_solve_folded_flat", "solve_flat")
+_FUSED = ("factor_solve_folded_flat_fused", "solve_flat_fused")
+
+
 def _port(monkeypatch, tw, kw, exact, mega):
-    """The port's soft lanes solve on route ``mega``; also checks that the
-    route's plain versions ran and the other route's did not."""
+    """The port's soft lanes solve on route ``mega`` (True, False, or
+    "fused": the 6-kernel loop under ``HPMPC_FUSED_SWEEPS=1``); also checks
+    that the route's plain versions ran and the other routes' did not."""
     dims, _, _, qpt, st, idxbs = tw
-    monkeypatch.setenv("HPMPC_MEGA_SWEEPS", "1" if mega else "0")
+    monkeypatch.setenv("HPMPC_MEGA_SWEEPS", "1" if mega is True else "0")
+    monkeypatch.setenv("HPMPC_FUSED_SWEEPS", "1" if mega == "fused" else "0")
     n_mega = dict(mk.SOFT_PLAIN_CALLS)
     n_step = dict(stk.SOFT_PLAIN_CALLS)
-    n_solve = sk.PLAIN_CALLS["solve_flat"]
+    n_sk = dict(sk.PLAIN_CALLS)
     sol = ipm_soft_lanes.solve_batched_soft_lanes(
         dims, qpt, st, IPMConfig(use_pallas=True, **kw), idxbs,
         exact_mehrotra_soft=exact)
     ran_mega = all(mk.SOFT_PLAIN_CALLS[k] > n_mega[k] for k in n_mega)
-    ran_six = (all(stk.SOFT_PLAIN_CALLS[k] > n_step[k] for k in n_step)
-               and sk.PLAIN_CALLS["solve_flat"] > n_solve)
-    assert (ran_mega, ran_six) == ((True, False) if mega else (False, True))
+    ran_step = all(stk.SOFT_PLAIN_CALLS[k] > n_step[k] for k in n_step)
+    sweeps = {k: sk.PLAIN_CALLS[k] - n_sk[k] for k in _SWEEPS + _FUSED}
+    on, off = (_FUSED, _SWEEPS) if mega == "fused" else (_SWEEPS, _FUSED)
+    ran_six = ran_step and min(sweeps[k] for k in on) >= 1
+    assert (ran_mega, ran_six) == ((True, False) if mega is True
+                                   else (False, True)), sweeps
+    assert max(sweeps[k] for k in off) == 0, sweeps
     return sol
 
 
@@ -146,7 +154,7 @@ def _check_f64(sol_t, sol_x, fields=("z", "lam_s", "t_s")):
         assert _np(getattr(sol_t, f)).shape == _np(getattr(sol_x, f)).shape, f
 
 
-@pytest.mark.parametrize("mega", [True, False])
+@pytest.mark.parametrize("mega", [True, False, "fused"])
 @pytest.mark.parametrize("exact", [True, False])
 def test_soft_lanes_f64_matches_structured(monkeypatch, f64_case, exact,
                                            mega):
@@ -169,7 +177,7 @@ def test_soft_mega_route_equals_six_kernel_route(monkeypatch, f64_case,
         assert float((x.double() - y.double()).abs().max()) <= 1e-12, f
 
 
-@pytest.mark.parametrize("mega", [True, False])
+@pytest.mark.parametrize("mega", [True, False, "fused"])
 def test_soft_lanes_ng_matches_structured(monkeypatch, f64_case, mega):
     tw, sol_x = f64_case[True, True]
     sol_t = _port(monkeypatch, tw, F64, True, mega)
@@ -225,14 +233,16 @@ def test_compute_residuals_matches_jax(f64_case):
     dict(env={"HPMPC_LANES_LOOP": "0"}, engine="soft_flat"),
     dict(dtype=torch.float64, engine="soft_flat"),
     dict(use_pallas=False, engine="soft_structured"),
-    dict(env={"HPMPC_FUSED_SWEEPS": "1"}, match="#7b"),
+    dict(env={"HPMPC_FUSED_SWEEPS": "1"}, engine="soft_lanes", fused=True),
 ])
 def test_solve_batched_soft_dispatch(monkeypatch, case):
     """Every soft engine but the opt-in soft resident runs: the soft lanes
     engine on its default 6-kernel loop (``HPMPC_MEGA_SWEEPS=1``: the mega
-    route), its flat form, and the structured soft solver; the soft
-    resident and the fused sweeps raise, naming their ROADMAP items."""
-    for k in ("HPMPC_RESIDENT", "HPMPC_LANES_LOOP", "HPMPC_MEGA_SWEEPS"):
+    route; ``HPMPC_FUSED_SWEEPS=1``: the loop on the fused sweeps), its flat
+    form, and the structured soft solver; the soft resident raises, naming
+    its ROADMAP item."""
+    for k in ("HPMPC_RESIDENT", "HPMPC_LANES_LOOP", "HPMPC_MEGA_SWEEPS",
+              "HPMPC_FUSED_SWEEPS"):
         monkeypatch.delenv(k, raising=False)
     for k, v in case.get("env", {}).items():
         monkeypatch.setenv(k, v)
@@ -251,7 +261,9 @@ def test_solve_batched_soft_dispatch(monkeypatch, case):
                                      idxbs) == case["engine"]
     n_mega, n_six = dict(mk.SOFT_PLAIN_CALLS), dict(stk.SOFT_PLAIN_CALLS)
     n_fold = sk.PLAIN_CALLS["factor_solve_folded"]
+    n_sk = dict(sk.PLAIN_CALLS)
     sol = tbatch.solve_batched_soft(dims, qpb, sb, cfg, idxbs=idxbs)
+    sweeps = {k: sk.PLAIN_CALLS[k] - n_sk[k] for k in _SWEEPS + _FUSED}
     ran_mega = all(mk.SOFT_PLAIN_CALLS[k] == n_mega[k] + 1 for k in n_mega)
     ran_six = all(stk.SOFT_PLAIN_CALLS[k] > n_six[k] for k in n_six)
     if case["engine"] == "soft_structured":
@@ -261,6 +273,9 @@ def test_solve_batched_soft_dispatch(monkeypatch, case):
     else:
         assert (ran_mega, ran_six) == ((True, False) if case.get("mega")
                                        else (False, True))
+    if case.get("fused"):   # rows 18 and 17 once each, not rows 9 and 10
+        assert sweeps == dict.fromkeys(_SWEEPS, 0) | dict.fromkeys(_FUSED,
+                                                                   1), sweeps
     assert int(sol.kk.max()) == 1
     assert all(bool(torch.isfinite(x).all()) for x in sol
                if x.is_floating_point())

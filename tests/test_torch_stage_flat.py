@@ -1,6 +1,8 @@
 """Riccati sweep kernels of the 6-kernel lanes loop (``ops/stage_kernel.py``:
-``factor_solve_folded_flat``, ``solve_flat``, ``refine_flat_fused``) of the
-PyTorch port vs the JAX package's Pallas kernels in interpret mode.
+``factor_solve_folded_flat``, ``solve_flat``, ``refine_flat_fused``, and
+the fused-sweep forms ``factor_solve_folded_flat_fused`` and
+``solve_flat_fused``) of the PyTorch port vs the JAX package's Pallas
+kernels in interpret mode.
 
 On the CPU the port's wrappers run their plain versions (counted in
 ``PLAIN_CALLS``).  Inputs: one 1024-lane block, N=3, the narrowest stage
@@ -10,10 +12,10 @@ unrolled stage width), built in numpy from a seed, without and with
 general constraints (NG=2 rows on stages 1 and N; float32 with them only,
 float64 both ways): SPD stage
 Hessians, a positive barrier diagonal, the packed C' diag(Qx_g) C term of
-the same C and Qx_g that the refinement pass takes.  The re-solve and the
-refinement pass run on the JAX factorization's factor state (handed to
-both packages), the refinement on the factor's solution plus noise, so
-the pass has a residual to correct.
+the same C and Qx_g that the refinement pass takes.  The re-solves (with and without the
+fused sweep) and the refinement pass run on the JAX factorization's factor
+state (handed to both packages), the refinement on the factor's solution
+plus noise, so the pass has a residual to correct.
 
 Tolerance, of a field's largest magnitude: float64 1e-12 (the same
 algorithm in another summation order, through three stages of a
@@ -45,8 +47,12 @@ N = NP1 - 1
 NT = NZ * (NZ + 1) // 2
 DIMS = dict(NU=NU, NZ=NZ, NX=NX)
 # float32 only with general constraints (the superset of the code paths):
-# each case costs four interpret-mode compilations
+# each case costs six interpret-mode compilations
 CASES = [("float64", False), ("float64", True), ("float32", True)]
+# the re-solve's cases: the sweep of csrc/solve_flat.cu's global-scratch
+# form, and its fused form
+SOLVE_CASES = [pytest.param(dt, ng, fused, id=f"{dt}-{ng}" + "-fused" * fused)
+               for fused in (False, True) for dt, ng in CASES]
 TOL = {"float64": (1e-12, 1e-12), "float32": (1e-5, 1e-5)}
 
 
@@ -93,7 +99,9 @@ def cases():
     """Per (dtype, with_ng): the problem and the JAX calls, run once in
     interpret mode: the factorization with pi (the port's call without
     pi must give the same z and factor state), the re-solve of a second
-    gradient and one refinement pass, both on that factor state."""
+    gradient and one refinement pass, both on that factor state, and the
+    fused sweeps: the factorization and the re-solve on that factor
+    state."""
     out = {}
     with pytest.MonkeyPatch.context() as mp:
         orig = pl.pallas_call
@@ -118,7 +126,13 @@ def cases():
                 J(p["C"]) if with_ng else None,
                 J(p["qxg"]) if with_ng else None, p["ng_ids"], J(p["g"]),
                 J(p["F"]), J(p["b"]), zc, pic, Ll, Lxx, NU, NZ, NX)
-            out[(dt, with_ng)] = (p, fac, solve, (zc, pic), ref)
+            fused = (
+                jit_fast(jsk.factor_solve_folded_flat_fused, J(p["H"]),
+                         J(p["dvec"]), ngl, p["ng_ids"], J(p["g"]),
+                         J(p["F"]), J(p["b"]), NU, NZ, NX, lanes_io=True),
+                jit_fast(jsk.solve_flat_fused, Ll, Lxx, Pb, J(p["g2"]),
+                         J(p["F"]), J(p["b"]), NU, NZ, NX, lanes_io=True))
+            out[(dt, with_ng)] = (p, fac, solve, (zc, pic), ref, fused)
     return out
 
 
@@ -138,15 +152,22 @@ def _calls(name, fn):
     return out
 
 
-@pytest.mark.parametrize("want_pi", [False, True])
+@pytest.mark.parametrize("want_pi", [False, True, "fused"])
 @pytest.mark.parametrize("dt,with_ng", CASES)
 def test_factor_solve_folded_flat_matches_jax(cases, dt, with_ng, want_pi):
-    p, fac, _, _, _ = cases[(dt, with_ng)]
-    z, pi, fstate = _calls("factor_solve_folded_flat",
-                           lambda: sk.factor_solve_folded_flat(
-                               p["H"], p["dvec"], p["ngl"], p["ng_ids"],
-                               p["g"], p["F"], p["b"], **DIMS,
-                               want_pi=want_pi))
+    """``want_pi`` "fused": the fused sweep (row 18, pi-less) against the
+    JAX package's fused kernel."""
+    p, fac, *_, fused = cases[(dt, with_ng)]
+    args = (p["H"], p["dvec"], p["ngl"], p["ng_ids"], p["g"], p["F"], p["b"])
+    if want_pi == "fused":
+        z, pi, fstate = _calls("factor_solve_folded_flat_fused",
+                               lambda: sk.factor_solve_folded_flat_fused(
+                                   *args, **DIMS))
+        fac, want_pi = fused[0], False
+    else:
+        z, pi, fstate = _calls("factor_solve_folded_flat",
+                               lambda: sk.factor_solve_folded_flat(
+                                   *args, **DIMS, want_pi=want_pi))
     jz, jpi, jstate = fac
     _close(z, jz, dt, "z")
     if want_pi:
@@ -160,11 +181,16 @@ def test_factor_solve_folded_flat_matches_jax(cases, dt, with_ng, want_pi):
     _close(Pb, jstate[2], dt, "Pb")
 
 
-@pytest.mark.parametrize("dt,with_ng", CASES)
-def test_solve_flat_matches_jax(cases, dt, with_ng):
-    p, fac, solve, _, _ = cases[(dt, with_ng)]
+@pytest.mark.parametrize("dt,with_ng,fused", SOLVE_CASES)
+def test_solve_flat_matches_jax(cases, dt, with_ng, fused):
+    """``fused``: the fused sweep (row 17) against the JAX package's fused
+    kernel."""
+    p, fac, solve, _, _, jfused = cases[(dt, with_ng)]
     fstate = tuple(_pt(x) for x in fac[2])
-    z, pi = _calls("solve_flat", lambda: sk.solve_flat(
+    name = "solve_flat_fused" if fused else "solve_flat"
+    if fused:
+        solve = jfused[1]
+    z, pi = _calls(name, lambda: getattr(sk, name)(
         *fstate, p["g2"], p["F"], p["b"], **DIMS))
     _close(z, solve[0], dt, "z")
     _close(pi, solve[1], dt, "pi")
@@ -172,7 +198,7 @@ def test_solve_flat_matches_jax(cases, dt, with_ng):
 
 @pytest.mark.parametrize("dt,with_ng", CASES)
 def test_refine_flat_fused_matches_jax(cases, dt, with_ng):
-    p, fac, _, (zc, pic), ref = cases[(dt, with_ng)]
+    p, fac, _, (zc, pic), ref, _ = cases[(dt, with_ng)]
     Ll, Lxx, _ = (_pt(x) for x in fac[2])
     z, pi = _calls("refine_flat_fused", lambda: sk.refine_flat_fused(
         p["H"], p["dvec"], p["C"], p["qxg"], p["ng_ids"], p["g"], p["F"],

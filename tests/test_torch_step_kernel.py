@@ -12,8 +12,6 @@ The JAX references compile without XLA's backend optimisations
 ``_FAST_COMPILE``).
 """
 
-import dataclasses
-
 import numpy as np
 import pytest
 
@@ -26,14 +24,13 @@ from hpmpc_tpu.models import ipm as jipm  # noqa: E402
 from hpmpc_tpu.models import ipm_lanes as jl  # noqa: E402
 from hpmpc_tpu.ops import stage_kernel as jsk  # noqa: E402
 from hpmpc_tpu.ops import step_kernel as jstk  # noqa: E402
-from hpmpc_tpu.parallel import batch as jbatch  # noqa: E402
 from hpmpc_tpu.utils.mass_spring import mass_spring_qp as j_mass_spring  # noqa: E402
 from hpmpc_tpu_torch.convert import QP_FIELDS, qp_from_numpy  # noqa: E402
 from hpmpc_tpu_torch.models import ipm_resident  # noqa: E402
 from hpmpc_tpu_torch.models.ipm import IPMConfig  # noqa: E402
 from hpmpc_tpu_torch.ops import stage_math as sm  # noqa: E402
 from hpmpc_tpu_torch.ops import step_kernel as stk  # noqa: E402
-from test_torch_ipm_structured import jit_fast  # noqa: E402
+from test_torch_ipm_structured import jax_batch, jit_fast  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -60,11 +57,8 @@ def _lanes(x):
 
 def test_resid_full_matches_jax(interpret_pallas):
     dims, qp_j = j_mass_spring(4, 2, 3, dtype=jnp.float64)
-    qpb = jbatch.broadcast_qp(qp_j, B)
     rng = np.random.default_rng(0)
-    qpb = dataclasses.replace(
-        qpb, b=qpb.b * jnp.asarray(1 + 0.02 * rng.standard_normal(B))[
-            :, None, None])
+    qpb = jax_batch(qp_j, B, b=1 + 0.02 * rng.standard_normal(B))
     qp_t = qp_from_numpy(dims, {f: np.asarray(getattr(qpb, f))
                                 for f in QP_FIELDS}, device="cpu")
     # mid-solve iterate: two resident iterations from the cold start

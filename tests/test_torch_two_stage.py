@@ -8,7 +8,9 @@ wrappers run their plain versions; their call counters show which ran.
   (a) float64, ``iter_ref=2`` ungated, default two-phase tolerances,
       iterate for iterate: kk and status equal, z within 1e-8 (the
       tolerance of tests/test_torch_lanes.py, whose setups these are:
-      box-only at N=5, the ngN=4 terminal block at N=16).
+      box-only at N=5, the ngN=4 terminal block at N=16); at N=16 also
+      under ``HPMPC_FUSED_SWEEPS=1``: the factorization stays on row 9
+      (the refinement reads its pi), the re-solve takes row 17.
   (b) ``HPMPC_MEGA_SWEEPS=0`` (the 6-kernel loop without refinement)
       equals the mega route, float64, N=16 ngN=4: kk and status equal, z
       within 1e-10 (the same arithmetic; only the ng gradient rows are
@@ -40,7 +42,6 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from hpmpc_tpu.models import ipm as jipm  # noqa: E402
-from hpmpc_tpu.parallel import batch as jbatch  # noqa: E402
 from hpmpc_tpu.utils.mass_spring import mass_spring_qp as j_mass_spring  # noqa: E402
 from hpmpc_tpu_torch.convert import (QP_FIELDS, qp_from_numpy,  # noqa: E402
                                      solution_from_numpy)
@@ -50,7 +51,7 @@ from hpmpc_tpu_torch.ops import mega_kernel as mk  # noqa: E402
 from hpmpc_tpu_torch.ops import stage_kernel as sk  # noqa: E402
 from hpmpc_tpu_torch.ops import step_kernel as stk  # noqa: E402
 from hpmpc_tpu_torch.parallel import batch as tbatch  # noqa: E402
-from test_torch_ipm_structured import jit_fast  # noqa: E402
+from test_torch_ipm_structured import jax_batch, jit_fast  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -58,11 +59,8 @@ torch.set_num_threads(1)
 def _twin(N, B, ngN, jdt, tdt):
     """The same perturbed batch for both packages: (dims, jax qp, port qp)."""
     dims, qp_j = j_mass_spring(8, 3, N, ngN=ngN, dtype=jdt)
-    qpb = jbatch.broadcast_qp(qp_j, B)
     rng = np.random.default_rng(0)
-    qpb = dataclasses.replace(
-        qpb, b=qpb.b * jnp.asarray(1 + 0.02 * rng.standard_normal(B),
-                                   jdt)[:, None, None])
+    qpb = jax_batch(qp_j, B, b=1 + 0.02 * rng.standard_normal(B))
     qpt = qp_from_numpy(dims, {f: np.asarray(getattr(qpb, f))
                                for f in QP_FIELDS}, device="cpu", dtype=tdt)
     return dims, qpb, qpt
@@ -101,18 +99,25 @@ def _structured_ref(N, ngN):
     return _STRUCTURED[(N, ngN)]
 
 
-@pytest.mark.parametrize("N,ngN", [(5, 0), (16, 4)])
-def test_lanes_iter_ref_f64_matches_structured(N, ngN):
+@pytest.mark.parametrize("N,ngN,fused", [
+    pytest.param(5, 0, False, id="5-0"), pytest.param(16, 4, False, id="16-4"),
+    pytest.param(16, 4, True, id="16-4-fused")])
+def test_lanes_iter_ref_f64_matches_structured(monkeypatch, N, ngN, fused):
     kw = _REF_KW
     dims, qpb, qpt, sol_x = _structured_ref(N, ngN)
+    if fused:
+        monkeypatch.setenv("HPMPC_FUSED_SWEEPS", "1")
     n0 = _counts()
     sol_t = ipm_lanes.solve_batched_lanes(dims, qpt,
                                           IPMConfig(use_pallas=True, **kw))
     ran = _ran(n0)
+    resolve, unused = (("solve_flat_fused", "solve_flat") if fused
+                       else ("solve_flat", "solve_flat_fused"))
     # two refinement passes after each of the two solves of an iteration
     assert ran["refine_flat_fused"] == 4 * ran["factor_solve_folded_flat"]
-    assert ran["solve_flat"] == ran["factor_solve_folded_flat"] >= 1
+    assert ran[resolve] == ran["factor_solve_folded_flat"] >= 1
     assert ran["factor_solve_mega"] == ran["solve_mega"] == 0
+    assert ran[unused] == ran["factor_solve_folded_flat_fused"] == 0
     np.testing.assert_array_equal(_np(sol_t.kk), _np(sol_x.kk))
     np.testing.assert_array_equal(_np(sol_t.status), _np(sol_x.status))
     assert (_np(sol_t.status) == 0).sum() >= 7, _np(sol_t.status)
@@ -147,8 +152,8 @@ def _parity_ref(K, B):
     if (K, B) not in _PARITY:
         dims, qpb, qpt = _twin(4, B, 0, jnp.float32, torch.float32)
         qpb64 = jax.tree_util.tree_map(
-            lambda x: x.astype(jnp.float64) if x.dtype == jnp.float32
-            else x, qpb)
+            lambda x: jnp.asarray(np.asarray(x).astype(np.float64))
+            if x.dtype == jnp.float32 else x, qpb)
         _PARITY[(K, B)] = (dims, qpt,
                            _structured(dims, qpb64, k_max=K, mu_tol=0.0))
     return _PARITY[(K, B)]
