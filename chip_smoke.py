@@ -128,6 +128,18 @@ solve_batched`` (the f64 lanes runs call the engine directly):
     against the same path without the switch (bit for bit); ms a batch
     with and without the switch; the two kernels alone beside rows 9 and
     10.
+  * the soft resident (section R, ``HPMPC_RESIDENT=1`` on the soft path):
+    row 1s (``csrc/ipm_resident.cu`` built with ``-DHP_NS``) against its
+    plain version on the same inputs, f64 at k_max=6 and f32 at k_max=2,
+    on the soft flagship and the small problem with general rows, both
+    ``exact_mehrotra_soft`` values; then, counted from 0,
+    ``solve_batched_soft`` at ``tools/bench_soft.py``'s flagship (4096 f32
+    instances): one launch of row 1s and no other kernel, the f64 soft
+    oracle on 64 instances, and the soft 6-kernel loop on the same batch
+    (each held against the f64 6-kernel loop at k_max 8; the two f32
+    routes against each other at k_max 6); ms a batch (resident, six,
+    six, resident), a profile, and row 1s alone beside its plain version
+    and its bound.
 
 Each path runs with the launch counters set to 0 just before and read just
 after, and its answer is held against a float64 host residual oracle (the
@@ -281,7 +293,10 @@ def _stage_ops(NU, NX, NB, NG, NS=0):
     the stage helpers in csrc/stage_math.cuh; ``NS`` adds the soft
     kernels' (per soft row: the slack Schur elimination 26, its folds 16,
     the scatters 2, the soft direction 34, the gather 1, the alpha partials
-    48, the corrector's centering correction 16 and exact fold 11)."""
+    48, the corrector's centering correction 16 and exact fold 11).  Each
+    soft term (``soft_fold``, ``soft_alpha``, ``soft_corr``) counts the
+    Schur elimination, as each launch of the soft 6-kernel loop forms it
+    anew; ``soft_schur`` is its share."""
     NZ, NB2, NG2 = NU + NX, 2 * NB, 2 * NG
     soft_fold, soft_alpha, soft_corr = 44 * NS, 109 * NS, 71 * NS
     NT = NZ * (NZ + 1) // 2
@@ -323,7 +338,7 @@ def _stage_ops(NU, NX, NB, NG, NS=0):
         soft_solve=corr + fwd + 2 * NX * NX + soft_corr + soft_alpha
         + 4 * NS,
         soft_prep=fold - NZ + soft_fold, soft_alpha=22 * NB2 + soft_alpha,
-        soft_corr=6 * NB2 + fold - NZ + soft_corr)
+        soft_corr=6 * NB2 + fold - NZ + soft_corr, soft_schur=26 * NS)
 
 
 def _bound(nbytes: int, ops: float):
@@ -631,29 +646,16 @@ def _check_soft_solution(torch, sol, dims, NS, k_max, what):
 
 
 def _soft_oracle(torch, dims, qpb, soft, sol, primal_max, what):
-    """The soft KKT residuals (``ipm_soft.compute_residuals``) in float64
-    of a subsample of ``sol``: finite, small primal residuals (dynamics,
-    box, soft-bound gaps), and their mu equal to the solver's last stat
-    row; returns the largest mu."""
+    """The soft KKT residuals (``ipm_soft.residuals64``) in float64 of a
+    subsample of ``sol``: finite, small primal residuals (dynamics, box,
+    soft-bound gaps), and their mu equal to the solver's last stat row;
+    returns the largest mu."""
     from hpmpc_tpu_torch.models import ipm_soft
 
     sub = torch.arange(0, B, B // ORACLE_SUBSAMPLE, device=qpb.b.device)
-
-    def d64(x):
-        return x[sub].double() if x.is_floating_point() else x[sub]
-
-    q64 = type(qpb)(**{f.name: d64(getattr(qpb, f.name))
-                       for f in dataclasses.fields(qpb)})
-    s64 = type(soft)(*[d64(x) for x in soft])
-    x64 = type(sol)(*[d64(x) for x in sol])
-    res = ipm_soft.compute_residuals(dims, q64, s64, x64)
-    rmax = {f: float(getattr(res, f).abs().max()) for f in res._fields}
+    rmax, dmu = ipm_soft.residuals64(dims, qpb, soft, sol, sub)
     if not all(v == v and v != float("inf") for v in rmax.values()):
         _fail(f"{what}: soft oracle residuals not finite: {rmax}")
-    kk = x64.kk.long().clamp(min=1) - 1
-    mu_eng = x64.stat[torch.arange(len(sub), device=sub.device), kk, 4]
-    dmu = float(((res.mu - mu_eng).abs() / res.mu.abs().clamp(min=1e-30))
-                .max())
     print(f"{what}: soft f64 oracle ({ORACLE_SUBSAMPLE} instances): "
           + ", ".join(f"max |{f}| {v:.3e}" for f, v in rmax.items())
           + f"; oracle mu vs the solver's last stat row: max rel diff "
@@ -1590,6 +1592,250 @@ def _fused_sweeps(torch, np, dev, card, reset_counts, read_counts, total,
     return rows, t_sec
 
 
+# the soft resident (section R, Queue 2 row 1s): the kernel name of its
+# counters.  Its plain-version checks run at row 1's budgets (f64 k_max=6,
+# f32 k_max=2: deeper runs amplify two summation orders' roundoff), f64 at
+# row 1's TOL, f32 against the f64 plain version as section 2 holds rows
+# 14-16 (row 1's absolute f32 bounds are the hard flagship's; the soft
+# flagship's pi reaches ~1.5e3)
+SOFT_RES = "ipm_resident_soft"
+# the soft resident against the soft 6-kernel loop on the same batch:
+# tests/test_soft_resident.py's tolerances where kk agrees (at k_max 6,
+# see section R2)
+SOFT_RES_TOL = dict(kk_share=0.99, z=(1e-4, 5e-4), lam_s=(1e-3, 5e-3))
+
+
+def _soft_resident(torch, np, dev, card, reset_counts, read_counts, total,
+                   section_done, t_sec, cx):
+    """Section R, the soft resident engine (``HPMPC_RESIDENT=1`` on the
+    soft path: the whole soft IPM in one launch of Queue 2 row 1s).  R1:
+    row 1s against its plain version on the same inputs, f64 and f32, on
+    the soft flagship and the small problem with general rows, both
+    ``exact_mehrotra_soft`` values.  R2, counted from 0: the soft main path
+    (``solve_batched_soft`` at tools/bench_soft.py's flagship, 4096 f32
+    instances) under the switch: one launch of row 1s and no other kernel,
+    the f64 soft oracle on 64 instances, and the soft 6-kernel loop's
+    answer on the same batch (``cx.sol_s6``).  R3: ms a batch (resident,
+    six, six, resident), the resident route's profile, ptxas, and row 1s
+    alone beside its plain version and its bound.  Returns (the
+    kernels-line entry of row 1s, t_sec)."""
+    from hpmpc_tpu_torch.models import ipm_soft_lanes, ipm_soft_resident
+    from hpmpc_tpu_torch.ops import _build
+    from hpmpc_tpu_torch.ops import resident_kernel as rk
+    from hpmpc_tpu_torch.parallel import batch as pbatch
+
+    # ---- R1. row 1s vs its plain version, f64 and f32 ------------------
+    err32 = 0.0
+    for dtype in (torch.float64, torch.float32):
+        name = str(dtype).split(".")[-1]
+        tol = TOL[name]
+        cfg_c = dataclasses.replace(cx.cfg_soft, k_max=tol["k_max"])
+        for N_s, ng in ((SOFT_N, False), (SOFT_NG_N, True)):
+            soft_c = cx.soft_problem(dtype, N_s, ng)
+            for exact in (True, False):
+                what = (f"{SOFT_RES} {name} N={N_s}{' ng' if ng else ''}"
+                        f"{'' if exact else ' dropped correction'} (k_max="
+                        f"{tol['k_max']})")
+                args, kw = ipm_soft_resident.soft_resident_inputs(
+                    *soft_c[:3], cfg_c, soft_c[3], exact)
+                out_k = rk.ipm_resident(*args, **kw)
+                torch.cuda.synchronize()
+                out_p = rk.ipm_resident_ref(*args, **kw)
+                if not torch.equal(out_k[5], out_p[5]):
+                    _fail(f"{what}: kk differs from the plain version")
+                if not all(bool(torch.isfinite(x).all()) for x in out_k
+                           if x.is_floating_point()):
+                    _fail(f"{what}: non-finite kernel output")
+                dz = _maxdiff(torch, out_k[0], out_p[0])
+                dpi = _maxdiff(torch, out_k[1], out_p[1])
+                # box, general-row and soft multipliers and slacks
+                lam_i = (2, 3) + ((8, 9) if ng else ()) + (-2, -1)
+                pairs = [(out_k[i], out_p[i]) for i in lam_i]
+                dlam = max(_maxdiff(torch, a, b) for a, b in pairs)
+                lam_ok = all(bool(torch.allclose(
+                    a, b, rtol=tol["lam_rtol"], atol=tol["lam_atol"]))
+                    for a, b in pairs)
+                print(f"{what}: kk equal, max|dz| {dz:.3e} (tol "
+                      f"{tol['z']:.0e}), max|dpi| {dpi:.3e} (tol "
+                      f"{tol['pi']:.0e}), max|dlam| {dlam:.3e} (rtol "
+                      f"{tol['lam_rtol']:.0e}, atol {tol['lam_atol']:.0e})",
+                      flush=True)
+                if dtype == torch.float64:
+                    if not (dz <= tol["z"] and dpi <= tol["pi"] and lam_ok):
+                        _fail(f"{what} disagrees with its plain version")
+                else:
+                    # row 1's absolute f32 tolerances are the hard
+                    # flagship's; here pi reaches ~1.5e3, so each is held
+                    # against the f64 plain version, as section 2 holds
+                    # rows 14-16 in f32
+                    _check_vs_f64(torch, {("ipm_resident", ""): (args, kw)},
+                                  {"ipm_resident": rk}, COND_FACTOR,
+                                  MEGA_TOL[name],
+                                  "(soft)" + what[len(SOFT_RES):])
+                    err32 = max(err32, max(_maxdiff(torch, a, b) for a, b
+                                           in zip(out_k, out_p)
+                                           if a.is_floating_point()))
+                del out_k, out_p, args, kw
+            del soft_c
+    t_sec = section_done("R1 soft resident vs plain", t_sec)
+
+    # ---- R2. the soft main path under HPMPC_RESIDENT=1, counted from 0 ---
+    label = "soft resident path f32"
+    with _env(HPMPC_RESIDENT="1"):
+        engine = pbatch.select_soft_engine(cx.dims_s, cx.cfg_soft,
+                                           torch.float32, cx.NS, cx.idxbs_s)
+        if engine != "soft_resident":
+            _fail(f"{label}: select_soft_engine chose {engine!r}")
+        reset_counts()
+        with _capture([(rk, "ipm_resident")]) as calls:
+            sol = pbatch.solve_batched_soft(cx.dims_s, cx.qpb_s, cx.sb_s,
+                                            cx.cfg_soft, idxbs=cx.idxbs_s)
+        torch.cuda.synchronize()
+        counts = read_counts()
+    ran = {n: total(v) for n, v in counts.items() if total(v)}
+    if ran != {SOFT_RES: 1}:
+        _fail(f"{label}: launches {ran}, expected one of {SOFT_RES} and "
+              "no other kernel")
+    _check_soft_solution(torch, sol, cx.dims_s, cx.NS, cx.cfg_soft.k_max,
+                         label)
+    kk = sol.kk.double()
+    print(f"{label}: engine {engine}, launches {ran}, mean kk "
+          f"{float(kk.mean()):.3f}, kk histogram "
+          f"{torch.bincount(sol.kk.long()).tolist()}, status counts "
+          f"(converged, max-iter, frozen) "
+          f"{torch.bincount(sol.status, minlength=3).tolist()}", flush=True)
+    if float(kk.mean()) <= 3.0:
+        _fail(f"{label}: suspicious mean iteration count {float(kk.mean())}")
+    _soft_oracle(torch, cx.dims_s, cx.qpb_s, cx.sb_s, sol, 1e-3, label)
+    # against the soft 6-kernel loop on the same batch.  At the main path's
+    # budget (k_max 8) the two f32 routes differ by about each one's own
+    # f32 error against the f64 answer, beyond tests/test_soft_resident.
+    # py's tolerances (set at N=5, k_max=3), so there each route is held
+    # against the f64 6-kernel loop: the resident's error at most
+    # COND_FACTOR times the 6-kernel loop's; those tolerances are checked
+    # between the two at k_max 6 on the same batch
+    d64, q64, s64, _ = cx.soft_problem(torch.float64)
+    with _env(HPMPC_MEGA_SWEEPS="0"):
+        ref64 = ipm_soft_lanes.solve_batched_soft_lanes(
+            d64, q64, s64, cx.cfg_soft, cx.idxbs_s)
+    ref = cx.sol_s6
+    share = float((sol.kk == ref.kk).double().mean())
+    same = (sol.kk == ref.kk) & (ref.kk == ref64.kk)
+    errs = {}
+    for f in ("z", "lam_s"):
+        x64 = getattr(ref64, f)[same]
+        errs[f] = [float((getattr(s_, f)[same].double() - x64).abs().max())
+                   for s_ in (sol, ref)]
+    print(f"{label} vs the soft 6-kernel loop (section 9), k_max "
+          f"{cx.cfg_soft.k_max}: kk equal on {share:.4f} of the instances "
+          f"(limit {SOFT_RES_TOL['kk_share']}); on the {int(same.sum())} "
+          f"where both agree with the f64 6-kernel loop, max |d| from it: z "
+          f"resident {errs['z'][0]:.3e}, 6-kernel loop {errs['z'][1]:.3e}; "
+          f"lam_s resident {errs['lam_s'][0]:.3e}, 6-kernel loop "
+          f"{errs['lam_s'][1]:.3e} (limit {COND_FACTOR:.0f}x); the two f32 "
+          f"routes apart: z {_maxdiff(torch, sol.z[same], ref.z[same]):.3e}, "
+          f"lam_s {_maxdiff(torch, sol.lam_s[same], ref.lam_s[same]):.3e}",
+          flush=True)
+    if share <= SOFT_RES_TOL["kk_share"] or any(
+            e[0] > COND_FACTOR * e[1] for e in errs.values()):
+        _fail(f"{label} disagrees with the soft 6-kernel loop")
+    cfg6 = dataclasses.replace(cx.cfg_soft, k_max=6)
+    with _env(HPMPC_RESIDENT="1"):
+        sol6 = pbatch.solve_batched_soft(cx.dims_s, cx.qpb_s, cx.sb_s, cfg6,
+                                         idxbs=cx.idxbs_s)
+    with _env(HPMPC_MEGA_SWEEPS="0"):
+        ref6 = pbatch.solve_batched_soft(cx.dims_s, cx.qpb_s, cx.sb_s, cfg6,
+                                         idxbs=cx.idxbs_s)
+    same6 = sol6.kk == ref6.kk
+    share6 = float(same6.double().mean())
+    ok = share6 > SOFT_RES_TOL["kk_share"]
+    dev_ = {}
+    for f in ("z", "lam_s"):
+        rt, at = SOFT_RES_TOL[f]
+        a = getattr(sol6, f)[same6].double()
+        b = getattr(ref6, f)[same6].double()
+        dev_[f] = float((a - b).abs().max())
+        ok &= bool(torch.allclose(a, b, rtol=rt, atol=at))
+    print(f"{label} vs the soft 6-kernel loop, same batch at k_max 6: kk "
+          f"equal on {share6:.4f}; there max |d| z {dev_['z']:.3e} (rtol "
+          f"{SOFT_RES_TOL['z'][0]:.0e}, atol {SOFT_RES_TOL['z'][1]:.0e}), "
+          f"lam_s {dev_['lam_s']:.3e} (rtol {SOFT_RES_TOL['lam_s'][0]:.0e}, "
+          f"atol {SOFT_RES_TOL['lam_s'][1]:.0e})", flush=True)
+    if not ok:
+        _fail(f"{label} (k_max 6) disagrees with the soft 6-kernel loop")
+    del sol6, ref6, ref64, same6
+    del sol, same
+    t_sec = section_done("R2 soft resident path", t_sec)
+
+    # ---- R3. ms a batch, profile, ptxas, row 1s alone ---------------------
+    def run_with(**env):
+        def run(r):
+            q = dataclasses.replace(cx.qpb_s,
+                                    g=cx.qpb_s.g * (1.0 + 1e-4 * r))
+            with _env(**env):
+                return pbatch.solve_batched_soft(
+                    cx.dims_s, q, cx.sb_s, cx.cfg_soft, idxbs=cx.idxbs_s)
+        return run
+
+    routes = {"resident": dict(HPMPC_RESIDENT="1"),
+              "six": dict(HPMPC_RESIDENT="0", HPMPC_MEGA_SWEEPS="0")}
+    ms = {k: [] for k in routes}
+    for which in ("resident", "six", "six", "resident"):
+        ms[which].append(_time_ms(torch, run_with(**routes[which]), reps=5))
+    mean = {k: sum(v) / 2 for k, v in ms.items()}
+    print(f"soft resident [{card}]: {mean['resident']:.3f} ms per {B}-batch "
+          f"({ms['resident'][0]:.3f}, {ms['resident'][1]:.3f}); the soft "
+          f"6-kernel loop {mean['six']:.3f} ms ({ms['six'][0]:.3f}, "
+          f"{ms['six'][1]:.3f}); ratio {mean['resident'] / mean['six']:.3f}",
+          flush=True)
+    pr = _profile(torch, run_with(**routes["resident"]), reps=3)
+    print(_profile_line("soft resident f32", card, pr), flush=True)
+    print(f"soft resident f32: glue kernels per call "
+          f"{pr['n'].get('other', 0.0):.0f} ({pr['ms'].get('other', 0.0):.3f}"
+          " ms)", flush=True)
+    for lib, log in sorted(_build.PTXAS_LOG.items()):
+        if lib.startswith("libipm_resident_") and f"_NS{cx.NS}_" in lib:
+            for line in _ptxas_lines(log):
+                print(f"ptxas {SOFT_RES} ({lib}): {line}", flush=True)
+
+    a, k = calls[("ipm_resident", "")]
+    out = rk.ipm_resident(*a, **k)
+    d = cx.dims_s
+    # the hard stage work on every stage, the soft work per soft row that
+    # an instance's mask keeps (none on stage 0): the soft terms of
+    # soft_factor + soft_solve count the slack Schur elimination four
+    # times, which the kernel forms once an iteration (lam_s, t_s and the
+    # mask stay put within it); + 16 a row: lam_s, t_s += a2 d
+    ops, ops1 = (_stage_ops(d.NU, d.NX, d.NB, d.NG, ns) for ns in (0, 1))
+    soft_row = (ops1["soft_factor"] - ops["factor"] + ops1["soft_solve"]
+                - ops["solve"] - 3 * ops1["soft_schur"] + 16)
+    upd = ops["update"]
+    it_ops = (d.N + 1) * (upd + ops["factor"] + ops["solve"]) + 2 * ops["root"]
+    kk = out[5].double()
+    n_soft = (k["msk"] != 0).sum((0, 1)).double()     # (B,) rows kept
+    sum_kk = float(kk.sum())
+    n_ops = float((kk * (it_ops + soft_row * n_soft)).sum()
+                  + B * (d.N + 1) * upd + 16 * n_soft.sum())
+    kw_in = [v for v in k.values() if hasattr(v, "is_floating_point")]
+    nbytes = _nbytes(a, kw_in, out)
+    bound_ms, bound_by = _bound(nbytes, n_ops)
+    ms_k = _time_ms(torch, lambda r: rk.ipm_resident(*a, **k), reps=10)
+    ms_p = _time_ms(torch, lambda r: rk.ipm_resident_ref(*a, **k), reps=1)
+    print(f"{SOFT_RES} [{card}]: kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms, "
+          f"bound {bound_ms:.4f} ms ({bound_by}: {nbytes} B, {n_ops:.4e} ops "
+          f"at mean kk {sum_kk / B:.3f}; {bound_ms / ms_k:.2%} of bound) "
+          f"(float32, B={B}, N={SOFT_N}, NS={cx.NS}, the main path's call);"
+          f" launches on the main path {ran[SOFT_RES]}", flush=True)
+    row = {"name": SOFT_RES, "route": "cuda",
+           "source": "hpmpc_tpu_torch/csrc/ipm_resident.cu",
+           "replaces": "hpmpc_tpu/ops/resident_kernel.py:1014",
+           "launches": ran[SOFT_RES], "max_abs_err": err32, "ms": ms_k,
+           "plain_ms": ms_p, "bound_ms": bound_ms, "bound_by": bound_by,
+           "library_ms": None}
+    t_sec = section_done("R3 soft resident timings", t_sec)
+    return row, t_sec
+
+
 # the large-NZ band (section L).  Rows 24-25 against their plain versions
 # on the card: random SPD matrices (A A' + n I, A standard normal: condition
 # ~5), 64 of them at each n of LARGE_N, and one whose row and column 3 are
@@ -2001,20 +2247,19 @@ def main() -> int:
         nonlocal row14_main
         if row14_main is not None:
             row14_main += sk.LAUNCHES["factor_solve_batched"]
-        rk.LAUNCHES = 0
         stk.RESID_LAUNCHES = 0
         for d in (stk.LAUNCHES, mk.LAUNCHES):
             for v in d.values():
                 v[:] = [0, 0]
-        for d in (sk.LAUNCHES, mk.SOFT_LAUNCHES, stk.SOFT_LAUNCHES,
-                  tk.LAUNCHES, bc.LAUNCHES):
+        for d in (rk.LAUNCHES, sk.LAUNCHES, mk.SOFT_LAUNCHES,
+                  stk.SOFT_LAUNCHES, tk.LAUNCHES, bc.LAUNCHES):
             for n in d:
                 d[n] = 0
 
     def read_counts():
         """Launches of every kernel since reset_counts(): [phase 1, phase
         2] for the phase-templated ones, an int for the others."""
-        out = {"ipm_resident": rk.LAUNCHES, "resid_full": stk.RESID_LAUNCHES}
+        out = dict(rk.LAUNCHES, resid_full=stk.RESID_LAUNCHES)
         out.update({n: list(v) for n, v in mk.LAUNCHES.items()})
         out.update({n: list(v) for n, v in stk.LAUNCHES.items()})
         out.update(sk.LAUNCHES)
@@ -2070,6 +2315,8 @@ def main() -> int:
     NS = soft0.ns_mask.shape[-1]
     ds = dict(NU=dims_s.NU, NX=dims_s.NX, NB=dims_s.NB, NS=NS)
     specs = [("resid_full", d3), ("ipm_resident", dict(d3, NG=dims.NG)),
+             # row 1s, the soft resident (section R)
+             ("ipm_resident", dict(ds, NG=dims_s.NG)),
              ("factor_solve_mega", d3), ("solve_mega", d3),
              ("step_flat", dict(NZ=dims.NZ, NB=dims.NB)),
              ("factor_solve_flat", d2), ("solve_flat", d2),
@@ -2888,6 +3135,13 @@ def main() -> int:
             cfg_e0=cfg_e0, cfg_d=cfg_d, cfg_par=cfg_par, cfg_soft=cfg_soft,
             sol_p=sol_p, sol_d=sol_d, sol_e0=sol_e0, sol_s6=sol_s6))
 
+    # ---- R. the soft resident (row 1s) ----------------------------------
+    soft_res_row, t_sec = _soft_resident(
+        torch, np, dev, card, reset_counts, read_counts, total, section_done,
+        t_sec, types.SimpleNamespace(
+            soft_problem=soft_problem, dims_s=dims_s, qpb_s=qpb_s, sb_s=sb_s,
+            idxbs_s=idxbs_s, NS=NS, cfg_soft=cfg_soft, sol_s6=sol_s6))
+
     # ---- I-K. the public API and the dense latency tick (row 23) ---------
     row23, t_sec = _api_and_dense(torch, np, dev, card, repo, reset_counts,
                                   read_counts, total, section_done, t_sec)
@@ -3202,6 +3456,7 @@ def main() -> int:
                         "ms": ms, "plain_ms": ms_plain,
                         "bound_ms": bound_ms, "bound_by": bound_by,
                         "library_ms": None})
+    kernels.append(soft_res_row)
     kernels += fused_rows
     kernels.append(row23)
     kernels += tree_rows

@@ -2,8 +2,9 @@
 // one CUDA thread runs one instance's solve from init to exit.
 //
 // Replaces: hpmpc_tpu/ops/resident_kernel.py::ipm_resident (TPU body
-// _resident_kernel), hard variant (no soft slacks), general-constraint
-// rows included.  Plain version:
+// _resident_kernel), general-constraint rows included: the hard variant
+// (HP_NS = 0, Queue 2 row 1) and the soft one (HP_NS > 0, row 1s, the
+// single-loop soft IPM d_ip2_mpc_soft_tv).  Plain version:
 // hpmpc_tpu_torch/ops/resident_kernel.py::ipm_resident_ref.
 //
 // Algorithm (the reference's legacy no-residual d_ip2_hard): per
@@ -40,13 +41,34 @@
 // possible.  Making it fast (several threads per instance, shared-memory
 // staging of the stage streams) is later work.
 //
-// Specialisation: NU, NX, NB, NG are compile-time (-D, one library per
-// shape); N, k_max and the stages that carry general constraints (the
-// ng_stage table, n_ng entries) are runtime arguments.
+// Soft rows (HP_NS > 0): each stage's NS soft constraints carry four
+// slack/multiplier families [lo; up; s_lo; s_up] (4NS values), eliminated
+// per stage by the slack Schur complement of csrc/stage_math.cuh
+// (soft_schur, soft_qx, soft_dt_dls, soft_corr_fold: the code of the soft
+// 6-kernel loop, csrc/soft_step_flat.cu, so nvcc contracts the same
+// expressions).  The affine backward sweep folds them into the barrier
+// diagonal and gradient, both forward sweeps add their directions'
+// fraction-to-boundary and duality terms, the corrector backward sweep
+// their centering gradient (exact: with its Schur-folded correction;
+// without it the reference's dropped correction; a uniform runtime branch,
+// so one kernel a type carries both forms).  Their multipliers and
+// slacks live in the lams/ts outputs, as z, lam and t do; five direction
+// slabs (affine dt/dl, the centering correction, corrector dt/dl; 5 x 4NS
+// rows a stage) join the scratch.  The duality scaling is per instance
+// (musc).  Every soft array is a per-thread array too: the soft Schur
+// adds ~10 NS values a stage to the hard kernel's live set.
+//
+// Specialisation: NU, NX, NB, NG and NS (0 when absent: the hard kernel,
+// whose code the soft branches leave as it was) are compile-time (-D, one
+// library per shape); N, k_max and the stages that carry general
+// constraints (the ng_stage table, n_ng entries) are runtime arguments.
 #include "stage_math.cuh"
 
 #if !defined(HP_NU) || !defined(HP_NX) || !defined(HP_NB) || !defined(HP_NG)
 #error "compile with -DHP_NU=.. -DHP_NX=.. -DHP_NB=.. -DHP_NG=.."
+#endif
+#ifndef HP_NS
+#define HP_NS 0
 #endif
 
 namespace {
@@ -60,15 +82,20 @@ constexpr int NG = HP_NG;
 constexpr int NG2 = 2 * NG;
 constexpr int NT = NZ * (NZ + 1) / 2;
 constexpr int NTX = NX * (NX + 1) / 2;
+constexpr int NS = HP_NS;
+// the soft arrays' extent (1 in the hard kernel, where no soft code runs)
+constexpr int NSA = NS > 0 ? NS : 1;
+constexpr int NS4 = 4 * NSA;
 constexpr int BLOCK = 32;
 
 // rows of per-instance scratch, in the order the kernel carves them:
-// dz2, dpi2, dt2, dl2, dta, dla, co, ll, eu, px, lxx, pb, and the five
-// ng direction slabs
+// dz2, dpi2, dt2, dl2, dta, dla, co, ll, eu, px, lxx, pb, the five ng
+// direction slabs, and the five soft ones (dta_s, dla_s, dl2c_s, dt2_s,
+// dl2_s)
 __host__ __device__ inline int64_t work_rows(int64_t N, int64_t n_ng) {
   return (N + 1) * NZ + N * NX + 5 * (N + 1) * NB2 + (N + 1) * NZ * NU +
          (N + 1) * NU + (N + 1) * NX + (N + 1) * NTX + N * NX +
-         5 * n_ng * NG2;
+         5 * n_ng * NG2 + 5 * (N + 1) * 4 * NS;
 }
 
 }  // namespace
@@ -93,6 +120,12 @@ struct ResidentArgs {
   const void* lamg0;     // (n_ng, 2NG, B)
   const void* tg0;       // (n_ng, 2NG, B)
   const void* ng_stage;  // (n_ng,) int32 stage of each ng slot
+  const void* idxs;      // (N+1, NS) int32 soft coordinate table
+  const void* lams0;     // (N+1, 4NS, B) [lo; up; s_lo; s_up]
+  const void* ts0;       // (N+1, 4NS, B)
+  const void* softc;     // (N+1, 6NS, B) [d_lbs; d_ubs; Z0; Z1; zl0; zl1]
+  const void* msk;       // (N+1, NS, B) soft mask
+  const void* musc;      // (B,) per-instance 1 / (2 nb + 2 ng + 4 ns)
   void* z;               // (N+1, NZ, B)
   void* pi;              // (N, NX, B)
   void* lam;             // (N+1, 2NB, B)
@@ -103,6 +136,8 @@ struct ResidentArgs {
   void* stat;            // (K, 5, B)
   void* lamg;            // (n_ng, 2NG, B)
   void* tg;              // (n_ng, 2NG, B)
+  void* lams;            // (N+1, 4NS, B)
+  void* ts;              // (N+1, 4NS, B)
   void* work;            // (work_rows, B)
   int64_t B;
   int64_t N;
@@ -112,6 +147,7 @@ struct ResidentArgs {
   double mu_tol;
   double alpha_min;
   double mu0;
+  int exact;             // soft: keep the corrector gradient's correction
 };
 
 template <typename T>
@@ -141,6 +177,10 @@ __global__ void __launch_bounds__(BLOCK) ipm_resident_kernel(ResidentArgs a) {
                      lamg0 = in(a.lamg0), tg0 = in(a.tg0);
   const Col<T> z = out(a.z), pi = out(a.pi), lam = out(a.lam), t = out(a.t),
                stat = out(a.stat), lamg = out(a.lamg), tg = out(a.tg);
+  const int* idxs = static_cast<const int*>(a.idxs);
+  const Col<const T> lams0 = in(a.lams0), ts0 = in(a.ts0),
+                     softcc = in(a.softc), mskc = in(a.msk);
+  const Col<T> lams = out(a.lams), ts = out(a.ts);
 
   T* w = static_cast<T*>(a.work);
   int64_t off = 0;
@@ -158,6 +198,9 @@ __global__ void __launch_bounds__(BLOCK) ipm_resident_kernel(ResidentArgs a) {
                dtag = take(n_ng * NG2), dlag = take(n_ng * NG2),
                cog = take(n_ng * NG2), dt2g = take(n_ng * NG2),
                dl2g = take(n_ng * NG2);
+  const int64_t srows = (N + 1) * 4 * NS;
+  const Col<T> dtas = take(srows), dlas = take(srows), dl2cs = take(srows),
+               dt2s = take(srows), dl2s = take(srows);
 
   auto ng_slot = [&](int n) {
     for (int j = 0; j < n_ng; ++j)
@@ -199,6 +242,14 @@ __global__ void __launch_bounds__(BLOCK) ipm_resident_kernel(ResidentArgs a) {
   auto C = [&](int j, int g, int i) {
     return Cgc((static_cast<int64_t>(j) * NG + g) * NZ + i);
   };
+  // a stage's soft multipliers, slacks, mask and constants
+  auto load_soft = [&](int n, T (&ls)[NS4], T (&tsv)[NS4], T (&ms)[NSA],
+                       T (&c)[6 * NSA]) {
+    hp::load(ls, lams, static_cast<int64_t>(n) * NS4);
+    hp::load(tsv, ts, static_cast<int64_t>(n) * NS4);
+    hp::load(ms, mskc, static_cast<int64_t>(n) * NSA);
+    hp::load(c, softcc, static_cast<int64_t>(n) * 6 * NSA);
+  };
 
   // ---- one-time init -----------------------------------------------------
   for (int64_t r = 0; r < (N + 1) * NZ; ++r) {
@@ -222,10 +273,16 @@ __global__ void __launch_bounds__(BLOCK) ipm_resident_kernel(ResidentArgs a) {
     dl2g(r) = T(0);
   }
   for (int64_t r = 0; r < static_cast<int64_t>(K) * 5; ++r) stat(r) = T(0);
+  for (int64_t r = 0; r < srows; ++r) {
+    lams(r) = lams0(r);
+    ts(r) = ts0(r);
+    dt2s(r) = T(0);
+    dl2s(r) = T(0);
+  }
 
   const T BIG = T(3.0e38);
   const T mu_tol = T(a.mu_tol), alpha_min = T(a.alpha_min),
-          mu_scal = T(a.mu_scal);
+          mu_scal = NS > 0 ? in(a.musc)(0) : T(a.mu_scal);
   T a2p = T(0), mu = T(a.mu0), lamref = BIG;
   int frz = 0, kk = 0;
   T Lxx_c[NX][NX], px_c[NX];
@@ -250,6 +307,13 @@ __global__ void __launch_bounds__(BLOCK) ipm_resident_kernel(ResidentArgs a) {
           lam(r) = lam(r) + a2p * dl2(r);
           t(r) = t(r) + a2p * dt2(r);
         }
+        if constexpr (NS > 0) {
+          for (int i = 0; i < 4 * NS; ++i) {
+            const int64_t r = static_cast<int64_t>(k) * 4 * NS + i;
+            lams(r) = lams(r) + a2p * dl2s(r);
+            ts(r) = ts(r) + a2p * dt2s(r);
+          }
+        }
         if (k >= 1) {
           for (int i = 0; i < NX; ++i) {
             const int64_t r = static_cast<int64_t>(k - 1) * NX + i;
@@ -270,21 +334,39 @@ __global__ void __launch_bounds__(BLOCK) ipm_resident_kernel(ResidentArgs a) {
       T lamk[NB2], tk[NB2], mbk[NB2], Ak[NB2];
       load_box(k, lamk, tk, mbk, Ak);
       const int* ik = idx + k * NB;
-      T Qx[NB], qx[NB];
-      hp::qx_fold<T, NB>(lamk, tk, mbk, Ak, Qx, qx);
       T ge[NZ];
-      hp::load(ge, pdregc, static_cast<int64_t>(k) * NZ);
-      hp::scatter_add_box<T, NB, NZ>(ge, ik, Qx);
       T M[NZ][NZ];
+      if constexpr (NS > 0) {
+        // the box and the soft Schur folds: the barrier diagonal dv onto
+        // pdreg, the gradient onto the base
+        T dv[NZ], ls[NS4], tsv[NS4], ms[NSA], c[6 * NSA];
+        load_soft(k, ls, tsv, ms, c);
+        hp::load(dv, pdregc, static_cast<int64_t>(k) * NZ);
+        hp::load(ge, basec, static_cast<int64_t>(k) * NZ);
+        hp::soft_fold<T, NB, NSA, NZ>(lamk, tk, mbk, Ak, ls, tsv, ms, c, ik,
+                                      idxs + k * NS, dv, ge);
 #pragma unroll
-      for (int i = 0; i < NZ; ++i)
+        for (int i = 0; i < NZ; ++i)
 #pragma unroll
-        for (int j = 0; j <= i; ++j)
-          M[i][j] = Hc(static_cast<int64_t>(k) * NT + hp::sym_idx(i, j));
+          for (int j = 0; j <= i; ++j)
+            M[i][j] = Hc(static_cast<int64_t>(k) * NT + hp::sym_idx(i, j));
 #pragma unroll
-      for (int i = 0; i < NZ; ++i) M[i][i] = M[i][i] + ge[i];
-      hp::load(ge, basec, static_cast<int64_t>(k) * NZ);
-      hp::scatter_add_box<T, NB, NZ>(ge, ik, qx);
+        for (int i = 0; i < NZ; ++i) M[i][i] = M[i][i] + dv[i];
+      } else {
+        T Qx[NB], qx[NB];
+        hp::qx_fold<T, NB>(lamk, tk, mbk, Ak, Qx, qx);
+        hp::load(ge, pdregc, static_cast<int64_t>(k) * NZ);
+        hp::scatter_add_box<T, NB, NZ>(ge, ik, Qx);
+#pragma unroll
+        for (int i = 0; i < NZ; ++i)
+#pragma unroll
+          for (int j = 0; j <= i; ++j)
+            M[i][j] = Hc(static_cast<int64_t>(k) * NT + hp::sym_idx(i, j));
+#pragma unroll
+        for (int i = 0; i < NZ; ++i) M[i][i] = M[i][i] + ge[i];
+        hp::load(ge, basec, static_cast<int64_t>(k) * NZ);
+        hp::scatter_add_box<T, NB, NZ>(ge, ik, qx);
+      }
       if (jg >= 0) {
         // general-constraint barrier: M += C' diag(Qxg) C, ge += C' qxg
         T lg[NG2], tgv[NG2], mg[NG2], dg[NG2], Qxg[NG], qxg[NG];
@@ -382,6 +464,24 @@ __global__ void __launch_bounds__(BLOCK) ipm_resident_kernel(ResidentArgs a) {
       hp::store(dta, static_cast<int64_t>(s) * NB2, dtb);
       hp::store(dla, static_cast<int64_t>(s) * NB2, dlb);
       hp::alpha_sums<T, NB2>(lamk, tk, mbk, dtb, dlb, amin, s0, s1, s2);
+      if constexpr (NS > 0) {
+        // the soft affine direction against zl, its alpha and mu terms
+        T ls[NS4], tsv[NS4], ms[NSA], c[6 * NSA], zs[NSA], zero4[NS4];
+        T dts[NS4], dls[NS4];
+        load_soft(s, ls, tsv, ms, c);
+        hp::SoftSchur<T, NSA> S;
+        hp::soft_schur<T, NSA>(ls, tsv, ms, c, S);
+        hp::gather_box<T, NSA, NZ>(zt, idxs + s * NS, zs);
+#pragma unroll
+        for (int i = 0; i < NSA; ++i) zs[i] = zs[i] * ms[i];
+#pragma unroll
+        for (int i = 0; i < NS4; ++i) zero4[i] = T(0);
+        hp::soft_dt_dls<T, NSA>(ls, tsv, S, zs, zero4, S.zl0, S.zl1, dts,
+                                dls);
+        hp::store(dtas, static_cast<int64_t>(s) * NS4, dts);
+        hp::store(dlas, static_cast<int64_t>(s) * NS4, dls);
+        hp::alpha_sums<T, NS4>(ls, tsv, S.ms4, dts, dls, amin, s0, s1, s2);
+      }
 
       const int jg = ng_slot(s);
       if (jg >= 0) {
@@ -417,11 +517,31 @@ __global__ void __launch_bounds__(BLOCK) ipm_resident_kernel(ResidentArgs a) {
       load_box(k, lamk, tk, mbk, Ak);
       hp::load(dtak, dta, static_cast<int64_t>(k) * NB2);
       hp::load(dlak, dla, static_cast<int64_t>(k) * NB2);
-      T cok[NB2], qx[NB], ge[NZ];
-      hp::corr_co_qx<T, NB>(lamk, tk, mbk, Ak, dtak, dlak, sm, cok, qx);
-      hp::store(cor, static_cast<int64_t>(k) * NB2, cok);
+      T cok[NB2], ge[NZ];
       hp::load(ge, basec, static_cast<int64_t>(k) * NZ);
-      hp::scatter_add_box<T, NB, NZ>(ge, idx + k * NB, qx);
+      if constexpr (NS > 0) {
+        // the box and the soft centering corrections and the corrected
+        // gradient folds
+        T ls[NS4], tsv[NS4], ms[NSA], c[6 * NSA], dts[NS4], dls[NS4];
+        T dl2c[NS4];
+        load_soft(k, ls, tsv, ms, c);
+        hp::load(dts, dtas, static_cast<int64_t>(k) * NS4);
+        hp::load(dls, dlas, static_cast<int64_t>(k) * NS4);
+        if (a.exact)
+          hp::soft_corr_fold<T, NB, NSA, NZ, true>(
+              lamk, tk, mbk, Ak, dtak, dlak, ls, tsv, ms, c, dts, dls, sm,
+              idx + k * NB, idxs + k * NS, cok, dl2c, ge);
+        else
+          hp::soft_corr_fold<T, NB, NSA, NZ, false>(
+              lamk, tk, mbk, Ak, dtak, dlak, ls, tsv, ms, c, dts, dls, sm,
+              idx + k * NB, idxs + k * NS, cok, dl2c, ge);
+        hp::store(dl2cs, static_cast<int64_t>(k) * NS4, dl2c);
+      } else {
+        T qx[NB];
+        hp::corr_co_qx<T, NB>(lamk, tk, mbk, Ak, dtak, dlak, sm, cok, qx);
+        hp::scatter_add_box<T, NB, NZ>(ge, idx + k * NB, qx);
+      }
+      hp::store(cor, static_cast<int64_t>(k) * NB2, cok);
       const int jg = ng_slot(k);
       if (jg >= 0) {
         T lg[NG2], tgv[NG2], mg[NG2], dg[NG2], dtg[NG2], dlg[NG2];
@@ -497,6 +617,27 @@ __global__ void __launch_bounds__(BLOCK) ipm_resident_kernel(ResidentArgs a) {
       hp::store(dt2, static_cast<int64_t>(s) * NB2, dtb);
       hp::store(dl2, static_cast<int64_t>(s) * NB2, dlb);
       hp::alpha_sums<T, NB2>(lamk, tk, mbk, dtb, dlb, amin, s0, s1, s2);
+      if constexpr (NS > 0) {
+        // the soft corrector direction against zl + the dl2c fold, with
+        // dl2c as its centering stream
+        T ls[NS4], tsv[NS4], ms[NSA], c[6 * NSA], zs[NSA], dl2c[NS4];
+        T zl0x[NSA], zl1x[NSA], dts[NS4], dls[NS4];
+        load_soft(s, ls, tsv, ms, c);
+        hp::load(dl2c, dl2cs, static_cast<int64_t>(s) * NS4);
+        hp::SoftSchur<T, NSA> S;
+        hp::soft_schur<T, NSA>(ls, tsv, ms, c, S);
+        hp::gather_box<T, NSA, NZ>(zt, idxs + s * NS, zs);
+#pragma unroll
+        for (int i = 0; i < NSA; ++i) {
+          zs[i] = zs[i] * ms[i];
+          zl0x[i] = S.zl0[i] + dl2c[i] + dl2c[2 * NSA + i];
+          zl1x[i] = S.zl1[i] + dl2c[NSA + i] + dl2c[3 * NSA + i];
+        }
+        hp::soft_dt_dls<T, NSA>(ls, tsv, S, zs, dl2c, zl0x, zl1x, dts, dls);
+        hp::store(dt2s, static_cast<int64_t>(s) * NS4, dts);
+        hp::store(dl2s, static_cast<int64_t>(s) * NS4, dls);
+        hp::alpha_sums<T, NS4>(ls, tsv, S.ms4, dts, dls, amin, s0, s1, s2);
+      }
 
       const int jg = ng_slot(s);
       if (jg >= 0) {

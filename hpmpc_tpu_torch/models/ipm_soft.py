@@ -21,6 +21,7 @@ both.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import torch
@@ -359,3 +360,24 @@ def compute_residuals(dims, qp: OCPQP, soft: SoftSpec,
         dims.n_constr + 4.0 * ms.reshape(B, -1).sum(1))
     return SoftResiduals(rq=rq, rz=rz, rb=rb, rd_b=rd_b, rd_g=rd_g,
                          rd_s=rd_s, mu=mu)
+
+
+def residuals64(dims, qp: OCPQP, soft: SoftSpec, sol: SoftSolution,
+                sub: torch.Tensor):
+    """:func:`compute_residuals` in float64 of the instances ``sub`` of a
+    batched solve: ({field: max |residual|}, the largest relative
+    difference between their mu and the solver's last stat row)."""
+    def d64(x):
+        x = x[sub]
+        return x.double() if x.is_floating_point() else x
+
+    q = type(qp)(**{f.name: d64(getattr(qp, f.name))
+                    for f in dataclasses.fields(qp)})
+    x = type(sol)(*[d64(v) for v in sol])
+    res = compute_residuals(dims, q, type(soft)(*[d64(v) for v in soft]), x)
+    rmax = {f: float(getattr(res, f).abs().max()) for f in res._fields}
+    mu_eng = x.stat[torch.arange(len(sub), device=sub.device),
+                    x.kk.long().clamp(min=1) - 1, 4]
+    dmu = float(((res.mu - mu_eng).abs() / res.mu.abs().clamp(min=1e-30))
+                .max())
+    return rmax, dmu

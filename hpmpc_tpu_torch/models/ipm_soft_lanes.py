@@ -53,6 +53,42 @@ class _LSState(NamedTuple):
     stat: torch.Tensor     # (B, k_max, 5)
 
 
+class SoftStreams(NamedTuple):
+    """The soft rows' batch-last streams of a batch (B instances, NS soft
+    rows a stage), shared by the soft lanes and the soft resident
+    engines."""
+
+    idxS: torch.Tensor     # (N+1, NS) int32 padded-z soft coordinates
+    msL: torch.Tensor      # (N+1, NS, B) soft mask
+    softcL: torch.Tensor   # (N+1, 6NS, B) [d_lbs; d_ubs; Z0; Z1; zl0; zl1]
+    lamsL0: torch.Tensor   # (N+1, 4NS, B) initial multipliers: mu0, masked
+    tsL0: torch.Tensor     # (N+1, 4NS, B) initial slacks: ones
+    mu_scal: torch.Tensor  # (B,) duality scaling 1 / (2 nb + 2 ng + 4 ns)
+
+
+def soft_streams(dims, soft, idxbs_static, mu0, dt, dev) -> SoftStreams:
+    """:class:`SoftStreams` of the :class:`~.ipm_soft.SoftSpec` batch
+    ``soft`` (``d_init_var_mpc_soft_tv``'s soft init; the mu scaling per
+    instance, ``d_ip2_soft.c:268-271``)."""
+    Np1 = dims.N + 1
+    B, NS = soft.ns_mask.shape[0], soft.ns_mask.shape[-1]
+    idxS = torch.as_tensor(
+        np.array(idxbs_static, np.int32).reshape(Np1, NS), device=dev)
+    ms1 = soft.ns_mask.to(dt)                            # (B, Np1, NS)
+    ms4_st = torch.cat([ms1] * 4, -1)                    # (B, Np1, 4NS)
+    softcL = to_lanes(torch.cat([
+        soft.d_lbs, soft.d_ubs, soft.Z[..., 0, :], soft.Z[..., 1, :],
+        soft.z_lin[..., 0, :], soft.z_lin[..., 1, :]], -1).to(dt))
+    t_s0 = torch.ones(B, Np1, 4 * NS, dtype=dt, device=dev)
+    lam_s0 = torch.where(ms4_st > 0, torch.full_like(t_s0, mu0),
+                         torch.zeros_like(t_s0))
+    n_hard = 2 * sum(dims.nb) + 2 * sum(dims.ng)
+    return SoftStreams(
+        idxS=idxS, msL=to_lanes(ms1), softcL=softcL, lamsL0=to_lanes(lam_s0),
+        tsL0=to_lanes(t_s0),
+        mu_scal=1.0 / (n_hard + 4.0 * ms1.reshape(B, -1).sum(1)))
+
+
 def solve_batched_soft_lanes(dims, qp, soft, cfg, idxbs_static,
                              exact_mehrotra_soft: bool = True
                              ) -> SoftSolution:
@@ -111,25 +147,13 @@ def solve_batched_soft_lanes(dims, qp, soft, cfg, idxbs_static,
     idxT, mbL, dcatL, gL, pdregL, bL = (cm.idxT, cm.mbL, cm.dcatL, cm.gL,
                                         cm.pdregL, cm.bL)
     Hl, Fl = cm.Hl, cm.Fl
-    idxS = torch.as_tensor(
-        np.array(idxbs_static, np.int32).reshape(Np1, NS), device=dev)
-
-    ms1 = soft.ns_mask.to(dt)                            # (B, Np1, NS)
-    ms4_st = torch.cat([ms1] * 4, -1)                    # (B, Np1, 4NS)
-    msL = to_lanes(ms1)
-    # soft constants: [d_lbs; d_ubs; Z0; Z1; zlin0; zlin1] per stage
-    softcL = to_lanes(torch.cat([
-        soft.d_lbs, soft.d_ubs, soft.Z[..., 0, :], soft.Z[..., 1, :],
-        soft.z_lin[..., 0, :], soft.z_lin[..., 1, :]], -1).to(dt))
+    ss = soft_streams(dims, soft, idxbs_static, mu0, dt, dev)
+    idxS, msL, softcL, mu_scal = ss.idxS, ss.msL, ss.softcL, ss.mu_scal
 
     ngh = make_ng_lanes(dims, qp, ng_stages, dt, B)
     mgF, dg_cat, mg2, sgn_g = ngh.mgF, ngh.dg_cat, ngh.mg2, ngh.sgn_g
     cat2 = lambda v: torch.cat([v, v], 1)  # noqa: E731
     empty = torch.zeros(B, 0, dtype=dt, device=dev)
-
-    # mu scaling, per instance: 2 nb + 2 ng + 4 ns (d_ip2_soft.c:268-271)
-    n_hard = 2 * sum(dims.nb) + 2 * sum(dims.ng)
-    mu_scal = 1.0 / (n_hard + 4.0 * ms1.reshape(B, -1).sum(1))
 
     def soft_in(s):
         return (idxT, idxS, s.lamL, s.tL, dcatL, mbL, s.lamsL, s.tsL, softcL,
@@ -185,13 +209,10 @@ def solve_batched_soft_lanes(dims, qp, soft, cfg, idxbs_static,
 
     # ---- init (d_init_var_mpc_soft_tv; box/ng init shared via cm) --------
     lam_g0, t_g0 = cm.ng_init(ngh)
-    t_s0 = torch.ones(B, Np1, 4 * NS, dtype=dt, device=dev)
-    lam_s0 = torch.where(ms4_st > 0, torch.full_like(t_s0, mu0),
-                         torch.zeros_like(t_s0))
     s = _LSState(
         zL=cm.zL0, piL=torch.zeros(N, NX, B, dtype=dt, device=dev),
         lamL=cm.lamL0, tL=cm.tL0, lam_g=lam_g0, t_g=t_g0,
-        lamsL=to_lanes(lam_s0), tsL=to_lanes(t_s0),
+        lamsL=ss.lamsL0, tsL=ss.tsL0,
         mu=torch.full((B,), mu0, dtype=dt, device=dev),
         alpha=torch.ones(B, dtype=dt, device=dev),
         kk=torch.zeros(B, dtype=torch.int32, device=dev),

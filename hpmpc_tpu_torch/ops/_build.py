@@ -4,10 +4,12 @@
 a plain C interface (no PyTorch headers: a build takes seconds, not
 minutes), for ``sm_90a``, once per problem shape.  The stage dimensions
 are compile-time ``-D`` defines (``HP_NU``, ``HP_NX``, ``HP_NB``,
-``HP_NG``) — the CUDA form of the JAX kernels' ``static_argnames`` — so
-the per-thread arrays are fixed-size and the stage loops unroll.  The
-library name carries the dimensions and a hash of the sources and flags,
-so an edited source is never served from a stale build.
+``HP_NG``, ``HP_NS``) — the CUDA form of the JAX kernels'
+``static_argnames`` — so the per-thread arrays are fixed-size and the
+stage loops unroll.  The library name carries every define given and a
+hash of the sources and flags, so an edited source is never served from a
+stale build, and one source built with and without a define (the hard
+and the soft resident kernel: ``NS``) never shares a library.
 
 The library lands in ``hpmpc_tpu_torch/_build/`` (git-ignored) at first
 use and is loaded with ``ctypes``; nothing is built at import.

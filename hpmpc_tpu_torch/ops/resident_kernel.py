@@ -1,13 +1,20 @@
 """The whole phase-1 IPM in one kernel: CUDA kernel + plain version.
 
 Port of ``hpmpc_tpu/ops/resident_kernel.py::ipm_resident`` (TPU body
-``_resident_kernel``), hard variant (no soft slacks), with the
-general-constraint rows.  Semantics are the reference's legacy
-no-residual solver (``d_ip2_hard.c``): pure phase-1 Mehrotra
+``_resident_kernel``), with the general-constraint rows: the hard
+variant (``NS = 0``, Queue 2 row 1) and the soft variant (``NS > 0``, row
+1s).  Semantics are the reference's legacy no-residual solver
+(``d_ip2_hard.c``; with soft rows the single-loop ``d_ip2_mpc_soft_tv``,
+``mpc_solvers/d_ip2_soft.c:83``): pure phase-1 Mehrotra
 predictor-corrector to ``mu_tol``/``k_max``, per-instance early stop, the
 NaN / divergence / dual-explosion freeze, and a pending state update
 ``z += a2 (dz2 - z)`` applied stage by stage in the next iteration's
-first sweep (a final pass applies the last one).
+first sweep (a final pass applies the last one).  The soft variant adds,
+per stage and sweep, the soft-slack Schur elimination into the barrier
+fold, the soft directions with their fraction-to-boundary and duality
+terms, and the soft corrector gradient (``exact`` keeps its Schur-folded
+correction; without it the reference's dropped correction); its duality
+scaling is per instance (``musc``).
 
 Liveness is per instance.  An instance that is not live (converged:
 ``mu <= mu_tol``, or frozen) skips the iteration and leaves its state,
@@ -34,13 +41,17 @@ from . import _build
 from . import stage_math as sm
 from .layout import from_lanes, sym_expand, sym_nt, to_lanes
 
-#: launches of the CUDA ipm_resident kernel in this process
-LAUNCHES = 0
+#: launches of the CUDA kernel in this process, hard (``NS = 0``) and
+#: soft variant
+LAUNCHES = {"ipm_resident": 0, "ipm_resident_soft": 0}
+#: calls of the wrapper that ran the plain version, per variant
+PLAIN_CALLS = dict.fromkeys(LAUNCHES, 0)
 
 _PTRS = ("idx", "lam0", "t0", "z0", "pi0", "base", "pdreg", "H", "F", "b",
          "dcat", "mb", "Cg", "dgg", "mgg", "lamg0", "tg0", "ng_stage",
+         "idxs", "lams0", "ts0", "softc", "msk", "musc",
          "z", "pi", "lam", "t", "mu", "kk", "frozen", "stat", "lamg", "tg",
-         "work")
+         "lams", "ts", "work")
 
 
 class _ResidentArgs(ctypes.Structure):
@@ -49,18 +60,26 @@ class _ResidentArgs(ctypes.Structure):
         ("B", ctypes.c_int64), ("N", ctypes.c_int64), ("K", ctypes.c_int64),
         ("n_ng", ctypes.c_int64), ("mu_scal", ctypes.c_double),
         ("mu_tol", ctypes.c_double), ("alpha_min", ctypes.c_double),
-        ("mu0", ctypes.c_double)]
+        ("mu0", ctypes.c_double), ("exact", ctypes.c_int)]
+
+
+def _variant(NS) -> str:
+    """The counter key of a call: the hard or the soft variant."""
+    return "ipm_resident_soft" if NS else "ipm_resident"
 
 
 def ipm_resident_ref(idx_tab, lam0, t0, z0, pi0, base, pdreg, H, F, b, dcat,
                      mb, *, NB, NU, NZ, NX, k_max, mu_scal, mu_tol,
                      alpha_min, mu0, NG=1, ng_stage_ids=(), Cg=None,
-                     dgg=None, mgg=None, lamg0=None, tg0=None):
+                     dgg=None, mgg=None, lamg0=None, tg0=None, NS=0,
+                     exact=True, idxs_tab=None, lams0=None, ts0=None,
+                     softc=None, msk=None, musc=None):
     """Plain PyTorch version of :func:`ipm_resident`: the same arguments
     and outputs, batched torch ops over the instances, Python loops over
-    iterations and stages (``ops/stage_math.py`` helpers).  Instances
-    that are not live are computed along and gated off, which gives the
-    kernel's per-instance results."""
+    iterations and stages (``ops/stage_math.py`` helpers; the soft rows
+    through its ``soft_*`` primitives).  Instances that are not live are
+    computed along and gated off, which gives the kernel's per-instance
+    results."""
     Np1 = z0.shape[0]
     N = Np1 - 1
     B = z0.shape[-1]
@@ -89,6 +108,18 @@ def ipm_resident_ref(idx_tab, lam0, t0, z0, pi0, base, pdreg, H, F, b, dcat,
         lamg = tg = torch.zeros(B, 0, NG2, dtype=dt, device=dev)
     dtag, dlag, cog = (torch.zeros_like(lamg) for _ in range(3))
     dt2g, dl2g = torch.zeros_like(lamg), torch.zeros_like(lamg)
+    if NS:
+        idxs = idxs_tab.long()
+        lams, ts = from_lanes(lams0).clone(), from_lanes(ts0).clone()
+        sc, msb = from_lanes(softc), from_lanes(msk)  # (B, N+1, 6NS / NS)
+        mu_scal = musc                               # per instance (B,)
+        # soft directions: affine, corrector gradient, corrector
+        dtas, dlas, dl2cs, dt2s, dl2s = (torch.zeros_like(lams)
+                                         for _ in range(5))
+
+        def schur(n):
+            return sm.soft_schur(NS, lams[:, n], ts[:, n], msb[:, n],
+                                 sc[:, n])
 
     ll = torch.zeros(B, Np1, NZ, NU, dtype=dt, device=dev)
     lxx = torch.zeros(B, Np1, NX, NX, dtype=dt, device=dev)
@@ -142,6 +173,21 @@ def ipm_resident_ref(idx_tab, lam0, t0, z0, pi0, base, pdreg, H, F, b, dcat,
                 dta[:, s_], dla[:, s_] = dtb, dlb
             amin, s = sums(amin, s, lam[:, s_], t[:, s_], mbb[:, s_],
                            dtb, dlb)
+            if NS:
+                S = schur(s_)
+                zs = sm.gather_box(zt, idxs[s_]) * msb[:, s_]
+                if corrector:
+                    d0, d1, d2, d3 = sm.soft4(dl2cs[:, s_], NS)
+                    dts, dls = sm.soft_dt_dls(
+                        NS, lams[:, s_], ts[:, s_], S, zs, dl2cs[:, s_],
+                        S["zl0"] + d0 + d2, S["zl1"] + d1 + d3)
+                    dt2s[:, s_], dl2s[:, s_] = dts, dls
+                else:
+                    dts, dls = sm.soft_dt_dls(NS, lams[:, s_], ts[:, s_], S,
+                                              zs, 0.0, S["zl0"], S["zl1"])
+                    dtas[:, s_], dlas[:, s_] = dts, dls
+                amin, s = sums(amin, s, lams[:, s_], ts[:, s_], S["ms4"],
+                               dts, dls)
             if s_ in slot:
                 j = slot[s_]
                 lg, tgv, mg, dg, Cj = ng_vals(j)
@@ -171,6 +217,11 @@ def ipm_resident_ref(idx_tab, lam0, t0, z0, pi0, base, pdreg, H, F, b, dcat,
             lam[:, k] = torch.where(upd, lam[:, k] + a2c * dl2[:, k],
                                     lam[:, k])
             t[:, k] = torch.where(upd, t[:, k] + a2c * dt2[:, k], t[:, k])
+            if NS:
+                lams[:, k] = torch.where(upd, lams[:, k] + a2c * dl2s[:, k],
+                                         lams[:, k])
+                ts[:, k] = torch.where(upd, ts[:, k] + a2c * dt2s[:, k],
+                                       ts[:, k])
             if k >= 1:
                 e = k - 1
                 pi[:, e] = torch.where(
@@ -185,8 +236,13 @@ def ipm_resident_ref(idx_tab, lam0, t0, z0, pi0, base, pdreg, H, F, b, dcat,
                 continue
             Qx, qx = sm.qx_fold(NB, lam[:, k], t[:, k], mbb[:, k], Ab[:, k])
             dvec = sm.scatter_add_box(pdb[:, k], idx[k], Qx)
+            if NS:
+                Qx_s, qx_s = sm.soft_qx(msb[:, k], schur(k))
+                dvec = sm.scatter_add_box(dvec, idxs[k], Qx_s)
             Hp = Hf[:, k] + torch.diag_embed(dvec)
             g = sm.scatter_add_box(gb[:, k], idx[k], qx)
+            if NS:
+                g = sm.scatter_add_box(g, idxs[k], qx_s)
             if k in slot:
                 lg, tgv, mg, dg, Cj = ng_vals(slot[k])
                 Qxg, qxg = sm.qx_fold(NG, lg, tgv, mg, dg)
@@ -225,6 +281,11 @@ def ipm_resident_ref(idx_tab, lam0, t0, z0, pi0, base, pdreg, H, F, b, dcat,
                                      Ab[:, k], dta[:, k], dla[:, k], smu)
             co[:, k] = co_k
             g = sm.scatter_add_box(gb[:, k], idx[k], qx)
+            if NS:
+                dl2cs[:, k], qx_s = sm.soft_corr_qx(
+                    NS, msb[:, k], schur(k), dtas[:, k], dlas[:, k], smu,
+                    exact)
+                g = sm.scatter_add_box(g, idxs[k], qx_s)
             if k in slot:
                 j = slot[k]
                 lg, tgv, mg, dg, Cj = ng_vals(j)
@@ -272,13 +333,16 @@ def ipm_resident_ref(idx_tab, lam0, t0, z0, pi0, base, pdreg, H, F, b, dcat,
             frz.to(torch.int32), to_lanes(stat))
     if n_ng:
         outs += (to_lanes(lamg), to_lanes(tg))
+    if NS:
+        outs += (to_lanes(lams), to_lanes(ts))
     return outs
 
 
 def ipm_resident(idx_tab, lam0, t0, z0, pi0, base, pdreg, H, F, b, dcat, mb,
                  *, NB, NU, NZ, NX, k_max, mu_scal, mu_tol, alpha_min, mu0,
                  NG=1, ng_stage_ids=(), Cg=None, dgg=None, mgg=None,
-                 lamg0=None, tg0=None):
+                 lamg0=None, tg0=None, NS=0, exact=True, idxs_tab=None,
+                 lams0=None, ts0=None, softc=None, msk=None, musc=None):
     """Run the whole phase-1 IPM of a batch in one launch.
 
     Streams (batch-last, B instances): ``lam0``/``t0``/``dcat``/``mb``
@@ -288,26 +352,37 @@ def ipm_resident(idx_tab, lam0, t0, z0, pi0, base, pdreg, H, F, b, dcat, mb,
     ``ng_stage_ids``: ``Cg`` (n_ng, NG, NZ, B), ``dgg``/``mgg``/``lamg0``/
     ``tg0`` (n_ng, 2NG, B).
 
-    Returns ``(z, pi, lam, t, mu, kk, frozen, stat[, lamg, tg])``: the
-    final iterate as streams, ``mu`` (B,), ``kk``/``frozen`` (B,) int32,
-    ``stat`` (k_max, 5, B) iteration-indexed rows, and the ng multipliers
-    and slacks (n_ng, 2NG, B) when there are ng stages.
+    Soft variant (``NS > 0``, the soft rows of ``d_ip2_mpc_soft_tv``):
+    ``idxs_tab`` (N+1, NS) int32 padded-z soft coordinates, ``lams0``/
+    ``ts0`` (N+1, 4NS, B) [lo; up; s_lo; s_up], ``softc`` (N+1, 6NS, B)
+    [d_lbs; d_ubs; Z0; Z1; zlin0; zlin1], ``msk`` (N+1, NS, B) soft mask,
+    ``musc`` (B,) the per-instance duality scaling (``mu_scal`` is then
+    unused); ``exact`` keeps the soft corrector gradient's Schur-folded
+    correction (False: the reference's dropped correction).
+
+    Returns ``(z, pi, lam, t, mu, kk, frozen, stat[, lamg, tg][, lams,
+    ts])``: the final iterate as streams, ``mu`` (B,), ``kk``/``frozen``
+    (B,) int32, ``stat`` (k_max, 5, B) iteration-indexed rows, the ng
+    multipliers and slacks (n_ng, 2NG, B) when there are ng stages, and
+    the soft ones (N+1, 4NS, B) when ``NS > 0``.
 
     CPU tensors run :func:`ipm_resident_ref`; CUDA tensors launch the
-    ``csrc/ipm_resident.cu`` kernel on the current stream (no sync)."""
-    global LAUNCHES
+    ``csrc/ipm_resident.cu`` kernel on the current stream (no sync).  The
+    two variants count apart (``LAUNCHES`` / ``PLAIN_CALLS``)."""
     kw = dict(NB=NB, NU=NU, NZ=NZ, NX=NX, k_max=k_max, mu_scal=mu_scal,
               mu_tol=mu_tol, alpha_min=alpha_min, mu0=mu0, NG=NG,
               ng_stage_ids=tuple(ng_stage_ids), Cg=Cg, dgg=dgg, mgg=mgg,
-              lamg0=lamg0, tg0=tg0)
+              lamg0=lamg0, tg0=tg0, NS=NS, exact=exact, idxs_tab=idxs_tab,
+              lams0=lams0, ts0=ts0, softc=softc, msk=msk, musc=musc)
     ins = (idx_tab, lam0, t0, z0, pi0, base, pdreg, H, F, b, dcat, mb)
     if z0.device.type == "cpu":
+        PLAIN_CALLS[_variant(NS)] += 1
         return ipm_resident_ref(*ins, **kw)
     if z0.device.type != "cuda":
         raise ValueError(f"ipm_resident: unsupported device {z0.device}")
     Np1, B = z0.shape[0], z0.shape[-1]
     N, K = Np1 - 1, int(k_max)
-    NB2, NG2, NT = 2 * NB, 2 * NG, sym_nt(NZ)
+    NB2, NG2, NS4, NT = 2 * NB, 2 * NG, 4 * NS, sym_nt(NZ)
     n_ng = len(ng_stage_ids)
     if K < 1:
         raise ValueError("ipm_resident: k_max must be >= 1")
@@ -320,14 +395,21 @@ def ipm_resident(idx_tab, lam0, t0, z0, pi0, base, pdreg, H, F, b, dcat, mb,
         "b": (N, NX, B), "dcat": (Np1, NB2, B), "mb": (Np1, NB2, B),
         "Cg": (n_ng, NG, NZ, B), "dgg": (n_ng, NG2, B),
         "mgg": (n_ng, NG2, B), "lamg0": (n_ng, NG2, B),
-        "tg0": (n_ng, NG2, B),
+        "tg0": (n_ng, NG2, B), "idxs_tab": (Np1, NS),
+        "lams0": (Np1, NS4, B), "ts0": (Np1, NS4, B),
+        "softc": (Np1, 6 * NS, B), "msk": (Np1, NS, B), "musc": (B,),
     }
     named = dict(zip(names, ins))
     if n_ng:
         named.update(Cg=Cg, dgg=dgg, mgg=mgg, lamg0=lamg0, tg0=tg0)
+    if NS:
+        named.update(idxs_tab=idxs_tab, lams0=lams0, ts0=ts0, softc=softc,
+                     msk=msk, musc=musc)
     _build.check_tensors(z0.device, z0.dtype, named, shapes)
     _build.dtype_code(z0.dtype)                 # raise before building
-    dims = dict(NU=NU, NX=NX, NB=NB, NG=NG)
+    # the soft variant is its own library (-DHP_NS); the hard one's key,
+    # without NS, is the one it always had
+    dims = dict(NU=NU, NX=NX, NB=NB, NG=NG) | ({"NS": NS} if NS else {})
     lib = _build.load("ipm_resident", **dims)
     fn_rows = lib.hp_ipm_resident_work_rows
     fn_rows.argtypes = [ctypes.c_int64, ctypes.c_int64]
@@ -341,18 +423,23 @@ def ipm_resident(idx_tab, lam0, t0, z0, pi0, base, pdreg, H, F, b, dcat, mb,
     frozen = torch.empty(B, dtype=torch.int32, device=dev)
     stat = new(K, 5, B)
     lamg, tg = new(n_ng, NG2, B), new(n_ng, NG2, B)
+    lams, ts = new(Np1, NS4, B), new(Np1, NS4, B)
     work = new(int(fn_rows(N, n_ng)), B)
     ng_stage = _build.int_table(ng_stage_ids, dev)
     ptrs = [named.get(k) for k in ("idx_tab", "lam0", "t0", "z0", "pi0",
                                    "base", "pdreg", "H", "F", "b", "dcat",
                                    "mb", "Cg", "dgg", "mgg", "lamg0", "tg0")]
-    ptrs += [ng_stage, z, pi, lam, t, mu, kk, frozen, stat, lamg, tg, work]
+    ptrs += [ng_stage] + [named.get(k) for k in (
+        "idxs_tab", "lams0", "ts0", "softc", "msk", "musc")]
+    ptrs += [z, pi, lam, t, mu, kk, frozen, stat, lamg, tg, lams, ts, work]
     a = _ResidentArgs(*[_build.ptr(x) for x in ptrs], B, N, K, n_ng,
                       float(mu_scal), float(mu_tol), float(alpha_min),
-                      float(mu0))
+                      float(mu0), int(bool(exact)))
     _build.launch("ipm_resident", "ipm_resident", a, dev, dt, **dims)
-    LAUNCHES += 1
+    LAUNCHES[_variant(NS)] += 1
     outs = (z, pi, lam, t, mu, kk, frozen, stat)
     if n_ng:
         outs += (lamg, tg)
+    if NS:
+        outs += (lams, ts)
     return outs

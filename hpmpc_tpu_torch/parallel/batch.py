@@ -18,9 +18,9 @@ the library's default ``IPMConfig()`` reaches), with the f32 escalation
 the soft lanes engine, whose default 6-kernel loop is the flat form) and
 ``"soft_structured"`` (the batch-native :func:`~..models.ipm_soft.solve`);
 on the scenario tree (:func:`solve_batched_tree`) the flat tree engine or
-the structured tree IPM.  The opt-in soft resident engine raises
-``NotImplementedError`` naming its ROADMAP item instead of quietly running
-something else.
+the structured tree IPM; and the opt-in soft resident engine
+(``"soft_resident"``, ``HPMPC_RESIDENT=1``: the whole soft IPM in one
+launch of Queue 2 row 1s).
 """
 
 from __future__ import annotations
@@ -173,8 +173,12 @@ def select_soft_engine(dims: OCPDims, cfg: ipm.IPMConfig, dtype, NS: int,
     ``B % 1024`` block, with the H100's size envelope
     (:func:`..ops.stage_kernel.engine_fits`) where JAX has its VMEM one:
     ``"soft_resident"`` (opt-in, ``HPMPC_RESIDENT=1``), ``"soft_lanes"``,
-    ``"soft_flat"`` or ``"soft_structured"``.  ``HPMPC_LANES_LOOP=0``
-    (without ``HPMPC_MEGA_SWEEPS=1``) leaves the lanes engine."""
+    ``"soft_flat"`` or ``"soft_structured"``.  The soft resident keeps
+    JAX's gates (float32, NB > 0, NS > 0, no ``iter_ref``, opt-in); its
+    size gate is the per-thread engines' H100 envelope, inside which its
+    per-shape builds finish (``tools/size_sweep.py``'s soft rows, PERF.md
+    §5).  ``HPMPC_LANES_LOOP=0`` (without ``HPMPC_MEGA_SWEEPS=1``) leaves
+    the lanes engine."""
     if not (cfg.use_pallas and dims.idxb is not None and idxbs is not None
             and sk.engine_fits(int(dims.NX), int(dims.NU))):
         return "soft_structured"
@@ -196,23 +200,23 @@ def solve_batched_soft(dims: OCPDims, qp: OCPQP, soft, cfg: ipm.IPMConfig,
     :class:`~..models.ipm_soft.SoftSolution`.
 
     ``idxbs``: the static (N+1, NS) padded-z soft coordinates shared by
-    every instance (the soft analogue of ``dims.idxb``).  The opt-in
-    ``"soft_resident"`` engine raises ``NotImplementedError`` naming its
-    ROADMAP item."""
+    every instance (the soft analogue of ``dims.idxb``)."""
     NS = soft.ns_mask.shape[-1]
     engine = select_soft_engine(dims, cfg, qp.dtype, NS, idxbs)
-    if engine == "soft_resident":
-        raise NotImplementedError(
-            "soft engine 'soft_resident' is not ported yet: ROADMAP Queue 1 "
-            "#10b, Queue 2 row 1s (the soft resident kernel)")
     if engine == "soft_structured":
         from ..models import ipm_soft
 
         return ipm_soft.solve(dims, qp, soft, cfg,
                               exact_mehrotra_soft=exact_mehrotra_soft)
+    idxbs_t = tuple(tuple(int(i) for i in row) for row in idxbs)
+    if engine == "soft_resident":
+        from ..models import ipm_soft_resident
+
+        return ipm_soft_resident.solve_batched_soft_resident(
+            dims, qp, soft, cfg, idxbs_t,
+            exact_mehrotra_soft=exact_mehrotra_soft)
     from ..models import ipm_soft_lanes
 
-    idxbs_t = tuple(tuple(int(i) for i in row) for row in idxbs)
     return ipm_soft_lanes.solve_batched_soft_lanes(
         dims, qp, soft, cfg, idxbs_t,
         exact_mehrotra_soft=exact_mehrotra_soft)

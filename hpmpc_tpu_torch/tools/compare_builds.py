@@ -23,7 +23,13 @@ It reports:
     at ``IPMConfig(k_max=8, mu_tol=0, use_pallas=True)``, without and with
     ``iter_ref=1``: the 6-kernel loop, its unfused refinement and
     ``resid_full``) gives the two checkouts the same solution bit for
-    bit.
+    bit;
+  * the hard resident kernel (``ipm_resident``, Queue 2 row 1) on this
+    checkout's inputs of bench.py's headline config (``IPMConfig(k_max=8,
+    mu_tol=0, alpha_min=1e-8, mu_switch=0, use_pallas=True)``), float32
+    and float64, handed to both builds' wrappers, and the headline route
+    (``solve_batched``: the resident engine and ``resid_full``) of both
+    checkouts in float32: equal bit for bit or not.
 
 Imports no JAX.  ``--other`` is a directory holding the other checkout's
 ``hpmpc_tpu_torch/`` (for the parent commit: ``git archive HEAD~1
@@ -69,7 +75,8 @@ def _mods(name: str):
     m = lambda s: importlib.import_module(f"{name}.{s}")  # noqa: E731
     return dict(batch=m("parallel.batch"), sk=m("ops.stage_kernel"),
                 build=m("ops._build"), ipm=m("models.ipm"),
-                lanes=m("models.ipm_lanes"), ms=m("utils.mass_spring"))
+                lanes=m("models.ipm_lanes"), ms=m("utils.mass_spring"),
+                rk=m("ops.resident_kernel"), res=m("models.ipm_resident"))
 
 
 def _clone(x):
@@ -239,6 +246,31 @@ def main() -> int:
             fields.values())
         print(f"flat form iter_ref={iter_ref}, this vs other: bitwise equal "
               f"per field {fields}", flush=True)
+
+    # the hard resident kernel (row 1) alone, and the headline route
+    out["resident_bitwise_equal"] = {}
+    for dt in (torch.float32, torch.float64):
+        dims, qpb = flagship(this, dt)
+        cfg = this["ipm"].IPMConfig(k_max=8, mu_tol=0.0, alpha_min=1e-8,
+                                    mu_switch=0.0, use_pallas=True)
+        args, kw, _, _ = this["res"].resident_inputs(dims, qpb, cfg)
+        got = [m["rk"].ipm_resident(*_clone(args), **kw)
+               for m in trees.values()]
+        same, d = _diff(*got)
+        out["resident_bitwise_equal"][str(dt)] = same
+        print(f"ipm_resident {dt}, this vs other build on the same inputs: "
+              f"bitwise equal {same} (max |diff| {d:.3e})", flush=True)
+    sols = []
+    for m in trees.values():
+        dims, qpb = flagship(m, torch.float32)
+        cfg = m["ipm"].IPMConfig(k_max=8, mu_tol=0.0, alpha_min=1e-8,
+                                 mu_switch=0.0, use_pallas=True)
+        sols.append(m["batch"].solve_batched(dims, qpb, cfg))
+    fields = {f: _diff(getattr(sols[0], f), getattr(sols[1], f))[0]
+              for f in sols[0]._fields}
+    out["headline_bitwise_equal"] = all(fields.values())
+    print(f"headline route (resident), this vs other: bitwise equal per "
+          f"field {fields}", flush=True)
     print(json.dumps(out), flush=True)
     return 0
 

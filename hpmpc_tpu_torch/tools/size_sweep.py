@@ -34,6 +34,25 @@ on 64 instances: ``ok`` when finite, agreeing with the engine's report
 (rtol 1e-2, atol 1e-5) and with primal residuals (rb, rd) below 1e-3, as
 chip_smoke.py section T holds the tree's main path.
 
+The soft engines run on the reference's soft problem
+(``mass_spring_soft_qp(nx, nu, 30, Z=10)``: input boxes, every state of
+stages 1..N softly bounded, NS = nx) at each (nx, nu) of ``SOFT_SIZES``
+(NZ 11, 17 and 19, the per-thread engines' envelope), B=1024, ``g``
+scaled by ``1 + 0.02 N(0,1)``, at tools/bench_soft.py's config
+(``IPMConfig(k_max=8, mu0=100, mu_tol=0, use_pallas=True)``):
+
+  * ``soft_resident``: ``ipm_soft_resident.solve_batched_soft_resident``
+    (Queue 2 row 1s, the ``HPMPC_RESIDENT=1`` engine), whose size gate
+    these rows decide;
+  * ``soft_lanes``: ``ipm_soft_lanes.solve_batched_soft_lanes`` on its
+    default 6-kernel loop, beside it.
+
+Their oracle is the float64 soft KKT residuals (``ipm_soft.
+compute_residuals``) on 64 instances: ``ok`` when finite, with primal
+residuals (rb, rd_b, rd_g, rd_s) below 1e-3 and mu within 1e-2
+(relative) of the engine's last stat row, as chip_smoke.py holds the soft
+main path.
+
 Per engine and size it records the nvcc seconds of each library the engine
 needs (all of a size's libraries built at once, one nvcc each, each capped
 at ``CAP_S`` = 300 seconds: a build that runs over is killed with the
@@ -56,6 +75,8 @@ engines' rq).
         --device cpu          # plain versions, no build: a rehearsal
     python3 -m hpmpc_tpu_torch.tools.size_sweep \\
         --engines tree_flat,tree_structured   # the tree rows only
+    python3 -m hpmpc_tpu_torch.tools.size_sweep \\
+        --engines soft_resident,soft_lanes    # the soft rows only
 
 One JSON line per (size, engine) goes to stdout (and to
 ``--out FILE``); the last line is a JSON object with the card and the
@@ -86,6 +107,10 @@ ENGINES = ("resident", "lanes", "flat", "rows16_15", "blocked")
 TREE_SIZES = ((8, 3), (16, 1), (16, 3), (24, 3))
 TREE_ENGINES = ("tree_flat", "tree_structured")
 TREE_TOPO, TREE_B = (2, 3, 10), 1024
+# (nx, nu) of the soft rows: NZ 11, 17, 19 at N=30, SOFT_B instances
+SOFT_SIZES = ((8, 3), (16, 1), (16, 3))
+SOFT_ENGINES = ("soft_resident", "soft_lanes")
+SOFT_N, SOFT_B = 30, 1024
 K_MAX = 8
 SUBSAMPLE = 64
 #: seconds a per-shape build may take; timed calls after the warm-up
@@ -93,8 +118,9 @@ CAP_S, REPS = 300.0, 3
 GATE_RATIO, GATE_RQ_FLOOR, GATE_RB_FLOOR = 10.0, 1e-4, 1e-5
 
 
-def _libs(engine: str, dims) -> list:
-    """The (kernel, dims) of each library ``engine`` launches at ``dims``."""
+def _libs(engine: str, dims, NS: int = 0) -> list:
+    """The (kernel, dims) of each library ``engine`` launches at ``dims``
+    (the soft engines: with ``NS`` soft rows a stage)."""
     d2 = dict(NU=dims.NU, NX=dims.NX)
     d3 = dict(d2, NB=dims.NB)
     return {
@@ -110,6 +136,10 @@ def _libs(engine: str, dims) -> list:
         "tree_flat": [("tree_sweeps", d2), ("tree_resid_terms", d2),
                       ("step_flat", dict(NZ=dims.NZ, NB=dims.NB))],
         "tree_structured": [],
+        "soft_resident": [("ipm_resident", dict(d3, NG=dims.NG, NS=NS))],
+        "soft_lanes": [("soft_step_flat", dict(NZ=dims.NZ, NB=dims.NB,
+                                               NS=NS)),
+                       ("factor_solve_flat", d2), ("solve_flat", d2)],
     }[engine]
 
 
@@ -231,11 +261,12 @@ def _oracle(qpb, sol, sub) -> dict:
                 agrees=agree)
 
 
-def _build_row(dev, engine, dims, builds, **size) -> dict:
-    """The row of ``engine`` at ``dims`` before it runs: its libraries'
-    build seconds, status, registers and spills."""
+def _build_row(dev, engine, dims, builds, ns=0, **size) -> dict:
+    """The row of ``engine`` at ``dims`` (``ns`` soft rows a stage) before
+    it runs: its libraries' build seconds, status, registers and
+    spills."""
     libs = [builds.get((k, tuple(sorted(d.items()))))
-            for k, d in _libs(engine, dims)]
+            for k, d in _libs(engine, dims, ns)]
     row = dict(size, NZ=dims.NZ, engine=engine,
                build_s=max((b["s"] for b in libs if b), default=None),
                build=("ok" if all(b and b["status"] in ("ok", "cached")
@@ -355,6 +386,68 @@ def sweep_tree(torch, np, dev, size, engines, emit):
     return rows
 
 
+def _soft_oracle(dims, qpb, soft, sol, sub) -> dict:
+    """The float64 soft KKT residuals of instances ``sub``
+    (``ipm_soft.residuals64``): finite, rb, rd_b, rd_g and rd_s below
+    1e-3, mu within 1e-2 (relative) of the engine's last stat row."""
+    from ..models import ipm_soft
+
+    rmax, dmu = ipm_soft.residuals64(dims, qpb, soft, sol, sub)
+    fin = all(v == v and v != float("inf") for v in rmax.values())
+    ok = (fin and max(rmax[f] for f in ("rb", "rd_b", "rd_g", "rd_s"))
+          <= 1e-3 and dmu <= 1e-2)
+    return dict(oracle="ok" if ok else "fail", max_rb=rmax["rb"],
+                max_rd_s=rmax["rd_s"], max_mu=rmax["mu"], mu_rel_diff=dmu)
+
+
+def sweep_soft(torch, np, dev, size, engines, emit):
+    """The soft rows at (nx, nu) = ``size``: the soft resident and the soft
+    lanes engine (its 6-kernel loop) on the reference's soft problem, their
+    libraries built first (capped)."""
+    from ..models import ipm_soft_lanes, ipm_soft_resident
+    from ..models.ipm import IPMConfig
+    from ..ops import _build
+    from ..parallel import batch as pbatch
+    from ..utils.mass_spring import mass_spring_soft_qp
+
+    nx, nu = size
+    dims, qp, soft = mass_spring_soft_qp(nx, nu, SOFT_N, Z=10.0,
+                                         dtype=torch.float32, device=dev)
+    NS = soft.ns_mask.shape[-1]
+    qpb = pbatch.broadcast_qp(qp, SOFT_B)
+    sb = pbatch.broadcast_soft(soft, SOFT_B)
+    sc = 1 + 0.02 * np.random.default_rng(0).standard_normal(SOFT_B)
+    qpb = dataclasses.replace(qpb, g=qpb.g * torch.as_tensor(
+        sc, dtype=torch.float32, device=dev)[:, None, None])
+    idxbs = soft.idxbs.cpu().numpy()
+    cfg = IPMConfig(k_max=K_MAX, mu0=100.0, mu_tol=0.0, use_pallas=True)
+    builds = {}
+    if dev.type == "cuda":
+        builds = build_capped([s for e in engines
+                               for s in _libs(e, dims, NS)], CAP_S)
+    sub = torch.arange(0, SOFT_B, max(1, SOFT_B // SUBSAMPLE), device=dev)
+    runs = {"soft_resident": ipm_soft_resident.solve_batched_soft_resident,
+            "soft_lanes": ipm_soft_lanes.solve_batched_soft_lanes}
+    rows = {}
+    for engine in engines:
+        row = _build_row(dev, engine, dims, builds, ns=NS, nx=nx, nu=nu,
+                         B=SOFT_B, N=SOFT_N, NS=NS)
+        if row["build"] in ("ok", "cpu"):
+            try:
+                sol = _timed(torch, np, dev, row, lambda q: runs[engine](
+                    dims, q, sb, cfg, idxbs), qpb)
+                row.update(_soft_oracle(dims, qpb, sb, sol, sub))
+            except (RuntimeError, torch.cuda.OutOfMemoryError) as e:
+                row["error"] = str(e)[:300]
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+        row.setdefault("oracle", "not run")
+        rows[engine] = row
+        emit(row)
+    _build._LIBS.clear()
+    return rows
+
+
 def sweep_size(torch, np, dev, size, engines, emit):
     from ..models.ipm import IPMConfig
     from ..ops import _build
@@ -407,7 +500,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--sizes", nargs="*", default=None,
                     help="nx,nu,B,N tuples (default: SIZES)")
-    ap.add_argument("--engines", default=",".join(ENGINES + TREE_ENGINES))
+    ap.add_argument("--engines",
+                    default=",".join(ENGINES + TREE_ENGINES + SOFT_ENGINES))
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--out", default=None,
                     help="also write the JSON lines to this file")
@@ -424,6 +518,7 @@ def main(argv=None) -> int:
     engines = tuple(args.engines.split(","))
     chain = tuple(e for e in engines if e in ENGINES)
     tree_e = tuple(e for e in engines if e in TREE_ENGINES)
+    soft_e = tuple(e for e in engines if e in SOFT_ENGINES)
     card = "cpu"
     if dev.type == "cuda":
         card = subprocess.run(
@@ -450,6 +545,8 @@ def main(argv=None) -> int:
         table += list(sweep_size(torch, np, dev, size, chain, emit).values())
     for size in TREE_SIZES if tree_e else ():
         table += list(sweep_tree(torch, np, dev, size, tree_e, emit).values())
+    for size in SOFT_SIZES if soft_e else ():
+        table += list(sweep_soft(torch, np, dev, size, soft_e, emit).values())
     print(json.dumps({"card": card, "seconds": time.perf_counter() - t0,
                       "table": table}), flush=True)
     if fh:

@@ -16,7 +16,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from hpmpc_tpu_torch.models import (  # noqa: E402
-    ipm, ipm_lanes, ipm_resident, ipm_soft, ipm_soft_lanes)
+    ipm, ipm_lanes, ipm_resident, ipm_soft, ipm_soft_lanes,
+    ipm_soft_resident)
 from hpmpc_tpu_torch.models.ipm import IPMConfig  # noqa: E402
 from hpmpc_tpu_torch.ocp import OCPDims  # noqa: E402
 from hpmpc_tpu_torch.ops import mega_kernel as mk  # noqa: E402
@@ -63,10 +64,10 @@ def test_ipm_resident_kernel_matches_plain(cuda, dtype, ngN, B):
     dims, qpb = _batch(cuda, dtype, 4, ngN, B)
     args, kw, _, _ = ipm_resident.resident_inputs(dims, qpb,
                                                   IPMConfig(**_CFG[dtype]))
-    n0 = rk.LAUNCHES
+    n0 = dict(rk.LAUNCHES)
     out_k = rk.ipm_resident(*args, **kw)
     torch.cuda.synchronize()
-    assert rk.LAUNCHES == n0 + 1
+    assert rk.LAUNCHES == dict(n0, ipm_resident=n0["ipm_resident"] + 1)
     out_p = rk.ipm_resident_ref(*args, **kw)
     tol = _TOL[dtype]
     assert torch.equal(out_k[5], out_p[5])            # kk
@@ -339,10 +340,13 @@ _SOFT_STEP = [(stk, n) for n in ("soft_prep_flat", "soft_alpha_sums_flat",
                                  "soft_corr_flat")]
 
 
-def _soft_batch(dev, dtype, N, ng, B):
+def _soft_batch(dev, dtype, N, ng, B, masked=False):
     """The reference's soft problem (mass_spring_soft_qp(8, 3, N, Z=10)),
     ``g`` scaled per instance; with ``ng`` one general row on stages 2
-    and N (tests/test_ipm_soft_lanes.py's ng problem)."""
+    and N (tests/test_ipm_soft_lanes.py's ng problem); with ``masked``
+    instance b (odd) drops its first 1 + b % NS soft rows on stage
+    1 + (b // 2) % N, so the instances' soft masks and mu scalings
+    differ."""
     dims, qp, soft = mass_spring_soft_qp(8, 3, N, Z=10.0, dtype=dtype,
                                          device=dev)
     if ng:
@@ -362,8 +366,14 @@ def _soft_batch(dev, dtype, N, ng, B):
     rng = np.random.default_rng(0)
     sc = torch.as_tensor(1 + 0.02 * rng.standard_normal(B), dtype=dtype,
                          device=dev)
+    sb = pbatch.broadcast_soft(soft, B)
+    if masked:
+        m = sb.ns_mask.clone()
+        for b in range(1, B, 2):
+            m[b, 1 + (b // 2) % N, :1 + b % m.shape[-1]] = 0
+        sb = sb._replace(ns_mask=m)
     return (dims, dataclasses.replace(qpb, g=qpb.g * sc[:, None, None]),
-            pbatch.broadcast_soft(soft, B), soft.idxbs.cpu().numpy())
+            sb, soft.idxbs.cpu().numpy())
 
 
 def _soft_capture(monkeypatch, batch, cfg, targets, exact):
@@ -447,6 +457,104 @@ def test_soft_route_on_card_matches_cpu(cuda, monkeypatch, mega):
     assert float(res.mu.max()) <= 1e-8
     for f in ("rb", "rd_b", "rd_g", "rd_s"):
         assert float(getattr(res, f).abs().max()) <= 1e-6, f
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("ng", [False, True])
+@pytest.mark.parametrize("exact", [True, False])
+def test_soft_resident_kernel_matches_plain(cuda, dtype, ng, exact):
+    """Row 1s (the soft variant of csrc/ipm_resident.cu) against its plain
+    version on the soft resident engine's inputs, B=37, at the hard
+    kernel's budgets and tolerances (f64 k_max 4, f32 k_max 3)."""
+    _soft_resident_vs_plain(cuda, dtype, ng, exact, False)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_soft_resident_kernel_per_instance_masks(cuda, dtype):
+    """The same with per-instance soft masks (``_soft_batch``'s
+    ``masked``): each instance's own mu scaling (the ``musc`` stream)."""
+    _soft_resident_vs_plain(cuda, dtype, False, True, True)
+
+
+def _soft_resident_vs_plain(cuda, dtype, ng, exact, masked):
+    dims, qpb, sb, idxbs = _soft_batch(cuda, dtype, 5, ng, 37, masked)
+    cfg = IPMConfig(k_max=_CFG[dtype]["k_max"], mu0=100.0, mu_tol=0.0,
+                    use_pallas=True)
+    args, kw = ipm_soft_resident.soft_resident_inputs(dims, qpb, sb, cfg,
+                                                      idxbs, exact)
+    assert (kw["musc"].unique().numel() > 1) == masked
+    n0 = dict(rk.LAUNCHES)
+    out_k = rk.ipm_resident(*args, **kw)
+    torch.cuda.synchronize()
+    assert rk.LAUNCHES == dict(
+        n0, ipm_resident_soft=n0["ipm_resident_soft"] + 1)
+    out_p = rk.ipm_resident_ref(*args, **kw)
+    tol = _TOL[dtype]
+    assert len(out_k) == len(out_p) == 8 + (2 if ng else 0) + 2
+    assert torch.equal(out_k[5], out_p[5])            # kk
+    assert torch.equal(out_k[6], out_p[6])            # frozen
+    torch.testing.assert_close(out_k[0], out_p[0], rtol=0, atol=tol["z"])
+    torch.testing.assert_close(out_k[1], out_p[1], rtol=0, atol=tol["pi"])
+    for i in (2, 3, 4) + ((8, 9) if ng else ()) + (-2, -1):
+        torch.testing.assert_close(out_k[i], out_p[i], rtol=tol["lam_rtol"],
+                                   atol=tol["lam"])
+    torch.testing.assert_close(out_k[7], out_p[7], rtol=tol["stat"],
+                               atol=tol["stat_atol"])
+
+
+def test_soft_resident_route_on_card_matches_cpu(cuda, monkeypatch):
+    """solve_batched_soft under HPMPC_RESIDENT=1 on the card (f32 -> the
+    soft resident: one launch of row 1s, no other soft kernel) vs the same
+    call on the CPU (the plain version), the ng problem: kk equal, fields
+    within 2e-3 of their scale; then the f64 soft resident on the card
+    against the soft lanes engine on the card at the CPU tests' tolerances
+    (tests/test_torch_soft_lanes.py (a), tests/test_torch_ipm_soft.py's pi
+    bound)."""
+    monkeypatch.setenv("HPMPC_RESIDENT", "1")
+    dims, qpb, sb, idxbs = _soft_batch(cuda, torch.float32, 5, True, 40)
+    cfg = IPMConfig(k_max=4, mu0=100.0, mu_tol=1e-5, use_pallas=True)
+    n0 = {**rk.LAUNCHES, **mk.SOFT_LAUNCHES, **stk.SOFT_LAUNCHES}
+    sol_g = pbatch.solve_batched_soft(dims, qpb, sb, cfg, idxbs=idxbs)
+    n1 = {**rk.LAUNCHES, **mk.SOFT_LAUNCHES, **stk.SOFT_LAUNCHES}
+    assert {k: n1[k] - n0[k] for k in n0 if n1[k] > n0[k]} == {
+        "ipm_resident_soft": 1}
+    sol_c = pbatch.solve_batched_soft(
+        dims, qpb.to("cpu"), type(sb)(*[x.cpu() for x in sb]), cfg,
+        idxbs=idxbs)
+    assert torch.equal(sol_g.kk.cpu(), sol_c.kk)
+    assert torch.equal(sol_g.status.cpu(), sol_c.status)
+    for f in ("z", "pi", "lam_b", "t_b", "lam_g", "t_g", "lam_s", "t_s",
+              "stat"):
+        g, c = getattr(sol_g, f).cpu(), getattr(sol_c, f)
+        scale = max(1.0, float(c.abs().max()))
+        assert float((g - c).abs().max()) <= 2e-3 * scale, f
+    dims, qpb, sb, idxbs = _soft_batch(cuda, torch.float64, 5, True, 40)
+    cfg = IPMConfig(k_max=6, mu0=100.0, mu_tol=0.0, use_pallas=True)
+    sol_r = ipm_soft_resident.solve_batched_soft_resident(dims, qpb, sb, cfg,
+                                                          idxbs)
+    monkeypatch.setenv("HPMPC_MEGA_SWEEPS", "0")
+    sol_l = ipm_soft_lanes.solve_batched_soft_lanes(dims, qpb, sb, cfg,
+                                                    idxbs)
+    assert torch.equal(sol_r.kk, sol_l.kk)
+    for f, atol in (("z", 1e-8), ("pi", 1e-7), ("lam_s", 1e-8),
+                    ("t_s", 1e-8), ("lam_g", 1e-8), ("t_g", 1e-8)):
+        torch.testing.assert_close(getattr(sol_r, f), getattr(sol_l, f),
+                                   rtol=0, atol=atol)
+
+
+def test_soft_resident_wrapper_rejects_bad_inputs(cuda):
+    dims, qpb, sb, idxbs = _soft_batch(cuda, torch.float32, 5, False, 16)
+    cfg = IPMConfig(k_max=2, mu0=100.0, mu_tol=0.0, use_pallas=True)
+    args, kw = ipm_soft_resident.soft_resident_inputs(dims, qpb, sb, cfg,
+                                                      idxbs)
+    for name, bad, err in (
+            ("lams0", kw["lams0"].double(), TypeError),       # dtype
+            ("softc", kw["softc"][..., :8].contiguous(), ValueError),
+            ("idxs_tab", kw["idxs_tab"].long(), TypeError),   # table type
+            ("msk", kw["msk"].cpu(), ValueError),             # device
+            ("musc", kw["musc"][:8].contiguous(), ValueError)):
+        with pytest.raises(err):
+            rk.ipm_resident(*args, **dict(kw, **{name: bad}))
 
 
 def test_soft_wrappers_reject_bad_inputs(cuda, monkeypatch):

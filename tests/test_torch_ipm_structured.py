@@ -151,17 +151,28 @@ def jit_fast(f, *args, **kw):
     references of the port's tests run through it: XLA's backend
     optimisations change how fast the reference compiles, not what it
     computes (no fast-math either way)."""
-    leaves, tree = jax.tree_util.tree_flatten((args, kw))
+    return jit_fast_each(lambda a, k: f(*a, **k), [(args, kw)])[0]
+
+
+def jit_fast_each(f, argsets):
+    """``[f(*args) for args in argsets]`` through one :func:`jit_fast`
+    compilation, made for the first set: the sets differ only in the
+    values of their array leaves."""
+    leaves, tree = jax.tree_util.tree_flatten(argsets[0])
     is_arr = [isinstance(x, (jax.Array, np.ndarray)) for x in leaves]
-    arrs = [x for x, m in zip(leaves, is_arr) if m]
+
+    def arrays(args):
+        lv, tr = jax.tree_util.tree_flatten(args)
+        assert tr == tree
+        return [x for x, m in zip(lv, is_arr) if m]
 
     def g(*xs):
         it = iter(xs)
-        a, k = jax.tree_util.tree_unflatten(
-            tree, [next(it) if m else x for x, m in zip(leaves, is_arr)])
-        return f(*a, **k)
+        return f(*jax.tree_util.tree_unflatten(
+            tree, [next(it) if m else x for x, m in zip(leaves, is_arr)]))
 
-    return jax.jit(g).lower(*arrs).compile(_FAST_COMPILE)(*arrs)
+    fn = jax.jit(g).lower(*arrays(argsets[0])).compile(_FAST_COMPILE)
+    return [fn(*arrays(args)) for args in argsets]
 
 
 def _jax_solve(dims, qpb, size, kw, z0, pi0, carry):
@@ -342,6 +353,51 @@ def test_golden_stat_trace():
                                   z[n, dims.NU:dims.NU + dims.nx[n]]])
             np.testing.assert_allclose(got, np.array(g["ux"][n]), rtol=0,
                                        atol=1e-8, err_msg=f"ux {n}")
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+@pytest.mark.parametrize("name", ["ipm_ms_nx16_nu1_N30",
+                                  "ipm_ms_nx8_nu3_N30_ng2_ngN8"])
+def test_golden_ipm_runs(name, use_pallas):
+    """The reference C solver's runs on the (16, 1) chain and on the
+    flagship with two general rows on every stage and the ngN=8 terminal
+    block, on both KKT backends, at tests/test_ipm.py:37-80's tolerances:
+    kk, the stat trace, ux, pi, and the multipliers and slacks in the
+    file's order (lb, ub, lg, ug)."""
+    g = load_golden(name)
+    c = g["config"]
+    A, Bm = golden_ab(g)
+    dims, qp = mass_spring_qp(c["nx"], c["nu"], c["N"], ng=c["ng"],
+                              ngN=c["ngN"], A=A, B=Bm, device="cpu")
+    sol = ipm.solve(dims, broadcast_qp(qp, 1), ipm.IPMConfig(
+        k_max=c["k_max"], mu0=c["mu0"], mu_tol=c["mu_tol"],
+        alpha_min=c["alpha_min"], use_pallas=use_pallas))
+    assert int(sol.kk[0]) == g["kk"]
+    assert int(sol.status[0]) == 0
+    stat_ref = np.array(g["stat"]).reshape(-1, 5)[:g["kk"]]
+    np.testing.assert_allclose(_np(sol.stat[0])[:g["kk"]], stat_ref,
+                               rtol=1e-6, atol=1e-9)
+    z, pi = _np(sol.z[0]), _np(sol.pi[0])
+    for n in range(dims.N + 1):
+        got = np.concatenate([z[n, :dims.nu[n]],
+                              z[n, dims.NU:dims.NU + dims.nx[n]]])
+        np.testing.assert_allclose(got, np.array(g["ux"][n]), rtol=0,
+                                   atol=1e-8, err_msg=f"ux {n}")
+    for n in range(dims.N):
+        np.testing.assert_allclose(pi[n, :dims.nx[n + 1]],
+                                   np.array(g["pi"][n]), rtol=0, atol=1e-7,
+                                   err_msg=f"pi {n}")
+    for n in range(dims.N + 1):
+        nbn, ngn = dims.nb[n], dims.ng[n]
+        if not nbn + ngn:
+            continue
+        for field, ref in (("lam", g["lam"][n]), ("t", g["t"][n])):
+            b_, g_ = (_np(getattr(sol, f"{field}_{k}")[0, n])
+                      for k in ("b", "g"))
+            got = np.concatenate([b_[0, :nbn], b_[1, :nbn], g_[0, :ngn],
+                                  g_[1, :ngn]])
+            np.testing.assert_allclose(got, np.array(ref), rtol=1e-6,
+                                       atol=1e-8, err_msg=f"{field} {n}")
 
 
 def test_iterate0_and_rti_mode_raise():

@@ -8,7 +8,11 @@ numpy (seeded) and handed to both packages.
       (Pallas in interpret mode) at tests/test_resident.py's tolerances;
   (b)-(d) f64 vs the vmapped JAX structured ``ipm.solve`` pinned to phase
       1 (``mu_switch = mu_tol``), the golden-parity solver, at
-      tests/test_ipm_lanes.py's tolerances.
+      tests/test_ipm_lanes.py's tolerances;
+  (e) the soft resident engine (``models/ipm_soft_resident``, the plain
+      version of Queue 2 row 1s), f32, vs the JAX soft resident engine
+      (Pallas in interpret mode) at tests/test_soft_resident.py's
+      tolerances.
 
 The JAX references compile without XLA's backend optimisations
 (tests/test_torch_ipm_structured.py's ``jit_fast``).
@@ -27,8 +31,10 @@ from jax.experimental import pallas as pl  # noqa: E402
 
 from hpmpc_tpu.models import ipm as jipm  # noqa: E402
 from hpmpc_tpu.utils.mass_spring import mass_spring_qp as j_mass_spring  # noqa: E402
-from hpmpc_tpu_torch.convert import qp_from_numpy  # noqa: E402
-from hpmpc_tpu_torch.models import ipm_resident  # noqa: E402
+from hpmpc_tpu.utils.mass_spring import mass_spring_soft_qp as j_soft_qp  # noqa: E402
+from hpmpc_tpu_torch.convert import (  # noqa: E402
+    QP_FIELDS, qp_from_numpy, soft_from_numpy)
+from hpmpc_tpu_torch.models import ipm_resident, ipm_soft_resident  # noqa: E402
 from hpmpc_tpu_torch.models.ipm import IPMConfig  # noqa: E402
 from hpmpc_tpu_torch.utils.mass_spring import mass_spring_qp  # noqa: E402
 from test_torch_ipm_structured import jax_batch, jit_fast  # noqa: E402
@@ -156,3 +162,40 @@ def test_resident_f64_early_stop_freeze():
     # rows of iterations after the exit stay zero (stat contract)
     np.testing.assert_allclose(_np(sol_t.stat)[same], _np(sol_x.stat)[same],
                                rtol=1e-6, atol=1e-10)
+
+
+def test_soft_resident_f32_matches_jax_soft_resident(interpret_pallas):
+    """(e): the JAX soft resident engine in interpret mode vs the port's,
+    f32, on the 2-mass soft chain (nx=4, nu=2, N=5: NS=4 soft rows on
+    stages 1..N, input boxes), 1024 instances (the TPU block) with ``g``
+    scaled by 1 + 0.02 N(0,1), ``k_max=2`` (no instance stops, so the
+    iteration-indexed stat rows compare), both packages fed the same
+    arrays."""
+    from hpmpc_tpu.models import ipm_soft_resident as j_soft_resident
+
+    dims, qp, soft = j_soft_qp(4, 2, 5, Z=10.0, dtype=jnp.float32)
+    rng = np.random.default_rng(5)
+    qpb = jax_batch(qp, 1024, g=1 + 0.02 * rng.standard_normal(1024))
+    sb = jax_batch(soft, 1024)
+    idxbs = tuple(tuple(int(i) for i in row) for row in np.asarray(
+        soft.idxbs))
+    cfg_j = jipm.IPMConfig(k_max=2, mu0=100.0, mu_tol=1e-5)
+    sol_j = jit_fast(lambda q, s: j_soft_resident.solve_batched_soft_resident(
+        dims, q, s, cfg_j, idxbs), qpb, sb)
+    qpt = qp_from_numpy(dims, {f: np.asarray(getattr(qpb, f))
+                               for f in QP_FIELDS}, device="cpu",
+                        dtype=torch.float32)
+    st = soft_from_numpy({f: np.asarray(getattr(sb, f)) for f in sb._fields},
+                         device="cpu", dtype=torch.float32)
+    sol_t = ipm_soft_resident.solve_batched_soft_resident(
+        dims, qpt, st, IPMConfig(k_max=2, mu0=100.0, mu_tol=1e-5), idxbs)
+
+    kk_t, kk_j = _np(sol_t.kk), _np(sol_j.kk)
+    assert np.mean(kk_t == kk_j) > 0.99
+    same = kk_t == kk_j
+    np.testing.assert_allclose(_np(sol_t.z)[same], _np(sol_j.z)[same],
+                               rtol=1e-4, atol=5e-4)
+    np.testing.assert_allclose(_np(sol_t.lam_s)[same], _np(sol_j.lam_s)[same],
+                               rtol=1e-3, atol=5e-3)
+    np.testing.assert_allclose(_np(sol_t.stat)[same], _np(sol_j.stat)[same],
+                               rtol=2e-3, atol=2e-4)
