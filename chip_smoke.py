@@ -1892,9 +1892,10 @@ def _band_oracle(torch, np, qpb, sol, dev, dtype, what):
 
 
 def _chol_ops(n: int) -> float:
-    """Operations of one n x n Cholesky in the table's convention: n^3/3
-    multiply-adds, 2 operations each."""
-    return 2.0 * n ** 3 / 3.0
+    """Operations of one n x n Cholesky: the n^3/6 multiply-adds of its
+    updates (the lower triangle's; row 24's own count), 2 operations
+    each."""
+    return 2.0 * n ** 3 / 6.0
 
 
 def _large_nz(torch, np, dev, card, reset_counts, read_counts, total,
@@ -2115,49 +2116,80 @@ def _large_nz(torch, np, dev, card, reset_counts, read_counts, total,
     pr = _profile(torch, band_rep(*sols[(64, "float32")]), reps=1)
     print(_profile_line("band nx=64 f32", card, pr), flush=True)
 
-    # row 24 alone on the main path's first Cholesky batch (f32); row 25's
-    # panel kernel alone on that batch's first panel at cholesky_blocked's
+    # row 24 alone on the main paths' first Cholesky batches: nx=64 f32
+    # (the kernels line's figures) and f64, nx=128 f32; row 25's panel
+    # kernel alone on the first batch's first panel at cholesky_blocked's
     # default p=8, the first input cholesky_blocked gives it
-    with _capture([(bc, "cholesky")]) as ccalls:
-        pbatch.solve_batched(*sols[(64, "float32")],
-                             dataclasses.replace(cfg_l, k_max=1))
-    M = ccalls[("cholesky", "")][0][0]
-    Bc, n = M.shape[0], M.shape[-1]
+    chol_in = {}
+    for key in ((64, "float32"), (64, "float64"), (128, "float32")):
+        with _capture([(bc, "cholesky")]) as ccalls:
+            pbatch.solve_batched(*sols[key],
+                                 dataclasses.replace(cfg_l, k_max=1))
+        chol_in[key] = ccalls[("cholesky", "")][0][0]
+    M = chol_in[(64, "float32")]
+    Bc = M.shape[0]
     P = M[:, :8, :8].contiguous()
     p = P.shape[-1]
-    item = M.element_size()
-    rows = []
-    for kname, X, fast, plain, lib, nbytes, ops in (
-            ("cholesky", M, lambda: bc.cholesky(M),
-             lambda: bc.cholesky_ref(M), lambda: torch.linalg.cholesky(M),
-             Bc * (n * (n + 1) // 2 + n * n) * item, Bc * _chol_ops(n)),
+    rows, also = [], []
+
+    def chol_row(X):
+        Bx, nx_, item_ = X.shape[0], X.shape[-1], X.element_size()
+        return (lambda: bc.cholesky(X), lambda: bc.cholesky_ref(X),
+                lambda: torch.linalg.cholesky(X),
+                Bx * (nx_ * (nx_ + 1) // 2 + nx_ * nx_) * item_,
+                Bx * _chol_ops(nx_))
+
+    for key, kname, X, fast, plain, lib, nbytes, ops in (
+            *((key, "cholesky", X, *chol_row(X))
+              for key, X in chol_in.items()),
             # L and L^-1 written; n^3/3 + n^3/6 multiply-adds; no single
             # library call gives both (torch.linalg.cholesky gives L only)
-            ("panel_factor", P, lambda: bc.panel_factor(P),
+            (None, "panel_factor", P, lambda: bc.panel_factor(P),
              lambda: bc.panel_factor_ref(P), None,
-             Bc * (p * (p + 1) // 2 + 2 * p * p) * item, Bc * 1.0 * p ** 3)):
+             Bc * (p * (p + 1) // 2 + 2 * p * p) * P.element_size(),
+             Bc * 1.0 * p ** 3)):
         bound_ms, bound_by = _bound(nbytes, ops)
         ms = _time_ms(torch, lambda r: fast(), reps=50)
         ms_p = _time_ms(torch, lambda r: plain(), reps=2)
         ms_l = None if lib is None else _time_ms(torch, lambda r: lib(),
                                                  reps=20)
         row24 = kname == "cholesky"
+        dname = str(X.dtype).split(".")[-1]
         # row 25 is ported and timed, not routed (as in JAX): 0 launches
-        n_launch = launches[(64, "float32")] if row24 else 0
+        n_launch = launches[key] if row24 else 0
         print(f"{'row 24 (cholesky)' if row24 else 'row 25 (panel_factor)'}"
               f" [{card}]: {ms:.4f} ms, plain {ms_p:.4f} ms, library "
               f"{'none' if ms_l is None else f'{ms_l:.4f} ms'}, bound "
               f"{bound_ms:.4f} ms ({bound_by}: {nbytes} B, {ops:.4e} ops; "
-              f"{bound_ms / ms:.2%} of bound) (float32, {tuple(X.shape)}); "
-              f"launches on the main path {n_launch}", flush=True)
-        rows.append({"name": kname, "route": "cuda",
-                     "source": "hpmpc_tpu_torch/csrc/batch_chol.cu",
-                     "replaces": ("hpmpc_tpu/ops/batch_chol.py:243" if row24
-                                  else "hpmpc_tpu/ops/batch_chol.py:153"),
-                     "launches": n_launch,
-                     "max_abs_err": errs[kname], "ms": ms, "plain_ms": ms_p,
-                     "bound_ms": bound_ms, "bound_by": bound_by,
-                     "library_ms": ms_l})
+              f"{bound_ms / ms:.2%} of bound) ({dname}, {tuple(X.shape)});"
+              f" launches on the main path {n_launch}"
+              + ("" if ms_l is None else
+                 f"; {ms_l / ms:.2f}x the library's speed"), flush=True)
+        entry = {"name": kname, "route": "cuda",
+                 "source": "hpmpc_tpu_torch/csrc/batch_chol.cu",
+                 "replaces": ("hpmpc_tpu/ops/batch_chol.py:243" if row24
+                              else "hpmpc_tpu/ops/batch_chol.py:153"),
+                 "launches": n_launch,
+                 "max_abs_err": errs[kname], "ms": ms, "plain_ms": ms_p,
+                 "bound_ms": bound_ms, "bound_by": bound_by,
+                 "library_ms": ms_l}
+        if row24 and X is not M:
+            also.append(dict(shape=list(X.shape), dtype=dname, **{
+                k: entry[k] for k in ("launches", "ms", "plain_ms",
+                                      "bound_ms", "bound_by",
+                                      "library_ms")}))
+        else:
+            rows.append(entry)
+    rows[0]["also"] = also
+    # the band's profile against row 24 alone: its summed time in the
+    # profiled nx=64 f32 call beside the standalone time x launches
+    n24 = launches[(64, "float32")]
+    print(f"row 24 in the band's profile (nx=64 f32) [{card}]: "
+          f"{pr['ms'].get('cholesky', 0.0):.3f} ms in "
+          f"{pr['n'].get('cholesky', 0.0):.0f} launches, "
+          f"{pr['ms'].get('cholesky', 0.0) / pr['busy']:.1%} of the "
+          f"{pr['busy']:.3f} ms busy; alone {rows[0]['ms']:.4f} ms x {n24} "
+          f"= {rows[0]['ms'] * n24:.3f} ms", flush=True)
     # context: torch.linalg.cholesky on the panels (L without L^-1), and
     # the blocked Cholesky around row 25 (its trsm and syrk are
     # torch.matmul) beside row 24 on the same batch

@@ -11,7 +11,9 @@ factorization runs.
     right-looking rank-1 factorization, ``d_j = rsqrt(max(a_jj, tiny))``
     (tiny 1e-20 in float32, 1e-30 in float64), the trailing block updated
     by ``(A[:, j] d_j)(A[j, :] d_j)`` per column, and ``L = tril(A d)`` at
-    the end.  :func:`cholesky_ref` is the same loop in PyTorch.
+    the end.  :func:`cholesky_ref` is the same loop in PyTorch.  The CUDA
+    kernel runs it in panels of 8 columns (the same updates in the same
+    column order).
   * :func:`panel_factor` (Queue 2 row 25; TPU body ``_panel_body``) — the
     Cholesky of (B, p, p) panels with their lower-triangular inverse;
     :func:`panel_factor_ref` is its plain version.  :func:`cholesky_blocked`
@@ -97,7 +99,8 @@ def cholesky(M):
     TPU kernel's arithmetic; see ``csrc/batch_chol.cu``).
 
     CPU tensors run :func:`cholesky_ref`; CUDA tensors launch the kernel
-    (one thread block per matrix, every n; no sync)."""
+    (one thread block per matrix, panels of 8 columns, every n; no
+    sync)."""
     name = "cholesky"
     if M.device.type == "cpu":
         PLAIN_CALLS[name] += 1

@@ -29,7 +29,20 @@ It reports:
     mu_tol=0, alpha_min=1e-8, mu_switch=0, use_pallas=True)``), float32
     and float64, handed to both builds' wrappers, and the headline route
     (``solve_batched``: the resident engine and ``resid_full``) of both
-    checkouts in float32: equal bit for bit or not.
+    checkouts in float32: equal bit for bit or not;
+  * the large-NZ band's batched Cholesky (``batch_chol.cholesky``, Queue
+    2 row 24) on the first input the band gives it (``solve_batched`` at
+    nx=64 nu=8 N=30, 1024 instances, ``IPMConfig(k_max=8, mu_tol=0,
+    alpha_min=1e-8, use_pallas=True)``) and on random SPD batches at n=144
+    (512) and n=288 (64), float32 and float64, handed to both builds:
+    equal bit for bit (else the largest difference), and each build's ms
+    a call, timed in turns (other, this, this, other) with CUDA events,
+    beside ``torch.linalg.cholesky`` on the same batch;
+  * the band's ``solve_batched`` of both checkouts (that config at k_max
+    8) at nx=64 in float32 and float64 and at nx=128 nu=16 (half the
+    batch) in float32: the solution equal bit for bit or not, its ms a
+    batch in turns, and one profiled call of each (device busy ms, idle
+    share, row 24's summed ms and launches).
 
 Imports no JAX.  ``--other`` is a directory holding the other checkout's
 ``hpmpc_tpu_torch/`` (for the parent commit: ``git archive HEAD~1
@@ -39,7 +52,7 @@ Runs on the card unless asked for the CPU (plain versions; keep
 
     python3 -m hpmpc_tpu_torch.tools.compare_builds --other _archive/parent
     python3 -m hpmpc_tpu_torch.tools.compare_builds --other DIR \\
-        --device cpu --batch 16
+        --device cpu --batch 16 --band-batch 8
 
 The last line of the output is one JSON object with the numbers.
 """
@@ -57,6 +70,11 @@ import threading
 
 KERNELS = ("factor_solve_folded_flat", "solve_flat", "refine_flat_fused")
 CALLS = 2
+#: the band's (nx, nu) and row 24's random batches beside its input, (n, B)
+BAND = (64, 8)
+CHOL_RANDOM = ((144, 512), (288, 64))
+#: the band's end-to-end runs, (nx, nu, dtype name): nx=128 at half the batch
+BAND_RUNS = ((64, 8, "float32"), (128, 16, "float32"), (64, 8, "float64"))
 
 
 def _load_other(root: pathlib.Path):
@@ -76,7 +94,8 @@ def _mods(name: str):
     return dict(batch=m("parallel.batch"), sk=m("ops.stage_kernel"),
                 build=m("ops._build"), ipm=m("models.ipm"),
                 lanes=m("models.ipm_lanes"), ms=m("utils.mass_spring"),
-                rk=m("ops.resident_kernel"), res=m("models.ipm_resident"))
+                rk=m("ops.resident_kernel"), res=m("models.ipm_resident"),
+                bc=m("ops.batch_chol"))
 
 
 def _clone(x):
@@ -114,11 +133,12 @@ def main() -> int:
     ap.add_argument("--other", required=True, type=pathlib.Path)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--batch", type=int, default=4096)
+    ap.add_argument("--band-batch", type=int, default=1024)
     args = ap.parse_args()
     import numpy as np
     import torch
 
-    dev, B = torch.device(args.device), args.batch
+    dev, B, band_B = torch.device(args.device), args.batch, args.band_batch
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device")
     trees = {"this": _mods("hpmpc_tpu_torch"),
@@ -141,7 +161,7 @@ def main() -> int:
                  ("step_flat", dict(NZ=dims.NZ, NB=dims.NB)),
                  ("factor_solve_flat", d2), ("solve_flat", d2),
                  ("refine_flat", dict(d2, NG=dims.NG)),
-                 ("resid_terms_flat", d2)]
+                 ("resid_terms_flat", d2), ("batch_chol", {})]
         errors = []
 
         def build(m):
@@ -271,8 +291,154 @@ def main() -> int:
     out["headline_bitwise_equal"] = all(fields.values())
     print(f"headline route (resident), this vs other: bitwise equal per "
           f"field {fields}", flush=True)
+    out["band"] = _band(trees, dev, band_B)
     print(json.dumps(out), flush=True)
     return 0
+
+
+def _turns(torch, fns: dict, reps: int) -> dict:
+    """ms a call of each of ``fns`` ("other", "this"), CUDA events after a
+    warm-up, in turns other, this, this, other; each one's two means."""
+    times = {k: [] for k in fns}
+    for k in ("other", "this", "this", "other"):
+        fns[k]()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fns[k]()
+        end.record()
+        torch.cuda.synchronize()
+        times[k].append(start.elapsed_time(end) / reps)
+    return times
+
+
+def _profile(torch, fn) -> dict:
+    """One call of ``fn`` under ``torch.profiler`` after a warm-up: host
+    wall ms, device busy ms (the kernels' summed time), the idle share, and
+    row 24's (``cholesky_kernel``) summed ms and launches."""
+    import re
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    out = dict(wall=wall, busy=0.0, chol_ms=0.0, chol_n=0)
+    for e in prof.key_averages():
+        if not str(e.device_type).endswith("CUDA"):
+            continue
+        ms = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0)) / 1e3
+        out["busy"] += ms
+        if re.search(r"\bcholesky_kernel\b", e.key):
+            out["chol_ms"] += ms
+            out["chol_n"] += e.count
+    out["idle"] = 1 - out["busy"] / wall
+    return out
+
+
+def _band(trees, dev, B):
+    """Row 24 on the band's first input and on random SPD batches, both
+    builds, bits and ms; the band's solve_batched of both checkouts."""
+    import numpy as np
+    import torch
+
+    this = trees["this"]
+    out = {"chol": {}, "chol_ms": {}}
+    for dt in (torch.float32, torch.float64):
+        dims, qp = this["ms"].mass_spring_qp(*BAND, 30, dtype=dt, device=dev)
+        qpb = this["batch"].broadcast_qp(qp, B)
+        cfg = this["ipm"].IPMConfig(k_max=1, mu_tol=0.0, alpha_min=1e-8,
+                                    use_pallas=True)
+        seen, saved = [], this["bc"].cholesky
+
+        def spy(M):
+            if not seen:
+                seen.append(M.clone())
+            return saved(M)
+
+        this["bc"].cholesky = spy
+        try:
+            this["batch"].solve_batched(dims, qpb, cfg)
+        finally:
+            this["bc"].cholesky = saved
+        inputs = [("band", seen[0])]
+        for n, Bn in CHOL_RANDOM:
+            X = np.random.default_rng(n).standard_normal((Bn, n, n))
+            inputs.append((f"random n={n}", torch.as_tensor(
+                X @ X.transpose(0, 2, 1) + n * np.eye(n), dtype=dt,
+                device=dev)))
+        for what, M in inputs:
+            key = f"{what} {tuple(M.shape)} {dt}"
+            got = [m["bc"].cholesky(M) for m in trees.values()]
+            same, d = _diff(*got)
+            out["chol"][key] = dict(bitwise_equal=same, max_abs_diff=d)
+            line = (f"row 24 {key}, this vs other build: bitwise equal "
+                    f"{same} (max |diff| {d:.3e})")
+            if dev.type == "cuda":
+                ms = _turns(torch, {k: (lambda m=m: m["bc"].cholesky(M))
+                                    for k, m in trees.items()}, reps=50)
+                # the yardstick: one library call on the same batch
+                lib = _turns(torch, {k: (lambda: torch.linalg.cholesky(M))
+                                     for k in trees}, reps=20)
+                ms["library"] = lib["this"] + lib["other"]
+                out["chol_ms"][key] = ms
+                line += "; ms a call (other, this, this, other): " + (
+                    ", ".join(f"{v:.4f}" for v in (ms["other"][0],
+                                                   *ms["this"],
+                                                   ms["other"][1])))
+                line += ("; torch.linalg.cholesky " + ", ".join(
+                    f"{v:.4f}" for v in ms["library"]))
+            print(line, flush=True)
+    # the band end to end, k_max 8: nx=64 f32 and f64 (B), nx=128 f32 (B/2)
+    out["band_bitwise_equal"], out["band_ms"], out["band_profile"] = {}, {}, {}
+    for nx, nu, dname in BAND_RUNS:
+        dt = getattr(torch, dname)
+        Bn = B if nx == BAND[0] else max(1, B // 2)
+        key = f"nx={nx} {dname} B={Bn}"
+        runs, fns = {}, {}
+        for label, m in trees.items():
+            dims, qp = m["ms"].mass_spring_qp(nx, nu, 30, dtype=dt,
+                                              device=dev)
+            qpb = m["batch"].broadcast_qp(qp, Bn)
+            sc = 1 + 0.02 * np.random.default_rng(0).standard_normal(Bn)
+            qpb = dataclasses.replace(qpb, b=qpb.b * torch.as_tensor(
+                sc, dtype=dt, device=dev)[:, None, None])
+            cfg = m["ipm"].IPMConfig(k_max=8, mu_tol=0.0, alpha_min=1e-8,
+                                     use_pallas=True)
+            runs[label] = m["batch"].solve_batched(dims, qpb, cfg)
+            fns[label] = (lambda m=m, d=dims, q=qpb, c=cfg:
+                          m["batch"].solve_batched(d, q, c))
+        fields = {f: _diff(getattr(runs["this"], f),
+                           getattr(runs["other"], f))[0]
+                  for f in runs["this"]._fields}
+        out["band_bitwise_equal"][key] = all(fields.values())
+        print(f"band solve_batched {key}, this vs other: bitwise equal per "
+              f"field {fields}", flush=True)
+        if dev.type != "cuda":
+            continue
+        ms = _turns(torch, fns, reps=2)
+        prof = {k: _profile(torch, fn) for k, fn in fns.items()}
+        out["band_ms"][key], out["band_profile"][key] = ms, prof
+        print(f"band solve_batched {key} ms a batch (other, this, this, "
+              "other): " + ", ".join(f"{v:.3f}" for v in (
+                  ms["other"][0], *ms["this"], ms["other"][1])), flush=True)
+        for k in ("other", "this"):
+            p = prof[k]
+            print(f"band {key} profile, {k}: wall {p['wall']:.3f} ms, device "
+                  f"busy {p['busy']:.3f} ms (idle share {p['idle']:.1%}), "
+                  f"row 24 {p['chol_ms']:.3f} ms in {p['chol_n']:.0f} "
+                  f"launches ({p['chol_ms'] / p['busy']:.1%} of busy)",
+                  flush=True)
+    return out
 
 
 if __name__ == "__main__":

@@ -1073,11 +1073,18 @@ def _spd_batch(dev, dtype, B, n, seed=0):
 _CHOL_TOL = {torch.float64: 1e-12, torch.float32: 1e-4}
 
 
+# row 24's n: each side of a panel edge (8 columns), a non-multiple of the
+# panel and of the 16-byte row (37), the band's 72 and 144, and the last n
+# of the shared-memory form and the first past it in either type (332 in
+# f32, 232 in f64: csrc/batch_chol.cu::chol)
+_CHOL_N = [1, 5, 7, 8, 9, 37, 72, 144, 232, 233, 250, 332, 333]
+
+
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("n", [1, 5, 72, 250])
+@pytest.mark.parametrize("n", _CHOL_N)
 def test_batch_chol_kernel_matches_plain(cuda, dtype, n):
-    """Row 24: shared-memory triangle (n <= ~240 in f64), device-memory
-    form past it (n=250 in f64)."""
+    """Row 24 in both forms (the packed triangle in shared memory, the
+    device-memory form)."""
     from hpmpc_tpu_torch.ops import batch_chol as bc
 
     M = _spd_batch(cuda, dtype, 9, n).reshape(3, 3, n, n)
@@ -1087,6 +1094,26 @@ def test_batch_chol_kernel_matches_plain(cuda, dtype, n):
     assert bc.LAUNCHES["cholesky"] == n0 + 1 and L.shape == M.shape
     Lp = bc.cholesky_ref(M)
     assert bool((torch.triu(L, 1) == 0).all())
+    scale = float(Lp.abs().max())
+    assert float((L - Lp).abs().max()) <= _CHOL_TOL[dtype] * scale
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n", [8, 72, 144, 250])
+def test_batch_chol_kernel_clamped_pivot(cuda, dtype, n):
+    """Row 24 with row and column 3 zero: the clamp takes tiny for the
+    pivot, so L's column 3 is 0 (an unclamped 1/sqrt(0) would give NaN)."""
+    from hpmpc_tpu_torch.ops import batch_chol as bc
+
+    M = _spd_batch(cuda, dtype, 5, n)
+    M[:, 3, :] = 0.0
+    M[:, :, 3] = 0.0
+    L = bc.cholesky(M)
+    torch.cuda.synchronize()
+    Lp = bc.cholesky_ref(M)
+    assert bool(torch.isfinite(L).all())
+    assert bool((torch.triu(L, 1) == 0).all())
+    assert bool((L[:, :, 3] == 0).all())
     scale = float(Lp.abs().max())
     assert float((L - Lp).abs().max()) <= _CHOL_TOL[dtype] * scale
 
