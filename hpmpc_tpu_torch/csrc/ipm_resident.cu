@@ -1,10 +1,11 @@
 // The whole phase-1 Mehrotra IPM of a batch of OCP QPs in ONE kernel:
-// one CUDA thread runs one instance's solve from init to exit.
+// a team of TEAM lanes of one warp runs one instance's solve from init to
+// exit.
 //
-// Replaces: hpmpc_tpu/ops/resident_kernel.py::ipm_resident (TPU body
-// _resident_kernel), general-constraint rows included: the hard variant
-// (HP_NS = 0, Queue 2 row 1) and the soft one (HP_NS > 0, row 1s, the
-// single-loop soft IPM d_ip2_mpc_soft_tv).  Plain version:
+// Replaces: hpmpc_tpu/ops/resident_kernel.py::ipm_resident (:1014, TPU
+// body _resident_kernel), general-constraint rows included: the hard
+// variant (HP_NS = 0, Queue 2 row 1) and the soft one (HP_NS > 0, row 1s,
+// the single-loop soft IPM d_ip2_mpc_soft_tv).  Plain version:
 // hpmpc_tpu_torch/ops/resident_kernel.py::ipm_resident_ref.
 //
 // Algorithm (the reference's legacy no-residual d_ip2_hard): per
@@ -16,52 +17,70 @@
 // left pending and applied stage by stage in the next iteration's first
 // sweep; a last pass applies the final one.
 //
-// What bounds it on the H100: per instance and iteration the four sweeps
-// touch every stage's streams -- at the flagship (N=30, NZ=11, NX=8,
-// NB=7, f32) about 31 * (66 H + 88 F + 77 factor + ~120 state/direction)
-// scalars, ~45 KB read+written, against ~31 * 2.5k ~ 80k flops (the
-// stage Cholesky, W W', and the triangular solves): ~2 flop/byte, below
-// the ~20 flop/byte fp32 balance point, so DRAM/L2 traffic and latency
-// bound it.  The TPU kernel keeps all of that in VMEM for the whole call.
+// What bounds it on the H100: latency, then instruction issue.  Per
+// instance and iteration the work is ~31 stages x 4 sweeps of small
+// dependent stage algebra (at the flagship NZ=11, NX=8: W = F Lxx ~350
+// FMAs, M += W W' ~530, the stage Cholesky ~220 FMAs + 11 sqrt/divides,
+// the triangular solves), ~2 flop a byte against the ~20 of the f32
+// balance point, over ~5-8 iterations, and 4096 instances are few: at one
+// thread an instance (this kernel's first version) they made 128 warps,
+// one an SM, every stage a serial chain in one thread that spilled its
+// stage arrays (255 registers) and waited alone on every load.  The TPU
+// kernel keeps its state in VMEM and runs 1024 instances in the lanes of
+// its vector unit; neither carries over.
 //
-// Design: the TPU's sequential grid (iteration, 4*(N+1) phase-stage
-// steps) becomes two nested loops inside the thread; its VMEM slabs
-// become per-instance global-memory scratch in batch-last (rows, B)
-// layout, so the 32 threads of a warp read 32 consecutive addresses and
-// every stream access is coalesced.  The 4096-instance flagship working
-// set (~190 MB f32 with inputs) sits in HBM; the L2 (50 MB) catches the
-// re-reads of recent stages.  The Riccati carries (Lxx, px, x) and the
-// per-instance scalars (pending a2, mu, alpha minimum, mu sums, sigma,
-// anchor, frozen, kk) live in registers; the stage matrices are
-// fixed-size per-thread arrays that the compiler may spill to local
-// memory.  Liveness is per instance: a converged or frozen instance
-// leaves the loop after applying its last pending update, where the TPU
-// kernel could only skip a whole 1024-lane block.  Small blocks (32
-// threads) spread the few warps a 4096 batch gives over as many SMs as
-// possible.  Making it fast (several threads per instance, shared-memory
-// staging of the stage streams) is later work.
+// Design (the team): TEAM lanes (a power of two picked from NZ: 8 to
+// NZ=12, 16 to 24, as measured at NZ=11 and 19) share one instance, 32 / TEAM instances a warp, one warp a block, so a
+// 4096 batch is 128 * TEAM warps (~8 an SM at TEAM=8).  Lane r owns the
+// rows r, r + TEAM, ... of every NZ-row object of a stage (M, F, W, g, m,
+// the Ll / Lxx rows, z), the x indices likewise (x index i is z row
+// NU + i), and the box pairs, ng rows and soft rows k with k % TEAM == r.
+// The stage objects live in a per-team slab of shared memory (dynamic,
+// SLAB scalars a team); registers hold a lane's row while it is worked
+// on.  A sweep fetches all of a stage's streams into registers before it
+// stores any into the slab, so a stage waits on one memory latency.
+// Every entry keeps the first version's expression and order, so the
+// outputs are its outputs bit for bit:
+//   - the Cholesky runs column by column: every lane forms the pivot
+//     1 / sqrt(max(a_jj, 1e-20)) from the slab, the row owners scale
+//     column j, a warp barrier, the owners update their rows in the
+//     column order of csrc/stage_math.cuh::chol;
+//   - W, M += W W', m, Pb, px, x_next, u, pi, the triangular solves and
+//     the ng products: one lane an output entry, its sequential chain;
+//     where a lane's range is a runtime one (Pb, pi), the chain is written
+//     with explicit roundings (dot_chain) as nvcc contracted the unrolled
+//     one-thread chain;
+//   - a box / soft / ng value scattered onto the gradient or the barrier
+//     diagonal is shared as its two factors when it ends in a product
+//     (the scatter's add then contracts into the same FMA as before), as
+//     its value when it ends in a sum;
+//   - the fraction-to-boundary candidates are formed by the row owners,
+//     the minimum and the e0/e1/e2 partial sums by lane 0 in row order;
+//   - the max |dual| of the breakdown guard is a team max (any order).
+// The team's scalars (mu, sigma, alpha, the guard, frozen, kk) are
+// uniform across its lanes.  Warp barriers and shuffles name the team's
+// own lanes, so a team that has stopped (converged, frozen, or past B)
+// never holds up a live team in its warp.  Scratch is per instance and
+// instance-major (a team's consecutive rows are consecutive addresses);
+// the inputs and outputs keep the batch-last (rows, B) layout.
 //
 // Soft rows (HP_NS > 0): each stage's NS soft constraints carry four
 // slack/multiplier families [lo; up; s_lo; s_up] (4NS values), eliminated
-// per stage by the slack Schur complement of csrc/stage_math.cuh
-// (soft_schur, soft_qx, soft_dt_dls, soft_corr_fold: the code of the soft
-// 6-kernel loop, csrc/soft_step_flat.cu, so nvcc contracts the same
-// expressions).  The affine backward sweep folds them into the barrier
-// diagonal and gradient, both forward sweeps add their directions'
-// fraction-to-boundary and duality terms, the corrector backward sweep
-// their centering gradient (exact: with its Schur-folded correction;
-// without it the reference's dropped correction; a uniform runtime branch,
-// so one kernel a type carries both forms).  Their multipliers and
-// slacks live in the lams/ts outputs, as z, lam and t do; five direction
-// slabs (affine dt/dl, the centering correction, corrector dt/dl; 5 x 4NS
-// rows a stage) join the scratch.  The duality scaling is per instance
-// (musc).  Every soft array is a per-thread array too: the soft Schur
-// adds ~10 NS values a stage to the hard kernel's live set.
+// per stage by the slack Schur complement (the per-row expressions of
+// csrc/stage_math.cuh soft_schur, soft_qx, soft_dt_dls, soft_corr_fold).
+// The affine backward sweep folds them into the barrier diagonal and
+// gradient, both forward sweeps add their directions' fraction-to-boundary
+// and duality terms, the corrector backward sweep their centering
+// gradient (exact: with its Schur-folded correction; without it the
+// reference's dropped correction; a uniform runtime branch).  Their
+// multipliers and slacks live in the lams/ts outputs, five direction
+// streams (5 x 4NS rows a stage) join the scratch, and the duality
+// scaling is per instance (musc).
 //
-// Specialisation: NU, NX, NB, NG and NS (0 when absent: the hard kernel,
-// whose code the soft branches leave as it was) are compile-time (-D, one
-// library per shape); N, k_max and the stages that carry general
-// constraints (the ng_stage table, n_ng entries) are runtime arguments.
+// Specialisation: NU, NX, NB, NG and NS (0 when absent: the hard kernel)
+// are compile-time (-D, one library per shape); N, k_max and the stages
+// that carry general constraints (the ng_stage table, n_ng entries) are
+// runtime arguments.
 #include "stage_math.cuh"
 
 #if !defined(HP_NU) || !defined(HP_NX) || !defined(HP_NB) || !defined(HP_NG)
@@ -86,16 +105,273 @@ constexpr int NS = HP_NS;
 // the soft arrays' extent (1 in the hard kernel, where no soft code runs)
 constexpr int NSA = NS > 0 ? NS : 1;
 constexpr int NS4 = 4 * NSA;
-constexpr int BLOCK = 32;
+
+// lanes an instance: about one M row a lane at NZ <= 12, two past it
+constexpr int TEAM = NZ <= 6 ? 4 : NZ <= 12 ? 8 : NZ <= 24 ? 16 : 32;
+static_assert(NT <= NZ * NU + NTX, "the packed H overlays Ll and Lxx");
+constexpr int THREADS = 32;             // one warp a block
+constexpr int IPB = THREADS / TEAM;     // instances a block
+
+// the per-team slab of shared memory, in scalars
+constexpr int O_M = 0;                        // (NZ, NZ) stage matrix M
+constexpr int O_F = O_M + NZ * NZ;            // (NZ, NX) F, then W in place
+constexpr int O_LC = O_F + NZ * NX;           // (NX, NX) Lxx carry / Lxx
+constexpr int O_LL = O_LC + NX * NX;          // (NZ, NU) Ll of a stage
+constexpr int O_LX = O_LL + NZ * NU;          // NTX packed Lxx of a stage
+// NT packed H of a stage (the barrier fold only): over Ll and Lxx, which
+// only the other sweeps use (NT <= NZ NU + NTX)
+constexpr int O_H = O_LL;
+constexpr int O_G = O_LX + NTX;               // NZ gradient
+constexpr int O_MV = O_G + NZ;                // NZ m
+constexpr int O_ZT = O_MV + NZ;               // NZ direction [u; x]
+constexpr int O_X = O_ZT + NZ;                // 2 NX x, double-buffered
+constexpr int O_PXC = O_X + 2 * NX;           // NX px carry
+constexpr int O_PB = O_PXC + NX;              // NX Pb + px carry
+constexpr int O_T1 = O_PB + NX;               // NX Lxx' b / Lxx' x
+constexpr int O_PXV = O_T1 + NX;              // NX px of a stage
+constexpr int O_BB = O_PXV + NX;              // NX b
+constexpr int O_EU = O_BB + NX;               // NU eu
+constexpr int O_DI = O_EU + NU;               // NZ Cholesky pivots
+constexpr int O_LAM = O_DI + NZ;              // NB2 box lam, t, mask, d
+constexpr int O_T = O_LAM + NB2;
+constexpr int O_MB = O_T + NB2;
+constexpr int O_A = O_MB + NB2;
+constexpr int O_DT = O_A + NB2;               // NB2 box dt, dl, candidates,
+constexpr int O_DL = O_DT + NB2;              //   centering stream
+constexpr int O_CP = O_DL + NB2;
+constexpr int O_CO = O_CP + NB2;
+constexpr int O_FA = O_CO + NB2;              // NB scatter factors / values
+constexpr int O_FQ = O_FA + NB;
+constexpr int O_LG = O_FQ + NB;               // NG2 ng lam, t, mask, d
+constexpr int O_TG = O_LG + NG2;
+constexpr int O_MG = O_TG + NG2;
+constexpr int O_DG = O_MG + NG2;
+constexpr int O_DTG = O_DG + NG2;             // NG2 ng dt, dl, candidates,
+constexpr int O_DLG = O_DTG + NG2;            //   centering stream
+constexpr int O_CPG = O_DLG + NG2;
+constexpr int O_COG = O_CPG + NG2;
+constexpr int O_QG = O_COG + NG2;             // NG Qx, qx of the ng fold
+constexpr int O_QXG = O_QG + NG;
+constexpr int O_C = O_QXG + NG;               // (NG, NZ) ng rows
+constexpr int O_LS = O_C + NG * NZ;           // NS4 soft lam, t
+constexpr int O_TS = O_LS + NS4;
+constexpr int O_MS = O_TS + NS4;              // NSA soft mask
+constexpr int O_SC = O_MS + NSA;              // 6 NSA soft constants
+constexpr int O_DTS = O_SC + 6 * NSA;         // NS4 soft dt, dl, candidates
+constexpr int O_DLS = O_DTS + NS4;
+constexpr int O_CPS = O_DLS + NS4;
+constexpr int O_FS = O_CPS + NS4;             // NSA soft scatter factors
+constexpr int O_QS = O_FS + NSA;
+constexpr int O_RED = O_QS + NSA;             // 4 amin, s0, s1, s2
+constexpr int SLAB = O_RED + 4;
 
 // rows of per-instance scratch, in the order the kernel carves them:
 // dz2, dpi2, dt2, dl2, dta, dla, co, ll, eu, px, lxx, pb, the five ng
 // direction slabs, and the five soft ones (dta_s, dla_s, dl2c_s, dt2_s,
-// dl2_s)
+// dl2_s); instance-major: instance b's rows start at b * work_rows
 __host__ __device__ inline int64_t work_rows(int64_t N, int64_t n_ng) {
   return (N + 1) * NZ + N * NX + 5 * (N + 1) * NB2 + (N + 1) * NZ * NU +
          (N + 1) * NU + (N + 1) * NX + (N + 1) * NTX + N * NX +
          5 * n_ng * NG2 + 5 * (N + 1) * 4 * NS;
+}
+
+__host__ __device__ constexpr int chunks(int n) {
+  return n > 0 ? (n + TEAM - 1) / TEAM : 1;
+}
+
+// A team copy of COUNT rows of a stream into the slab, in two halves:
+// fetch (lane r loads the rows r, r + TEAM, ... into registers) and put
+// (the stores).  A sweep fetches all of a stage's streams before it puts
+// any, so a stage waits on one memory latency, not on one a row.
+template <int COUNT, typename T, typename Src>
+__device__ __forceinline__ void fetch(int r, T (&buf)[chunks(COUNT)],
+                                      const Src& src) {
+#pragma unroll
+  for (int c = 0; c < chunks(COUNT); ++c) {
+    const int e = r + c * TEAM;
+    if (e < COUNT) buf[c] = src(e);
+  }
+}
+
+template <int COUNT, typename T>
+__device__ __forceinline__ void put(int r, T* dst,
+                                    const T (&buf)[chunks(COUNT)]) {
+#pragma unroll
+  for (int c = 0; c < chunks(COUNT); ++c) {
+    const int e = r + c * TEAM;
+    if (e < COUNT) dst[e] = buf[c];
+  }
+}
+
+template <int COUNT, typename T, typename Src>
+__device__ __forceinline__ void team_copy(int r, T* dst, const Src& src) {
+  T buf[chunks(COUNT)];
+  fetch<COUNT>(r, buf, src);
+  put<COUNT>(r, dst, buf);
+}
+
+// The pending update of COUNT rows of a state stream from row r0, x += a
+// (dx - x) (TOWARD: z and pi) or x += a dx (the multipliers and slacks),
+// loads first as in team_copy; keep, if given, takes the new rows.
+template <int COUNT, bool TOWARD, typename T>
+__device__ __forceinline__ void team_update(int r, T a, const hp::Col<T>& x,
+                                            const hp::Col<T>& dx, int64_t r0,
+                                            T* keep) {
+  T xv[chunks(COUNT)], dv[chunks(COUNT)];
+#pragma unroll
+  for (int c = 0; c < chunks(COUNT); ++c) {
+    const int e = r + c * TEAM;
+    if (e < COUNT) {
+      xv[c] = x(r0 + e);
+      dv[c] = dx(r0 + e);
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < chunks(COUNT); ++c) {
+    const int e = r + c * TEAM;
+    if (e < COUNT) {
+      // a select, never a multiply: frozen directions may hold NaN
+      const T v = TOWARD ? xv[c] + a * (dv[c] - xv[c]) : xv[c] + a * dv[c];
+      x(r0 + e) = v;
+      if (keep) keep[e] = v;
+    }
+  }
+}
+
+// Rounded products and FMAs that nvcc never contracts further.
+__device__ __forceinline__ float mul_rn(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ double mul_rn(double a, double b) {
+  return __dmul_rn(a, b);
+}
+__device__ __forceinline__ float fma_rn(float a, float b, float c) {
+  return __fmaf_rn(a, b, c);
+}
+__device__ __forceinline__ double fma_rn(double a, double b, double c) {
+  return __fma_rn(a, b, c);
+}
+
+// sum_{q = q0..q1} a_q b_q (term(q, a, b) gives a_q, b_q) over a lane's
+// runtime range, rounded as nvcc rounded the unrolled sum in one thread
+// (hp::pb_of, hp::pi_of_x): the first product fused with the rounded
+// second, each later product into the running sum; one term is a rounded
+// product.
+template <typename T, typename Term>
+__device__ __forceinline__ T dot_chain(int q0, int q1, Term term) {
+  T a0, b0;
+  term(q0, a0, b0);
+  if (q1 == q0) return mul_rn(a0, b0);
+  T a1, b1;
+  term(q0 + 1, a1, b1);
+  T acc = fma_rn(a0, b0, mul_rn(a1, b1));
+  for (int q = q0 + 2; q <= q1; ++q) {
+    T a, b;
+    term(q, a, b);
+    acc = fma_rn(a, b, acc);
+  }
+  return acc;
+}
+
+// One soft row k's slack Schur elimination (csrc/stage_math.cuh
+// soft_schur, the entries of row k: families f = 0..3 are the slots
+// f NS + k), rounded as the one-thread kernel rounds each entry.  Its
+// products lamt enter two sums as addends; nvcc contracted them there in
+// none of the rows but one: in the barrier fold (FOLD) the last row's
+// lamt of family 3 into Zl1's sum.  The sums are therefore written with
+// explicit roundings, so that no heuristic of the compiler decides them.
+template <typename T>
+struct SoftRow {
+  T m, t_inv[4], lamt[4];
+  T rqx0, rqx1, Zl0, Zl1, zl0, zl1, dlbs, dubs;
+};
+
+template <bool FOLD, typename T>
+__device__ __forceinline__ void soft_row(int k, const T* ls, const T* ts,
+                                         const T* ms, const T* c,
+                                         SoftRow<T>& S) {
+  const T m = ms[k];
+  S.m = m;
+#pragma unroll
+  for (int f = 0; f < 4; ++f) {
+    const T rec = T(1) / (m > T(0) ? ts[f * NS + k] : T(1));
+    S.t_inv[f] = mul_rn(rec, m);
+    S.lamt[f] = mul_rn(ls[f * NS + k], S.t_inv[f]);
+  }
+  const bool on = ms[k] > T(0);
+  S.dlbs = c[k];
+  S.dubs = c[NS + k];
+  S.rqx0 = ls[k] + S.lamt[0] * S.dlbs;
+  S.rqx1 = ls[NS + k] - S.lamt[1] * S.dubs;
+  const T s1 = c[3 * NS + k] + S.lamt[1];
+  const T z1 = FOLD && k == NS - 1 ? fma_rn(ls[3 * NS + k], S.t_inv[3], s1)
+                                   : s1 + S.lamt[3];
+  S.Zl0 = on ? T(1) / (c[2 * NS + k] + S.lamt[0] + S.lamt[2]) : T(0);
+  S.Zl1 = on ? T(1) / z1 : T(0);
+  S.zl0 = -c[4 * NS + k] + S.rqx0 + ls[2 * NS + k];
+  S.zl1 = -c[5 * NS + k] + S.rqx1 + ls[3 * NS + k];
+}
+
+// soft_qx of row k: (Qx, qx) = (qa ms, qb ms); returns qa, qb
+template <typename T>
+__device__ __forceinline__ void soft_qx_row(const SoftRow<T>& S, T& qa,
+                                            T& qb) {
+  const T rQx0 = S.lamt[0], rQx1 = S.lamt[1];
+  const T rqx0e = S.rqx0 - rQx0 * S.zl0 * S.Zl0;
+  const T rqx1e = S.rqx1 - rQx1 * S.zl1 * S.Zl1;
+  const T rQx0e = fma_rn(-mul_rn(rQx0, rQx0), S.Zl0, rQx0);
+  const T rQx1e = fma_rn(-mul_rn(rQx1, rQx1), S.Zl1, rQx1);
+  qa = rQx0e + rQx1e;
+  qb = rqx1e - rqx0e;
+}
+
+// soft_dt_dls of row k (zs gathered and masked; dl0 the centering stream)
+template <typename T>
+__device__ __forceinline__ void soft_dt_dls_row(
+    int k, const T* ls, const T* ts, const SoftRow<T>& S, T zs,
+    const T (&dl0)[4], T zl0x, T zl1x, T (&dts)[4], T (&dls)[4]) {
+  const T ds_lo = (zl0x - S.lamt[0] * zs) * S.Zl0;
+  const T ds_up = (zl1x + S.lamt[1] * zs) * S.Zl1;
+  dts[0] = (ds_lo + zs - S.dlbs - ts[k]) * S.m;
+  dts[1] = (ds_up - zs + S.dubs - ts[NS + k]) * S.m;
+  dts[2] = (ds_lo - ts[2 * NS + k]) * S.m;
+  dts[3] = (ds_up - ts[3 * NS + k]) * S.m;
+#pragma unroll
+  for (int f = 0; f < 4; ++f)
+    dls[f] = (dl0[f] - S.lamt[f] * dts[f] - ls[f * NS + k]) * S.m;
+}
+
+// the fraction-to-boundary candidate pair of one slot (alpha_sums' terms)
+template <typename T>
+__device__ __forceinline__ T cand_pair(T lam, T t, T mb, T dt, T dl) {
+  return hp::nmin(hp::alpha_cand(lam, dl, mb), hp::alpha_cand(t, dt, mb));
+}
+
+// hp::alpha_sums on slab rows whose candidate pairs are formed: the
+// minimum and the three partial sums in row order, each rounded as nvcc
+// rounds the one-thread loop (e2: its first product rounded, each later
+// one contracted into the sum).  Slot i's mask is mb[i % MOD] (MOD = K2
+// for box and ng rows, NS for soft rows).
+template <typename T, int K2, int MOD>
+__device__ __forceinline__ void alpha_chain(const T* lam, const T* t,
+                                            const T* mb, const T* dt,
+                                            const T* dl, const T* cp,
+                                            T& amin, T& s0, T& s1, T& s2) {
+  T cmin = cp[0];
+  T e0 = lam[0] * t[0] * mb[0];
+  T e1 = lam[0] * dt[0] + t[0] * dl[0];
+  T e2 = mul_rn(dl[0], dt[0]);
+#pragma unroll
+  for (int i = 1; i < K2; ++i) {
+    cmin = hp::nmin(cmin, cp[i]);
+    e0 = e0 + lam[i] * t[i] * mb[i % MOD];
+    e1 = e1 + (lam[i] * dt[i] + t[i] * dl[i]);
+    e2 = fma_rn(dl[i], dt[i], e2);
+  }
+  amin = hp::nmin(amin, cmin);
+  s0 = s0 + e0;
+  s1 = s1 + e1;
+  s2 = s2 + e2;
 }
 
 }  // namespace
@@ -138,7 +414,7 @@ struct ResidentArgs {
   void* tg;              // (n_ng, 2NG, B)
   void* lams;            // (N+1, 4NS, B)
   void* ts;              // (N+1, 4NS, B)
-  void* work;            // (work_rows, B)
+  void* work;            // (B, work_rows) instance-major scratch
   int64_t B;
   int64_t N;
   int64_t K;
@@ -151,19 +427,76 @@ struct ResidentArgs {
 };
 
 template <typename T>
-__global__ void __launch_bounds__(BLOCK) ipm_resident_kernel(ResidentArgs a) {
+__global__ void __launch_bounds__(THREADS) ipm_resident_kernel(ResidentArgs a) {
   using hp::Col;
   using hp::nmax;
   using hp::nmin;
+  using hp::sym_idx;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int lane = static_cast<int>(threadIdx.x);
+  const int tw = lane / TEAM, r = lane % TEAM;
+  const unsigned mask =
+      TEAM == 32 ? 0xffffffffu : ((1u << TEAM) - 1u) << (tw * TEAM);
   const int64_t B = a.B;
-  const int64_t bi = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-  if (bi >= B) return;
+  const int64_t bi = static_cast<int64_t>(blockIdx.x) * IPB + tw;
+  if (bi >= B) return;  // the whole team
   const int N = static_cast<int>(a.N);
   const int K = static_cast<int>(a.K);
   const int n_ng = static_cast<int>(a.n_ng);
   const int* idx = static_cast<const int*>(a.idx);
   const int* ng_stage = static_cast<const int*>(a.ng_stage);
+  const int* idxs = static_cast<const int*>(a.idxs);
+  auto sync = [&] { __syncwarp(mask); };
+  const int* idxs_k = idxs;  // a stage's row of the soft table
+
+  T* const sh = reinterpret_cast<T*>(smem_raw) + tw * SLAB;
+  T* const sM = sh + O_M;
+  T* const sF = sh + O_F;
+  T* const sLc = sh + O_LC;
+  T* const sLl = sh + O_LL;
+  T* const sG = sh + O_G;
+  T* const sMv = sh + O_MV;
+  T* const sZt = sh + O_ZT;
+  T* const sPxc = sh + O_PXC;
+  T* const sPb = sh + O_PB;
+  T* const sT1 = sh + O_T1;
+  T* const sPxv = sh + O_PXV;
+  T* const sBb = sh + O_BB;
+  T* const sEu = sh + O_EU;
+  T* const sDi = sh + O_DI;
+  T* const sH = sh + O_H;
+  T* const sLx = sh + O_LX;
+  T* const sLam = sh + O_LAM;
+  T* const sT = sh + O_T;
+  T* const sMb = sh + O_MB;
+  T* const sA = sh + O_A;
+  T* const sDt = sh + O_DT;
+  T* const sDl = sh + O_DL;
+  T* const sCp = sh + O_CP;
+  T* const sCo = sh + O_CO;
+  T* const sFa = sh + O_FA;
+  T* const sFq = sh + O_FQ;
+  T* const sLg = sh + O_LG;
+  T* const sTg = sh + O_TG;
+  T* const sMg = sh + O_MG;
+  T* const sDg = sh + O_DG;
+  T* const sDtg = sh + O_DTG;
+  T* const sDlg = sh + O_DLG;
+  T* const sCpg = sh + O_CPG;
+  T* const sCog = sh + O_COG;
+  T* const sQg = sh + O_QG;
+  T* const sQxg = sh + O_QXG;
+  T* const sC = sh + O_C;
+  T* const sLs = sh + O_LS;
+  T* const sTs = sh + O_TS;
+  T* const sMs = sh + O_MS;
+  T* const sSc = sh + O_SC;
+  T* const sDts = sh + O_DTS;
+  T* const sDls = sh + O_DLS;
+  T* const sCps = sh + O_CPS;
+  T* const sFs = sh + O_FS;
+  T* const sQs = sh + O_QS;
+  T* const sRed = sh + O_RED;
 
   auto in = [&](const void* p) {
     return Col<const T>{static_cast<const T*>(p) + bi, B};
@@ -177,15 +510,14 @@ __global__ void __launch_bounds__(BLOCK) ipm_resident_kernel(ResidentArgs a) {
                      lamg0 = in(a.lamg0), tg0 = in(a.tg0);
   const Col<T> z = out(a.z), pi = out(a.pi), lam = out(a.lam), t = out(a.t),
                stat = out(a.stat), lamg = out(a.lamg), tg = out(a.tg);
-  const int* idxs = static_cast<const int*>(a.idxs);
   const Col<const T> lams0 = in(a.lams0), ts0 = in(a.ts0),
                      softcc = in(a.softc), mskc = in(a.msk);
   const Col<T> lams = out(a.lams), ts = out(a.ts);
 
-  T* w = static_cast<T*>(a.work);
+  T* w = static_cast<T*>(a.work) + bi * work_rows(N, n_ng);
   int64_t off = 0;
   auto take = [&](int64_t rows) {
-    Col<T> c{w + off * B + bi, B};
+    Col<T> c{w + off, 1};
     off += rows;
     return c;
   };
@@ -207,85 +539,243 @@ __global__ void __launch_bounds__(BLOCK) ipm_resident_kernel(ResidentArgs a) {
       if (ng_stage[j] == n) return j;
     return -1;
   };
-  auto load_ll = [&](int n, T (&Ll)[NZ][NU]) {
-#pragma unroll
-    for (int i = 0; i < NZ; ++i)
-#pragma unroll
-      for (int j = 0; j < NU; ++j)
-        Ll[i][j] = lls((static_cast<int64_t>(n) * NZ + i) * NU + j);
+  // slab loads of a stage, split over the lanes (team_copy)
+  auto rows_of = [&](const auto& col, int64_t r0) {
+    return [=](int e) { return col(r0 + e); };
   };
-  auto load_lxx = [&](int n, T (&Lxx)[NX][NX]) {
+  // a stage's box, Ll, F and soft streams in registers (fetch), then in
+  // the slab (put)
+  struct BoxB {
+    T l[chunks(NB2)], t[chunks(NB2)], m[chunks(NB2)], a[chunks(NB2)];
+  };
+  struct LlB {
+    T l[chunks(NZ * NU)], e[chunks(NU)];
+  };
+  struct FB {
+    T f[chunks(NZ * NX)], b[chunks(NX)];
+  };
+  struct SoftB {
+    T l[chunks(NS4)], t[chunks(NS4)], m[chunks(NSA)], c[chunks(6 * NSA)];
+  };
+  auto box_fetch = [&](int n, BoxB& b) {
+    const int64_t r0 = static_cast<int64_t>(n) * NB2;
+    fetch<NB2>(r, b.l, rows_of(lam, r0));
+    fetch<NB2>(r, b.t, rows_of(t, r0));
+    fetch<NB2>(r, b.m, rows_of(mbc, r0));
+    fetch<NB2>(r, b.a, rows_of(dcatc, r0));
+  };
+  auto box_put = [&](const BoxB& b) {
+    put<NB2>(r, sLam, b.l);
+    put<NB2>(r, sT, b.t);
+    put<NB2>(r, sMb, b.m);
+    put<NB2>(r, sA, b.a);
+  };
+  auto ll_fetch = [&](int n, LlB& b) {
+    fetch<NZ * NU>(r, b.l, rows_of(lls, static_cast<int64_t>(n) * NZ * NU));
+    fetch<NU>(r, b.e, rows_of(eus, static_cast<int64_t>(n) * NU));
+  };
+  auto ll_put = [&](const LlB& b) {
+    put<NZ * NU>(r, sLl, b.l);
+    put<NU>(r, sEu, b.e);
+  };
+  auto f_fetch = [&](int n, FB& b) {
+    fetch<NZ * NX>(r, b.f, rows_of(Fc, static_cast<int64_t>(n) * NZ * NX));
+    fetch<NX>(r, b.b, rows_of(bc, static_cast<int64_t>(n) * NX));
+  };
+  auto f_put = [&](const FB& b) {
+    put<NZ * NX>(r, sF, b.f);
+    put<NX>(r, sBb, b.b);
+  };
+  auto soft_fetch = [&](int n, SoftB& b) {
+    fetch<NS4>(r, b.l, rows_of(lams, static_cast<int64_t>(n) * NS4));
+    fetch<NS4>(r, b.t, rows_of(ts, static_cast<int64_t>(n) * NS4));
+    fetch<NSA>(r, b.m, rows_of(mskc, static_cast<int64_t>(n) * NSA));
+    fetch<6 * NSA>(r, b.c, rows_of(softcc, static_cast<int64_t>(n) * 6 * NSA));
+  };
+  auto soft_put = [&](const SoftB& b) {
+    put<NS4>(r, sLs, b.l);
+    put<NS4>(r, sTs, b.t);
+    put<NSA>(r, sMs, b.m);
+    put<6 * NSA>(r, sSc, b.c);
+  };
+
+  auto load_ng = [&](int j) {
+    const int64_t r0 = static_cast<int64_t>(j) * NG2;
+    team_copy<NG2>(r, sLg, rows_of(lamg, r0));
+    team_copy<NG2>(r, sTg, rows_of(tg, r0));
+    team_copy<NG2>(r, sMg, rows_of(mggc, r0));
+    team_copy<NG2>(r, sDg, rows_of(dggc, r0));
+    team_copy<NG * NZ>(r, sC, rows_of(Cgc, static_cast<int64_t>(j) * NG * NZ));
+  };
+  auto load_lxx = [&](int n) {  // the packed lower triangle into sLx
+    team_copy<NTX>(r, sLx, rows_of(lxxs, static_cast<int64_t>(n) * NTX));
+  };
+  // x0 = -(Lxx Lxx')^{-1} px (hp::root_x0) on stage 0's slab rows, in
+  // every lane; the result into the x buffer 0
+  auto root_x0 = [&] {
+    sync();
+    load_lxx(0);
+    team_copy<NX>(r, sT1, rows_of(pxs, 0));
+    sync();
+    T D[NX], tt[NX], xx[NX];
 #pragma unroll
     for (int i = 0; i < NX; ++i)
+      D[i] = T(1) / nmax(sLx[sym_idx(i, i)], T(1e-30));
 #pragma unroll
-      for (int j = 0; j < NX; ++j)
-        Lxx[i][j] = j <= i ? lxxs(static_cast<int64_t>(n) * NTX +
-                                  hp::sym_idx(i, j))
-                           : T(0);
+    for (int i = 0; i < NX; ++i) {
+      T acc = -sT1[i];
+#pragma unroll
+      for (int j = 0; j < i; ++j) acc = acc - sLx[sym_idx(i, j)] * tt[j];
+      tt[i] = acc * D[i];
+    }
+#pragma unroll
+    for (int i = NX - 1; i >= 0; --i) {
+      T acc = tt[i];
+#pragma unroll
+      for (int j = i + 1; j < NX; ++j) acc = acc - sLx[sym_idx(j, i)] * xx[j];
+      xx[i] = acc * D[i];
+    }
+#pragma unroll
+    for (int i = 0; i < NX; ++i)
+      if (i % TEAM == r) sh[O_X + i] = xx[i];
   };
-  auto load_box = [&](int n, T (&lamk)[NB2], T (&tk)[NB2], T (&mbk)[NB2],
-                      T (&Ak)[NB2]) {
-    const int64_t r = static_cast<int64_t>(n) * NB2;
-    hp::load(lamk, lam, r);
-    hp::load(tk, t, r);
-    hp::load(mbk, mbc, r);
-    hp::load(Ak, dcatc, r);
+  // u = -Luu^{-T} (eu + Lxu' x) (hp::u_of_x) from the slab, in every lane
+  auto u_of_x = [&](const T* x, T (&u)[NU]) {
+    T Du[NU], rhs[NU], y[NU];
+#pragma unroll
+    for (int i = 0; i < NU; ++i) Du[i] = T(1) / nmax(sLl[i * NU + i], T(1e-30));
+#pragma unroll
+    for (int i = 0; i < NU; ++i) {
+      T acc = sEu[i];
+#pragma unroll
+      for (int q = 0; q < NX; ++q) acc = acc + sLl[(NU + q) * NU + i] * x[q];
+      rhs[i] = acc;
+    }
+#pragma unroll
+    for (int i = NU - 1; i >= 0; --i) {
+      T acc = rhs[i];
+#pragma unroll
+      for (int j = i + 1; j < NU; ++j) acc = acc - sLl[j * NU + i] * y[j];
+      y[i] = acc * Du[i];
+    }
+#pragma unroll
+    for (int i = 0; i < NU; ++i) u[i] = -y[i];
   };
-  auto load_ng = [&](int j, T (&lg)[NG2], T (&tgv)[NG2], T (&mg)[NG2],
-                     T (&dg)[NG2]) {
-    const int64_t r = static_cast<int64_t>(j) * NG2;
-    hp::load(lg, lamg, r);
-    hp::load(tgv, tg, r);
-    hp::load(mg, mggc, r);
-    hp::load(dg, dggc, r);
+  // eu = Luu^{-1} m_u (hp::tril_solve) with the pivots Dinv, in every lane
+  auto eu_of_m = [&](const T* L, int ld, const T (&Dinv)[NU], T (&eu)[NU]) {
+#pragma unroll
+    for (int i = 0; i < NU; ++i) {
+      T acc = sMv[i];
+#pragma unroll
+      for (int j = 0; j < i; ++j) acc = acc - L[i * ld + j] * eu[j];
+      eu[i] = acc * Dinv[i];
+    }
   };
-  auto C = [&](int j, int g, int i) {
-    return Cgc((static_cast<int64_t>(j) * NG + g) * NZ + i);
+  // zb = z[idx[k]] (hp::gather_box's select chain: slot 0 outside [0, NZ))
+  auto gather = [&](int j) { return (j >= 1 && j < NZ) ? sZt[j] : sZt[0]; };
+  // the box direction of pair i (hp::dt_dlam) with the centering values
+  // dl0 of its two slots, into the slab with its candidate pairs
+  auto box_dir = [&](int i, T zb, T dl0_lo, T dl0_up) {
+    const T dt_lo = ((zb - sA[i]) - sT[i]) * sMb[i];
+    const T dt_up = ((sA[NB + i] - zb) - sT[NB + i]) * sMb[NB + i];
+    T ti, lt_lo, lt_up;
+    hp::t_inv_lamt(sLam[i], sT[i], sMb[i], ti, lt_lo);
+    hp::t_inv_lamt(sLam[NB + i], sT[NB + i], sMb[NB + i], ti, lt_up);
+    const T dl_lo = (dl0_lo - lt_lo * dt_lo - sLam[i]) * sMb[i];
+    const T dl_up = (dl0_up - lt_up * dt_up - sLam[NB + i]) * sMb[NB + i];
+    sDt[i] = dt_lo;
+    sDt[NB + i] = dt_up;
+    sDl[i] = dl_lo;
+    sDl[NB + i] = dl_up;
+    sCp[i] = cand_pair(sLam[i], sT[i], sMb[i], dt_lo, dl_lo);
+    sCp[NB + i] = cand_pair(sLam[NB + i], sT[NB + i], sMb[NB + i], dt_up,
+                            dl_up);
   };
-  // a stage's soft multipliers, slacks, mask and constants
-  auto load_soft = [&](int n, T (&ls)[NS4], T (&tsv)[NS4], T (&ms)[NSA],
-                       T (&c)[6 * NSA]) {
-    hp::load(ls, lams, static_cast<int64_t>(n) * NS4);
-    hp::load(tsv, ts, static_cast<int64_t>(n) * NS4);
-    hp::load(ms, mskc, static_cast<int64_t>(n) * NSA);
-    hp::load(c, softcc, static_cast<int64_t>(n) * 6 * NSA);
+  // the same for ng row g with its constraint value cz
+  auto ng_dir = [&](int g, T cz, T dl0_lo, T dl0_up) {
+    const T dt_lo = ((cz - sDg[g]) - sTg[g]) * sMg[g];
+    const T dt_up = ((sDg[NG + g] - cz) - sTg[NG + g]) * sMg[NG + g];
+    T ti, lt_lo, lt_up;
+    hp::t_inv_lamt(sLg[g], sTg[g], sMg[g], ti, lt_lo);
+    hp::t_inv_lamt(sLg[NG + g], sTg[NG + g], sMg[NG + g], ti, lt_up);
+    const T dl_lo = (dl0_lo - lt_lo * dt_lo - sLg[g]) * sMg[g];
+    const T dl_up = (dl0_up - lt_up * dt_up - sLg[NG + g]) * sMg[NG + g];
+    sDtg[g] = dt_lo;
+    sDtg[NG + g] = dt_up;
+    sDlg[g] = dl_lo;
+    sDlg[NG + g] = dl_up;
+    sCpg[g] = cand_pair(sLg[g], sTg[g], sMg[g], dt_lo, dl_lo);
+    sCpg[NG + g] = cand_pair(sLg[NG + g], sTg[NG + g], sMg[NG + g], dt_up,
+                             dl_up);
+  };
+  // C z of ng row g (its sequential chain)
+  auto cz_of = [&](int g) {
+    T acc = sC[g * NZ] * sZt[0];
+#pragma unroll
+    for (int i = 1; i < NZ; ++i) acc = acc + sC[g * NZ + i] * sZt[i];
+    return acc;
+  };
+  // the soft direction of row k into the slab with its candidate pairs;
+  // dl0 / zl0x / zl1x as hp::soft_dt_dls takes them (CORR: the corrector's
+  // dl2c stream, in dc)
+  auto soft_dir = [&](int k, const T (&dc)[4], bool corr, T (&dts)[4],
+                      T (&dls)[4]) {
+    SoftRow<T> S;
+    soft_row<false, T>(k, sLs, sTs, sMs, sSc, S);
+    const T zs = gather(idxs_k[k]) * sMs[k];
+    const T zero4[4] = {T(0), T(0), T(0), T(0)};
+    if (corr) {
+      const T zl0x = S.zl0 + dc[0] + dc[2];
+      const T zl1x = S.zl1 + dc[1] + dc[3];
+      soft_dt_dls_row<T>(k, sLs, sTs, S, zs, dc, zl0x, zl1x, dts, dls);
+    } else {
+      soft_dt_dls_row<T>(k, sLs, sTs, S, zs, zero4, S.zl0, S.zl1, dts, dls);
+    }
+#pragma unroll
+    for (int f = 0; f < 4; ++f) {
+      const int i = f * NS + k;
+      sDts[i] = dts[f];
+      sDls[i] = dls[f];
+      sCps[i] = cand_pair(sLs[i], sTs[i], S.m, dts[f], dls[f]);
+    }
   };
 
   // ---- one-time init -----------------------------------------------------
-  for (int64_t r = 0; r < (N + 1) * NZ; ++r) {
-    z(r) = z0(r);
-    dz2(r) = T(0);
+  for (int64_t e = r; e < (N + 1) * NZ; e += TEAM) {
+    z(e) = z0(e);
+    dz2(e) = T(0);
   }
-  for (int64_t r = 0; r < (N + 1) * NB2; ++r) {
-    lam(r) = lam0(r);
-    t(r) = t0(r);
-    dt2(r) = T(0);
-    dl2(r) = T(0);
+  for (int64_t e = r; e < (N + 1) * NB2; e += TEAM) {
+    lam(e) = lam0(e);
+    t(e) = t0(e);
+    dt2(e) = T(0);
+    dl2(e) = T(0);
   }
-  for (int64_t r = 0; r < static_cast<int64_t>(N) * NX; ++r) {
-    pi(r) = pi0(r);
-    dpi2(r) = T(0);
+  for (int64_t e = r; e < static_cast<int64_t>(N) * NX; e += TEAM) {
+    pi(e) = pi0(e);
+    dpi2(e) = T(0);
   }
-  for (int64_t r = 0; r < static_cast<int64_t>(n_ng) * NG2; ++r) {
-    lamg(r) = lamg0(r);
-    tg(r) = tg0(r);
-    dt2g(r) = T(0);
-    dl2g(r) = T(0);
+  for (int64_t e = r; e < static_cast<int64_t>(n_ng) * NG2; e += TEAM) {
+    lamg(e) = lamg0(e);
+    tg(e) = tg0(e);
+    dt2g(e) = T(0);
+    dl2g(e) = T(0);
   }
-  for (int64_t r = 0; r < static_cast<int64_t>(K) * 5; ++r) stat(r) = T(0);
-  for (int64_t r = 0; r < srows; ++r) {
-    lams(r) = lams0(r);
-    ts(r) = ts0(r);
-    dt2s(r) = T(0);
-    dl2s(r) = T(0);
+  for (int64_t e = r; e < static_cast<int64_t>(K) * 5; e += TEAM)
+    stat(e) = T(0);
+  for (int64_t e = r; e < srows; e += TEAM) {
+    lams(e) = lams0(e);
+    ts(e) = ts0(e);
+    dt2s(e) = T(0);
+    dl2s(e) = T(0);
   }
+  sync();
 
   const T BIG = T(3.0e38);
   const T mu_tol = T(a.mu_tol), alpha_min = T(a.alpha_min),
           mu_scal = NS > 0 ? in(a.musc)(0) : T(a.mu_scal);
   T a2p = T(0), mu = T(a.mu0), lamref = BIG;
   int frz = 0, kk = 0;
-  T Lxx_c[NX][NX], px_c[NX];
 
   for (int it = 0; it <= K; ++it) {
     const bool live = frz == 0 && mu > mu_tol;
@@ -295,214 +785,425 @@ __global__ void __launch_bounds__(BLOCK) ipm_resident_kernel(ResidentArgs a) {
     for (int s = 0; s <= N; ++s) {
       const int k = N - s;
       const int jg = ng_slot(k);
-      if (a2p > T(0)) {
-        // a select, never a multiply: frozen directions may hold NaN
-        for (int i = 0; i < NZ; ++i) {
-          const int64_t r = static_cast<int64_t>(k) * NZ + i;
-          const T zo = z(r);
-          z(r) = zo + a2p * (dz2(r) - zo);
+      const bool upd = a2p > T(0);
+      const int64_t rz = static_cast<int64_t>(k) * NZ;
+      const int64_t rb = static_cast<int64_t>(k) * NB2;
+      const int64_t rs = static_cast<int64_t>(k) * NS4;
+      const int64_t rg = static_cast<int64_t>(jg) * NG2;
+      if (!work) {
+        // the last pending update
+        if (upd) {
+          T* none = nullptr;
+          team_update<NZ, true>(r, a2p, z, dz2, rz, none);
+          team_update<NB2, false>(r, a2p, lam, dl2, rb, none);
+          team_update<NB2, false>(r, a2p, t, dt2, rb, none);
+          if constexpr (NS > 0) {
+            team_update<NS4, false>(r, a2p, lams, dl2s, rs, none);
+            team_update<NS4, false>(r, a2p, ts, dt2s, rs, none);
+          }
+          if (k >= 1)
+            team_update<NX, true>(r, a2p, pi, dpi2,
+                                  static_cast<int64_t>(k - 1) * NX, none);
+          if (jg >= 0) {
+            team_update<NG2, false>(r, a2p, lamg, dl2g, rg, none);
+            team_update<NG2, false>(r, a2p, tg, dt2g, rg, none);
+          }
         }
-        for (int i = 0; i < NB2; ++i) {
-          const int64_t r = static_cast<int64_t>(k) * NB2 + i;
-          lam(r) = lam(r) + a2p * dl2(r);
-          t(r) = t(r) + a2p * dt2(r);
+        continue;
+      }
+
+      sync();  // the previous stage's slab reads are done
+      const int* ik = idx + k * NB;
+      idxs_k = idxs + k * NS;
+      const int ke = k < N - 1 ? k : N - 1;
+      // stage k's streams and the pending update's rows, all fetched before
+      // any store; then the update (the new multipliers and slacks are
+      // also the slab's) and the slab's stores
+      BoxB bx;
+      SoftB sb;
+      FB fb;
+      T hb[chunks(NT)];
+      T zv[chunks(NZ)], dzv[chunks(NZ)], pv[chunks(NX)], dpv[chunks(NX)];
+      T dlv[chunks(NB2)], dtv[chunks(NB2)];
+      T dlsv[chunks(NS4)], dtsv[chunks(NS4)];
+      const int64_t rp = static_cast<int64_t>(k - 1) * NX;
+      box_fetch(k, bx);
+      if (upd) {
+        fetch<NZ>(r, zv, rows_of(z, rz));
+        fetch<NZ>(r, dzv, rows_of(dz2, rz));
+        fetch<NB2>(r, dlv, rows_of(dl2, rb));
+        fetch<NB2>(r, dtv, rows_of(dt2, rb));
+        if (k >= 1) {
+          fetch<NX>(r, pv, rows_of(pi, rp));
+          fetch<NX>(r, dpv, rows_of(dpi2, rp));
         }
-        if constexpr (NS > 0) {
-          for (int i = 0; i < 4 * NS; ++i) {
-            const int64_t r = static_cast<int64_t>(k) * 4 * NS + i;
-            lams(r) = lams(r) + a2p * dl2s(r);
-            ts(r) = ts(r) + a2p * dt2s(r);
+      }
+      if constexpr (NS > 0) {
+        soft_fetch(k, sb);
+        if (upd) {
+          fetch<NS4>(r, dlsv, rows_of(dl2s, rs));
+          fetch<NS4>(r, dtsv, rows_of(dt2s, rs));
+        }
+      }
+      f_fetch(ke, fb);
+      fetch<NT>(r, hb, rows_of(Hc, static_cast<int64_t>(k) * NT));
+      if (upd) {
+#pragma unroll
+        for (int c = 0; c < chunks(NZ); ++c) {
+          const int e = r + c * TEAM;
+          if (e < NZ) z(rz + e) = zv[c] + a2p * (dzv[c] - zv[c]);
+        }
+#pragma unroll
+        for (int c = 0; c < chunks(NB2); ++c) {
+          const int e = r + c * TEAM;
+          if (e < NB2) {
+            bx.l[c] = bx.l[c] + a2p * dlv[c];
+            bx.t[c] = bx.t[c] + a2p * dtv[c];
+            lam(rb + e) = bx.l[c];
+            t(rb + e) = bx.t[c];
           }
         }
         if (k >= 1) {
-          for (int i = 0; i < NX; ++i) {
-            const int64_t r = static_cast<int64_t>(k - 1) * NX + i;
-            const T po = pi(r);
-            pi(r) = po + a2p * (dpi2(r) - po);
-          }
-        }
-        if (jg >= 0) {
-          for (int i = 0; i < NG2; ++i) {
-            const int64_t r = static_cast<int64_t>(jg) * NG2 + i;
-            lamg(r) = lamg(r) + a2p * dl2g(r);
-            tg(r) = tg(r) + a2p * dt2g(r);
+#pragma unroll
+          for (int c = 0; c < chunks(NX); ++c) {
+            const int e = r + c * TEAM;
+            if (e < NX) pi(rp + e) = pv[c] + a2p * (dpv[c] - pv[c]);
           }
         }
       }
-      if (!work) continue;
-
-      T lamk[NB2], tk[NB2], mbk[NB2], Ak[NB2];
-      load_box(k, lamk, tk, mbk, Ak);
-      const int* ik = idx + k * NB;
-      T ge[NZ];
-      T M[NZ][NZ];
+      box_put(bx);
       if constexpr (NS > 0) {
-        // the box and the soft Schur folds: the barrier diagonal dv onto
-        // pdreg, the gradient onto the base
-        T dv[NZ], ls[NS4], tsv[NS4], ms[NSA], c[6 * NSA];
-        load_soft(k, ls, tsv, ms, c);
-        hp::load(dv, pdregc, static_cast<int64_t>(k) * NZ);
-        hp::load(ge, basec, static_cast<int64_t>(k) * NZ);
-        hp::soft_fold<T, NB, NSA, NZ>(lamk, tk, mbk, Ak, ls, tsv, ms, c, ik,
-                                      idxs + k * NS, dv, ge);
+        if (upd) {
 #pragma unroll
-        for (int i = 0; i < NZ; ++i)
-#pragma unroll
-          for (int j = 0; j <= i; ++j)
-            M[i][j] = Hc(static_cast<int64_t>(k) * NT + hp::sym_idx(i, j));
-#pragma unroll
-        for (int i = 0; i < NZ; ++i) M[i][i] = M[i][i] + dv[i];
-      } else {
-        T Qx[NB], qx[NB];
-        hp::qx_fold<T, NB>(lamk, tk, mbk, Ak, Qx, qx);
-        hp::load(ge, pdregc, static_cast<int64_t>(k) * NZ);
-        hp::scatter_add_box<T, NB, NZ>(ge, ik, Qx);
-#pragma unroll
-        for (int i = 0; i < NZ; ++i)
-#pragma unroll
-          for (int j = 0; j <= i; ++j)
-            M[i][j] = Hc(static_cast<int64_t>(k) * NT + hp::sym_idx(i, j));
-#pragma unroll
-        for (int i = 0; i < NZ; ++i) M[i][i] = M[i][i] + ge[i];
-        hp::load(ge, basec, static_cast<int64_t>(k) * NZ);
-        hp::scatter_add_box<T, NB, NZ>(ge, ik, qx);
-      }
-      if (jg >= 0) {
-        // general-constraint barrier: M += C' diag(Qxg) C, ge += C' qxg
-        T lg[NG2], tgv[NG2], mg[NG2], dg[NG2], Qxg[NG], qxg[NG];
-        load_ng(jg, lg, tgv, mg, dg);
-        hp::qx_fold<T, NG>(lg, tgv, mg, dg, Qxg, qxg);
-#pragma unroll
-        for (int i = 0; i < NZ; ++i) {
-#pragma unroll
-          for (int jj = 0; jj <= i; ++jj) {
-            T acc = C(jg, 0, i) * Qxg[0] * C(jg, 0, jj);
-#pragma unroll
-            for (int g = 1; g < NG; ++g)
-              acc = acc + C(jg, g, i) * Qxg[g] * C(jg, g, jj);
-            M[i][jj] = M[i][jj] + acc;
+          for (int c = 0; c < chunks(NS4); ++c) {
+            const int e = r + c * TEAM;
+            if (e < NS4) {
+              sb.l[c] = sb.l[c] + a2p * dlsv[c];
+              sb.t[c] = sb.t[c] + a2p * dtsv[c];
+              lams(rs + e) = sb.l[c];
+              ts(rs + e) = sb.t[c];
+            }
           }
         }
-#pragma unroll
-        for (int i = 0; i < NZ; ++i) {
-          T acc = C(jg, 0, i) * qxg[0];
-#pragma unroll
-          for (int g = 1; g < NG; ++g) acc = acc + C(jg, g, i) * qxg[g];
-          ge[i] = ge[i] + acc;
-        }
+        soft_put(sb);
       }
-      const int ke = k < N - 1 ? k : N - 1;
-      T F[NZ][NX], bb[NX];
-#pragma unroll
-      for (int i = 0; i < NZ; ++i)
-#pragma unroll
-        for (int j = 0; j < NX; ++j)
-          F[i][j] = Fc((static_cast<int64_t>(ke) * NZ + i) * NX + j);
-      hp::load(bb, bc, static_cast<int64_t>(ke) * NX);
+      f_put(fb);
+      put<NT>(r, sH, hb);
+      if (jg >= 0) {
+        if (upd) {
+          team_update<NG2, false>(r, a2p, lamg, dl2g, rg, sLg);
+          team_update<NG2, false>(r, a2p, tg, dt2g, rg, sTg);
+        } else {
+          team_copy<NG2>(r, sLg, rows_of(lamg, rg));
+          team_copy<NG2>(r, sTg, rows_of(tg, rg));
+        }
+        team_copy<NG2>(r, sMg, rows_of(mggc, rg));
+        team_copy<NG2>(r, sDg, rows_of(dggc, rg));
+        team_copy<NG * NZ>(r, sC,
+                           rows_of(Cgc, static_cast<int64_t>(jg) * NG * NZ));
+      }
       if (s == 0) {
         // terminal stage: zero carry, so the interior formulas collapse
         // exactly to the terminal ones
-#pragma unroll
-        for (int i = 0; i < NX; ++i) {
-          px_c[i] = T(0);
-#pragma unroll
-          for (int j = 0; j < NX; ++j) Lxx_c[i][j] = T(0);
+        for (int e = r; e < NX * NX; e += TEAM) sLc[e] = T(0);
+        for (int e = r; e < NX; e += TEAM) sPxc[e] = T(0);
+      }
+      sync();
+      // the box fold of pair i (hp::qx_fold): Qx = sFa mb, qx = sFq mb
+      for (int i = r; i < NB; i += TEAM) {
+        T ti_lo, lt_lo, ti_up, lt_up;
+        hp::t_inv_lamt(sLam[i], sT[i], sMb[i], ti_lo, lt_lo);
+        hp::t_inv_lamt(sLam[NB + i], sT[NB + i], sMb[NB + i], ti_up, lt_up);
+        const T q_lo = -sLam[i] - lt_lo * sA[i];
+        const T q_up = sLam[NB + i] - lt_up * sA[NB + i];
+        sFa[i] = lt_lo + lt_up;
+        sFq[i] = q_lo + q_up;
+      }
+      if constexpr (NS > 0) {
+        // the soft Schur fold of row q: Qs = sFs ms, qs = sQs ms
+        for (int q = r; q < NS; q += TEAM) {
+          SoftRow<T> S;
+          soft_row<true, T>(q, sLs, sTs, sMs, sSc, S);
+          soft_qx_row<T>(S, sFs[q], sQs[q]);
         }
       }
-      T eu[NU], px[NX], Pb[NX];
-      hp::folded_bwd_core<T, NU, NX>(M, ge, F, bb, Lxx_c, px_c, eu, px, Pb);
+      if (jg >= 0) {
+        // the ng fold (hp::qx_fold<NG>): products, read as multiplicands
+        for (int g = r; g < NG; g += TEAM) {
+          T ti_lo, lt_lo, ti_up, lt_up;
+          hp::t_inv_lamt(sLg[g], sTg[g], sMg[g], ti_lo, lt_lo);
+          hp::t_inv_lamt(sLg[NG + g], sTg[NG + g], sMg[NG + g], ti_up, lt_up);
+          const T q_lo = -sLg[g] - lt_lo * sDg[g];
+          const T q_up = sLg[NG + g] - lt_up * sDg[NG + g];
+          sQg[g] = (lt_lo + lt_up) * sMg[g];
+          sQxg[g] = (q_lo + q_up) * sMg[g];
+        }
+      }
+      sync();
+      // row c: the barrier diagonal onto M, the gradient (scatters in the
+      // order of hp::scatter_add_box: box slots, then soft slots)
+      int ib[NB], is[NSA];
 #pragma unroll
-      for (int i = 0; i < NZ; ++i)
+      for (int q = 0; q < NB; ++q) ib[q] = ik[q];
+#pragma unroll
+      for (int q = 0; q < NSA; ++q) is[q] = NS > 0 ? idxs_k[q] : -1;
+      for (int c = r; c < NZ; c += TEAM) {
+        {
+          T hr[NZ];
+#pragma unroll
+          for (int j = 0; j < NZ; ++j)
+            if (j <= c) hr[j] = sH[sym_idx(c, j)];
+#pragma unroll
+          for (int j = 0; j < NZ; ++j)
+            if (j <= c) sM[c * NZ + j] = hr[j];
+        }
+        T dvc = pdregc(static_cast<int64_t>(k) * NZ + c);
+#pragma unroll
+        for (int q = 0; q < NB; ++q)
+          if (ib[q] == c) dvc = dvc + sFa[q] * sMb[q];
+        if constexpr (NS > 0) {
+#pragma unroll
+          for (int q = 0; q < NS; ++q)
+            if (is[q] == c) dvc = dvc + sFs[q] * sMs[q];
+        }
+        sM[c * NZ + c] = sM[c * NZ + c] + dvc;
+        T gec = basec(static_cast<int64_t>(k) * NZ + c);
+#pragma unroll
+        for (int q = 0; q < NB; ++q)
+          if (ib[q] == c) gec = gec + sFq[q] * sMb[q];
+        if constexpr (NS > 0) {
+#pragma unroll
+          for (int q = 0; q < NS; ++q)
+            if (is[q] == c) gec = gec + sQs[q] * sMs[q];
+        }
+        if (jg >= 0) {
+          // general-constraint barrier: M += C' diag(Qxg) C, g += C' qxg
+          for (int jj = 0; jj <= c; ++jj) {
+            T acc = sC[c] * sQg[0] * sC[jj];
+#pragma unroll
+            for (int g = 1; g < NG; ++g)
+              acc = acc + sC[g * NZ + c] * sQg[g] * sC[g * NZ + jj];
+            sM[c * NZ + jj] = sM[c * NZ + jj] + acc;
+          }
+          T acc = sC[c] * sQxg[0];
+#pragma unroll
+          for (int g = 1; g < NG; ++g) acc = acc + sC[g * NZ + c] * sQxg[g];
+          gec = gec + acc;
+        }
+        sG[c] = gec;
+      }
+      // folded backward Riccati stage (hp::folded_bwd_core), entry by entry:
+      // t1 = Lxx_c' b, Pb = Lxx_c t1 (stored), Pb + px_c
+      for (int i = r; i < NX; i += TEAM)
+        sT1[i] = dot_chain<T>(i, NX - 1, [&](int q, T& u, T& v) {
+          u = sLc[q * NX + i];
+          v = sBb[q];
+        });
+      sync();
+      for (int i = r; i < NX; i += TEAM) {
+        const T acc = dot_chain<T>(0, i, [&](int q, T& u, T& v) {
+          u = sLc[i * NX + q];
+          v = sT1[q];
+        });
+        // Pb of stage k (< N) couples it to stage k+1; the terminal Pb is 0
+        if (k < N) pbs(static_cast<int64_t>(k) * NX + i) = acc;
+        sPb[i] = acc + sPxc[i];
+      }
+      sync();
+      // m = g + F (Pb + px_c); W = F Lxx_c in place of F's row (each row
+      // through registers: its loads are issued before its stores)
+      for (int i = r; i < NZ; i += TEAM) {
+        T f[NX], wr[NX];
+#pragma unroll
+        for (int q = 0; q < NX; ++q) f[q] = sF[i * NX + q];
+        T acc = sG[i];
+#pragma unroll
+        for (int q = 0; q < NX; ++q) acc = acc + f[q] * sPb[q];
+        sMv[i] = acc;
+#pragma unroll
+        for (int j = 0; j < NX; ++j) {
+          T wv = f[j] * sLc[j * NX + j];
+#pragma unroll
+          for (int q = j + 1; q < NX; ++q) wv = wv + f[q] * sLc[q * NX + j];
+          wr[j] = wv;
+        }
+#pragma unroll
+        for (int j = 0; j < NX; ++j) sF[i * NX + j] = wr[j];
+      }
+      sync();
+      // M += W W', a row's entries in registers
+      for (int i = r; i < NZ; i += TEAM) {
+        T wi[NX], mr[NZ];
+#pragma unroll
+        for (int q = 0; q < NX; ++q) wi[q] = sF[i * NX + q];
+#pragma unroll
+        for (int j = 0; j < NZ; ++j) {
+          if (j <= i) {
+            T acc = sM[i * NZ + j];
+#pragma unroll
+            for (int q = 0; q < NX; ++q) acc = acc + wi[q] * sF[j * NX + q];
+            mr[j] = acc;
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < NZ; ++j)
+          if (j <= i) sM[i * NZ + j] = mr[j];
+      }
+      // M = chol(M) (hp::chol), column by column: every lane forms the
+      // pivot, the owners scale column j below the diagonal, a barrier,
+      // the owners update their rows (the pivot's owner scales the
+      // diagonal, which no update reads)
+      for (int j = 0; j < NZ; ++j) {
+        sync();
+        const T d = T(1) / sqrt(nmax(sM[j * NZ + j], T(1e-20)));
+        for (int i = r; i < NZ; i += TEAM)
+          if (i > j) sM[i * NZ + j] = sM[i * NZ + j] * d;
+        sync();
+        for (int i = r; i < NZ; i += TEAM) {
+          if (i == j) {
+            sM[j * NZ + j] = sM[j * NZ + j] * d;
+            sDi[j] = d;
+          } else if (i > j) {
+            const T aij = sM[i * NZ + j];
+            T up[NZ];
+#pragma unroll
+            for (int jj = 1; jj < NZ; ++jj)
+              if (jj > j && jj <= i)
+                up[jj] = sM[i * NZ + jj] - aij * sM[jj * NZ + j];
+#pragma unroll
+            for (int jj = 1; jj < NZ; ++jj)
+              if (jj > j && jj <= i) sM[i * NZ + jj] = up[jj];
+          }
+        }
+      }
+      sync();
+      T Dinv_u[NU], eu[NU];
+#pragma unroll
+      for (int i = 0; i < NU; ++i) Dinv_u[i] = sDi[i];
+      eu_of_m(sM, NZ, Dinv_u, eu);
+      // px = m_x - Lxu eu; the carry (Lxx block, px); the factor streams
+      for (int i = r; i < NX; i += TEAM) {
+        T acc = sMv[NU + i];
+#pragma unroll
+        for (int q = 0; q < NU; ++q) acc = acc - sM[(NU + i) * NZ + q] * eu[q];
+        pxs(static_cast<int64_t>(k) * NX + i) = acc;
+        sPxc[i] = acc;
+      }
+      for (int i = r; i < NZ; i += TEAM) {
 #pragma unroll
         for (int j = 0; j < NU; ++j)
           lls((static_cast<int64_t>(k) * NZ + i) * NU + j) =
-              j <= i ? M[i][j] : T(0);
+              j <= i ? sM[i * NZ + j] : T(0);
+        if (i >= NU) {
+          const int xi = i - NU;
+          for (int j = 0; j <= xi; ++j) {
+            const T v = sM[i * NZ + NU + j];
+            lxxs(static_cast<int64_t>(k) * NTX + sym_idx(xi, j)) = v;
+            sLc[xi * NX + j] = v;
+          }
+        }
+      }
 #pragma unroll
-      for (int i = 0; i < NX; ++i)
-#pragma unroll
-        for (int j = 0; j <= i; ++j)
-          lxxs(static_cast<int64_t>(k) * NTX + hp::sym_idx(i, j)) =
-              M[NU + i][NU + j];
-      hp::store(eus, static_cast<int64_t>(k) * NU, eu);
-      hp::store(pxs, static_cast<int64_t>(k) * NX, px);
-      // Pb of stage k (< N) couples it to stage k+1; the terminal Pb is 0
-      if (k < N) hp::store(pbs, static_cast<int64_t>(k) * NX, Pb);
+      for (int j = 0; j < NU; ++j)
+        if (j % TEAM == r) eus(static_cast<int64_t>(k) * NU + j) = eu[j];
     }
     a2p = T(0);
     if (!work) break;  // an instance that is not live never becomes live
 
-    T x[NX];
     // ---- phase 1: affine forward + alpha / mu(alpha) partials -----------
     T amin = BIG, s0 = T(0), s1 = T(0), s2 = T(0);
-    {
-      T Lxx[NX][NX], px0[NX];
-      load_lxx(0, Lxx);
-      hp::load(px0, pxs, 0);
-      hp::root_x0<T, NX>(Lxx, px0, x);
-    }
+    root_x0();
     for (int s = 0; s <= N; ++s) {
-      T Ll[NZ][NU], eu[NU], Dinv_u[NU], u[NU], zt[NZ];
-      load_ll(s, Ll);
-      hp::load(eu, eus, static_cast<int64_t>(s) * NU);
-      hp::dinv_diag<T, NU>(Ll, Dinv_u);
-      hp::u_of_x<T, NU, NX>(Ll, Dinv_u, eu, x, u);
+      const T* x = sh + O_X + (s & 1) * NX;
+      T* xn = sh + O_X + ((s & 1) ^ 1) * NX;
+      sync();
+      const int* ik = idx + s * NB;
+      idxs_k = idxs + s * NS;
+      const int jg = ng_slot(s);
+      {
+        BoxB bx;
+        LlB lb;
+        FB fb;
+        SoftB sb;
+        ll_fetch(s, lb);
+        box_fetch(s, bx);
+        if constexpr (NS > 0) soft_fetch(s, sb);
+        f_fetch(s < N - 1 ? s : N - 1, fb);
+        ll_put(lb);
+        box_put(bx);
+        if constexpr (NS > 0) soft_put(sb);
+        f_put(fb);
+      }
+      if (jg >= 0) load_ng(jg);
+      sync();
+      T u[NU];
+      u_of_x(x, u);
 #pragma unroll
-      for (int i = 0; i < NU; ++i) zt[i] = u[i];
+      for (int i = 0; i < NU; ++i)
+        if (i % TEAM == r) sZt[i] = u[i];
+      for (int i = r; i < NX; i += TEAM) sZt[NU + i] = x[i];
+      sync();
+      for (int j = r; j < NX; j += TEAM) {
+        T acc = sBb[j];
 #pragma unroll
-      for (int i = 0; i < NX; ++i) zt[NU + i] = x[i];
-      const int se = s < N - 1 ? s : N - 1;
-      hp::x_next_of<T, NZ, NX>(Fc, static_cast<int64_t>(se) * NZ * NX, bc,
-                               static_cast<int64_t>(se) * NX, zt, x);
-
-      T zb[NB], lamk[NB2], tk[NB2], mbk[NB2], Ak[NB2], zero[NB2];
-      hp::gather_box<T, NB, NZ>(zt, idx + s * NB, zb);
-      load_box(s, lamk, tk, mbk, Ak);
-#pragma unroll
-      for (int i = 0; i < NB2; ++i) zero[i] = T(0);
-      T dtb[NB2], dlb[NB2];
-      hp::dt_dlam<T, NB>(lamk, tk, mbk, Ak, zb, zero, dtb, dlb);
-      hp::store(dta, static_cast<int64_t>(s) * NB2, dtb);
-      hp::store(dla, static_cast<int64_t>(s) * NB2, dlb);
-      hp::alpha_sums<T, NB2>(lamk, tk, mbk, dtb, dlb, amin, s0, s1, s2);
+        for (int i = 0; i < NZ; ++i) acc = acc + sF[i * NX + j] * sZt[i];
+        xn[j] = acc;
+      }
+      for (int i = r; i < NB; i += TEAM) {
+        box_dir(i, gather(ik[i]), T(0), T(0));
+        const int64_t r0 = static_cast<int64_t>(s) * NB2;
+        dta(r0 + i) = sDt[i];
+        dta(r0 + NB + i) = sDt[NB + i];
+        dla(r0 + i) = sDl[i];
+        dla(r0 + NB + i) = sDl[NB + i];
+      }
       if constexpr (NS > 0) {
         // the soft affine direction against zl, its alpha and mu terms
-        T ls[NS4], tsv[NS4], ms[NSA], c[6 * NSA], zs[NSA], zero4[NS4];
-        T dts[NS4], dls[NS4];
-        load_soft(s, ls, tsv, ms, c);
-        hp::SoftSchur<T, NSA> S;
-        hp::soft_schur<T, NSA>(ls, tsv, ms, c, S);
-        hp::gather_box<T, NSA, NZ>(zt, idxs + s * NS, zs);
+        for (int q = r; q < NS; q += TEAM) {
+          const T none[4] = {T(0), T(0), T(0), T(0)};
+          T dts[4], dls[4];
+          soft_dir(q, none, false, dts, dls);
 #pragma unroll
-        for (int i = 0; i < NSA; ++i) zs[i] = zs[i] * ms[i];
-#pragma unroll
-        for (int i = 0; i < NS4; ++i) zero4[i] = T(0);
-        hp::soft_dt_dls<T, NSA>(ls, tsv, S, zs, zero4, S.zl0, S.zl1, dts,
-                                dls);
-        hp::store(dtas, static_cast<int64_t>(s) * NS4, dts);
-        hp::store(dlas, static_cast<int64_t>(s) * NS4, dls);
-        hp::alpha_sums<T, NS4>(ls, tsv, S.ms4, dts, dls, amin, s0, s1, s2);
-      }
-
-      const int jg = ng_slot(s);
-      if (jg >= 0) {
-        T lg[NG2], tgv[NG2], mg[NG2], dg[NG2], cz[NG], zg[NG2];
-        T dtg[NG2], dlg[NG2];
-        load_ng(jg, lg, tgv, mg, dg);
-#pragma unroll
-        for (int g = 0; g < NG; ++g) {
-          T acc = C(jg, g, 0) * zt[0];
-#pragma unroll
-          for (int i = 1; i < NZ; ++i) acc = acc + C(jg, g, i) * zt[i];
-          cz[g] = acc;
+          for (int f = 0; f < 4; ++f) {
+            const int64_t rr = static_cast<int64_t>(s) * NS4 + f * NS + q;
+            dtas(rr) = dts[f];
+            dlas(rr) = dls[f];
+          }
         }
-#pragma unroll
-        for (int i = 0; i < NG2; ++i) zg[i] = T(0);
-        hp::dt_dlam<T, NG>(lg, tgv, mg, dg, cz, zg, dtg, dlg);
-        hp::store(dtag, static_cast<int64_t>(jg) * NG2, dtg);
-        hp::store(dlag, static_cast<int64_t>(jg) * NG2, dlg);
-        hp::alpha_sums<T, NG2>(lg, tgv, mg, dtg, dlg, amin, s0, s1, s2);
+      }
+      if (jg >= 0) {
+        for (int g = r; g < NG; g += TEAM) {
+          ng_dir(g, cz_of(g), T(0), T(0));
+          const int64_t r0 = static_cast<int64_t>(jg) * NG2;
+          dtag(r0 + g) = sDtg[g];
+          dtag(r0 + NG + g) = sDtg[NG + g];
+          dlag(r0 + g) = sDlg[g];
+          dlag(r0 + NG + g) = sDlg[NG + g];
+        }
+      }
+      sync();
+      if (r == 0) {
+        alpha_chain<T, NB2, NB2>(sLam, sT, sMb, sDt, sDl, sCp, amin, s0, s1,
+                                 s2);
+        if constexpr (NS > 0)
+          alpha_chain<T, NS4, NSA>(sLs, sTs, sMs, sDts, sDls, sCps, amin, s0,
+                                   s1, s2);
+        if (jg >= 0)
+          alpha_chain<T, NG2, NG2>(sLg, sTg, sMg, sDtg, sDlg, sCpg, amin, s0,
+                                   s1, s2);
       }
     }
+    if (r == 0) {
+      sRed[0] = amin;
+      sRed[1] = s0;
+      sRed[2] = s1;
+      sRed[3] = s2;
+    }
+    sync();
+    amin = sRed[0];
+    s0 = sRed[1];
+    s1 = sRed[2];
+    s2 = sRed[3];
     const T alpha_aff = nmin(T(1), amin);
     const T aa = T(0.995) * alpha_aff;
     const T mu_aff = (s0 + aa * s1 + aa * aa * s2) * mu_scal;
@@ -513,165 +1214,320 @@ __global__ void __launch_bounds__(BLOCK) ipm_resident_kernel(ResidentArgs a) {
     // ---- phase 2: corrector gradient + retained-factor solve ------------
     for (int s = 0; s <= N; ++s) {
       const int k = N - s;
-      T lamk[NB2], tk[NB2], mbk[NB2], Ak[NB2], dtak[NB2], dlak[NB2];
-      load_box(k, lamk, tk, mbk, Ak);
-      hp::load(dtak, dta, static_cast<int64_t>(k) * NB2);
-      hp::load(dlak, dla, static_cast<int64_t>(k) * NB2);
-      T cok[NB2], ge[NZ];
-      hp::load(ge, basec, static_cast<int64_t>(k) * NZ);
-      if constexpr (NS > 0) {
-        // the box and the soft centering corrections and the corrected
-        // gradient folds
-        T ls[NS4], tsv[NS4], ms[NSA], c[6 * NSA], dts[NS4], dls[NS4];
-        T dl2c[NS4];
-        load_soft(k, ls, tsv, ms, c);
-        hp::load(dts, dtas, static_cast<int64_t>(k) * NS4);
-        hp::load(dls, dlas, static_cast<int64_t>(k) * NS4);
-        if (a.exact)
-          hp::soft_corr_fold<T, NB, NSA, NZ, true>(
-              lamk, tk, mbk, Ak, dtak, dlak, ls, tsv, ms, c, dts, dls, sm,
-              idx + k * NB, idxs + k * NS, cok, dl2c, ge);
-        else
-          hp::soft_corr_fold<T, NB, NSA, NZ, false>(
-              lamk, tk, mbk, Ak, dtak, dlak, ls, tsv, ms, c, dts, dls, sm,
-              idx + k * NB, idxs + k * NS, cok, dl2c, ge);
-        hp::store(dl2cs, static_cast<int64_t>(k) * NS4, dl2c);
-      } else {
-        T qx[NB];
-        hp::corr_co_qx<T, NB>(lamk, tk, mbk, Ak, dtak, dlak, sm, cok, qx);
-        hp::scatter_add_box<T, NB, NZ>(ge, idx + k * NB, qx);
-      }
-      hp::store(cor, static_cast<int64_t>(k) * NB2, cok);
+      sync();
+      const int* ik = idx + k * NB;
+      idxs_k = idxs + k * NS;
       const int jg = ng_slot(k);
+      const int ke = k < N - 1 ? k : N - 1;
+      {
+        BoxB bx;
+        LlB lb;
+        FB fb;
+        SoftB sb;
+        T dtb[chunks(NB2)], dlb[chunks(NB2)];
+        T dtsb[chunks(NS4)], dlsb[chunks(NS4)];
+        const int64_t rb = static_cast<int64_t>(k) * NB2;
+        const int64_t rs = static_cast<int64_t>(k) * NS4;
+        box_fetch(k, bx);
+        ll_fetch(k, lb);
+        fetch<NB2>(r, dtb, rows_of(dta, rb));
+        fetch<NB2>(r, dlb, rows_of(dla, rb));
+        if constexpr (NS > 0) {
+          soft_fetch(k, sb);
+          fetch<NS4>(r, dtsb, rows_of(dtas, rs));
+          fetch<NS4>(r, dlsb, rows_of(dlas, rs));
+        }
+        f_fetch(ke, fb);
+        box_put(bx);
+        ll_put(lb);
+        put<NB2>(r, sDt, dtb);
+        put<NB2>(r, sDl, dlb);
+        if constexpr (NS > 0) {
+          soft_put(sb);
+          put<NS4>(r, sDts, dtsb);
+          put<NS4>(r, sDls, dlsb);
+        }
+        f_put(fb);
+      }
       if (jg >= 0) {
-        T lg[NG2], tgv[NG2], mg[NG2], dg[NG2], dtg[NG2], dlg[NG2];
-        T cogv[NG2], qxg2[NG];
-        load_ng(jg, lg, tgv, mg, dg);
-        hp::load(dtg, dtag, static_cast<int64_t>(jg) * NG2);
-        hp::load(dlg, dlag, static_cast<int64_t>(jg) * NG2);
-        hp::corr_co_qx<T, NG>(lg, tgv, mg, dg, dtg, dlg, sm, cogv, qxg2);
-        hp::store(cog, static_cast<int64_t>(jg) * NG2, cogv);
+        load_ng(jg);
+        team_copy<NG2>(r, sDtg, rows_of(dtag, static_cast<int64_t>(jg) * NG2));
+        team_copy<NG2>(r, sDlg, rows_of(dlag, static_cast<int64_t>(jg) * NG2));
+      }
+      sync();
+      // box centering correction and corrected gradient fold of pair i
+      // (hp::corr_co_qx): qx ends in a sum, shared as its value
+      for (int i = r; i < NB; i += TEAM) {
+        T ti_lo, lt_lo, ti_up, lt_up;
+        hp::t_inv_lamt(sLam[i], sT[i], sMb[i], ti_lo, lt_lo);
+        hp::t_inv_lamt(sLam[NB + i], sT[NB + i], sMb[NB + i], ti_up, lt_up);
+        const T co_lo = ti_lo * (sm - sDl[i] * sDt[i]) * sMb[i];
+        const T co_up = ti_up * (sm - sDl[NB + i] * sDt[NB + i]) * sMb[NB + i];
+        const T q_lo = -sLam[i] - lt_lo * sA[i];
+        const T q_up = sLam[NB + i] - lt_up * sA[NB + i];
+        const T qx0 = (q_lo + q_up) * sMb[i];
+        sFq[i] = qx0 + (co_up - co_lo) * sMb[i];
+        const int64_t r0 = static_cast<int64_t>(k) * NB2;
+        cor(r0 + i) = co_lo;
+        cor(r0 + NB + i) = co_up;
+      }
+      if constexpr (NS > 0) {
+        // the soft centering correction dl2c and the corrected soft fold
+        // (hp::soft_corr_fold): exact, a sum (its value); dropped, a
+        // product (its factors qb, ms)
+        for (int q = r; q < NS; q += TEAM) {
+          SoftRow<T> S;
+          soft_row<false, T>(q, sLs, sTs, sMs, sSc, S);
+          T d[4];
 #pragma unroll
-        for (int i = 0; i < NZ; ++i) {
-          T acc = C(jg, 0, i) * qxg2[0];
-#pragma unroll
-          for (int g = 1; g < NG; ++g) acc = acc + C(jg, g, i) * qxg2[g];
-          ge[i] = ge[i] + acc;
+          for (int f = 0; f < 4; ++f) {
+            const int i = f * NS + q;
+            d[f] = S.t_inv[f] * (sm - sDls[i] * sDts[i]) * S.m;
+            dl2cs(static_cast<int64_t>(k) * NS4 + i) = d[f];
+          }
+          T qa, qb;
+          soft_qx_row<T>(S, qa, qb);
+          if (a.exact) {
+            T qs = qb * S.m;
+            const T rqx0c = d[0] - S.lamt[0] * (d[0] + d[2]) * S.Zl0;
+            const T rqx1c = d[1] - S.lamt[1] * (d[1] + d[3]) * S.Zl1;
+            qs = qs + (rqx1c - rqx0c) * S.m;
+            sQs[q] = qs;
+          } else {
+            sQs[q] = qb;
+          }
         }
       }
-      T Ll[NZ][NU], Dinv_u[NU], Pbpx[NX], eu[NU], px[NX];
-      load_ll(k, Ll);
-      hp::dinv_diag<T, NU>(Ll, Dinv_u);
-      const int ke = k < N - 1 ? k : N - 1;
+      if (jg >= 0) {
+        for (int g = r; g < NG; g += TEAM) {
+          T ti_lo, lt_lo, ti_up, lt_up;
+          hp::t_inv_lamt(sLg[g], sTg[g], sMg[g], ti_lo, lt_lo);
+          hp::t_inv_lamt(sLg[NG + g], sTg[NG + g], sMg[NG + g], ti_up, lt_up);
+          const T co_lo = ti_lo * (sm - sDlg[g] * sDtg[g]) * sMg[g];
+          const T co_up =
+              ti_up * (sm - sDlg[NG + g] * sDtg[NG + g]) * sMg[NG + g];
+          const T q_lo = -sLg[g] - lt_lo * sDg[g];
+          const T q_up = sLg[NG + g] - lt_up * sDg[NG + g];
+          const T qx0 = (q_lo + q_up) * sMg[g];
+          sQxg[g] = qx0 + (co_up - co_lo) * sMg[g];
+          const int64_t r0 = static_cast<int64_t>(jg) * NG2;
+          cog(r0 + g) = co_lo;
+          cog(r0 + NG + g) = co_up;
+        }
+      }
+      // Pb + px of stage k+1 (the terminal stage: unused)
+      for (int i = r; i < NX; i += TEAM)
+        sPb[i] = s == 0 ? T(0)
+                        : pbs(static_cast<int64_t>(ke) * NX + i) + sPxc[i];
+      sync();
+      // row c: the corrected gradient, then m = g + F (Pb + px)
+      // (hp::trs_stage)
+      int ib[NB], is[NSA];
 #pragma unroll
-      for (int i = 0; i < NX; ++i)
-        Pbpx[i] = s == 0 ? T(0)
-                         : pbs(static_cast<int64_t>(ke) * NX + i) + px_c[i];
-      hp::trs_stage<T, NU, NX>(Ll, Dinv_u, ge, Fc,
-                               static_cast<int64_t>(ke) * NZ * NX, Pbpx,
-                               s == 0, eu, px);
+      for (int q = 0; q < NB; ++q) ib[q] = ik[q];
 #pragma unroll
-      for (int i = 0; i < NX; ++i) px_c[i] = px[i];
-      hp::store(eus, static_cast<int64_t>(k) * NU, eu);
-      hp::store(pxs, static_cast<int64_t>(k) * NX, px);
+      for (int q = 0; q < NSA; ++q) is[q] = NS > 0 ? idxs_k[q] : -1;
+      for (int c = r; c < NZ; c += TEAM) {
+        T gec = basec(static_cast<int64_t>(k) * NZ + c);
+#pragma unroll
+        for (int q = 0; q < NB; ++q)
+          if (ib[q] == c) gec = gec + sFq[q];
+        if constexpr (NS > 0) {
+          if (a.exact) {
+#pragma unroll
+            for (int q = 0; q < NS; ++q)
+              if (is[q] == c) gec = gec + sQs[q];
+          } else {
+#pragma unroll
+            for (int q = 0; q < NS; ++q)
+              if (is[q] == c) gec = gec + sQs[q] * sMs[q];
+          }
+        }
+        if (jg >= 0) {
+          T acc = sC[c] * sQxg[0];
+#pragma unroll
+          for (int g = 1; g < NG; ++g) acc = acc + sC[g * NZ + c] * sQxg[g];
+          gec = gec + acc;
+        }
+        T acc = gec;
+        if (s != 0) {
+#pragma unroll
+          for (int q = 0; q < NX; ++q) acc = acc + sF[c * NX + q] * sPb[q];
+        }
+        sMv[c] = acc;
+      }
+      sync();
+      T Dinv_u[NU], eu[NU];
+#pragma unroll
+      for (int i = 0; i < NU; ++i)
+        Dinv_u[i] = T(1) / nmax(sLl[i * NU + i], T(1e-30));
+      eu_of_m(sLl, NU, Dinv_u, eu);
+      for (int i = r; i < NX; i += TEAM) {
+        T acc = sMv[NU + i];
+#pragma unroll
+        for (int q = 0; q < NU; ++q) acc = acc - sLl[(NU + i) * NU + q] * eu[q];
+        pxs(static_cast<int64_t>(k) * NX + i) = acc;
+        sPxc[i] = acc;
+      }
+#pragma unroll
+      for (int j = 0; j < NU; ++j)
+        if (j % TEAM == r) eus(static_cast<int64_t>(k) * NU + j) = eu[j];
     }
 
     // ---- phase 3: corrector forward + alpha + step glue ------------------
     amin = BIG;
     s0 = s1 = s2 = T(0);
-    {
-      T Lxx[NX][NX], px0[NX];
-      load_lxx(0, Lxx);
-      hp::load(px0, pxs, 0);
-      hp::root_x0<T, NX>(Lxx, px0, x);
-    }
+    root_x0();
     for (int s = 0; s <= N; ++s) {
-      T Ll[NZ][NU], eu[NU], pxv[NX], Dinv_u[NU], u[NU], zt[NZ];
-      load_ll(s, Ll);
-      hp::load(eu, eus, static_cast<int64_t>(s) * NU);
-      hp::load(pxv, pxs, static_cast<int64_t>(s) * NX);
-      hp::dinv_diag<T, NU>(Ll, Dinv_u);
-      hp::u_of_x<T, NU, NX>(Ll, Dinv_u, eu, x, u);
-#pragma unroll
-      for (int i = 0; i < NU; ++i) zt[i] = u[i];
-#pragma unroll
-      for (int i = 0; i < NX; ++i) zt[NU + i] = x[i];
-      hp::store(dz2, static_cast<int64_t>(s) * NZ, zt);
-      if (s >= 1) {
-        // pi_{s-1} = Lxx_s (Lxx_s' x_s) + px_s
-        T Lxx[NX][NX], pi2[NX];
-        load_lxx(s, Lxx);
-        hp::pi_of_x<T, NX>(Lxx, pxv, x, pi2);
-        hp::store(dpi2, static_cast<int64_t>(s - 1) * NX, pi2);
+      const T* x = sh + O_X + (s & 1) * NX;
+      T* xn = sh + O_X + ((s & 1) ^ 1) * NX;
+      sync();
+      const int* ik = idx + s * NB;
+      idxs_k = idxs + s * NS;
+      const int jg = ng_slot(s);
+      {
+        BoxB bx;
+        LlB lb;
+        FB fb;
+        SoftB sb;
+        T pxb[chunks(NX)], lxb[chunks(NTX)], cob[chunks(NB2)];
+        T dcb[chunks(NS4)];
+        ll_fetch(s, lb);
+        fetch<NX>(r, pxb, rows_of(pxs, static_cast<int64_t>(s) * NX));
+        box_fetch(s, bx);
+        fetch<NB2>(r, cob, rows_of(cor, static_cast<int64_t>(s) * NB2));
+        if constexpr (NS > 0) {
+          soft_fetch(s, sb);
+          fetch<NS4>(r, dcb,
+                     rows_of(dl2cs, static_cast<int64_t>(s) * NS4));
+        }
+        f_fetch(s < N - 1 ? s : N - 1, fb);
+        if (s >= 1)
+          fetch<NTX>(r, lxb,
+                     rows_of(lxxs, static_cast<int64_t>(s) * NTX));
+        ll_put(lb);
+        put<NX>(r, sPxv, pxb);
+        box_put(bx);
+        put<NB2>(r, sCo, cob);
+        if constexpr (NS > 0) {
+          soft_put(sb);
+          put<NS4>(r, sDls, dcb);
+        }
+        f_put(fb);
+        if (s >= 1) put<NTX>(r, sLx, lxb);
       }
-      const int se = s < N - 1 ? s : N - 1;
-      hp::x_next_of<T, NZ, NX>(Fc, static_cast<int64_t>(se) * NZ * NX, bc,
-                               static_cast<int64_t>(se) * NX, zt, x);
-
-      T zb[NB], lamk[NB2], tk[NB2], mbk[NB2], Ak[NB2], cok[NB2];
-      hp::gather_box<T, NB, NZ>(zt, idx + s * NB, zb);
-      load_box(s, lamk, tk, mbk, Ak);
-      hp::load(cok, cor, static_cast<int64_t>(s) * NB2);
-      T dtb[NB2], dlb[NB2];
-      hp::dt_dlam<T, NB>(lamk, tk, mbk, Ak, zb, cok, dtb, dlb);
-      hp::store(dt2, static_cast<int64_t>(s) * NB2, dtb);
-      hp::store(dl2, static_cast<int64_t>(s) * NB2, dlb);
-      hp::alpha_sums<T, NB2>(lamk, tk, mbk, dtb, dlb, amin, s0, s1, s2);
+      if (jg >= 0) {
+        load_ng(jg);
+        team_copy<NG2>(r, sCog, rows_of(cog, static_cast<int64_t>(jg) * NG2));
+      }
+      sync();
+      T u[NU];
+      u_of_x(x, u);
+#pragma unroll
+      for (int i = 0; i < NU; ++i)
+        if (i % TEAM == r) sZt[i] = u[i];
+      for (int i = r; i < NX; i += TEAM) sZt[NU + i] = x[i];
+      // pi_{s-1} = Lxx_s (Lxx_s' x_s) + px_s (hp::pi_of_x), first half
+      if (s >= 1) {
+        for (int i = r; i < NX; i += TEAM)
+          sT1[i] = dot_chain<T>(i, NX - 1, [&](int q, T& u, T& v) {
+            u = sLx[sym_idx(q, i)];
+            v = x[q];
+          });
+      }
+      sync();
+      for (int i = r; i < NZ; i += TEAM)
+        dz2(static_cast<int64_t>(s) * NZ + i) = sZt[i];
+      if (s >= 1) {
+        for (int i = r; i < NX; i += TEAM) {
+          T acc = sPxv[i];
+          for (int q = 0; q <= i; ++q) acc = acc + sLx[sym_idx(i, q)] * sT1[q];
+          dpi2(static_cast<int64_t>(s - 1) * NX + i) = acc;
+        }
+      }
+      for (int j = r; j < NX; j += TEAM) {
+        T acc = sBb[j];
+#pragma unroll
+        for (int i = 0; i < NZ; ++i) acc = acc + sF[i * NX + j] * sZt[i];
+        xn[j] = acc;
+      }
+      for (int i = r; i < NB; i += TEAM) {
+        box_dir(i, gather(ik[i]), sCo[i], sCo[NB + i]);
+        const int64_t r0 = static_cast<int64_t>(s) * NB2;
+        dt2(r0 + i) = sDt[i];
+        dt2(r0 + NB + i) = sDt[NB + i];
+        dl2(r0 + i) = sDl[i];
+        dl2(r0 + NB + i) = sDl[NB + i];
+      }
       if constexpr (NS > 0) {
         // the soft corrector direction against zl + the dl2c fold, with
         // dl2c as its centering stream
-        T ls[NS4], tsv[NS4], ms[NSA], c[6 * NSA], zs[NSA], dl2c[NS4];
-        T zl0x[NSA], zl1x[NSA], dts[NS4], dls[NS4];
-        load_soft(s, ls, tsv, ms, c);
-        hp::load(dl2c, dl2cs, static_cast<int64_t>(s) * NS4);
-        hp::SoftSchur<T, NSA> S;
-        hp::soft_schur<T, NSA>(ls, tsv, ms, c, S);
-        hp::gather_box<T, NSA, NZ>(zt, idxs + s * NS, zs);
+        for (int q = r; q < NS; q += TEAM) {
+          const T dc[4] = {sDls[q], sDls[NS + q], sDls[2 * NS + q],
+                           sDls[3 * NS + q]};
+          T dts[4], dls[4];
+          soft_dir(q, dc, true, dts, dls);
 #pragma unroll
-        for (int i = 0; i < NSA; ++i) {
-          zs[i] = zs[i] * ms[i];
-          zl0x[i] = S.zl0[i] + dl2c[i] + dl2c[2 * NSA + i];
-          zl1x[i] = S.zl1[i] + dl2c[NSA + i] + dl2c[3 * NSA + i];
+          for (int f = 0; f < 4; ++f) {
+            const int64_t rr = static_cast<int64_t>(s) * NS4 + f * NS + q;
+            dt2s(rr) = dts[f];
+            dl2s(rr) = dls[f];
+          }
         }
-        hp::soft_dt_dls<T, NSA>(ls, tsv, S, zs, dl2c, zl0x, zl1x, dts, dls);
-        hp::store(dt2s, static_cast<int64_t>(s) * NS4, dts);
-        hp::store(dl2s, static_cast<int64_t>(s) * NS4, dls);
-        hp::alpha_sums<T, NS4>(ls, tsv, S.ms4, dts, dls, amin, s0, s1, s2);
       }
-
-      const int jg = ng_slot(s);
       if (jg >= 0) {
-        T lg[NG2], tgv[NG2], mg[NG2], dg[NG2], cz[NG], cogv[NG2];
-        T dtg[NG2], dlg[NG2];
-        load_ng(jg, lg, tgv, mg, dg);
-#pragma unroll
-        for (int g = 0; g < NG; ++g) {
-          T acc = C(jg, g, 0) * zt[0];
-#pragma unroll
-          for (int i = 1; i < NZ; ++i) acc = acc + C(jg, g, i) * zt[i];
-          cz[g] = acc;
+        for (int g = r; g < NG; g += TEAM) {
+          ng_dir(g, cz_of(g), sCog[g], sCog[NG + g]);
+          const int64_t r0 = static_cast<int64_t>(jg) * NG2;
+          dt2g(r0 + g) = sDtg[g];
+          dt2g(r0 + NG + g) = sDtg[NG + g];
+          dl2g(r0 + g) = sDlg[g];
+          dl2g(r0 + NG + g) = sDlg[NG + g];
         }
-        hp::load(cogv, cog, static_cast<int64_t>(jg) * NG2);
-        hp::dt_dlam<T, NG>(lg, tgv, mg, dg, cz, cogv, dtg, dlg);
-        hp::store(dt2g, static_cast<int64_t>(jg) * NG2, dtg);
-        hp::store(dl2g, static_cast<int64_t>(jg) * NG2, dlg);
-        hp::alpha_sums<T, NG2>(lg, tgv, mg, dtg, dlg, amin, s0, s1, s2);
+      }
+      sync();
+      if (r == 0) {
+        alpha_chain<T, NB2, NB2>(sLam, sT, sMb, sDt, sDl, sCp, amin, s0, s1,
+                                 s2);
+        if constexpr (NS > 0)
+          alpha_chain<T, NS4, NSA>(sLs, sTs, sMs, sDts, sDls, sCps, amin, s0,
+                                   s1, s2);
+        if (jg >= 0)
+          alpha_chain<T, NG2, NG2>(sLg, sTg, sMg, sDtg, sDlg, sCpg, amin, s0,
+                                   s1, s2);
       }
     }
+    if (r == 0) {
+      sRed[0] = amin;
+      sRed[1] = s0;
+      sRed[2] = s1;
+      sRed[3] = s2;
+    }
+    sync();
+    amin = sRed[0];
+    s0 = sRed[1];
+    s1 = sRed[2];
+    s2 = sRed[3];
     const T alpha2 = nmin(T(1), amin);
     const T a2 = T(0.995) * alpha2;
     const T mu_new = (s0 + a2 * s1 + a2 * a2 * s2) * mu_scal;
-    // max |dual| before and after the would-be update (box + ng)
+    // max |dual| before and after the would-be update (box + ng): a team
+    // max, NaN-propagating in any order
     T lmx_old = T(0), lmx_new = T(0);
-    for (int64_t r = 0; r < (N + 1) * NB2; ++r) {
-      const T l = lam(r);
+    for (int64_t e = r; e < (N + 1) * NB2; e += TEAM) {
+      const T l = lam(e);
       lmx_old = nmax(lmx_old, fabs(l));
-      lmx_new = nmax(lmx_new, fabs(l + a2 * dl2(r)));
+      lmx_new = nmax(lmx_new, fabs(l + a2 * dl2(e)));
     }
-    for (int64_t r = 0; r < static_cast<int64_t>(n_ng) * NG2; ++r) {
-      const T l = lamg(r);
+    for (int64_t e = r; e < static_cast<int64_t>(n_ng) * NG2; e += TEAM) {
+      const T l = lamg(e);
       lmx_old = nmax(lmx_old, fabs(l));
-      lmx_new = nmax(lmx_new, fabs(l + a2 * dl2g(r)));
+      lmx_new = nmax(lmx_new, fabs(l + a2 * dl2g(e)));
+    }
+#pragma unroll
+    for (int o = TEAM / 2; o >= 1; o /= 2) {
+      lmx_old = nmax(lmx_old, __shfl_xor_sync(mask, lmx_old, o));
+      lmx_new = nmax(lmx_new, __shfl_xor_sync(mask, lmx_new, o));
     }
     // breakdown guard (models/ipm.step_ok + anchor_lam_ref): finite mu;
     // below mu 1e-3 no 10x mu growth and no 30x dual growth, per step or
@@ -686,28 +1542,36 @@ __global__ void __launch_bounds__(BLOCK) ipm_resident_kernel(ResidentArgs a) {
       if (!anchored && mu_new < T(1e-3)) lamref = nmax(lmx_new, T(1));
       a2p = a2;
       // rows exist only for applied iterations (pre-zeroed otherwise)
-      const int64_t r = static_cast<int64_t>(it) * 5;
-      stat(r + 0) = sigma;
-      stat(r + 1) = alpha_aff;
-      stat(r + 2) = mu_aff;
-      stat(r + 3) = alpha2;
-      stat(r + 4) = mu_new;
+      if (r == 0) {
+        const int64_t rr = static_cast<int64_t>(it) * 5;
+        stat(rr + 0) = sigma;
+        stat(rr + 1) = alpha_aff;
+        stat(rr + 2) = mu_aff;
+        stat(rr + 3) = alpha2;
+        stat(rr + 4) = mu_new;
+      }
       mu = mu_new;
       kk += 1;
     }
     if (!ok || a2 < alpha_min) frz = 1;
+    sync();  // the stat rows and the dual reads before the next updates
   }
 
-  out(a.mu)(0) = mu;
-  Col<int>{static_cast<int*>(a.kk) + bi, B}(0) = kk;
-  Col<int>{static_cast<int*>(a.frozen) + bi, B}(0) = frz;
+  if (r == 0) {
+    out(a.mu)(0) = mu;
+    Col<int>{static_cast<int*>(a.kk) + bi, B}(0) = kk;
+    Col<int>{static_cast<int*>(a.frozen) + bi, B}(0) = frz;
+  }
 }
 
 template <typename T>
 static int launch(const ResidentArgs& a, cudaStream_t stream) {
-  const int64_t blocks = (a.B + BLOCK - 1) / BLOCK;
-  ipm_resident_kernel<T>
-      <<<static_cast<unsigned>(blocks), BLOCK, 0, stream>>>(a);
+  const int64_t blocks = (a.B + IPB - 1) / IPB;
+  const int64_t smem = static_cast<int64_t>(IPB) * SLAB * sizeof(T);
+  const int rc = hp::allow_smem(ipm_resident_kernel<T>, smem);
+  if (rc != 0) return rc;
+  ipm_resident_kernel<T><<<static_cast<unsigned>(blocks), THREADS,
+                           static_cast<size_t>(smem), stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -723,6 +1587,11 @@ extern "C" int hp_ipm_resident(const ResidentArgs* a, int dtype_code,
 extern "C" int64_t hp_ipm_resident_work_rows(int64_t N, int64_t n_ng) {
   return work_rows(N, n_ng);
 }
+
+// The launch shape, for the measurement scripts: lanes an instance and
+// threads a block.
+extern "C" int hp_ipm_resident_team() { return TEAM; }
+extern "C" int hp_ipm_resident_threads() { return THREADS; }
 
 extern "C" const char* hp_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -24,12 +24,24 @@ It reports:
     ``iter_ref=1``: the 6-kernel loop, its unfused refinement and
     ``resid_full``) gives the two checkouts the same solution bit for
     bit;
-  * the hard resident kernel (``ipm_resident``, Queue 2 row 1) on this
+  * the resident kernel (``ipm_resident``), hard (Queue 2 row 1) on this
     checkout's inputs of bench.py's headline config (``IPMConfig(k_max=8,
-    mu_tol=0, alpha_min=1e-8, mu_switch=0, use_pallas=True)``), float32
-    and float64, handed to both builds' wrappers, and the headline route
-    (``solve_batched``: the resident engine and ``resid_full``) of both
-    checkouts in float32: equal bit for bit or not;
+    mu_tol=0, alpha_min=1e-8, mu_switch=0, use_pallas=True)``) and soft
+    (row 1s) on the soft flagship's (``mass_spring_soft_qp(8, 3, 30,
+    Z=10)``, ``g`` scaled by ``1 + 0.02 N(0,1)``, ``IPMConfig(k_max=8,
+    mu0=100, mu_tol=0, use_pallas=True)``, both ``exact`` values) and on
+    the small soft problem with general rows (N=5, one row on stages 2 and
+    N), float32 and float64, handed to both builds' wrappers: equal bit for
+    bit (else the largest difference), each build's ms a call in turns
+    (other, this, this, other) with CUDA events, and both builds' ptxas
+    lines (registers, stack, spills) and this build's team width;
+  * the headline route (``solve_batched``: the resident engine and
+    ``resid_full``) and the soft resident route (``solve_batched_soft``
+    under ``HPMPC_RESIDENT=1``) of both checkouts in float32: the solution
+    equal bit for bit or not, ms a batch in turns, one profiled call of
+    each (device busy ms, idle share, the resident kernel's ms), and the
+    soft 6-kernel loop's ms a batch (``HPMPC_RESIDENT=0``,
+    ``HPMPC_MEGA_SWEEPS=0``) in the same turns;
   * the large-NZ band's batched Cholesky (``batch_chol.cholesky``, Queue
     2 row 24) on the first input the band gives it (``solve_batched`` at
     nx=64 nu=8 N=30, 1024 instances, ``IPMConfig(k_max=8, mu_tol=0,
@@ -51,8 +63,15 @@ Runs on the card unless asked for the CPU (plain versions; keep
 ``--batch`` small):
 
     python3 -m hpmpc_tpu_torch.tools.compare_builds --other _archive/parent
+    python3 -m hpmpc_tpu_torch.tools.compare_builds --other _archive/parent \\
+        --sections resident,routes        # rows 1 and 1s and their routes
     python3 -m hpmpc_tpu_torch.tools.compare_builds --other DIR \\
         --device cpu --batch 16 --band-batch 8
+
+``--sections`` picks any of ``resident``, ``routes``, ``parity``, ``flat``,
+``band`` (default: all).  The resident section also runs rows 1 and 1s at
+the NZ=19 shape (nx=16, nu=3; float32: the hard problem with ngN=8 and
+the soft one, N=30), bits and ms.
 
 The last line of the output is one JSON object with the numbers.
 """
@@ -60,10 +79,12 @@ The last line of the output is one JSON object with the numbers.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import importlib
 import importlib.util
 import json
+import os
 import pathlib
 import sys
 import threading
@@ -95,6 +116,7 @@ def _mods(name: str):
                 build=m("ops._build"), ipm=m("models.ipm"),
                 lanes=m("models.ipm_lanes"), ms=m("utils.mass_spring"),
                 rk=m("ops.resident_kernel"), res=m("models.ipm_resident"),
+                sres=m("models.ipm_soft_resident"), ocp=m("ocp"),
                 bc=m("ops.batch_chol"))
 
 
@@ -128,40 +150,94 @@ def _diff(a, b):
     return a == b, 0.0
 
 
+SECTIONS = ("resident", "routes", "parity", "flat", "band")
+#: the state width of rows 1 and 1s's second shape: NZ = 19 (nu = 3), the
+#: largest inside stage_kernel.engine_fits
+NX19 = 16
+#: the soft flagship: tools/bench_soft.py's problem and config
+SOFT_N, SOFT_NG_N = 30, 5
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", required=True, type=pathlib.Path)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--batch", type=int, default=4096)
     ap.add_argument("--band-batch", type=int, default=1024)
+    ap.add_argument("--sections", default=",".join(SECTIONS))
     args = ap.parse_args()
     import numpy as np
     import torch
 
     dev, B, band_B = torch.device(args.device), args.batch, args.band_batch
+    sections = [x for x in args.sections.split(",") if x]
+    if set(sections) - set(SECTIONS):
+        raise SystemExit(f"unknown sections {set(sections) - set(SECTIONS)}")
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device")
     trees = {"this": _mods("hpmpc_tpu_torch"),
              "other": _mods(_load_other(args.other.resolve()))}
-    scales = 1.0 + 0.05 * np.random.default_rng(0).standard_normal(B)
+    rng = np.random.default_rng(0)
+    scales = 1.0 + 0.05 * rng.standard_normal(B)
+    soft_scales = 1.0 + 0.02 * np.random.default_rng(0).standard_normal(B)
 
-    def flagship(m, dt):
-        dims, qp = m["ms"].mass_spring_qp(8, 3, 30, ngN=8, dtype=dt,
+    def flagship(m, dt, nx=8):
+        dims, qp = m["ms"].mass_spring_qp(nx, 3, 30, ngN=8, dtype=dt,
                                           device=dev)
         qpb = m["batch"].broadcast_qp(qp, B)
         sc = torch.as_tensor(scales, dtype=dt, device=dev)
         return dims, dataclasses.replace(qpb, b=qpb.b * sc[:, None, None])
 
+    def soft_flagship(m, dt, N=SOFT_N, ng=False, nx=8):
+        """(dims, qp, soft, idxbs) of the soft problem, ``g`` scaled; with
+        ``ng`` one general row on stages 2 and N (0.25 x the state sum in
+        [-1, 1]), as chip_smoke.py's section R."""
+        dims, qp, soft = m["ms"].mass_spring_soft_qp(nx, 3, N, Z=10.0,
+                                                     dtype=dt, device=dev)
+        if ng:
+            ngv = [0] * (N + 1)
+            ngv[2] = ngv[N] = 1
+            dims = m["ocp"].OCPDims.create(N, dims.nx, dims.nu, dims.nb, ngv,
+                                           idxb=dims.idxb)
+            C = torch.zeros(N + 1, 1, dims.NZ, dtype=dt, device=dev)
+            d_lg = torch.zeros(N + 1, 1, dtype=dt, device=dev)
+            for n in (2, N):
+                C[n, 0, dims.NU:] = 0.25
+                d_lg[n, 0] = -1.0
+            qp = dataclasses.replace(
+                qp, C=C, d_lg=d_lg, d_ug=-d_lg, ng_mask=torch.as_tensor(
+                    dims.ng_mask(), dtype=dt, device=dev))
+        qpb = m["batch"].broadcast_qp(qp, B)
+        sc = torch.as_tensor(soft_scales, dtype=dt, device=dev)
+        return (dims, dataclasses.replace(qpb, g=qpb.g * sc[:, None, None]),
+                m["batch"].broadcast_soft(soft, B),
+                soft.idxbs.cpu().numpy())
+
     if dev.type == "cuda":
         dims, _ = flagship(trees["this"], torch.float32)
+        dims_s, _, soft0, _ = soft_flagship(trees["this"], torch.float32)
+        NS = soft0.ns_mask.shape[-1]
         d2 = dict(NU=dims.NU, NX=dims.NX)
         d3 = dict(d2, NB=dims.NB)
+        ds = dict(NU=dims_s.NU, NX=dims_s.NX, NB=dims_s.NB, NS=NS)
         specs = [("resid_full", d3), ("ipm_resident", dict(d3, NG=dims.NG)),
+                 ("ipm_resident", dict(ds, NG=dims_s.NG)),
+                 ("soft_step_flat", dict(NZ=dims_s.NZ, NB=dims_s.NB, NS=NS)),
                  ("factor_solve_mega", d3), ("solve_mega", d3),
                  ("step_flat", dict(NZ=dims.NZ, NB=dims.NB)),
                  ("factor_solve_flat", d2), ("solve_flat", d2),
                  ("refine_flat", dict(d2, NG=dims.NG)),
                  ("resid_terms_flat", d2), ("batch_chol", {})]
+        if "resident" in sections:
+            # the NZ=19 shapes of rows 1 and 1s (nx=16)
+            d19, _ = flagship(trees["this"], torch.float32, nx=NX19)
+            d19s, _, soft19, _ = soft_flagship(trees["this"], torch.float32,
+                                               nx=NX19)
+            specs += [("ipm_resident", dict(NU=d19.NU, NX=d19.NX, NB=d19.NB,
+                                            NG=d19.NG)),
+                      ("ipm_resident", dict(NU=d19s.NU, NX=d19s.NX,
+                                            NB=d19s.NB, NG=d19s.NG,
+                                            NS=soft19.ns_mask.shape[-1]))]
         errors = []
 
         def build(m):
@@ -180,6 +256,202 @@ def main() -> int:
             raise errors[0]
 
     out = {"batch": B, "device": str(dev)}
+    if dev.type == "cuda":
+        out["card"] = _card()
+        print(f"card: {out['card']}", flush=True)
+    if "resident" in sections:
+        out["resident"] = _resident(trees, dev, flagship, soft_flagship)
+    if "routes" in sections:
+        out["routes"] = _routes(trees, dev, flagship, soft_flagship)
+    if "parity" in sections:
+        out.update(_parity(trees, dev, flagship))
+    if "flat" in sections:
+        out["flat_bitwise_equal"] = _flat(trees, flagship)
+    if "band" in sections:
+        out["band"] = _band(trees, dev, band_B)
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def _card() -> str:
+    """The card's name and power limit, as nvidia-smi reports them."""
+    import subprocess
+
+    try:
+        return subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=30).stdout.strip().splitlines()[0]
+    except (OSError, IndexError, subprocess.SubprocessError):
+        return "nvidia-smi unavailable"
+
+
+@contextlib.contextmanager
+def _env(**values):
+    """The environment variables ``values`` set while the block runs."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                del os.environ[k]
+            else:
+                os.environ[k] = v
+
+
+def _ptxas(m, tag: str):
+    """The ptxas lines of a build's ``ipm_resident`` libraries whose name
+    holds ``tag``: (library, entry, registers, stack and spills)."""
+    out = []
+    for lib, log in sorted(m["build"].PTXAS_LOG.items()):
+        if not (lib.startswith("libipm_resident_") and tag in lib):
+            continue
+        entry = None
+        for line in log.splitlines():
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1]
+            elif "bytes stack frame" in line and entry:
+                frame = line.strip()
+            elif "Used" in line and "registers" in line and entry:
+                regs = line.split("Used")[1].split(",")[0].strip()
+                out.append(f"{lib}: {entry}: {regs}, {frame}")
+                entry = None
+    return out
+
+
+def _resident(trees, dev, flagship, soft_flagship):
+    """Rows 1 and 1s: both builds on the same inputs, bits and ms."""
+    import torch
+
+    this = trees["this"]
+    res = {"bitwise_equal": {}, "max_abs_diff": {}, "ms": {}}
+    for dt in (torch.float32, torch.float64):
+        dims, qpb = flagship(this, dt)
+        cfg = this["ipm"].IPMConfig(k_max=8, mu_tol=0.0, alpha_min=1e-8,
+                                    mu_switch=0.0, use_pallas=True)
+        a, kw, _, _ = this["res"].resident_inputs(dims, qpb, cfg)
+        cases = [(f"row 1 {dt}", a, kw)]
+        cfg_s = this["ipm"].IPMConfig(k_max=8, mu0=100.0, mu_tol=0.0,
+                                      use_pallas=True)
+        for N, ng in ((SOFT_N, False), (SOFT_NG_N, True)):
+            d_s, q_s, sb, idxbs = soft_flagship(this, dt, N, ng)
+            for exact in (True, False):
+                a_s, kw_s = this["sres"].soft_resident_inputs(
+                    d_s, q_s, sb, cfg_s, idxbs, exact)
+                cases.append((f"row 1s {dt} N={N}{' ng' if ng else ''} "
+                              f"exact={exact}", a_s, kw_s))
+        if dt == torch.float32:
+            # NZ=19: f32, the hard problem and the soft one (exact)
+            d19, q19 = flagship(this, dt, nx=NX19)
+            a19, kw19, _, _ = this["res"].resident_inputs(d19, q19, cfg)
+            cases.append((f"row 1 NZ=19 {dt}", a19, kw19))
+            d_s, q_s, sb, idxbs = soft_flagship(this, dt, nx=NX19)
+            a_s, kw_s = this["sres"].soft_resident_inputs(
+                d_s, q_s, sb, cfg_s, idxbs, True)
+            cases.append((f"row 1s NZ=19 {dt} N={SOFT_N} exact=True", a_s,
+                          kw_s))
+        for key, a_, kw_ in cases:
+            got = [m["rk"].ipm_resident(*_clone(a_), **kw_)
+                   for m in trees.values()]
+            same, d = _diff(*got)
+            kk = got[0][5]
+            res["bitwise_equal"][key] = same
+            res["max_abs_diff"][key] = d
+            print(f"{key}, this vs other build on the same inputs: bitwise "
+                  f"equal {same} (max |diff| {d:.3e}); kk {int(kk.min())}-"
+                  f"{int(kk.max())}", flush=True)
+            if dev.type != "cuda" or not (key.startswith("row 1 ")
+                                          or f"N={SOFT_N} exact=True" in key):
+                continue
+            fns = {k: (lambda m=m: m["rk"].ipm_resident(*a_, **kw_))
+                   for k, m in trees.items()}
+            ms = _turns(torch, fns, reps=5)
+            res["ms"][key] = ms
+            print(f"{key} ms a call (other, this, this, other): "
+                  + ", ".join(f"{v:.4f}" for v in (ms["other"][0],
+                                                   *ms["this"],
+                                                   ms["other"][1])),
+                  flush=True)
+    if dev.type == "cuda":
+        dims, _ = flagship(this, torch.float32)
+        lib = this["build"].load("ipm_resident", NU=dims.NU, NX=dims.NX,
+                                 NB=dims.NB, NG=dims.NG)
+        res["team"] = int(lib.hp_ipm_resident_team())
+        res["threads"] = int(lib.hp_ipm_resident_threads())
+        res["ptxas"] = {k: _ptxas(m, "") for k, m in trees.items()}
+        for k, lines in res["ptxas"].items():
+            for line in lines:
+                print(f"ptxas {k}: {line}", flush=True)
+        print(f"this build: team {res['team']} lanes an instance, "
+              f"{res['threads']} threads a block", flush=True)
+    return res
+
+
+def _routes(trees, dev, flagship, soft_flagship):
+    """The headline and the soft resident routes of both checkouts."""
+    import torch
+
+    out = {"bitwise_equal": {}, "ms": {}, "profile": {}}
+    runs = {"headline f32": {}, "soft resident f32": {}}
+    fns = {"headline f32": {}, "soft resident f32": {}, "soft six f32": {}}
+    for label, m in trees.items():
+        dims, qpb = flagship(m, torch.float32)
+        cfg = m["ipm"].IPMConfig(k_max=8, mu_tol=0.0, alpha_min=1e-8,
+                                 mu_switch=0.0, use_pallas=True)
+        runs["headline f32"][label] = m["batch"].solve_batched(dims, qpb, cfg)
+        fns["headline f32"][label] = (
+            lambda m=m, d=dims, q=qpb, c=cfg: m["batch"].solve_batched(d, q,
+                                                                       c))
+        d_s, q_s, sb, idxbs = soft_flagship(m, torch.float32)
+        cfg_s = m["ipm"].IPMConfig(k_max=8, mu0=100.0, mu_tol=0.0,
+                                   use_pallas=True)
+
+        def soft(env, m=m, d=d_s, q=q_s, sb=sb, c=cfg_s, i=idxbs):
+            with _env(**env):
+                return m["batch"].solve_batched_soft(d, q, sb, c, idxbs=i)
+
+        res_env = dict(HPMPC_RESIDENT="1")
+        six_env = dict(HPMPC_RESIDENT="0", HPMPC_MEGA_SWEEPS="0")
+        runs["soft resident f32"][label] = soft(res_env)
+        fns["soft resident f32"][label] = lambda s=soft: s(res_env)
+        fns["soft six f32"][label] = lambda s=soft: s(six_env)
+    for key, sols in runs.items():
+        t, o = sols["this"], sols["other"]
+        fields = {f: _diff(getattr(t, f), getattr(o, f))[0]
+                  for f in t._fields}
+        out["bitwise_equal"][key] = all(fields.values())
+        print(f"{key} route, this vs other: bitwise equal per field "
+              f"{fields}", flush=True)
+    if dev.type != "cuda":
+        return out
+    for key, f in fns.items():
+        ms = _turns(torch, f, reps=3)
+        out["ms"][key] = ms
+        print(f"{key} ms a batch (other, this, this, other): " + ", ".join(
+            f"{v:.3f}" for v in (ms["other"][0], *ms["this"],
+                                 ms["other"][1])), flush=True)
+        if key == "soft six f32":
+            continue
+        prof = {k: _profile(torch, fn, r"\bipm_resident_kernel\b")
+                for k, fn in f.items()}
+        out["profile"][key] = prof
+        for k in ("other", "this"):
+            p = prof[k]
+            print(f"{key} profile, {k}: wall {p['wall']:.3f} ms, device "
+                  f"busy {p['busy']:.3f} ms (idle share {p['idle']:.1%}), "
+                  f"ipm_resident {p['kern_ms']:.3f} ms in "
+                  f"{p['kern_n']:.0f}", flush=True)
+    return out
+
+
+def _parity(trees, dev, flagship):
+    """bench.py's parity route of both checkouts: its stage kernels on the
+    same inputs and the solutions, bit for bit, and the control errors."""
+    import torch
+
+    out = {}
     runs = {}
     for label, m in trees.items():
         dims, qpb = flagship(m, torch.float32)
@@ -200,7 +472,8 @@ def main() -> int:
         for k, fn in saved.items():
             setattr(m["sk"], k, spy(k, fn))
         try:
-            engine = m["batch"].select_engine(dims, cfg, B, torch.float32)
+            engine = m["batch"].select_engine(dims, cfg, qpb.b.shape[0],
+                                              torch.float32)
             sol = m["batch"].solve_batched(dims, qpb, cfg)
             raw = m["batch"].solve_batched(
                 dims, qpb, dataclasses.replace(cfg, iter_ref=0))
@@ -249,9 +522,15 @@ def main() -> int:
     out["route_bitwise_equal"] = all(fields.values())
     print(f"parity route, this vs other: bitwise equal per field {fields}",
           flush=True)
+    return out
 
-    # the chain's flat form, unrefined and with the unfused refinement
-    out["flat_bitwise_equal"] = {}
+
+def _flat(trees, flagship):
+    """The chain's flat form, unrefined and with the unfused refinement,
+    of both checkouts: bit for bit."""
+    import torch
+
+    out = {}
     for iter_ref in (0, 1):
         sols = []
         for m in trees.values():
@@ -262,38 +541,10 @@ def main() -> int:
                                                        flat=True))
         fields = {f: _diff(getattr(sols[0], f), getattr(sols[1], f))[0]
                   for f in sols[0]._fields}
-        out["flat_bitwise_equal"][f"iter_ref={iter_ref}"] = all(
-            fields.values())
+        out[f"iter_ref={iter_ref}"] = all(fields.values())
         print(f"flat form iter_ref={iter_ref}, this vs other: bitwise equal "
               f"per field {fields}", flush=True)
-
-    # the hard resident kernel (row 1) alone, and the headline route
-    out["resident_bitwise_equal"] = {}
-    for dt in (torch.float32, torch.float64):
-        dims, qpb = flagship(this, dt)
-        cfg = this["ipm"].IPMConfig(k_max=8, mu_tol=0.0, alpha_min=1e-8,
-                                    mu_switch=0.0, use_pallas=True)
-        args, kw, _, _ = this["res"].resident_inputs(dims, qpb, cfg)
-        got = [m["rk"].ipm_resident(*_clone(args), **kw)
-               for m in trees.values()]
-        same, d = _diff(*got)
-        out["resident_bitwise_equal"][str(dt)] = same
-        print(f"ipm_resident {dt}, this vs other build on the same inputs: "
-              f"bitwise equal {same} (max |diff| {d:.3e})", flush=True)
-    sols = []
-    for m in trees.values():
-        dims, qpb = flagship(m, torch.float32)
-        cfg = m["ipm"].IPMConfig(k_max=8, mu_tol=0.0, alpha_min=1e-8,
-                                 mu_switch=0.0, use_pallas=True)
-        sols.append(m["batch"].solve_batched(dims, qpb, cfg))
-    fields = {f: _diff(getattr(sols[0], f), getattr(sols[1], f))[0]
-              for f in sols[0]._fields}
-    out["headline_bitwise_equal"] = all(fields.values())
-    print(f"headline route (resident), this vs other: bitwise equal per "
-          f"field {fields}", flush=True)
-    out["band"] = _band(trees, dev, band_B)
-    print(json.dumps(out), flush=True)
-    return 0
+    return out
 
 
 def _turns(torch, fns: dict, reps: int) -> dict:
@@ -314,10 +565,11 @@ def _turns(torch, fns: dict, reps: int) -> dict:
     return times
 
 
-def _profile(torch, fn) -> dict:
+def _profile(torch, fn, kernel=r"\bcholesky_kernel\b") -> dict:
     """One call of ``fn`` under ``torch.profiler`` after a warm-up: host
     wall ms, device busy ms (the kernels' summed time), the idle share, and
-    row 24's (``cholesky_kernel``) summed ms and launches."""
+    the summed ms and launches of the kernels whose name matches ``kernel``
+    (row 24's ``cholesky_kernel`` by default)."""
     import re
     import time
 
@@ -331,16 +583,16 @@ def _profile(torch, fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    out = dict(wall=wall, busy=0.0, chol_ms=0.0, chol_n=0)
+    out = dict(wall=wall, busy=0.0, kern_ms=0.0, kern_n=0)
     for e in prof.key_averages():
         if not str(e.device_type).endswith("CUDA"):
             continue
         ms = getattr(e, "self_device_time_total",
                      getattr(e, "self_cuda_time_total", 0.0)) / 1e3
         out["busy"] += ms
-        if re.search(r"\bcholesky_kernel\b", e.key):
-            out["chol_ms"] += ms
-            out["chol_n"] += e.count
+        if re.search(kernel, e.key):
+            out["kern_ms"] += ms
+            out["kern_n"] += e.count
     out["idle"] = 1 - out["busy"] / wall
     return out
 
@@ -435,8 +687,8 @@ def _band(trees, dev, B):
             p = prof[k]
             print(f"band {key} profile, {k}: wall {p['wall']:.3f} ms, device "
                   f"busy {p['busy']:.3f} ms (idle share {p['idle']:.1%}), "
-                  f"row 24 {p['chol_ms']:.3f} ms in {p['chol_n']:.0f} "
-                  f"launches ({p['chol_ms'] / p['busy']:.1%} of busy)",
+                  f"row 24 {p['kern_ms']:.3f} ms in {p['kern_n']:.0f} "
+                  f"launches ({p['kern_ms'] / p['busy']:.1%} of busy)",
                   flush=True)
     return out
 

@@ -49,21 +49,35 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-def _batch(dev, dtype, N, ngN, B):
-    dims, qp = mass_spring_qp(8, 3, N, ngN=ngN, dtype=dtype, device=dev)
+def _batch(dev, dtype, N, ngN, B, nx=8, spread=0.02, seed=0):
+    dims, qp = mass_spring_qp(nx, 3, N, ngN=ngN, dtype=dtype, device=dev)
     qpb = pbatch.broadcast_qp(qp, B)
-    rng = np.random.default_rng(0)
-    sc = torch.as_tensor(1 + 0.02 * rng.standard_normal(B), dtype=dtype,
+    rng = np.random.default_rng(seed)
+    sc = torch.as_tensor(1 + spread * rng.standard_normal(B), dtype=dtype,
                          device=dev)
     return dims, dataclasses.replace(qpb, b=qpb.b * sc[:, None, None])
 
 
+# Row 1 runs a team of lanes an instance, several instances a warp (4 at
+# NZ=11, 2 at NZ=19): B=1 and B=33/37 leave warps part empty; nx=16 is the
+# NZ=19 shape, the largest inside stage_kernel.engine_fits (box-only: the
+# ngN problem's multipliers outgrow the f64 absolute tolerance there).
+# "apart": b scaled by 1 + 0.3 N(0,1) (seed 2), mu_tol 1e-2, k_max 12: the
+# instances of the first warp converge at different iterations (kk 3, 3,
+# 3, 2 on the plain version; every mu at least 1.5x from mu_tol).
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("ngN,B", [(0, 64), (4, 37)])
-def test_ipm_resident_kernel_matches_plain(cuda, dtype, ngN, B):
-    dims, qpb = _batch(cuda, dtype, 4, ngN, B)
-    args, kw, _, _ = ipm_resident.resident_inputs(dims, qpb,
-                                                  IPMConfig(**_CFG[dtype]))
+@pytest.mark.parametrize("nx,ngN,B", [(8, 0, 64), (8, 4, 37), (8, 0, 1),
+                                      (8, 4, 33), (16, 0, 37), (16, 0, 1),
+                                      (8, 0, "apart")])
+def test_ipm_resident_kernel_matches_plain(cuda, dtype, nx, ngN, B):
+    cfg = IPMConfig(**_CFG[dtype])
+    apart = B == "apart"
+    if apart:
+        dims, qpb = _batch(cuda, dtype, 4, ngN, 8, spread=0.3, seed=2)
+        cfg = IPMConfig(k_max=12, mu_tol=1e-2, mu_switch=0.0)
+    else:
+        dims, qpb = _batch(cuda, dtype, 4, ngN, B, nx=nx)
+    args, kw, _, _ = ipm_resident.resident_inputs(dims, qpb, cfg)
     n0 = dict(rk.LAUNCHES)
     out_k = rk.ipm_resident(*args, **kw)
     torch.cuda.synchronize()
@@ -81,6 +95,8 @@ def test_ipm_resident_kernel_matches_plain(cuda, dtype, ngN, B):
                                    atol=tol["lam"])
     torch.testing.assert_close(out_k[7], out_p[7], rtol=tol["stat"],
                                atol=tol["stat_atol"])
+    if apart:
+        assert out_p[5][:4].unique().numel() > 1      # within one warp
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
@@ -340,14 +356,14 @@ _SOFT_STEP = [(stk, n) for n in ("soft_prep_flat", "soft_alpha_sums_flat",
                                  "soft_corr_flat")]
 
 
-def _soft_batch(dev, dtype, N, ng, B, masked=False):
-    """The reference's soft problem (mass_spring_soft_qp(8, 3, N, Z=10)),
+def _soft_batch(dev, dtype, N, ng, B, masked=False, nx=8, spread=0.02):
+    """The reference's soft problem (mass_spring_soft_qp(nx, 3, N, Z=10)),
     ``g`` scaled per instance; with ``ng`` one general row on stages 2
     and N (tests/test_ipm_soft_lanes.py's ng problem); with ``masked``
     instance b (odd) drops its first 1 + b % NS soft rows on stage
     1 + (b // 2) % N, so the instances' soft masks and mu scalings
     differ."""
-    dims, qp, soft = mass_spring_soft_qp(8, 3, N, Z=10.0, dtype=dtype,
+    dims, qp, soft = mass_spring_soft_qp(nx, 3, N, Z=10.0, dtype=dtype,
                                          device=dev)
     if ng:
         ngv = [0] * (N + 1)
@@ -364,7 +380,7 @@ def _soft_batch(dev, dtype, N, ng, B, masked=False):
             ng_mask=torch.as_tensor(dims.ng_mask(), dtype=dtype, device=dev))
     qpb = pbatch.broadcast_qp(qp, B)
     rng = np.random.default_rng(0)
-    sc = torch.as_tensor(1 + 0.02 * rng.standard_normal(B), dtype=dtype,
+    sc = torch.as_tensor(1 + spread * rng.standard_normal(B), dtype=dtype,
                          device=dev)
     sb = pbatch.broadcast_soft(soft, B)
     if masked:
@@ -476,13 +492,33 @@ def test_soft_resident_kernel_per_instance_masks(cuda, dtype):
     _soft_resident_vs_plain(cuda, dtype, False, True, True)
 
 
-def _soft_resident_vs_plain(cuda, dtype, ng, exact, masked):
-    dims, qpb, sb, idxbs = _soft_batch(cuda, dtype, 5, ng, 37, masked)
-    cfg = IPMConfig(k_max=_CFG[dtype]["k_max"], mu0=100.0, mu_tol=0.0,
-                    use_pallas=True)
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("nx,B", [(8, 1), (8, 33), (16, 37)])
+def test_soft_resident_kernel_batch_edges(cuda, dtype, nx, B):
+    """The same at B=1 and B=33 (warps left part empty) and at the NZ=19
+    shape (nx=16: NS=16 soft rows), with general rows."""
+    _soft_resident_vs_plain(cuda, dtype, True, True, False, B=B, nx=nx)
+
+
+def test_soft_resident_kernel_instances_stop_apart(cuda):
+    """Per-instance masks, general rows, N=2 and mu_tol 3 at k_max 12, f64:
+    the instances of the first warp stop at different iterations (kk 3, 3,
+    3, 0 on the plain version: instance 3 freezes at its first step, the
+    others converge, every mu at least 2.6x from mu_tol).  In f32 that
+    first-step freeze sits on roundoff (the plain version on the card and
+    on the CPU disagree), so the case runs in f64."""
+    _soft_resident_vs_plain(cuda, torch.float64, True, True, True, B=8,
+                            N=2, mu_tol=3.0, k_max=12)
+
+
+def _soft_resident_vs_plain(cuda, dtype, ng, exact, masked, B=37, nx=8,
+                            mu_tol=0.0, k_max=None, N=5):
+    dims, qpb, sb, idxbs = _soft_batch(cuda, dtype, N, ng, B, masked, nx)
+    cfg = IPMConfig(k_max=k_max or _CFG[dtype]["k_max"], mu0=100.0,
+                    mu_tol=mu_tol, use_pallas=True)
     args, kw = ipm_soft_resident.soft_resident_inputs(dims, qpb, sb, cfg,
                                                       idxbs, exact)
-    assert (kw["musc"].unique().numel() > 1) == masked
+    assert (kw["musc"].unique().numel() > 1) == (masked and B > 1)
     n0 = dict(rk.LAUNCHES)
     out_k = rk.ipm_resident(*args, **kw)
     torch.cuda.synchronize()
@@ -500,6 +536,8 @@ def _soft_resident_vs_plain(cuda, dtype, ng, exact, masked):
                                    atol=tol["lam"])
     torch.testing.assert_close(out_k[7], out_p[7], rtol=tol["stat"],
                                atol=tol["stat_atol"])
+    if mu_tol > 0:
+        assert out_p[5][:4].unique().numel() > 1      # within one warp
 
 
 def test_soft_resident_route_on_card_matches_cpu(cuda, monkeypatch):
