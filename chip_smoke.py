@@ -364,15 +364,18 @@ def _ptxas_lines(log: str):
     return out
 
 
-def _resident_extra(build, dims: dict, bound_ms: float, ms: float) -> dict:
-    """Rows 1 and 1s's extra keys of the kernels line: the share of the
-    bound, the lanes an instance (``team``) and threads a block of the
-    library built for ``dims``, and that library's ptxas lines (registers,
-    stack frame, spills; one per dtype)."""
-    lib = build.load("ipm_resident", **dims)
-    name = f"lib{build._key('ipm_resident', dims)}.so"
-    return {"share": bound_ms / ms, "team": int(lib.hp_ipm_resident_team()),
-            "block": int(lib.hp_ipm_resident_threads()),
+def _team_extra(build, kernel: str, dims: dict, bound_ms: float,
+                ms: float) -> dict:
+    """The extra keys of the kernels line of a kernel that runs a team of
+    lanes an instance (rows 1, 1s, 19 and 20): the share of the bound, the
+    lanes an instance (``team``) and threads a block of the library of
+    ``kernel`` built for ``dims``, and that library's ptxas lines
+    (registers, stack frame, spills; one per form)."""
+    lib = build.load(kernel, **dims)
+    name = f"lib{build._key(kernel, dims)}.so"
+    return {"share": bound_ms / ms,
+            "team": int(getattr(lib, f"hp_{kernel}_team")()),
+            "block": int(getattr(lib, f"hp_{kernel}_threads")()),
             "ptxas": _ptxas_lines(build.PTXAS_LOG.get(name, ""))}
 
 
@@ -1844,9 +1847,9 @@ def _soft_resident(torch, np, dev, card, reset_counts, read_counts, total,
            "launches": ran[SOFT_RES], "max_abs_err": err32, "ms": ms_k,
            "plain_ms": ms_p, "bound_ms": bound_ms, "bound_by": bound_by,
            "library_ms": None}
-    row.update(_resident_extra(_build, dict(NU=d.NU, NX=d.NX, NB=d.NB,
-                                            NG=d.NG, NS=cx.NS),
-                               bound_ms, ms_k))
+    row.update(_team_extra(_build, "ipm_resident",
+                           dict(NU=d.NU, NX=d.NX, NB=d.NB, NG=d.NG,
+                                NS=cx.NS), bound_ms, ms_k))
     print(f"{SOFT_RES}: team {row['team']} lanes an instance, "
           f"{row['block']} threads a block, {row['share']:.2%} of bound; "
           f"ptxas {row['ptxas']}", flush=True)
@@ -3506,13 +3509,15 @@ def main() -> int:
                         "ms": ms, "plain_ms": ms_plain,
                         "bound_ms": bound_ms, "bound_by": bound_by,
                         "library_ms": None})
-    row1 = next(k for k in kernels if k["name"] == "ipm_resident")
-    row1.update(_resident_extra(_build, dict(NU=dims.NU, NX=dims.NX,
-                                             NB=dims.NB, NG=dims.NG),
-                                row1["bound_ms"], row1["ms"]))
-    print(f"ipm_resident: team {row1['team']} lanes an instance, "
-          f"{row1['block']} threads a block, {row1['share']:.2%} of bound; "
-          f"ptxas {row1['ptxas']}", flush=True)
+    shape = dict(NU=dims.NU, NX=dims.NX, NB=dims.NB)
+    for name, dims_ in (("ipm_resident", dict(shape, NG=dims.NG)),
+                        ("factor_solve_mega", shape), ("solve_mega", shape)):
+        row = next(k for k in kernels if k["name"] == name)
+        row.update(_team_extra(_build, name, dims_, row["bound_ms"],
+                               row["ms"]))
+        print(f"{name}: team {row['team']} lanes an instance, "
+              f"{row['block']} threads a block, {row['share']:.2%} of "
+              f"bound; ptxas {row['ptxas']}", flush=True)
     kernels.append(soft_res_row)
     kernels += fused_rows
     kernels.append(row23)

@@ -41,10 +41,11 @@
 // stores any into the slab, so a stage waits on one memory latency.
 // Every entry keeps the first version's expression and order, so the
 // outputs are its outputs bit for bit:
-//   - the Cholesky runs column by column: every lane forms the pivot
-//     1 / sqrt(max(a_jj, 1e-20)) from the slab, the row owners scale
-//     column j, a warp barrier, the owners update their rows in the
-//     column order of csrc/stage_math.cuh::chol;
+//   - the Cholesky runs column by column, one warp barrier a column
+//     (csrc/team.cuh folded_core): every lane forms the pivot
+//     1 / sqrt(max(a_jj, 1e-20)) from the slab, the row owners update
+//     their rows in the column order of csrc/stage_math.cuh::chol, each
+//     forming the scaled entries it reads as their owners form them;
 //   - W, M += W W', m, Pb, px, x_next, u, pi, the triangular solves and
 //     the ng products: one lane an output entry, its sequential chain;
 //     where a lane's range is a runtime one (Pb, pi), the chain is written
@@ -62,7 +63,9 @@
 // own lanes, so a team that has stopped (converged, frozen, or past B)
 // never holds up a live team in its warp.  Scratch is per instance and
 // instance-major (a team's consecutive rows are consecutive addresses);
-// the inputs and outputs keep the batch-last (rows, B) layout.
+// the inputs and outputs keep the batch-last (rows, B) layout.  The team
+// helpers and the stage routines this kernel shares with rows 19 and 20
+// (csrc/factor_solve_mega.cu, csrc/solve_mega.cu) are in csrc/team.cuh.
 //
 // Soft rows (HP_NS > 0): each stage's NS soft constraints carry four
 // slack/multiplier families [lo; up; s_lo; s_up] (4NS values), eliminated
@@ -81,7 +84,7 @@
 // are compile-time (-D, one library per shape); N, k_max and the stages
 // that carry general constraints (the ng_stage table, n_ng entries) are
 // runtime arguments.
-#include "stage_math.cuh"
+#include "team.cuh"
 
 #if !defined(HP_NU) || !defined(HP_NX) || !defined(HP_NB) || !defined(HP_NG)
 #error "compile with -DHP_NU=.. -DHP_NX=.. -DHP_NB=.. -DHP_NG=.."
@@ -175,103 +178,10 @@ __host__ __device__ inline int64_t work_rows(int64_t N, int64_t n_ng) {
          5 * n_ng * NG2 + 5 * (N + 1) * 4 * NS;
 }
 
-__host__ __device__ constexpr int chunks(int n) {
-  return n > 0 ? (n + TEAM - 1) / TEAM : 1;
-}
-
-// A team copy of COUNT rows of a stream into the slab, in two halves:
-// fetch (lane r loads the rows r, r + TEAM, ... into registers) and put
-// (the stores).  A sweep fetches all of a stage's streams before it puts
-// any, so a stage waits on one memory latency, not on one a row.
-template <int COUNT, typename T, typename Src>
-__device__ __forceinline__ void fetch(int r, T (&buf)[chunks(COUNT)],
-                                      const Src& src) {
-#pragma unroll
-  for (int c = 0; c < chunks(COUNT); ++c) {
-    const int e = r + c * TEAM;
-    if (e < COUNT) buf[c] = src(e);
-  }
-}
-
-template <int COUNT, typename T>
-__device__ __forceinline__ void put(int r, T* dst,
-                                    const T (&buf)[chunks(COUNT)]) {
-#pragma unroll
-  for (int c = 0; c < chunks(COUNT); ++c) {
-    const int e = r + c * TEAM;
-    if (e < COUNT) dst[e] = buf[c];
-  }
-}
-
-template <int COUNT, typename T, typename Src>
-__device__ __forceinline__ void team_copy(int r, T* dst, const Src& src) {
-  T buf[chunks(COUNT)];
-  fetch<COUNT>(r, buf, src);
-  put<COUNT>(r, dst, buf);
-}
-
-// The pending update of COUNT rows of a state stream from row r0, x += a
-// (dx - x) (TOWARD: z and pi) or x += a dx (the multipliers and slacks),
-// loads first as in team_copy; keep, if given, takes the new rows.
-template <int COUNT, bool TOWARD, typename T>
-__device__ __forceinline__ void team_update(int r, T a, const hp::Col<T>& x,
-                                            const hp::Col<T>& dx, int64_t r0,
-                                            T* keep) {
-  T xv[chunks(COUNT)], dv[chunks(COUNT)];
-#pragma unroll
-  for (int c = 0; c < chunks(COUNT); ++c) {
-    const int e = r + c * TEAM;
-    if (e < COUNT) {
-      xv[c] = x(r0 + e);
-      dv[c] = dx(r0 + e);
-    }
-  }
-#pragma unroll
-  for (int c = 0; c < chunks(COUNT); ++c) {
-    const int e = r + c * TEAM;
-    if (e < COUNT) {
-      // a select, never a multiply: frozen directions may hold NaN
-      const T v = TOWARD ? xv[c] + a * (dv[c] - xv[c]) : xv[c] + a * dv[c];
-      x(r0 + e) = v;
-      if (keep) keep[e] = v;
-    }
-  }
-}
-
-// Rounded products and FMAs that nvcc never contracts further.
-__device__ __forceinline__ float mul_rn(float a, float b) {
-  return __fmul_rn(a, b);
-}
-__device__ __forceinline__ double mul_rn(double a, double b) {
-  return __dmul_rn(a, b);
-}
-__device__ __forceinline__ float fma_rn(float a, float b, float c) {
-  return __fmaf_rn(a, b, c);
-}
-__device__ __forceinline__ double fma_rn(double a, double b, double c) {
-  return __fma_rn(a, b, c);
-}
-
-// sum_{q = q0..q1} a_q b_q (term(q, a, b) gives a_q, b_q) over a lane's
-// runtime range, rounded as nvcc rounded the unrolled sum in one thread
-// (hp::pb_of, hp::pi_of_x): the first product fused with the rounded
-// second, each later product into the running sum; one term is a rounded
-// product.
-template <typename T, typename Term>
-__device__ __forceinline__ T dot_chain(int q0, int q1, Term term) {
-  T a0, b0;
-  term(q0, a0, b0);
-  if (q1 == q0) return mul_rn(a0, b0);
-  T a1, b1;
-  term(q0 + 1, a1, b1);
-  T acc = fma_rn(a0, b0, mul_rn(a1, b1));
-  for (int q = q0 + 2; q <= q1; ++q) {
-    T a, b;
-    term(q, a, b);
-    acc = fma_rn(a, b, acc);
-  }
-  return acc;
-}
+using TM = hp::Team<TEAM>;
+__host__ __device__ constexpr int chunks(int n) { return TM::chunks(n); }
+using hp::fma_rn;
+using hp::mul_rn;
 
 // One soft row k's slack Schur elimination (csrc/stage_math.cuh
 // soft_schur, the entries of row k: families f = 0..3 are the slots
@@ -339,39 +249,6 @@ __device__ __forceinline__ void soft_dt_dls_row(
 #pragma unroll
   for (int f = 0; f < 4; ++f)
     dls[f] = (dl0[f] - S.lamt[f] * dts[f] - ls[f * NS + k]) * S.m;
-}
-
-// the fraction-to-boundary candidate pair of one slot (alpha_sums' terms)
-template <typename T>
-__device__ __forceinline__ T cand_pair(T lam, T t, T mb, T dt, T dl) {
-  return hp::nmin(hp::alpha_cand(lam, dl, mb), hp::alpha_cand(t, dt, mb));
-}
-
-// hp::alpha_sums on slab rows whose candidate pairs are formed: the
-// minimum and the three partial sums in row order, each rounded as nvcc
-// rounds the one-thread loop (e2: its first product rounded, each later
-// one contracted into the sum).  Slot i's mask is mb[i % MOD] (MOD = K2
-// for box and ng rows, NS for soft rows).
-template <typename T, int K2, int MOD>
-__device__ __forceinline__ void alpha_chain(const T* lam, const T* t,
-                                            const T* mb, const T* dt,
-                                            const T* dl, const T* cp,
-                                            T& amin, T& s0, T& s1, T& s2) {
-  T cmin = cp[0];
-  T e0 = lam[0] * t[0] * mb[0];
-  T e1 = lam[0] * dt[0] + t[0] * dl[0];
-  T e2 = mul_rn(dl[0], dt[0]);
-#pragma unroll
-  for (int i = 1; i < K2; ++i) {
-    cmin = hp::nmin(cmin, cp[i]);
-    e0 = e0 + lam[i] * t[i] * mb[i % MOD];
-    e1 = e1 + (lam[i] * dt[i] + t[i] * dl[i]);
-    e2 = fma_rn(dl[i], dt[i], e2);
-  }
-  amin = hp::nmin(amin, cmin);
-  s0 = s0 + e0;
-  s1 = s1 + e1;
-  s2 = s2 + e2;
 }
 
 }  // namespace
@@ -559,139 +436,70 @@ __global__ void __launch_bounds__(THREADS) ipm_resident_kernel(ResidentArgs a) {
   };
   auto box_fetch = [&](int n, BoxB& b) {
     const int64_t r0 = static_cast<int64_t>(n) * NB2;
-    fetch<NB2>(r, b.l, rows_of(lam, r0));
-    fetch<NB2>(r, b.t, rows_of(t, r0));
-    fetch<NB2>(r, b.m, rows_of(mbc, r0));
-    fetch<NB2>(r, b.a, rows_of(dcatc, r0));
+    TM::fetch<NB2>(r, b.l, rows_of(lam, r0));
+    TM::fetch<NB2>(r, b.t, rows_of(t, r0));
+    TM::fetch<NB2>(r, b.m, rows_of(mbc, r0));
+    TM::fetch<NB2>(r, b.a, rows_of(dcatc, r0));
   };
   auto box_put = [&](const BoxB& b) {
-    put<NB2>(r, sLam, b.l);
-    put<NB2>(r, sT, b.t);
-    put<NB2>(r, sMb, b.m);
-    put<NB2>(r, sA, b.a);
+    TM::put<NB2>(r, sLam, b.l);
+    TM::put<NB2>(r, sT, b.t);
+    TM::put<NB2>(r, sMb, b.m);
+    TM::put<NB2>(r, sA, b.a);
   };
   auto ll_fetch = [&](int n, LlB& b) {
-    fetch<NZ * NU>(r, b.l, rows_of(lls, static_cast<int64_t>(n) * NZ * NU));
-    fetch<NU>(r, b.e, rows_of(eus, static_cast<int64_t>(n) * NU));
+    TM::fetch<NZ * NU>(r, b.l, rows_of(lls, static_cast<int64_t>(n) * NZ * NU));
+    TM::fetch<NU>(r, b.e, rows_of(eus, static_cast<int64_t>(n) * NU));
   };
   auto ll_put = [&](const LlB& b) {
-    put<NZ * NU>(r, sLl, b.l);
-    put<NU>(r, sEu, b.e);
+    TM::put<NZ * NU>(r, sLl, b.l);
+    TM::put<NU>(r, sEu, b.e);
   };
   auto f_fetch = [&](int n, FB& b) {
-    fetch<NZ * NX>(r, b.f, rows_of(Fc, static_cast<int64_t>(n) * NZ * NX));
-    fetch<NX>(r, b.b, rows_of(bc, static_cast<int64_t>(n) * NX));
+    TM::fetch<NZ * NX>(r, b.f, rows_of(Fc, static_cast<int64_t>(n) * NZ * NX));
+    TM::fetch<NX>(r, b.b, rows_of(bc, static_cast<int64_t>(n) * NX));
   };
   auto f_put = [&](const FB& b) {
-    put<NZ * NX>(r, sF, b.f);
-    put<NX>(r, sBb, b.b);
+    TM::put<NZ * NX>(r, sF, b.f);
+    TM::put<NX>(r, sBb, b.b);
   };
   auto soft_fetch = [&](int n, SoftB& b) {
-    fetch<NS4>(r, b.l, rows_of(lams, static_cast<int64_t>(n) * NS4));
-    fetch<NS4>(r, b.t, rows_of(ts, static_cast<int64_t>(n) * NS4));
-    fetch<NSA>(r, b.m, rows_of(mskc, static_cast<int64_t>(n) * NSA));
-    fetch<6 * NSA>(r, b.c, rows_of(softcc, static_cast<int64_t>(n) * 6 * NSA));
+    TM::fetch<NS4>(r, b.l, rows_of(lams, static_cast<int64_t>(n) * NS4));
+    TM::fetch<NS4>(r, b.t, rows_of(ts, static_cast<int64_t>(n) * NS4));
+    TM::fetch<NSA>(r, b.m, rows_of(mskc, static_cast<int64_t>(n) * NSA));
+    TM::fetch<6 * NSA>(r, b.c,
+                       rows_of(softcc, static_cast<int64_t>(n) * 6 * NSA));
   };
   auto soft_put = [&](const SoftB& b) {
-    put<NS4>(r, sLs, b.l);
-    put<NS4>(r, sTs, b.t);
-    put<NSA>(r, sMs, b.m);
-    put<6 * NSA>(r, sSc, b.c);
+    TM::put<NS4>(r, sLs, b.l);
+    TM::put<NS4>(r, sTs, b.t);
+    TM::put<NSA>(r, sMs, b.m);
+    TM::put<6 * NSA>(r, sSc, b.c);
   };
 
   auto load_ng = [&](int j) {
     const int64_t r0 = static_cast<int64_t>(j) * NG2;
-    team_copy<NG2>(r, sLg, rows_of(lamg, r0));
-    team_copy<NG2>(r, sTg, rows_of(tg, r0));
-    team_copy<NG2>(r, sMg, rows_of(mggc, r0));
-    team_copy<NG2>(r, sDg, rows_of(dggc, r0));
-    team_copy<NG * NZ>(r, sC, rows_of(Cgc, static_cast<int64_t>(j) * NG * NZ));
+    TM::copy<NG2>(r, sLg, rows_of(lamg, r0));
+    TM::copy<NG2>(r, sTg, rows_of(tg, r0));
+    TM::copy<NG2>(r, sMg, rows_of(mggc, r0));
+    TM::copy<NG2>(r, sDg, rows_of(dggc, r0));
+    TM::copy<NG * NZ>(r, sC, rows_of(Cgc, static_cast<int64_t>(j) * NG * NZ));
   };
   auto load_lxx = [&](int n) {  // the packed lower triangle into sLx
-    team_copy<NTX>(r, sLx, rows_of(lxxs, static_cast<int64_t>(n) * NTX));
+    TM::copy<NTX>(r, sLx, rows_of(lxxs, static_cast<int64_t>(n) * NTX));
   };
   // x0 = -(Lxx Lxx')^{-1} px (hp::root_x0) on stage 0's slab rows, in
   // every lane; the result into the x buffer 0
   auto root_x0 = [&] {
     sync();
     load_lxx(0);
-    team_copy<NX>(r, sT1, rows_of(pxs, 0));
+    TM::copy<NX>(r, sT1, rows_of(pxs, 0));
     sync();
-    T D[NX], tt[NX], xx[NX];
-#pragma unroll
-    for (int i = 0; i < NX; ++i)
-      D[i] = T(1) / nmax(sLx[sym_idx(i, i)], T(1e-30));
-#pragma unroll
-    for (int i = 0; i < NX; ++i) {
-      T acc = -sT1[i];
-#pragma unroll
-      for (int j = 0; j < i; ++j) acc = acc - sLx[sym_idx(i, j)] * tt[j];
-      tt[i] = acc * D[i];
-    }
-#pragma unroll
-    for (int i = NX - 1; i >= 0; --i) {
-      T acc = tt[i];
-#pragma unroll
-      for (int j = i + 1; j < NX; ++j) acc = acc - sLx[sym_idx(j, i)] * xx[j];
-      xx[i] = acc * D[i];
-    }
-#pragma unroll
-    for (int i = 0; i < NX; ++i)
-      if (i % TEAM == r) sh[O_X + i] = xx[i];
+    hp::root_x0<TEAM, T, NX>(
+        r, [&](int i, int j) { return sLx[sym_idx(i, j)]; }, sT1, sh + O_X);
   };
-  // u = -Luu^{-T} (eu + Lxu' x) (hp::u_of_x) from the slab, in every lane
-  auto u_of_x = [&](const T* x, T (&u)[NU]) {
-    T Du[NU], rhs[NU], y[NU];
-#pragma unroll
-    for (int i = 0; i < NU; ++i) Du[i] = T(1) / nmax(sLl[i * NU + i], T(1e-30));
-#pragma unroll
-    for (int i = 0; i < NU; ++i) {
-      T acc = sEu[i];
-#pragma unroll
-      for (int q = 0; q < NX; ++q) acc = acc + sLl[(NU + q) * NU + i] * x[q];
-      rhs[i] = acc;
-    }
-#pragma unroll
-    for (int i = NU - 1; i >= 0; --i) {
-      T acc = rhs[i];
-#pragma unroll
-      for (int j = i + 1; j < NU; ++j) acc = acc - sLl[j * NU + i] * y[j];
-      y[i] = acc * Du[i];
-    }
-#pragma unroll
-    for (int i = 0; i < NU; ++i) u[i] = -y[i];
-  };
-  // eu = Luu^{-1} m_u (hp::tril_solve) with the pivots Dinv, in every lane
-  auto eu_of_m = [&](const T* L, int ld, const T (&Dinv)[NU], T (&eu)[NU]) {
-#pragma unroll
-    for (int i = 0; i < NU; ++i) {
-      T acc = sMv[i];
-#pragma unroll
-      for (int j = 0; j < i; ++j) acc = acc - L[i * ld + j] * eu[j];
-      eu[i] = acc * Dinv[i];
-    }
-  };
-  // zb = z[idx[k]] (hp::gather_box's select chain: slot 0 outside [0, NZ))
-  auto gather = [&](int j) { return (j >= 1 && j < NZ) ? sZt[j] : sZt[0]; };
-  // the box direction of pair i (hp::dt_dlam) with the centering values
-  // dl0 of its two slots, into the slab with its candidate pairs
-  auto box_dir = [&](int i, T zb, T dl0_lo, T dl0_up) {
-    const T dt_lo = ((zb - sA[i]) - sT[i]) * sMb[i];
-    const T dt_up = ((sA[NB + i] - zb) - sT[NB + i]) * sMb[NB + i];
-    T ti, lt_lo, lt_up;
-    hp::t_inv_lamt(sLam[i], sT[i], sMb[i], ti, lt_lo);
-    hp::t_inv_lamt(sLam[NB + i], sT[NB + i], sMb[NB + i], ti, lt_up);
-    const T dl_lo = (dl0_lo - lt_lo * dt_lo - sLam[i]) * sMb[i];
-    const T dl_up = (dl0_up - lt_up * dt_up - sLam[NB + i]) * sMb[NB + i];
-    sDt[i] = dt_lo;
-    sDt[NB + i] = dt_up;
-    sDl[i] = dl_lo;
-    sDl[NB + i] = dl_up;
-    sCp[i] = cand_pair(sLam[i], sT[i], sMb[i], dt_lo, dl_lo);
-    sCp[NB + i] = cand_pair(sLam[NB + i], sT[NB + i], sMb[NB + i], dt_up,
-                            dl_up);
-  };
-  // the same for ng row g with its constraint value cz
+  // the box direction of ng row g (hp::dt_dlam, as hp::box_dir) with its
+  // constraint value cz
   auto ng_dir = [&](int g, T cz, T dl0_lo, T dl0_up) {
     const T dt_lo = ((cz - sDg[g]) - sTg[g]) * sMg[g];
     const T dt_up = ((sDg[NG + g] - cz) - sTg[NG + g]) * sMg[NG + g];
@@ -704,9 +512,9 @@ __global__ void __launch_bounds__(THREADS) ipm_resident_kernel(ResidentArgs a) {
     sDtg[NG + g] = dt_up;
     sDlg[g] = dl_lo;
     sDlg[NG + g] = dl_up;
-    sCpg[g] = cand_pair(sLg[g], sTg[g], sMg[g], dt_lo, dl_lo);
-    sCpg[NG + g] = cand_pair(sLg[NG + g], sTg[NG + g], sMg[NG + g], dt_up,
-                             dl_up);
+    sCpg[g] = hp::cand_pair(sLg[g], sTg[g], sMg[g], dt_lo, dl_lo);
+    sCpg[NG + g] = hp::cand_pair(sLg[NG + g], sTg[NG + g], sMg[NG + g],
+                                 dt_up, dl_up);
   };
   // C z of ng row g (its sequential chain)
   auto cz_of = [&](int g) {
@@ -722,7 +530,7 @@ __global__ void __launch_bounds__(THREADS) ipm_resident_kernel(ResidentArgs a) {
                       T (&dls)[4]) {
     SoftRow<T> S;
     soft_row<false, T>(k, sLs, sTs, sMs, sSc, S);
-    const T zs = gather(idxs_k[k]) * sMs[k];
+    const T zs = hp::gather<T, NZ>(sZt, idxs_k[k]) * sMs[k];
     const T zero4[4] = {T(0), T(0), T(0), T(0)};
     if (corr) {
       const T zl0x = S.zl0 + dc[0] + dc[2];
@@ -736,7 +544,7 @@ __global__ void __launch_bounds__(THREADS) ipm_resident_kernel(ResidentArgs a) {
       const int i = f * NS + k;
       sDts[i] = dts[f];
       sDls[i] = dls[f];
-      sCps[i] = cand_pair(sLs[i], sTs[i], S.m, dts[f], dls[f]);
+      sCps[i] = hp::cand_pair(sLs[i], sTs[i], S.m, dts[f], dls[f]);
     }
   };
 
@@ -794,19 +602,19 @@ __global__ void __launch_bounds__(THREADS) ipm_resident_kernel(ResidentArgs a) {
         // the last pending update
         if (upd) {
           T* none = nullptr;
-          team_update<NZ, true>(r, a2p, z, dz2, rz, none);
-          team_update<NB2, false>(r, a2p, lam, dl2, rb, none);
-          team_update<NB2, false>(r, a2p, t, dt2, rb, none);
+          TM::update<NZ, true>(r, a2p, z, dz2, rz, none);
+          TM::update<NB2, false>(r, a2p, lam, dl2, rb, none);
+          TM::update<NB2, false>(r, a2p, t, dt2, rb, none);
           if constexpr (NS > 0) {
-            team_update<NS4, false>(r, a2p, lams, dl2s, rs, none);
-            team_update<NS4, false>(r, a2p, ts, dt2s, rs, none);
+            TM::update<NS4, false>(r, a2p, lams, dl2s, rs, none);
+            TM::update<NS4, false>(r, a2p, ts, dt2s, rs, none);
           }
           if (k >= 1)
-            team_update<NX, true>(r, a2p, pi, dpi2,
+            TM::update<NX, true>(r, a2p, pi, dpi2,
                                   static_cast<int64_t>(k - 1) * NX, none);
           if (jg >= 0) {
-            team_update<NG2, false>(r, a2p, lamg, dl2g, rg, none);
-            team_update<NG2, false>(r, a2p, tg, dt2g, rg, none);
+            TM::update<NG2, false>(r, a2p, lamg, dl2g, rg, none);
+            TM::update<NG2, false>(r, a2p, tg, dt2g, rg, none);
           }
         }
         continue;
@@ -829,24 +637,24 @@ __global__ void __launch_bounds__(THREADS) ipm_resident_kernel(ResidentArgs a) {
       const int64_t rp = static_cast<int64_t>(k - 1) * NX;
       box_fetch(k, bx);
       if (upd) {
-        fetch<NZ>(r, zv, rows_of(z, rz));
-        fetch<NZ>(r, dzv, rows_of(dz2, rz));
-        fetch<NB2>(r, dlv, rows_of(dl2, rb));
-        fetch<NB2>(r, dtv, rows_of(dt2, rb));
+        TM::fetch<NZ>(r, zv, rows_of(z, rz));
+        TM::fetch<NZ>(r, dzv, rows_of(dz2, rz));
+        TM::fetch<NB2>(r, dlv, rows_of(dl2, rb));
+        TM::fetch<NB2>(r, dtv, rows_of(dt2, rb));
         if (k >= 1) {
-          fetch<NX>(r, pv, rows_of(pi, rp));
-          fetch<NX>(r, dpv, rows_of(dpi2, rp));
+          TM::fetch<NX>(r, pv, rows_of(pi, rp));
+          TM::fetch<NX>(r, dpv, rows_of(dpi2, rp));
         }
       }
       if constexpr (NS > 0) {
         soft_fetch(k, sb);
         if (upd) {
-          fetch<NS4>(r, dlsv, rows_of(dl2s, rs));
-          fetch<NS4>(r, dtsv, rows_of(dt2s, rs));
+          TM::fetch<NS4>(r, dlsv, rows_of(dl2s, rs));
+          TM::fetch<NS4>(r, dtsv, rows_of(dt2s, rs));
         }
       }
       f_fetch(ke, fb);
-      fetch<NT>(r, hb, rows_of(Hc, static_cast<int64_t>(k) * NT));
+      TM::fetch<NT>(r, hb, rows_of(Hc, static_cast<int64_t>(k) * NT));
       if (upd) {
 #pragma unroll
         for (int c = 0; c < chunks(NZ); ++c) {
@@ -888,18 +696,18 @@ __global__ void __launch_bounds__(THREADS) ipm_resident_kernel(ResidentArgs a) {
         soft_put(sb);
       }
       f_put(fb);
-      put<NT>(r, sH, hb);
+      TM::put<NT>(r, sH, hb);
       if (jg >= 0) {
         if (upd) {
-          team_update<NG2, false>(r, a2p, lamg, dl2g, rg, sLg);
-          team_update<NG2, false>(r, a2p, tg, dt2g, rg, sTg);
+          TM::update<NG2, false>(r, a2p, lamg, dl2g, rg, sLg);
+          TM::update<NG2, false>(r, a2p, tg, dt2g, rg, sTg);
         } else {
-          team_copy<NG2>(r, sLg, rows_of(lamg, rg));
-          team_copy<NG2>(r, sTg, rows_of(tg, rg));
+          TM::copy<NG2>(r, sLg, rows_of(lamg, rg));
+          TM::copy<NG2>(r, sTg, rows_of(tg, rg));
         }
-        team_copy<NG2>(r, sMg, rows_of(mggc, rg));
-        team_copy<NG2>(r, sDg, rows_of(dggc, rg));
-        team_copy<NG * NZ>(r, sC,
+        TM::copy<NG2>(r, sMg, rows_of(mggc, rg));
+        TM::copy<NG2>(r, sDg, rows_of(dggc, rg));
+        TM::copy<NG * NZ>(r, sC,
                            rows_of(Cgc, static_cast<int64_t>(jg) * NG * NZ));
       }
       if (s == 0) {
@@ -992,95 +800,17 @@ __global__ void __launch_bounds__(THREADS) ipm_resident_kernel(ResidentArgs a) {
         }
         sG[c] = gec;
       }
-      // folded backward Riccati stage (hp::folded_bwd_core), entry by entry:
-      // t1 = Lxx_c' b, Pb = Lxx_c t1 (stored), Pb + px_c
-      for (int i = r; i < NX; i += TEAM)
-        sT1[i] = dot_chain<T>(i, NX - 1, [&](int q, T& u, T& v) {
-          u = sLc[q * NX + i];
-          v = sBb[q];
-        });
-      sync();
-      for (int i = r; i < NX; i += TEAM) {
-        const T acc = dot_chain<T>(0, i, [&](int q, T& u, T& v) {
-          u = sLc[i * NX + q];
-          v = sT1[q];
-        });
-        // Pb of stage k (< N) couples it to stage k+1; the terminal Pb is 0
-        if (k < N) pbs(static_cast<int64_t>(k) * NX + i) = acc;
-        sPb[i] = acc + sPxc[i];
-      }
-      sync();
-      // m = g + F (Pb + px_c); W = F Lxx_c in place of F's row (each row
-      // through registers: its loads are issued before its stores)
-      for (int i = r; i < NZ; i += TEAM) {
-        T f[NX], wr[NX];
-#pragma unroll
-        for (int q = 0; q < NX; ++q) f[q] = sF[i * NX + q];
-        T acc = sG[i];
-#pragma unroll
-        for (int q = 0; q < NX; ++q) acc = acc + f[q] * sPb[q];
-        sMv[i] = acc;
-#pragma unroll
-        for (int j = 0; j < NX; ++j) {
-          T wv = f[j] * sLc[j * NX + j];
-#pragma unroll
-          for (int q = j + 1; q < NX; ++q) wv = wv + f[q] * sLc[q * NX + j];
-          wr[j] = wv;
-        }
-#pragma unroll
-        for (int j = 0; j < NX; ++j) sF[i * NX + j] = wr[j];
-      }
-      sync();
-      // M += W W', a row's entries in registers
-      for (int i = r; i < NZ; i += TEAM) {
-        T wi[NX], mr[NZ];
-#pragma unroll
-        for (int q = 0; q < NX; ++q) wi[q] = sF[i * NX + q];
-#pragma unroll
-        for (int j = 0; j < NZ; ++j) {
-          if (j <= i) {
-            T acc = sM[i * NZ + j];
-#pragma unroll
-            for (int q = 0; q < NX; ++q) acc = acc + wi[q] * sF[j * NX + q];
-            mr[j] = acc;
-          }
-        }
-#pragma unroll
-        for (int j = 0; j < NZ; ++j)
-          if (j <= i) sM[i * NZ + j] = mr[j];
-      }
-      // M = chol(M) (hp::chol), column by column: every lane forms the
-      // pivot, the owners scale column j below the diagonal, a barrier,
-      // the owners update their rows (the pivot's owner scales the
-      // diagonal, which no update reads)
-      for (int j = 0; j < NZ; ++j) {
-        sync();
-        const T d = T(1) / sqrt(nmax(sM[j * NZ + j], T(1e-20)));
-        for (int i = r; i < NZ; i += TEAM)
-          if (i > j) sM[i * NZ + j] = sM[i * NZ + j] * d;
-        sync();
-        for (int i = r; i < NZ; i += TEAM) {
-          if (i == j) {
-            sM[j * NZ + j] = sM[j * NZ + j] * d;
-            sDi[j] = d;
-          } else if (i > j) {
-            const T aij = sM[i * NZ + j];
-            T up[NZ];
-#pragma unroll
-            for (int jj = 1; jj < NZ; ++jj)
-              if (jj > j && jj <= i)
-                up[jj] = sM[i * NZ + jj] - aij * sM[jj * NZ + j];
-#pragma unroll
-            for (int jj = 1; jj < NZ; ++jj)
-              if (jj > j && jj <= i) sM[i * NZ + jj] = up[jj];
-          }
-        }
-      }
-      sync();
+      // folded backward Riccati stage (hp::folded_bwd_core, team.cuh);
+      // Pb of stage k (< N) couples it to stage k+1: the terminal Pb is 0
+      TM::folded_core<T, NU, NX>(
+          r, sync, sM, sF, sLc, sBb, sPxc, sG, sT1, sPb, sMv, sDi,
+          [&](int i, T v) {
+            if (k < N) pbs(static_cast<int64_t>(k) * NX + i) = v;
+          });
       T Dinv_u[NU], eu[NU];
 #pragma unroll
       for (int i = 0; i < NU; ++i) Dinv_u[i] = sDi[i];
-      eu_of_m(sM, NZ, Dinv_u, eu);
+      hp::eu_of_m<T, NU>(sMv, sM, NZ, Dinv_u, eu);
       // px = m_x - Lxu eu; the carry (Lxx block, px); the factor streams
       for (int i = r; i < NX; i += TEAM) {
         T acc = sMv[NU + i];
@@ -1137,20 +867,16 @@ __global__ void __launch_bounds__(THREADS) ipm_resident_kernel(ResidentArgs a) {
       if (jg >= 0) load_ng(jg);
       sync();
       T u[NU];
-      u_of_x(x, u);
+      hp::u_of_x<T, NU, NX>(sLl, sEu, x, u);
 #pragma unroll
       for (int i = 0; i < NU; ++i)
         if (i % TEAM == r) sZt[i] = u[i];
       for (int i = r; i < NX; i += TEAM) sZt[NU + i] = x[i];
       sync();
-      for (int j = r; j < NX; j += TEAM) {
-        T acc = sBb[j];
-#pragma unroll
-        for (int i = 0; i < NZ; ++i) acc = acc + sF[i * NX + j] * sZt[i];
-        xn[j] = acc;
-      }
+      hp::x_next<TEAM, T, NZ, NX>(r, sBb, sF, sZt, xn);
       for (int i = r; i < NB; i += TEAM) {
-        box_dir(i, gather(ik[i]), T(0), T(0));
+        hp::box_dir<T, NB>(i, hp::gather<T, NZ>(sZt, ik[i]), T(0), T(0),
+                           sLam, sT, sMb, sA, sDt, sDl, sCp);
         const int64_t r0 = static_cast<int64_t>(s) * NB2;
         dta(r0 + i) = sDt[i];
         dta(r0 + NB + i) = sDt[NB + i];
@@ -1183,14 +909,14 @@ __global__ void __launch_bounds__(THREADS) ipm_resident_kernel(ResidentArgs a) {
       }
       sync();
       if (r == 0) {
-        alpha_chain<T, NB2, NB2>(sLam, sT, sMb, sDt, sDl, sCp, amin, s0, s1,
-                                 s2);
+        hp::alpha_chain<T, NB2, NB2>(sLam, sT, sMb, sDt, sDl, sCp, amin, s0,
+                                     s1, s2);
         if constexpr (NS > 0)
-          alpha_chain<T, NS4, NSA>(sLs, sTs, sMs, sDts, sDls, sCps, amin, s0,
-                                   s1, s2);
+          hp::alpha_chain<T, NS4, NSA>(
+              sLs, sTs, sMs, sDts, sDls, sCps, amin, s0, s1, s2);
         if (jg >= 0)
-          alpha_chain<T, NG2, NG2>(sLg, sTg, sMg, sDtg, sDlg, sCpg, amin, s0,
-                                   s1, s2);
+          hp::alpha_chain<T, NG2, NG2>(
+              sLg, sTg, sMg, sDtg, sDlg, sCpg, amin, s0, s1, s2);
       }
     }
     if (r == 0) {
@@ -1230,29 +956,29 @@ __global__ void __launch_bounds__(THREADS) ipm_resident_kernel(ResidentArgs a) {
         const int64_t rs = static_cast<int64_t>(k) * NS4;
         box_fetch(k, bx);
         ll_fetch(k, lb);
-        fetch<NB2>(r, dtb, rows_of(dta, rb));
-        fetch<NB2>(r, dlb, rows_of(dla, rb));
+        TM::fetch<NB2>(r, dtb, rows_of(dta, rb));
+        TM::fetch<NB2>(r, dlb, rows_of(dla, rb));
         if constexpr (NS > 0) {
           soft_fetch(k, sb);
-          fetch<NS4>(r, dtsb, rows_of(dtas, rs));
-          fetch<NS4>(r, dlsb, rows_of(dlas, rs));
+          TM::fetch<NS4>(r, dtsb, rows_of(dtas, rs));
+          TM::fetch<NS4>(r, dlsb, rows_of(dlas, rs));
         }
         f_fetch(ke, fb);
         box_put(bx);
         ll_put(lb);
-        put<NB2>(r, sDt, dtb);
-        put<NB2>(r, sDl, dlb);
+        TM::put<NB2>(r, sDt, dtb);
+        TM::put<NB2>(r, sDl, dlb);
         if constexpr (NS > 0) {
           soft_put(sb);
-          put<NS4>(r, sDts, dtsb);
-          put<NS4>(r, sDls, dlsb);
+          TM::put<NS4>(r, sDts, dtsb);
+          TM::put<NS4>(r, sDls, dlsb);
         }
         f_put(fb);
       }
       if (jg >= 0) {
         load_ng(jg);
-        team_copy<NG2>(r, sDtg, rows_of(dtag, static_cast<int64_t>(jg) * NG2));
-        team_copy<NG2>(r, sDlg, rows_of(dlag, static_cast<int64_t>(jg) * NG2));
+        TM::copy<NG2>(r, sDtg, rows_of(dtag, static_cast<int64_t>(jg) * NG2));
+        TM::copy<NG2>(r, sDlg, rows_of(dlag, static_cast<int64_t>(jg) * NG2));
       }
       sync();
       // box centering correction and corrected gradient fold of pair i
@@ -1361,7 +1087,7 @@ __global__ void __launch_bounds__(THREADS) ipm_resident_kernel(ResidentArgs a) {
 #pragma unroll
       for (int i = 0; i < NU; ++i)
         Dinv_u[i] = T(1) / nmax(sLl[i * NU + i], T(1e-30));
-      eu_of_m(sLl, NU, Dinv_u, eu);
+      hp::eu_of_m<T, NU>(sMv, sLl, NU, Dinv_u, eu);
       for (int i = r; i < NX; i += TEAM) {
         T acc = sMv[NU + i];
 #pragma unroll
@@ -1393,66 +1119,53 @@ __global__ void __launch_bounds__(THREADS) ipm_resident_kernel(ResidentArgs a) {
         T pxb[chunks(NX)], lxb[chunks(NTX)], cob[chunks(NB2)];
         T dcb[chunks(NS4)];
         ll_fetch(s, lb);
-        fetch<NX>(r, pxb, rows_of(pxs, static_cast<int64_t>(s) * NX));
+        TM::fetch<NX>(r, pxb, rows_of(pxs, static_cast<int64_t>(s) * NX));
         box_fetch(s, bx);
-        fetch<NB2>(r, cob, rows_of(cor, static_cast<int64_t>(s) * NB2));
+        TM::fetch<NB2>(r, cob, rows_of(cor, static_cast<int64_t>(s) * NB2));
         if constexpr (NS > 0) {
           soft_fetch(s, sb);
-          fetch<NS4>(r, dcb,
+          TM::fetch<NS4>(r, dcb,
                      rows_of(dl2cs, static_cast<int64_t>(s) * NS4));
         }
         f_fetch(s < N - 1 ? s : N - 1, fb);
         if (s >= 1)
-          fetch<NTX>(r, lxb,
+          TM::fetch<NTX>(r, lxb,
                      rows_of(lxxs, static_cast<int64_t>(s) * NTX));
         ll_put(lb);
-        put<NX>(r, sPxv, pxb);
+        TM::put<NX>(r, sPxv, pxb);
         box_put(bx);
-        put<NB2>(r, sCo, cob);
+        TM::put<NB2>(r, sCo, cob);
         if constexpr (NS > 0) {
           soft_put(sb);
-          put<NS4>(r, sDls, dcb);
+          TM::put<NS4>(r, sDls, dcb);
         }
         f_put(fb);
-        if (s >= 1) put<NTX>(r, sLx, lxb);
+        if (s >= 1) TM::put<NTX>(r, sLx, lxb);
       }
       if (jg >= 0) {
         load_ng(jg);
-        team_copy<NG2>(r, sCog, rows_of(cog, static_cast<int64_t>(jg) * NG2));
+        TM::copy<NG2>(r, sCog, rows_of(cog, static_cast<int64_t>(jg) * NG2));
       }
       sync();
       T u[NU];
-      u_of_x(x, u);
+      hp::u_of_x<T, NU, NX>(sLl, sEu, x, u);
 #pragma unroll
       for (int i = 0; i < NU; ++i)
         if (i % TEAM == r) sZt[i] = u[i];
       for (int i = r; i < NX; i += TEAM) sZt[NU + i] = x[i];
       // pi_{s-1} = Lxx_s (Lxx_s' x_s) + px_s (hp::pi_of_x), first half
-      if (s >= 1) {
-        for (int i = r; i < NX; i += TEAM)
-          sT1[i] = dot_chain<T>(i, NX - 1, [&](int q, T& u, T& v) {
-            u = sLx[sym_idx(q, i)];
-            v = x[q];
-          });
-      }
+      if (s >= 1) hp::pi_t1<TEAM, T, NX>(r, sLx, x, sT1);
       sync();
       for (int i = r; i < NZ; i += TEAM)
         dz2(static_cast<int64_t>(s) * NZ + i) = sZt[i];
-      if (s >= 1) {
-        for (int i = r; i < NX; i += TEAM) {
-          T acc = sPxv[i];
-          for (int q = 0; q <= i; ++q) acc = acc + sLx[sym_idx(i, q)] * sT1[q];
-          dpi2(static_cast<int64_t>(s - 1) * NX + i) = acc;
-        }
-      }
-      for (int j = r; j < NX; j += TEAM) {
-        T acc = sBb[j];
-#pragma unroll
-        for (int i = 0; i < NZ; ++i) acc = acc + sF[i * NX + j] * sZt[i];
-        xn[j] = acc;
-      }
+      if (s >= 1)
+        hp::pi_rows<TEAM, T, NX>(r, sLx, sPxv, sT1, [&](int i, T v) {
+          dpi2(static_cast<int64_t>(s - 1) * NX + i) = v;
+        });
+      hp::x_next<TEAM, T, NZ, NX>(r, sBb, sF, sZt, xn);
       for (int i = r; i < NB; i += TEAM) {
-        box_dir(i, gather(ik[i]), sCo[i], sCo[NB + i]);
+        hp::box_dir<T, NB>(i, hp::gather<T, NZ>(sZt, ik[i]), sCo[i],
+                           sCo[NB + i], sLam, sT, sMb, sA, sDt, sDl, sCp);
         const int64_t r0 = static_cast<int64_t>(s) * NB2;
         dt2(r0 + i) = sDt[i];
         dt2(r0 + NB + i) = sDt[NB + i];
@@ -1487,14 +1200,14 @@ __global__ void __launch_bounds__(THREADS) ipm_resident_kernel(ResidentArgs a) {
       }
       sync();
       if (r == 0) {
-        alpha_chain<T, NB2, NB2>(sLam, sT, sMb, sDt, sDl, sCp, amin, s0, s1,
-                                 s2);
+        hp::alpha_chain<T, NB2, NB2>(sLam, sT, sMb, sDt, sDl, sCp, amin, s0,
+                                     s1, s2);
         if constexpr (NS > 0)
-          alpha_chain<T, NS4, NSA>(sLs, sTs, sMs, sDts, sDls, sCps, amin, s0,
-                                   s1, s2);
+          hp::alpha_chain<T, NS4, NSA>(
+              sLs, sTs, sMs, sDts, sDls, sCps, amin, s0, s1, s2);
         if (jg >= 0)
-          alpha_chain<T, NG2, NG2>(sLg, sTg, sMg, sDtg, sDlg, sCpg, amin, s0,
-                                   s1, s2);
+          hp::alpha_chain<T, NG2, NG2>(
+              sLg, sTg, sMg, sDtg, sDlg, sCpg, amin, s0, s1, s2);
       }
     }
     if (r == 0) {

@@ -121,6 +121,15 @@ def _check(name, lam, phase2, M, ng_stage_ids, named, shapes):
                          shapes)
 
 
+def _work_rows(name, N, **dims) -> int:
+    """Rows of the kernel's instance-major scratch an instance
+    (``hp_<name>_work_rows``; the library is built on first use)."""
+    fn = getattr(_build.load(name, **dims), f"hp_{name}_work_rows")
+    fn.argtypes = [ctypes.c_int64]
+    fn.restype = ctypes.c_int64
+    return int(fn(N))
+
+
 def factor_solve_mega(idx_tab, lam, t, A, M, mb, base, pdreg, H, ngl, ngadd,
                       ng_stage_ids, F, b, *, NB, NU, NZ, NX, phase2):
     """Barrier prep + folded factorization + pi-less forward + affine
@@ -154,12 +163,13 @@ def factor_solve_mega(idx_tab, lam, t, A, M, mb, base, pdreg, H, ngl, ngadd,
                   ngl=(n_ng, NT, B), ngadd=(n_ng, NZ, B),
                   F=(N, NZ, NX, B), b=(N, NX, B))
     _check(name, lam, phase2, M, ng_stage_ids, named, shapes)
+    _build.dtype_code(lam.dtype)                # raise before building
     dev, dt = lam.device, lam.dtype
     new = lambda *s: torch.empty(*s, dtype=dt, device=dev)  # noqa: E731
     Ll, Lxx, Pb = new(Np1, NZ, NU, B), new(Np1, NX, NX, B), new(N, NX, B)
     z, dtl, dll = new(Np1, NZ, B), new(Np1, NB2, B), new(Np1, NB2, B)
     amin, s0, s1, s2 = new(4, Np1, B).unbind(0)
-    work = new(Np1 * (NU + NX), B)
+    work = new(B, _work_rows(name, N, NU=NU, NX=NX, NB=NB))
     ptrs = (idx_tab, lam, t, A, M, mb, base, pdreg, H, ngl, ngadd,
             _build.int_table(ng_stage_ids, dev), F, b, Ll, Lxx, Pb, z, dtl,
             dll, amin, s0, s1, s2, work)
@@ -204,12 +214,13 @@ def solve_mega(idx_tab, fstate, lam, t, A, M, mb, dtb, dlb, smv, base,
                   Lxx=(Np1, NX, NX, B), Pb=(N, NX, B), F=(N, NZ, NX, B),
                   b=(N, NX, B))
     _check(name, lam, phase2, M, ng_stage_ids, named, shapes)
+    _build.dtype_code(lam.dtype)                # raise before building
     dev, dt = lam.device, lam.dtype
     new = lambda *s: torch.empty(*s, dtype=dt, device=dev)  # noqa: E731
     z, pi = new(Np1, NZ, B), new(N, NX, B)
     dtl, dll = new(Np1, NB2, B), new(Np1, NB2, B)
     amin, s0, s1, s2 = new(4, Np1, B).unbind(0)
-    work = new(Np1 * (NU + NX + NB2), B)
+    work = new(B, _work_rows(name, N, NU=NU, NX=NX, NB=NB))
     ptrs = (idx_tab, lam, t, A, M, mb, dtb, dlb, smv, base, ngadd,
             _build.int_table(ng_stage_ids, dev), Ll, Lxx, Pb, F, b, z, pi, dtl,
             dll, amin, s0, s1, s2, work)

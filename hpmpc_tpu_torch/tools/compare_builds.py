@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Bit-for-bit comparison of this checkout's parity route and its stage
-kernels with another checkout's, on the card.
+"""Bit-for-bit comparison of this checkout's routes and kernels with
+another checkout's, on the card.
 
 Both packages build their kernels from their own sources (one ``nvcc``
 per library, the two builds at once) and run bench.py's parity route
@@ -42,6 +42,19 @@ It reports:
     each (device busy ms, idle share, the resident kernel's ms), and the
     soft 6-kernel loop's ms a batch (``HPMPC_RESIDENT=0``,
     ``HPMPC_MEGA_SWEEPS=0``) in the same turns;
+  * the lanes engine's mega half-iterations (``factor_solve_mega``,
+    ``solve_mega``, Queue 2 rows 19 and 20) on this checkout's inputs of
+    their first phase-1 and first phase-2 call in the f32 flagship route
+    (``solve_batched`` at ``IPMConfig(k_max=30, use_pallas=True)``), the
+    f64 lanes run (``solve_batched_lanes``), the box-only problem and the
+    NZ=19 shape (nx=16), f32 and f64, handed to both builds' wrappers:
+    equal bit for bit (else the largest difference and the first output
+    and stage apart), each build's ms a call in turns with CUDA events
+    (flagship and NZ=19), both builds' ptxas lines and this build's team
+    width; then the lanes route in f32, the f64 lanes run and route C
+    (``escalate_stalled``) of both checkouts: the solution equal bit for
+    bit or not, ms a batch in turns, one profiled call of each (device
+    busy ms, idle share, rows 19 and 20's ms and launches);
   * the large-NZ band's batched Cholesky (``batch_chol.cholesky``, Queue
     2 row 24) on the first input the band gives it (``solve_batched`` at
     nx=64 nu=8 N=30, 1024 instances, ``IPMConfig(k_max=8, mu_tol=0,
@@ -65,11 +78,13 @@ Runs on the card unless asked for the CPU (plain versions; keep
     python3 -m hpmpc_tpu_torch.tools.compare_builds --other _archive/parent
     python3 -m hpmpc_tpu_torch.tools.compare_builds --other _archive/parent \\
         --sections resident,routes        # rows 1 and 1s and their routes
+    python3 -m hpmpc_tpu_torch.tools.compare_builds --other _archive/parent \\
+        --sections mega                   # rows 19 and 20 and their routes
     python3 -m hpmpc_tpu_torch.tools.compare_builds --other DIR \\
         --device cpu --batch 16 --band-batch 8
 
-``--sections`` picks any of ``resident``, ``routes``, ``parity``, ``flat``,
-``band`` (default: all).  The resident section also runs rows 1 and 1s at
+``--sections`` picks any of ``resident``, ``routes``, ``mega``, ``parity``,
+``flat``, ``band`` (default: all).  The resident section also runs rows 1 and 1s at
 the NZ=19 shape (nx=16, nu=3; float32: the hard problem with ngN=8 and
 the soft one, N=30), bits and ms.
 
@@ -90,6 +105,8 @@ import sys
 import threading
 
 KERNELS = ("factor_solve_folded_flat", "solve_flat", "refine_flat_fused")
+#: rows 19 and 20, the lanes engine's mega half-iterations
+MEGA = ("factor_solve_mega", "solve_mega")
 CALLS = 2
 #: the band's (nx, nu) and row 24's random batches beside its input, (n, B)
 BAND = (64, 8)
@@ -117,7 +134,7 @@ def _mods(name: str):
                 lanes=m("models.ipm_lanes"), ms=m("utils.mass_spring"),
                 rk=m("ops.resident_kernel"), res=m("models.ipm_resident"),
                 sres=m("models.ipm_soft_resident"), ocp=m("ocp"),
-                bc=m("ops.batch_chol"))
+                bc=m("ops.batch_chol"), mk=m("ops.mega_kernel"))
 
 
 def _clone(x):
@@ -150,7 +167,7 @@ def _diff(a, b):
     return a == b, 0.0
 
 
-SECTIONS = ("resident", "routes", "parity", "flat", "band")
+SECTIONS = ("resident", "routes", "mega", "parity", "flat", "band")
 #: the state width of rows 1 and 1s's second shape: NZ = 19 (nu = 3), the
 #: largest inside stage_kernel.engine_fits
 NX19 = 16
@@ -181,8 +198,8 @@ def main() -> int:
     scales = 1.0 + 0.05 * rng.standard_normal(B)
     soft_scales = 1.0 + 0.02 * np.random.default_rng(0).standard_normal(B)
 
-    def flagship(m, dt, nx=8):
-        dims, qp = m["ms"].mass_spring_qp(nx, 3, 30, ngN=8, dtype=dt,
+    def flagship(m, dt, nx=8, ngN=8):
+        dims, qp = m["ms"].mass_spring_qp(nx, 3, 30, ngN=ngN, dtype=dt,
                                           device=dev)
         qpb = m["batch"].broadcast_qp(qp, B)
         sc = torch.as_tensor(scales, dtype=dt, device=dev)
@@ -228,6 +245,11 @@ def main() -> int:
                  ("factor_solve_flat", d2), ("solve_flat", d2),
                  ("refine_flat", dict(d2, NG=dims.NG)),
                  ("resid_terms_flat", d2), ("batch_chol", {})]
+        if "mega" in sections:
+            # the NZ=19 shape of rows 19 and 20 (nx=16)
+            d19, _ = flagship(trees["this"], torch.float32, nx=NX19)
+            specs += [(k, dict(NU=d19.NU, NX=d19.NX, NB=d19.NB))
+                      for k in MEGA]
         if "resident" in sections:
             # the NZ=19 shapes of rows 1 and 1s (nx=16)
             d19, _ = flagship(trees["this"], torch.float32, nx=NX19)
@@ -263,6 +285,8 @@ def main() -> int:
         out["resident"] = _resident(trees, dev, flagship, soft_flagship)
     if "routes" in sections:
         out["routes"] = _routes(trees, dev, flagship, soft_flagship)
+    if "mega" in sections:
+        out["mega"] = _mega(trees, dev, flagship)
     if "parity" in sections:
         out.update(_parity(trees, dev, flagship))
     if "flat" in sections:
@@ -301,12 +325,12 @@ def _env(**values):
                 os.environ[k] = v
 
 
-def _ptxas(m, tag: str):
-    """The ptxas lines of a build's ``ipm_resident`` libraries whose name
-    holds ``tag``: (library, entry, registers, stack and spills)."""
+def _ptxas(m, tag: str, kernel: str = "ipm_resident"):
+    """The ptxas lines of a build's ``kernel`` libraries whose name holds
+    ``tag``: (library, entry, registers, stack and spills)."""
     out = []
     for lib, log in sorted(m["build"].PTXAS_LOG.items()):
-        if not (lib.startswith("libipm_resident_") and tag in lib):
+        if not (lib.startswith(f"lib{kernel}_") and tag in lib):
             continue
         entry = None
         for line in log.splitlines():
@@ -446,6 +470,144 @@ def _routes(trees, dev, flagship, soft_flagship):
     return out
 
 
+def _first_apart(a, b) -> str:
+    """The first output (by its place in the flattened outputs) whose bits
+    differ between two builds' outputs, and its first stage apart."""
+    import torch
+
+    flat = lambda o: [x for v in o for x in (v if isinstance(v, tuple)
+                                             else (v,))]  # noqa: E731
+    for i, (x, y) in enumerate(zip(flat(a), flat(b))):
+        apart = (x.contiguous().view(torch.uint8).reshape(x.shape[0], -1)
+                 != y.contiguous().view(torch.uint8).reshape(y.shape[0], -1)
+                 ).any(1).nonzero()
+        if apart.numel():
+            return f"output {i}, stage {int(apart[0])}"
+    return "none"
+
+
+def _mega_inputs(m, dims, qpb, cfg, run):
+    """The first phase-1 and the first phase-2 call of rows 19 and 20 in
+    ``run(dims, qpb, cfg)`` on the checkout ``m``: {(name, phase2): (args,
+    kwargs)}; a phase the run does not reach is taken from the lanes
+    engine run in it alone (``mu_switch=1e9``, two iterations)."""
+    mk = m["mk"]
+    calls, saved = {}, {k: getattr(mk, k) for k in MEGA}
+
+    def spy(name, fn):
+        def call(*a, **k):
+            calls.setdefault((name, bool(k["phase2"])), (_clone(a), dict(k)))
+            return fn(*a, **k)
+        return call
+
+    for k, fn in saved.items():
+        setattr(mk, k, spy(k, fn))
+    try:
+        run(dims, qpb, cfg)
+        if len(calls) < 2 * len(MEGA):
+            m["lanes"].solve_batched_lanes(dims, qpb, dataclasses.replace(
+                cfg, k_max=2, mu_switch=1e9))
+    finally:
+        for k, fn in saved.items():
+            setattr(mk, k, fn)
+    return calls
+
+
+def _mega(trees, dev, flagship):
+    """Rows 19 and 20: both builds on this checkout's lanes-engine inputs,
+    bits, ms in turns and ptxas; the lanes route f32, the f64 lanes run and
+    route C of both checkouts: bits, ms a batch in turns, one profile."""
+    import torch
+
+    this = trees["this"]
+    out = {"bitwise_equal": {}, "max_abs_diff": {}, "ms": {}}
+    cfg = this["ipm"].IPMConfig(k_max=30, use_pallas=True)
+    solve = this["batch"].solve_batched
+    lanes = this["lanes"].solve_batched_lanes
+    problems = [("flagship f32", torch.float32, {}, solve),
+                ("flagship f64", torch.float64, {}, lanes),
+                ("box-only f32", torch.float32, dict(ngN=0), lanes),
+                ("box-only f64", torch.float64, dict(ngN=0), lanes),
+                ("NZ=19 f32", torch.float32, dict(nx=NX19, ngN=0), lanes),
+                ("NZ=19 f64", torch.float64, dict(nx=NX19, ngN=0), lanes)]
+    for what, dt, kw, run in problems:
+        dims, qpb = flagship(this, dt, nx=kw.get("nx", 8),
+                             ngN=kw.get("ngN", 8))
+        calls = _mega_inputs(this, dims, qpb, cfg, run)
+        for (name, ph), (a, k) in sorted(calls.items()):
+            key = f"{name} {what} phase {2 if ph else 1}"
+            got = [getattr(m["mk"], name)(*_clone(a), **k)
+                   for m in trees.values()]
+            same, d = _diff(*got)
+            out["bitwise_equal"][key] = same
+            out["max_abs_diff"][key] = d
+            line = (f"{key}, this vs other build on the same inputs: "
+                    f"bitwise equal {same} (max |diff| {d:.3e})")
+            if not same:
+                line += f"; first apart: {_first_apart(*got)}"
+            if dev.type == "cuda" and what.startswith(("flagship", "NZ")):
+                fns = {lbl: (lambda m=m: getattr(m["mk"], name)(*a, **k))
+                       for lbl, m in trees.items()}
+                ms = _turns(torch, fns, reps=20)
+                out["ms"][key] = ms
+                line += "; ms a call (other, this, this, other): " + (
+                    ", ".join(f"{v:.4f}" for v in (ms["other"][0],
+                                                   *ms["this"],
+                                                   ms["other"][1])))
+            print(line, flush=True)
+    if dev.type != "cuda":
+        return out
+    dims, _ = flagship(this, torch.float32)
+    shape = dict(NU=dims.NU, NX=dims.NX, NB=dims.NB)
+    out["team"] = {k: int(getattr(this["build"].load(k, **shape),
+                                  f"hp_{k}_team")()) for k in MEGA}
+    out["ptxas"] = {lbl: [x for k in MEGA for x in _ptxas(m, "", k)]
+                    for lbl, m in trees.items()}
+    for lbl, lines in out["ptxas"].items():
+        for line in lines:
+            print(f"ptxas {lbl}: {line}", flush=True)
+    print(f"this build: team {out['team']} lanes an instance", flush=True)
+    # the routes: lanes f32 (solve_batched), the f64 lanes run, route C
+    out["route_bitwise_equal"], out["route_ms"] = {}, {}
+    out["route_profile"] = {}
+    routes = (("lanes f32", torch.float32, {}, False),
+              ("lanes f64", torch.float64, {}, True),
+              ("route C f32", torch.float32, dict(escalate_stalled=True),
+               False))
+    for key, dt, extra, direct in routes:
+        sols, fns = {}, {}
+        for lbl, m in trees.items():
+            d, q = flagship(m, dt)
+            c = m["ipm"].IPMConfig(k_max=30, use_pallas=True, **extra)
+            fn = m["lanes"].solve_batched_lanes if direct else \
+                m["batch"].solve_batched
+            sols[lbl] = fn(d, q, c)
+            fns[lbl] = (lambda fn=fn, d=d, q=q, c=c: fn(d, q, c))
+        t, o = sols["this"], sols["other"]
+        fields = {f: _diff(getattr(t, f), getattr(o, f))[0]
+                  for f in t._fields}
+        out["route_bitwise_equal"][key] = all(fields.values())
+        print(f"{key} route, this vs other: bitwise equal per field "
+              f"{fields}", flush=True)
+        ms = _turns(torch, fns, reps=3)
+        out["route_ms"][key] = ms
+        print(f"{key} ms a batch (other, this, this, other): " + ", ".join(
+            f"{v:.3f}" for v in (ms["other"][0], *ms["this"],
+                                 ms["other"][1])), flush=True)
+        prof = {lbl: _profile(torch, fn, r"\bfactor_solve_mega_kernel\b",
+                              parts={"row 20": r"\bsolve_mega_kernel\b"})
+                for lbl, fn in fns.items()}
+        out["route_profile"][key] = prof
+        for lbl in ("other", "this"):
+            p = prof[lbl]
+            print(f"{key} profile, {lbl}: wall {p['wall']:.3f} ms, device "
+                  f"busy {p['busy']:.3f} ms (idle share {p['idle']:.1%}), "
+                  f"row 19 {p['kern_ms']:.3f} ms in {p['kern_n']:.0f}, row "
+                  f"20 {p['parts']['row 20'][0]:.3f} ms in "
+                  f"{p['parts']['row 20'][1]:.0f}", flush=True)
+    return out
+
+
 def _parity(trees, dev, flagship):
     """bench.py's parity route of both checkouts: its stage kernels on the
     same inputs and the solutions, bit for bit, and the control errors."""
@@ -565,11 +727,12 @@ def _turns(torch, fns: dict, reps: int) -> dict:
     return times
 
 
-def _profile(torch, fn, kernel=r"\bcholesky_kernel\b") -> dict:
+def _profile(torch, fn, kernel=r"\bcholesky_kernel\b", parts=None) -> dict:
     """One call of ``fn`` under ``torch.profiler`` after a warm-up: host
     wall ms, device busy ms (the kernels' summed time), the idle share, and
     the summed ms and launches of the kernels whose name matches ``kernel``
-    (row 24's ``cholesky_kernel`` by default)."""
+    (row 24's ``cholesky_kernel`` by default); ``parts`` ({label: regex})
+    adds (ms, launches) of more kernels under ``out["parts"]``."""
     import re
     import time
 
@@ -583,7 +746,8 @@ def _profile(torch, fn, kernel=r"\bcholesky_kernel\b") -> dict:
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    out = dict(wall=wall, busy=0.0, kern_ms=0.0, kern_n=0)
+    out = dict(wall=wall, busy=0.0, kern_ms=0.0, kern_n=0,
+               parts={k: [0.0, 0] for k in (parts or {})})
     for e in prof.key_averages():
         if not str(e.device_type).endswith("CUDA"):
             continue
@@ -593,6 +757,10 @@ def _profile(torch, fn, kernel=r"\bcholesky_kernel\b") -> dict:
         if re.search(kernel, e.key):
             out["kern_ms"] += ms
             out["kern_n"] += e.count
+        for k, pat in (parts or {}).items():
+            if re.search(pat, e.key):
+                out["parts"][k][0] += ms
+                out["parts"][k][1] += e.count
     out["idle"] = 1 - out["busy"] / wall
     return out
 

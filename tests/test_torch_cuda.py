@@ -168,15 +168,20 @@ def _flat(out):
 _MEGA_TOL = {torch.float32: 5e-5, torch.float64: 1e-11}
 
 
+# Rows 19 and 20 run a team of lanes an instance, several instances a
+# warp (4 at NZ=11, 2 at NZ=19): B=1, 33 and 37 leave warps part empty;
+# nx=16 is the NZ=19 shape; ngN=8 the flagship's terminal block.
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("ngN", [0, 4])
+@pytest.mark.parametrize("nx,ngN,B", [(8, 0, 37), (8, 4, 37), (8, 0, 1),
+                                      (8, 4, 33), (16, 0, 37), (16, 4, 33),
+                                      (8, 8, 37)])
 @pytest.mark.parametrize("phase2", [False, True])
-def test_mega_kernels_match_plain(cuda, monkeypatch, dtype, ngN, phase2):
+def test_mega_kernels_match_plain(cuda, monkeypatch, dtype, nx, ngN, B,
+                                  phase2):
     """Each mega kernel on the arguments of the engine's first call of that
     phase (phase 1: the initial iterate; phase 2, run alone with
-    mu_switch=1e9: A = rd, M = rm at the initial iterate), B=37 so the
-    last warp is ragged."""
-    dims, qpb = _batch(cuda, dtype, 4, ngN, 37)
+    mu_switch=1e9: A = rd, M = rm at the initial iterate)."""
+    dims, qpb = _batch(cuda, dtype, 4, ngN, B, nx=nx)
     kw = dict(mu_switch=1e9) if phase2 else {}
     calls = _capture(monkeypatch, dims, qpb,
                      IPMConfig(k_max=2, use_pallas=True, **kw), _MEGA)
