@@ -1118,6 +1118,7 @@ def _tree(torch, np, dev, card, reset_counts, read_counts, total,
     kernels-line entries of rows 26-28, t_sec)."""
     from hpmpc_tpu_torch.models import tree
     from hpmpc_tpu_torch.models.ipm import IPMConfig, _box_onehot
+    from hpmpc_tpu_torch.ops import _build
     from hpmpc_tpu_torch.ops import tree_kernel as tk
     from hpmpc_tpu_torch.parallel import batch as pbatch
     from hpmpc_tpu_torch.utils.mass_spring import mass_spring_tree_qp
@@ -1299,7 +1300,16 @@ def _tree(torch, np, dev, card, reset_counts, read_counts, total,
                      "ms")
         print(line, flush=True)
     pr = _profile(torch, tree_rep(tdef, dims, qpb, cfg_t), reps=3)
-    print(_profile_line("tree 71 nodes f32", card, pr), flush=True)
+    # rows 26-27's launch layout on this tree (csrc/tree_sweeps.cu's rule)
+    wmax = max(map(len, tdef.levels))
+    lay = {n: tk.layout(tdef.n_nodes, wmax, n == "tree_solve_flat",
+                        torch.float32, NU=dims.NU, NX=dims.NX)
+           for n in TREE_NAMES[:2]}
+    sweeps = [n for n in TREE_NAMES[:2] if n in pr["ms"]]
+    print(_profile_line("tree 71 nodes f32", card, pr) + (
+        f"; rows 26 + 27 {sum(pr['ms'][n] for n in sweeps):.3f} ms in "
+        f"{sum(pr['n'][n] for n in sweeps):.0f} launches; layout "
+        f"{lay['tree_factor_solve_flat']}"), flush=True)
 
     # each kernel alone, on the main path's first calls (f32, 71 nodes)
     with _capture(targets) as calls:
@@ -1334,6 +1344,13 @@ def _tree(torch, np, dev, card, reset_counts, read_counts, total,
                      "max_abs_err": errs[name], "ms": ms, "plain_ms": ms_p,
                      "bound_ms": bound_ms, "bound_by": bound_by,
                      "library_ms": None})
+        if name in lay:   # rows 26-27: a team of lanes a node
+            lib = f"lib{_build._key('tree_sweeps', dict(NU=2, NX=4))}.so"
+            rows[-1].update(share=bound_ms / ms, layout=lay[name],
+                            ptxas=_ptxas_lines(_build.PTXAS_LOG.get(lib,
+                                                                    "")))
+            print(f"{name}: layout {lay[name]}, {bound_ms / ms:.2%} of "
+                  f"bound; ptxas {rows[-1]['ptxas']}", flush=True)
     t_sec = section_done("T timings", t_sec)
     return rows, t_sec
 

@@ -17,8 +17,10 @@ rows 26-28), the tree twins of :mod:`.stage_kernel`'s flat family:
 
 Topology: ``dad`` is the tree's parent tuple (``TreeDef.dad``, dad[0] =
 -1); nodes are breadth-first, so reverse id order is a valid
-children-before-parents order.  The kernels read it as a small int32
-table on the device, made once per process.  Layout: batch-last node
+children-before-parents order.  Rows 26-27 run a depth level's nodes at
+once: they read the tree as its level schedule (:func:`level_schedule`,
+one small int32 table on the device, :func:`schedule_table`, made once
+per process), row 28 as the parent table.  Layout: batch-last node
 streams (n, k, B) and edge streams (n-1, k, B), edge e the edge into node
 e+1 -- the chain's (N+1, k, B) with N = n-1.  The factor state ``(Ll (n,
 NZ, NU, B), Lxx (n, NX, NX, B), Pb (n-1, NX, B))`` is the chain's.  General
@@ -34,6 +36,8 @@ raise.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -51,17 +55,16 @@ PLAIN_CALLS = dict.fromkeys(LAUNCHES, 0)
 class _TreeFactorArgs(ctypes.Structure):
     # mirrors struct TreeFactorArgs in csrc/tree_sweeps.cu
     _fields_ = [(n, ctypes.c_void_p) for n in (
-        "dad", "H", "dvec", "ngl", "ng_node", "g", "F", "b", "Ll", "Lxx",
-        "Pb", "z", "pi", "acc", "work")] + [
-        ("B", ctypes.c_int64), ("n", ctypes.c_int64),
-        ("n_ng", ctypes.c_int64), ("want_pi", ctypes.c_int64)]
+        "sched", "H", "dvec", "ngl", "ng_node", "g", "F", "b", "Ll", "Lxx",
+        "Pb", "z", "pi", "work")] + [(n, ctypes.c_int64) for n in (
+            "B", "n", "n_levels", "wmax", "n_ng", "want_pi")]
 
 
 class _TreeSolveArgs(ctypes.Structure):
     # mirrors struct TreeSolveArgs in csrc/tree_sweeps.cu
     _fields_ = [(n, ctypes.c_void_p) for n in (
-        "dad", "Ll", "Lxx", "Pb", "g", "F", "b", "z", "pi", "acc",
-        "work")] + [("B", ctypes.c_int64), ("n", ctypes.c_int64)]
+        "sched", "Ll", "Lxx", "Pb", "g", "F", "b", "z", "pi", "work")] + [
+        (n, ctypes.c_int64) for n in ("B", "n", "n_levels", "wmax")]
 
 
 class _TreeResidArgs(ctypes.Structure):
@@ -190,8 +193,7 @@ def _check(name, x, dad, ng_node_ids, named, shapes):
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
     n = len(dad)
-    if n < 2 or dad[0] != -1 or any(not 0 <= dad[k] < k
-                                    for k in range(1, n)):
+    if not _breadth_first(tuple(dad)):
         raise ValueError(f"{name}: dad must be breadth-first (dad[0] = -1, "
                          "0 <= dad[k] < k)")
     if any(not 0 <= k < n for k in ng_node_ids):
@@ -203,9 +205,108 @@ def _check(name, x, dad, ng_node_ids, named, shapes):
                          shapes)
 
 
+@functools.lru_cache(maxsize=None)
+def _breadth_first(dad) -> bool:
+    return len(dad) >= 2 and dad[0] == -1 and all(
+        0 <= dad[k] < k for k in range(1, len(dad)))
+
+
 def _dad_table(dad, dev):
     """The int32 device table of the parents, dad[0] clamped to 0."""
     return _build.int_table(tuple(max(d, 0) for d in dad), dev)
+
+
+class LevelSchedule(NamedTuple):
+    """The order in which rows 26-27 visit a tree's nodes."""
+    levels: tuple    # node ids of each depth, root level first, ascending
+    pos: tuple       # each node's place in its level
+    children: tuple  # each node's children, descending id
+
+
+@functools.lru_cache(maxsize=None)
+def level_schedule(dad) -> LevelSchedule:
+    """The level schedule of the parent tuple ``dad`` (dad[0] = -1, dad[k]
+    < k): the nodes of one depth are independent in both sweeps (a node
+    needs its children's terms backward, its parent's z forward), and a
+    parent sums its children's terms in descending id, the order of the
+    one-thread sweep that visited nodes n-1..0."""
+    depth = [0] * len(dad)
+    for k in range(1, len(dad)):
+        depth[k] = depth[dad[k]] + 1
+    levels = [[] for _ in range(max(depth) + 1)]
+    pos = []
+    for k, d in enumerate(depth):
+        pos.append(len(levels[d]))
+        levels[d].append(k)
+    children = [[] for _ in dad]
+    for k in range(len(dad) - 1, 0, -1):
+        children[dad[k]].append(k)
+    return LevelSchedule(tuple(map(tuple, levels)), tuple(pos),
+                         tuple(map(tuple, children)))
+
+
+@functools.lru_cache(maxsize=None)
+def schedule_table(dad) -> tuple:
+    """The int32 schedule table rows 26-27 read (``Sched`` in
+    ``csrc/tree_sweeps.cu``): the level offsets (L + 1) into the node ids
+    by level (n, root level first), each node's place in its level (n),
+    its parent (n, dad[0] = 0), the offsets (n + 1) into the children
+    lists (n - 1 ids, each list in descending id)."""
+    s = level_schedule(dad)
+    lev_off, ch_off = [0], [0]
+    for lev in s.levels:
+        lev_off.append(lev_off[-1] + len(lev))
+    for ch in s.children:
+        ch_off.append(ch_off[-1] + len(ch))
+    return (*lev_off, *(k for lev in s.levels for k in lev), *s.pos,
+            *(max(d, 0) for d in dad), *ch_off,
+            *(c for ch in s.children for c in ch))
+
+
+@functools.lru_cache(maxsize=None)
+def _sched(dad, dev):
+    """(the schedule table on ``dev``, the level count, the widest level's
+    node count) of ``dad``."""
+    s = level_schedule(dad)
+    return (_build.int_table(schedule_table(dad), dev), len(s.levels),
+            max(map(len, s.levels)))
+
+
+LAYOUT_KEYS = ("team", "teams", "instances", "threads", "on_chip",
+               "work_block")
+
+
+@functools.lru_cache(maxsize=None)
+def _layout(n, wmax, solve, dt, NU, NX) -> tuple:
+    fn = _build.load("tree_sweeps", NU=NU, NX=NX).hp_tree_sweeps_layout
+    fn.argtypes = [ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+                   ctypes.c_int, ctypes.c_void_p]
+    fn.restype = None
+    out = (ctypes.c_int64 * len(LAYOUT_KEYS))()
+    fn(n, wmax, int(solve), _build.dtype_code(dt), ctypes.addressof(out))
+    return tuple(out)
+
+
+def layout(n, wmax, solve, dt, *, NU, NX) -> dict:
+    """The launch layout of row 26 (``solve`` False) or row 27 on a tree of
+    ``n`` nodes whose widest level holds ``wmax``, in dtype ``dt``: lanes a
+    team, teams (warps) an instance, instances and threads a block, whether
+    the kept rows (eu, px, the children's terms) sit in shared memory, and
+    a block's device memory for them otherwise, in scalars (the source's
+    size rule, ``hp_tree_sweeps_layout``; the library is built on first
+    use)."""
+    return dict(zip(LAYOUT_KEYS, _layout(n, wmax, bool(solve), dt, NU, NX)))
+
+
+def _work(n, wmax, solve, x, B, NU, NX):
+    """Device memory for the kept rows past the size rule (one slab a block
+    of instances), None where they fit in shared memory."""
+    lay = layout(n, wmax, solve, x.dtype, NU=NU, NX=NX)
+    if lay["on_chip"]:
+        return None
+    blocks = -(-B // lay["instances"])
+    return torch.empty(blocks * lay["work_block"], dtype=x.dtype,
+                       device=x.device)
 
 
 def tree_factor_solve_flat(dad, H, dvec, ngl, ng_node_ids, g, F, b, *, NU,
@@ -238,11 +339,11 @@ def tree_factor_solve_flat(dad, H, dvec, ngl, ng_node_ids, g, F, b, *, NU,
     Ll, Lxx, Pb = new(n, NZ, NU, B), new(n, NX, NX, B), new(n - 1, NX, B)
     z = new(n, NZ, B)
     pi = new(n - 1, NX, B) if want_pi else None
-    acc, work = new(n * (NT + NZ), B), new(n * (NU + NX), B)
-    ptrs = (_dad_table(dad, H.device), H, dvec, ngl,
-            _build.int_table(ng_node_ids, H.device), g, F, b, Ll, Lxx, Pb, z,
-            pi, acc, work)
-    a = _TreeFactorArgs(*[_build.ptr(x) for x in ptrs], B, n, n_ng,
+    sched, L, wmax = _sched(tuple(dad), H.device)
+    work = _work(n, wmax, False, H, B, NU, NX)
+    ptrs = (sched, H, dvec, ngl, _build.int_table(ng_node_ids, H.device), g,
+            F, b, Ll, Lxx, Pb, z, pi, work)
+    a = _TreeFactorArgs(*[_build.ptr(x) for x in ptrs], B, n, L, wmax, n_ng,
                         int(bool(want_pi)))
     _build.launch("tree_sweeps", name, a, H.device, H.dtype, NU=NU, NX=NX)
     LAUNCHES[name] += 1
@@ -269,10 +370,10 @@ def tree_solve_flat(dad, Ll, Lxx, Pb, g, F, b, *, NU, NZ, NX):
     _check(name, g, dad, (), named, shapes)
     new = lambda *s: torch.empty(*s, dtype=g.dtype, device=g.device)  # noqa: E731
     z, pi = new(n, NZ, B), new(n - 1, NX, B)
-    acc, work = new(n * NZ, B), new(n * (NU + NX), B)
-    ptrs = (_dad_table(dad, g.device), Ll, Lxx, Pb, g, F, b, z, pi, acc,
-            work)
-    a = _TreeSolveArgs(*[_build.ptr(x) for x in ptrs], B, n)
+    sched, L, wmax = _sched(tuple(dad), g.device)
+    work = _work(n, wmax, True, g, B, NU, NX)
+    ptrs = (sched, Ll, Lxx, Pb, g, F, b, z, pi, work)
+    a = _TreeSolveArgs(*[_build.ptr(x) for x in ptrs], B, n, L, wmax)
     _build.launch("tree_sweeps", name, a, g.device, g.dtype, NU=NU, NX=NX)
     LAUNCHES[name] += 1
     return z, pi

@@ -68,6 +68,25 @@ It reports:
     batch) in float32: the solution equal bit for bit or not, its ms a
     batch in turns, and one profiled call of each (device busy ms, idle
     share, row 24's summed ms and launches).
+  * the scenario tree's sweep kernels (``tree_factor_solve_flat``,
+    ``tree_solve_flat``, Queue 2 rows 26 and 27) on this checkout's inputs
+    of the first and the last call of a k_max-8 flat tree solve
+    (``tree.solve_tree_ipm_flat`` at ``IPMConfig(k_max=8, mu_tol=0,
+    use_pallas=True)``, ``mass_spring_tree_qp(nx=4, nu=2)``, ``b`` scaled
+    by ``1 + 0.02 N(0,1)``) on the 31-, 71- and 255-node trees (the
+    71-node one also with general rows on nodes 0 and 5), float32 and
+    float64, row 26 also in its ``want_pi`` form, handed to both builds'
+    wrappers: equal bit for bit (else the largest difference and the first
+    output and node apart), each build's ms a call in turns (float32, the
+    first call), both builds' ptxas lines and this build's launch layout
+    per tree, and both rows on random data with one state (NX = 1, NU =
+    1, the 15-node tree); then ``solve_batched_tree`` of both checkouts on
+    the 71-node tree in float32 at that config: the solution equal bit for bit or not
+    (in PyTorch's deterministic mode: the route's edge scatter,
+    ``index_add``, adds with atomics on the card, so it is also run twice
+    in the default mode against itself), ms a batch in turns, one profiled
+    call of each (device busy ms, idle share, rows 26 and 27's summed ms
+    and launches).
 
 Imports no JAX.  ``--other`` is a directory holding the other checkout's
 ``hpmpc_tpu_torch/`` (for the parent commit: ``git archive HEAD~1
@@ -80,13 +99,15 @@ Runs on the card unless asked for the CPU (plain versions; keep
         --sections resident,routes        # rows 1 and 1s and their routes
     python3 -m hpmpc_tpu_torch.tools.compare_builds --other _archive/parent \\
         --sections mega                   # rows 19 and 20 and their routes
+    python3 -m hpmpc_tpu_torch.tools.compare_builds --other _archive/parent \\
+        --sections tree                   # rows 26 and 27 and their route
     python3 -m hpmpc_tpu_torch.tools.compare_builds --other DIR \\
         --device cpu --batch 16 --band-batch 8
 
 ``--sections`` picks any of ``resident``, ``routes``, ``mega``, ``parity``,
-``flat``, ``band`` (default: all).  The resident section also runs rows 1 and 1s at
-the NZ=19 shape (nx=16, nu=3; float32: the hard problem with ngN=8 and
-the soft one, N=30), bits and ms.
+``flat``, ``band``, ``tree`` (default: all). The resident section also
+runs rows 1 and 1s at the NZ=19 shape (nx=16, nu=3; float32: the hard
+problem with ngN=8 and the soft one, N=30), bits and ms.
 
 The last line of the output is one JSON object with the numbers.
 """
@@ -113,6 +134,11 @@ BAND = (64, 8)
 CHOL_RANDOM = ((144, 512), (288, 64))
 #: the band's end-to-end runs, (nx, nu, dtype name): nx=128 at half the batch
 BAND_RUNS = ((64, 8, "float32"), (128, 16, "float32"), (64, 8, "float64"))
+#: rows 26 and 27, the scenario tree's sweeps
+TREE = ("tree_factor_solve_flat", "tree_solve_flat")
+#: the trees, (md, Nr, Nh): 31, 71 (the reference's tree benchmark) and 255
+#: nodes, as chip_smoke.py's section T
+TREE_TOPOS = ((2, 2, 8), (2, 3, 10), (2, 7, 7))
 
 
 def _load_other(root: pathlib.Path):
@@ -134,7 +160,8 @@ def _mods(name: str):
                 lanes=m("models.ipm_lanes"), ms=m("utils.mass_spring"),
                 rk=m("ops.resident_kernel"), res=m("models.ipm_resident"),
                 sres=m("models.ipm_soft_resident"), ocp=m("ocp"),
-                bc=m("ops.batch_chol"), mk=m("ops.mega_kernel"))
+                bc=m("ops.batch_chol"), mk=m("ops.mega_kernel"),
+                tree=m("models.tree"), tk=m("ops.tree_kernel"))
 
 
 def _clone(x):
@@ -167,7 +194,7 @@ def _diff(a, b):
     return a == b, 0.0
 
 
-SECTIONS = ("resident", "routes", "mega", "parity", "flat", "band")
+SECTIONS = ("resident", "routes", "mega", "parity", "flat", "band", "tree")
 #: the state width of rows 1 and 1s's second shape: NZ = 19 (nu = 3), the
 #: largest inside stage_kernel.engine_fits
 NX19 = 16
@@ -237,7 +264,8 @@ def main() -> int:
         d2 = dict(NU=dims.NU, NX=dims.NX)
         d3 = dict(d2, NB=dims.NB)
         ds = dict(NU=dims_s.NU, NX=dims_s.NX, NB=dims_s.NB, NS=NS)
-        specs = [("resid_full", d3), ("ipm_resident", dict(d3, NG=dims.NG)),
+        specs = [] if sections == ["tree"] else [
+                 ("resid_full", d3), ("ipm_resident", dict(d3, NG=dims.NG)),
                  ("ipm_resident", dict(ds, NG=dims_s.NG)),
                  ("soft_step_flat", dict(NZ=dims_s.NZ, NB=dims_s.NB, NS=NS)),
                  ("factor_solve_mega", d3), ("solve_mega", d3),
@@ -260,6 +288,12 @@ def main() -> int:
                       ("ipm_resident", dict(NU=d19s.NU, NX=d19s.NX,
                                             NB=d19s.NB, NG=d19s.NG,
                                             NS=soft19.ns_mask.shape[-1]))]
+        if "tree" in sections:
+            # nx=4 nu=2: NZ=6, two input boxes
+            specs += [("tree_sweeps", dict(NU=2, NX=4)),
+                      ("tree_sweeps", dict(NU=1, NX=1)),
+                      ("tree_resid_terms", dict(NU=2, NX=4)),
+                      ("step_flat", dict(NZ=6, NB=2))]
         errors = []
 
         def build(m):
@@ -293,6 +327,8 @@ def main() -> int:
         out["flat_bitwise_equal"] = _flat(trees, flagship)
     if "band" in sections:
         out["band"] = _band(trees, dev, band_B)
+    if "tree" in sections:
+        out["tree"] = _tree(trees, dev, B)
     print(json.dumps(out), flush=True)
     return 0
 
@@ -470,19 +506,20 @@ def _routes(trees, dev, flagship, soft_flagship):
     return out
 
 
-def _first_apart(a, b) -> str:
-    """The first output (by its place in the flattened outputs) whose bits
-    differ between two builds' outputs, and its first stage apart."""
+def _first_apart(a, b, row="stage") -> str:
+    """The first output (by its place in the flattened outputs, None
+    skipped) whose bits differ between two builds' outputs, and its first
+    leading-axis ``row`` (a stage, a node or an edge) apart."""
     import torch
 
-    flat = lambda o: [x for v in o for x in (v if isinstance(v, tuple)
-                                             else (v,))]  # noqa: E731
+    flat = lambda o: [x for v in o if v is not None for x in (
+        v if isinstance(v, tuple) else (v,))]  # noqa: E731
     for i, (x, y) in enumerate(zip(flat(a), flat(b))):
         apart = (x.contiguous().view(torch.uint8).reshape(x.shape[0], -1)
                  != y.contiguous().view(torch.uint8).reshape(y.shape[0], -1)
                  ).any(1).nonzero()
         if apart.numel():
-            return f"output {i}, stage {int(apart[0])}"
+            return f"output {i}, {row} {int(apart[0])}"
     return "none"
 
 
@@ -858,6 +895,184 @@ def _band(trees, dev, B):
                   f"row 24 {p['kern_ms']:.3f} ms in {p['kern_n']:.0f} "
                   f"launches ({p['kern_ms'] / p['busy']:.1%} of busy)",
                   flush=True)
+    return out
+
+
+def _tree_inputs(m, tdef, dims, qpb, cfg):
+    """The first and the last call of rows 26 and 27 in a flat tree solve
+    on the checkout ``m``: {(name, "first" / "last"): (args, kwargs)}."""
+    tk, calls = m["tk"], {}
+    saved = {k: getattr(tk, k) for k in TREE}
+
+    def spy(name, fn):
+        def call(*a, **k):
+            calls.setdefault((name, "first"), (_clone(a), dict(k)))
+            calls[(name, "last")] = (_clone(a), dict(k))
+            return fn(*a, **k)
+        return call
+
+    for k, fn in saved.items():
+        setattr(tk, k, spy(k, fn))
+    try:
+        m["tree"].solve_tree_ipm_flat(tdef, dims, qpb, cfg)
+    finally:
+        for k, fn in saved.items():
+            setattr(tk, k, fn)
+    return calls
+
+
+def _tree(trees, dev, B):
+    """Rows 26 and 27: both builds on this checkout's flat-tree inputs,
+    bits, ms in turns, ptxas and the launch layout; solve_batched_tree of
+    both checkouts at 71 nodes f32: bits, ms a batch in turns, a profile."""
+    import numpy as np
+    import torch
+
+    this = trees["this"]
+    out = {"bitwise_equal": {}, "max_abs_diff": {}, "ms": {}, "layout": {}}
+    sc = 1 + 0.02 * np.random.default_rng(0).standard_normal(B)
+
+    def batch(m, topo, dt, ng_nodes=()):
+        md, Nr, Nh = topo
+        tdef, dims, qp = m["ms"].mass_spring_tree_qp(
+            md=md, Nr=Nr, Nh=Nh, nx=4, nu=2, ng_nodes=ng_nodes, dtype=dt,
+            device=dev)
+        qpb = m["batch"].broadcast_qp(qp, B)
+        s = torch.as_tensor(sc, dtype=dt, device=dev)
+        return tdef, dims, dataclasses.replace(qpb, b=qpb.b * s[:, None, None])
+
+    cfg = this["ipm"].IPMConfig(k_max=8, mu_tol=0.0, use_pallas=True)
+    cases = [(topo, ng, dt) for topo in TREE_TOPOS for ng in ((), (0, 5))
+             for dt in (torch.float32, torch.float64)
+             if not ng or topo == TREE_TOPOS[1]]
+    for topo, ng, dt in cases:
+        tdef, dims, qpb = batch(this, topo, dt, ng)
+        n = tdef.n_nodes
+        calls = _tree_inputs(this, tdef, dims, qpb, cfg)
+        a, k = calls[("tree_factor_solve_flat", "first")]
+        calls[("tree_factor_solve_flat", "first want_pi")] = (
+            a, dict(k, want_pi=True))
+        a, k = calls[("tree_factor_solve_flat", "last")]
+        calls[("tree_factor_solve_flat", "last want_pi")] = (
+            a, dict(k, want_pi=True))
+        what = (f"{n} nodes{' ng nodes (0, 5)' if ng else ''} "
+                f"{str(dt).split('.')[-1]}")
+        if dev.type == "cuda":
+            wmax = max(map(len, tdef.levels))
+            for solve in (False, True):
+                lay = this["tk"].layout(n, wmax, solve, dt, NU=dims.NU,
+                                        NX=dims.NX)
+                out["layout"][f"{TREE[solve]} {what}"] = lay
+                print(f"{TREE[solve]} {what}: this build's layout {lay}",
+                      flush=True)
+        for (name, when), (a, k) in sorted(calls.items()):
+            key = f"{name} {what} {when} call"
+            got = [getattr(m["tk"], name)(*_clone(a), **k)
+                   for m in trees.values()]
+            same, d = _diff(*got)
+            out["bitwise_equal"][key] = same
+            out["max_abs_diff"][key] = d
+            line = (f"{key}, this vs other build on the same inputs: "
+                    f"bitwise equal {same} (max |diff| {d:.3e})")
+            if not same:
+                line += (f"; first apart: "
+                         f"{_first_apart(*got, 'node (edge: node - 1)')}")
+            if (dev.type == "cuda" and dt == torch.float32 and not ng
+                    and when.startswith("first")):
+                fns = {lbl: (lambda m=m: getattr(m["tk"], name)(*a, **k))
+                       for lbl, m in trees.items()}
+                ms = _turns(torch, fns, reps=20)
+                out["ms"][key] = ms
+                line += "; ms a call (other, this, this, other): " + (
+                    ", ".join(f"{v:.4f}" for v in (ms["other"][0],
+                                                   *ms["this"],
+                                                   ms["other"][1])))
+            print(line, flush=True)
+    # one state (NX = 1): a child's terms reach its parent as factors;
+    # random SPD data on the 15-node tree (md=2 Nr=2 Nh=4), NU = 1
+    rng = np.random.default_rng(1)
+    dad = this["tree"].TreeDef.from_md_nr_nh(2, 2, 4).dad
+    n = len(dad)
+    for dt in (torch.float32, torch.float64):
+        def t(x, dt=dt):
+            return torch.as_tensor(np.ascontiguousarray(x), dtype=dt,
+                                   device=dev)
+        A = rng.standard_normal((n, 2, 2, B))
+        M = np.einsum("nijb,nkjb->nikb", A, A) + 2 * np.eye(2)[..., None]
+        g, F, b = (t(rng.standard_normal((n, 2, B))),
+                   t(0.5 * rng.standard_normal((n - 1, 2, 1, B))),
+                   t(rng.standard_normal((n - 1, 1, B))))
+        a = (dad, t(M[:, [0, 1, 1], [0, 0, 1]]),
+             t(rng.uniform(0.1, 1.0, (n, 2, B))), None, (), g, F, b)
+        ks = dict(NU=1, NZ=2, NX=1)
+        _, _, (Ll, Lxx, Pb) = this["tk"].tree_factor_solve_flat(
+            *a, want_pi=False, **ks)
+        for name, a_, k_ in (
+                ("tree_factor_solve_flat", a, dict(ks, want_pi=True)),
+                ("tree_solve_flat", (dad, Ll, Lxx, Pb, g, F, b), ks)):
+            key = f"{name} NX=1 random {str(dt).split('.')[-1]}"
+            got = [getattr(m["tk"], name)(*_clone(a_), **k_)
+                   for m in trees.values()]
+            same, d = _diff(*got)
+            out["bitwise_equal"][key] = same
+            out["max_abs_diff"][key] = d
+            print(f"{key}, this vs other build on the same inputs: bitwise "
+                  f"equal {same} (max |diff| {d:.3e})", flush=True)
+    if dev.type != "cuda":
+        return out
+    out["ptxas"] = {lbl: _ptxas(m, "", "tree_sweeps")
+                    for lbl, m in trees.items()}
+    for lbl, lines in out["ptxas"].items():
+        for line in lines:
+            print(f"ptxas {lbl}: {line}", flush=True)
+    # the route: solve_batched_tree, 71 nodes, f32
+    sols, fns = {}, {}
+    for lbl, m in trees.items():
+        tdef, dims, qpb = batch(m, TREE_TOPOS[1], torch.float32)
+        c = m["ipm"].IPMConfig(k_max=8, mu_tol=0.0, use_pallas=True)
+        sols[lbl] = m["batch"].solve_batched_tree(tdef, dims, qpb, c)
+        fns[lbl] = (lambda m=m, t=tdef, d=dims, q=qpb, c=c:
+                    m["batch"].solve_batched_tree(t, d, q, c))
+    # the route's edge scatter (models/tree.py apply_fpi, index_add over
+    # siblings) adds with atomics on the card: a checkout against itself
+    # first, then both in PyTorch's deterministic mode
+    again = fns["other"]()
+
+    def per_field(t, o):
+        return {f: _diff(getattr(t, f), getattr(o, f))[0] for f in t._fields}
+
+    fields = per_field(sols["other"], again)
+    out["route_rerun_bitwise_equal"] = all(fields.values())
+    print(f"tree route 71 nodes f32, other vs other (a second run): bitwise "
+          f"equal per field {fields}", flush=True)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        det = {lbl: fn() for lbl, fn in fns.items()}
+    finally:
+        torch.use_deterministic_algorithms(False)
+    fields = per_field(det["this"], det["other"])
+    out["route_bitwise_equal"] = all(fields.values())
+    print(f"tree route 71 nodes f32 in deterministic mode, this vs other: "
+          f"bitwise equal per field {fields}", flush=True)
+    fields = per_field(sols["this"], sols["other"])
+    print(f"tree route 71 nodes f32, this vs other (default mode): bitwise "
+          f"equal per field {fields}", flush=True)
+    ms = _turns(torch, fns, reps=3)
+    out["route_ms"] = ms
+    print("tree route 71 nodes f32 ms a batch (other, this, this, other): "
+          + ", ".join(f"{v:.3f}" for v in (ms["other"][0], *ms["this"],
+                                           ms["other"][1])), flush=True)
+    prof = {lbl: _profile(torch, fn, r"\btree_factor_solve_flat_kernel\b",
+                          parts={"row 27": r"\btree_solve_flat_kernel\b"})
+            for lbl, fn in fns.items()}
+    out["route_profile"] = prof
+    for lbl in ("other", "this"):
+        p = prof[lbl]
+        print(f"tree route profile, {lbl}: wall {p['wall']:.3f} ms, device "
+              f"busy {p['busy']:.3f} ms (idle share {p['idle']:.1%}), row 26 "
+              f"{p['kern_ms']:.3f} ms in {p['kern_n']:.0f}, row 27 "
+              f"{p['parts']['row 27'][0]:.3f} ms in "
+              f"{p['parts']['row 27'][1]:.0f}", flush=True)
     return out
 
 

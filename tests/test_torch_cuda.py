@@ -1023,15 +1023,32 @@ def _flat_out(out):
     return [x for x in out if x is not None]
 
 
+# (md, Nr, Nh) and ng nodes: the 71-node tree with and without general
+# rows; 255 nodes (levels to 128 wide, past a block's teams; rows 26 and
+# 27's kept rows past the size rule of csrc/tree_sweeps.cu: device memory);
+# a chain (one node a level); md=3 (three children)
+_TREE_TOPOS = [((2, 3, 10), ()), ((2, 3, 10), (0, 5)), ((2, 7, 7), ()),
+               ((2, 0, 12), ()), ((3, 2, 4), ())]
+
+
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("ng_nodes", [(), (0, 5)])
-def test_tree_kernels_match_plain(cuda, monkeypatch, dtype, ng_nodes):
+@pytest.mark.parametrize("topo,ng_nodes", _TREE_TOPOS,
+                         ids=["71", "71-ng", "255", "chain", "md3"])
+def test_tree_kernels_match_plain(cuda, monkeypatch, dtype, topo, ng_nodes):
     """Rows 26-28 vs their plain versions on the flat tree engine's first
-    calls (71 nodes, B=37), both forms of row 26: f64 within 1e-11 of a
-    field's scale, f32 5e-5 (chip_smoke.py's MEGA_TOL)."""
+    calls (B=37), both forms of row 26: f64 within 1e-11 of a field's
+    scale, f32 5e-5 (chip_smoke.py's MEGA_TOL); the 71- and 255-node trees
+    on each side of rows 26-27's size rule."""
     from hpmpc_tpu_torch.ops import tree_kernel as tk
 
-    tdef, dims, qpb = _tree_case(cuda, dtype, ng_nodes)
+    tdef, dims, qpb = _tree_case(cuda, dtype, ng_nodes, topo=topo)
+    wmax = max(map(len, tdef.levels))
+    on_chip = [tk.layout(tdef.n_nodes, wmax, solve, dtype, NU=dims.NU,
+                         NX=dims.NX)["on_chip"] for solve in (False, True)]
+    if tdef.n_nodes == 71:
+        assert on_chip == [1, 1]
+    if tdef.n_nodes == 255:
+        assert on_chip == [0, 0]
     calls = _tree_calls(monkeypatch, tdef, dims, qpb, 2)
     a, k = calls["tree_factor_solve_flat"]
     calls["tree_factor_solve_flat/want_pi"] = (a, dict(k, want_pi=True))

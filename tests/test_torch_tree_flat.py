@@ -219,6 +219,38 @@ def test_wrappers_take_cpu_tensors_only_as_plain(kernel_case):
                                  p.to("meta"), pi.to("meta"), NZ=NZ, NX=NX)
 
 
+@pytest.mark.parametrize("md,Nr,Nh", [(2, 1, 3), (2, 3, 10), (3, 2, 4),
+                                      (2, 7, 7), (2, 0, 12)],
+                         ids=["7", "71", "md3", "255", "chain"])
+def test_level_schedule(md, Nr, Nh):
+    """The level schedule rows 26-27 read: the levels partition the nodes
+    (JAX's ``TreeDef.levels``), each node's parent sits in the level before
+    and each node's children are listed in descending id; the int32 table
+    lays them out as csrc/tree_sweeps.cu's ``Sched`` reads them."""
+    tdef = tree.TreeDef.from_md_nr_nh(md, Nr, Nh)
+    dad, n = tdef.dad, tdef.n_nodes
+    s = tk.level_schedule(dad)
+    assert s.levels == jtree.TreeDef.from_md_nr_nh(md, Nr, Nh).levels
+    assert sorted(k for lev in s.levels for k in lev) == list(range(n))
+    level_of = {k: d for d, lev in enumerate(s.levels) for k in lev}
+    assert s.levels[0] == (0,)
+    assert all(level_of[dad[k]] == level_of[k] - 1 for k in range(1, n))
+    assert all(s.levels[level_of[k]][s.pos[k]] == k for k in range(n))
+    assert all(list(ch) == sorted((c for c in range(1, n) if dad[c] == k),
+                                  reverse=True)
+               for k, ch in enumerate(s.children))
+    L = len(s.levels)
+    tab = tk.schedule_table(dad)
+    lev_off, rest = tab[:L + 1], tab[L + 1:]
+    nodes, pos, dads = rest[:n], rest[n:2 * n], rest[2 * n:3 * n]
+    ch_off, ch = rest[3 * n:4 * n + 1], rest[4 * n + 1:]
+    assert len(ch) == n - 1 and ch_off[-1] == n - 1
+    assert tuple(nodes[lev_off[d]:lev_off[d + 1]]
+                 for d in range(L)) == s.levels
+    assert pos == s.pos and dads == (0, *dad[1:])
+    assert tuple(ch[ch_off[k]:ch_off[k + 1]] for k in range(n)) == s.children
+
+
 # ---------------------------------------------------------------------------
 # (b) float32: the flat tree engine vs JAX's
 # ---------------------------------------------------------------------------
