@@ -379,8 +379,7 @@ def _team_extra(build, kernel: str, dims: dict, bound_ms: float,
             "ptxas": _ptxas_lines(build.PTXAS_LOG.get(name, ""))}
 
 
-#: the port's kernels as the profiler names them (``<name>_kernel``; the
-#: Pb form of solve_flat.cu is its template instance ``<T, true>``)
+#: the port's kernels as the profiler names them (``<name>_kernel``)
 PROFILED = ("ipm_resident", "resid_full", "factor_solve_mega", "solve_mega",
             "prep_flat", "alpha_sums_flat", "corr_geff_flat",
             "factor_solve_flat", "solve_flat_pb", "solve_flat",
@@ -390,7 +389,8 @@ PROFILED = ("ipm_resident", "resid_full", "factor_solve_mega", "solve_mega",
                 "tree_factor_solve_flat", "tree_solve_flat",
                 "tree_resid_terms_flat", "cholesky", "panel")
 _PATTERNS = {k: rf"\b{k}_kernel\b" for k in PROFILED}
-_PATTERNS["solve_flat_pb"] = r"\bsolve_flat_kernel<\w+, true>"
+#: rows 11 and 13 as the profiler names them
+REFINE_PROFILED = ("solve_flat_pb", "refine_flat")
 
 
 def _profile(torch, run, reps: int = 3) -> dict:
@@ -435,6 +435,25 @@ def _profile_line(label, card, pr) -> str:
             f"device busy {pr['busy']:.3f} ms (idle share "
             f"{1 - pr['busy'] / pr['wall']:.1%}): {parts} launches; "
             f"{pr['syncs']:.0f} host-device syncs per call")
+
+
+def _resolve_layouts(sk, dims, dt) -> dict:
+    """The launch layouts of rows 11 and 13 (the refinement re-solve
+    kernels, a team of lanes an instance) at ``dims`` in ``dt``."""
+    d2 = dict(NU=dims.NU, NX=dims.NX)
+    return {"row 11": sk.resolve_layout("solve_flat_pb", dims.N, dt, **d2),
+            "row 13": sk.resolve_layout("refine_flat_fused", dims.N, dt,
+                                        **d2, NG=max(dims.NG, 1))}
+
+
+def _refine_profile(pr, lay) -> str:
+    """Rows 11 + 13's summed ms and launches in a profile of ``_profile``
+    and their launch layout, for a route's profile line."""
+    rows = [k for k in REFINE_PROFILED if k in pr["ms"]]
+    if not rows:
+        return ""
+    return (f"; rows 11 + 13 {sum(pr['ms'][k] for k in rows):.3f} ms in "
+            f"{sum(pr['n'][k] for k in rows):.0f} launches; layout {lay}")
 
 
 def _variant(name, a, k) -> str:
@@ -3387,7 +3406,8 @@ def main() -> int:
         reps = 1 if label.startswith(("structured A", "structured C",
                                       "structured soft")) else 3
         pr = _profile(torch, solve_rep(q0, d, c, fn, field), reps=reps)
-        print(_profile_line(label, card, pr), flush=True)
+        print(_profile_line(label, card, pr) + _refine_profile(
+            pr, _resolve_layouts(sk, d, q0.b.dtype)), flush=True)
     t_sec = section_done("14 end-to-end timings and profiles", t_sec)
 
     # each kernel alone, at the main paths' shapes and configs (float32):
@@ -3535,6 +3555,24 @@ def main() -> int:
         print(f"{name}: team {row['team']} lanes an instance, "
               f"{row['block']} threads a block, {row['share']:.2%} of "
               f"bound; ptxas {row['ptxas']}", flush=True)
+    # rows 11 and 13: a team of lanes an instance (hp::ReSolve)
+    lays = _resolve_layouts(sk, dims, torch.float32)
+    for name, lib, dims_, lay in (
+            ("solve_flat_pb", "solve_flat", dict(NU=dims.NU, NX=dims.NX),
+             lays["row 11"]),
+            ("refine_flat_fused", "refine_flat",
+             dict(NU=dims.NU, NX=dims.NX, NG=dims.NG), lays["row 13"])):
+        row = next(k for k in kernels if k["name"] == name)
+        log = _build.PTXAS_LOG.get(f"lib{_build._key(lib, dims_)}.so", "")
+        row.update(share=row["bound_ms"] / row["ms"], team=lay["team"],
+                   block=lay["threads"],
+                   ptxas=[x for x in _ptxas_lines(log)
+                          if lib == "refine_flat" or "pb_kernel" in x])
+        print(f"{name}: team {row['team']} lanes an instance, "
+              f"{lay['instances']} instances and {row['block']} threads a "
+              f"block, {lay['smem_block']} B of shared memory a block, "
+              f"{row['share']:.2%} of bound; ptxas {row['ptxas']}",
+              flush=True)
     kernels.append(soft_res_row)
     kernels += fused_rows
     kernels.append(row23)

@@ -1,6 +1,6 @@
 // One fused iterative-refinement pass (the reference's ITER_REF correction,
 // d_ip2_res_hard.c:1093-1131) for a batch of OCP KKT systems in ONE kernel,
-// one CUDA thread per instance: the Newton residuals of the current
+// a team of lanes per instance: the Newton residuals of the current
 // iterate, the retained-factor re-solve with Pb recomputed for the new
 // right-hand side, and the corrected iterate.
 //
@@ -16,30 +16,72 @@
 // backward, Pb = Lxx_{k+1} (Lxx_{k+1}' rb_k) and hp::trs_stage; forward,
 // x_{s+1} = rb_s + F_s' dz_s.  Out: z + dz, pi + dpi.
 //
-// What bounds it on the H100: per instance and stage it reads H, dvec, g,
-// z twice (stage and successor), pi twice, F three times, b, Ll twice,
-// Lxx twice, z and pi once more for the update, and writes z and pi --
-// ~620 scalars at the flagship (N=30, NZ=11, NX=8, NU=3), ~2.5 KB in f32
-// (F's repeated reads come from L1/L2) -- against ~1.3k flops: ~0.5
-// flop/byte, memory bound in principle, latency bound with one thread per
-// instance (128 warps at B=4096).
+// What bounds it on the H100: per instance and stage it must read H,
+// dvec, g, z, pi, F, b, Ll and the lower triangle of Lxx once and write z
+// and pi -- ~290 scalars at the flagship (N=30, NZ=11, NX=8, NU=3; 147.5 MB
+// at B=4096 in f32) -- against ~1.3k flops: ~1 flop/byte, bound by its
+// bytes.  The one-thread-an-instance form that came first (4096 threads =
+// 128 warps at B=4096, about one an SM) walked stages N..0 and 0..N, each a
+// run of dependent global loads, and wrote eu, px and rb to per-instance
+// scratch for the forward loop: 13% of the byte bound.
 //
-// Design: the TPU grid's 2(N+1) steps become two loops inside the thread.
-// The stage products H z, F pi and F' z are hp::sym_mv_acc, hp::f_mv_acc
-// and hp::ft_mv_acc, shared with csrc/resid_terms_flat.cu (the unfused
-// pass).
-// Backward, stages N..0: rq and rb are assembled in registers, never
-// stored (the TPU keeps them in VMEM too); rb goes to per-instance global
-// scratch for the forward loop (the TPU's rb slab), as do eu and px; the
-// px carry stays in registers and Lxx_{k+1} is read back from the
-// retained factor.  Forward, stages 0..N: root solve for x_0, then pi_{s-1}
-// from stage s, u, the update, and x_{s+1}.  The index rules of the TPU
-// kernel hold: F pi_k only for k < N, the pi coupling row only for k >= 1,
-// rb at k = N never formed, pi_new[s-1] written from stage s.
+// Design.  Most of a stage's work does not depend on the carry: rq_k, rb_k
+// and Pb_k come from the inputs alone, and so, once x_s is known, do
+// pi_{s-1} = Lxx_s (Lxx_s' x_s) + px_s and the update.  Only m = rq + F (Pb
+// + px_c), eu = Luu^{-1} m_u and px = m_x - Lxu eu backward, and u_s and
+// x_{s+1} forward, carry.  So one launch runs three overlapped phases (the
+// shared pieces in csrc/team.cuh, hp::ReSolve, which row 11, the unfused
+// pass's re-solve, runs too):
+//   * warp 0 runs the serial chain: the backward substitution, stages
+//     N..0, on the kept rows, then the forward recovery (x_0 from the root
+//     solve, u_s, z_s + dz_s, x_{s+1});
+//   * the block's other warps, the workers, first keep the carry-free rows
+//     of every stage in descending order (rq_k, rb_k, Pb_k and the
+//     reciprocal pivots of Ll_k), announcing each stage in a shared-memory
+//     progress word, then run the epilogue of each stage (z + dz out, pi +
+//     dpi) once the chain has announced its x_s.
+// The chain waits only for a stage's announcement, so it starts as the
+// first stages are kept and the epilogue trails it.  A chain step is one
+// warp barrier: every lane forms Pb + px_c, m's u rows and eu itself, and
+// the owners of the x rows form px (backward) or x_{s+1} (forward) into
+// the other of two buffers; each step's F and Ll (and a forward stage's z)
+// come through a ring of two shared-memory slots, copied asynchronously
+// (cp.async) a step ahead.  A first form with the phases split by block
+// barriers, four barriers and six IEEE divisions a chain step and a
+// barrier a team lost ~1 us a chain step on the card (PERF.md section 6,
+// PR 17).
+// A team of TEAM lanes (4 to NZ=12, 8 to 24) runs an instance: lane r owns
+// the rows r, r + TEAM, ... of every NZ-row object of a stage (rq, m, the
+// F and H rows of its products, z) and the x indices likewise, as rows 19,
+// 20 and 26 do; a warp holds one team of each of IPB = 32 / TEAM
+// consecutive instances, so a team position's row load of a batch-last
+// stream covers IPB neighbouring scalars (one 32-byte sector in f32 at
+// TEAM 4), the layout that gave rows 26-27 most of their gain; a block is
+// WARPS warps on the same IPB instances.  Every team of a warp runs the
+// same stages, so a team's barrier is its warp's.
+//
+// The kept rows (rq_k then z_k, Pb_k then x_k, rb_k, the pivots, eu_k,
+// px_k: 42 scalars a stage at the flagship, 5.2 KB an instance in f32)
+// live in device memory (the wrapper's `work`, mostly in L2: 21 MB at
+// B=4096), interleaved over the block's instances; the chain copies each
+// step's rows into its ring slot with F and Ll.  Keeping them in shared
+// memory measured slower on the card: at 59 KB a block in f32 three
+// blocks fit an SM (the batch in two waves) and the carve-out leaves L1
+// little for the prologue's loads.
+//
+// The bits: every entry keeps the one-thread form's expression and order,
+// so the outputs are its outputs bit for bit: rq in the order g + dvec z,
+// + H z term by term, + F pi as one dot product added last, - pi_{k-1},
+// + the ng slots in slot order; rb = (b + F' z) - x_{k+1}; Pb + px_c with
+// Pb rounded first (row 0, one product, fused into the sum); z + dz.
+// nvcc contracted the one-thread form's unrolled sums -- a0 b0 + a1 b1 +
+// ... as fma(a0, b0, a1 b1), each later product fused into the running sum
+// -- in a way a lane's runtime range does not repeat, so those sums are
+// written with explicit roundings (hp::dot_chain).
 //
 // Specialisation: NU, NX, NG compile-time (-D, one library per shape);
 // "has ng rows" a template parameter; N and the ng table runtime.
-#include "stage_math.cuh"
+#include "team.cuh"
 
 #if !defined(HP_NU) || !defined(HP_NX) || !defined(HP_NG)
 #error "compile with -DHP_NU=.. -DHP_NX=.. -DHP_NG=.."
@@ -52,7 +94,9 @@ constexpr int NX = HP_NX;
 constexpr int NZ = NU + NX;
 constexpr int NG = HP_NG;
 constexpr int NT = NZ * (NZ + 1) / 2;
-constexpr int BLOCK = 32;
+using RS = hp::ReSolve<NU, NX, NG, true>;
+using TM = RS::TM;
+constexpr int TEAM = RS::TEAM;
 
 }  // namespace
 
@@ -73,166 +117,145 @@ struct RefineArgs {
   const void* Lxx;       // (N+1, NX, NX, B), upper triangle 0
   void* z_new;           // (N+1, NZ, B)
   void* pi_new;          // (N, NX, B)
-  void* work;            // ((N+1)(NU+2NX), B): eu, px, rb
+  void* work;            // the kept rows, hp_refine_flat_layout's size
   int64_t B;
   int64_t N;
   int64_t n_ng;
 };
 
 template <typename T, bool HAS_NG>
-__global__ void __launch_bounds__(BLOCK) refine_flat_kernel(RefineArgs a) {
+__global__ void __launch_bounds__(RS::THREADS, sizeof(T) == 4 ? RS::MIN_BLOCKS_F32 : RS::MIN_BLOCKS_F64)
+    refine_flat_kernel(RefineArgs a, RS::Geo geo) {
   using hp::Col;
-  const int64_t B = a.B;
-  const int64_t bi = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-  if (bi >= B) return;
-  const int N = static_cast<int>(a.N);
+  using hp::dot_chain;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const auto ln = RS::lane_of<T>(geo, a.B, a.work, smem_raw);
+  const int N = static_cast<int>(a.N), r = ln.r;
   const int n_ng = static_cast<int>(a.n_ng);
   const int* ng_stage = static_cast<const int*>(a.ng_stage);
   auto in = [&](const void* p) {
-    return Col<const T>{static_cast<const T*>(p) + bi, B};
+    return Col<const T>{static_cast<const T*>(p) + ln.bl, a.B};
   };
-  auto out = [&](void* p) { return Col<T>{static_cast<T*>(p) + bi, B}; };
+  auto out = [&](void* p) { return Col<T>{static_cast<T*>(p) + ln.bl, a.B}; };
   const Col<const T> Hc = in(a.H), dvc = in(a.dvec), gc = in(a.g),
                      Fc = in(a.F), bc = in(a.b), zc = in(a.z),
                      pic = in(a.pi), Llc = in(a.Ll), Lxxc = in(a.Lxx);
-  const Col<T> zo = out(a.z_new), pio = out(a.pi_new);
-  T* w = static_cast<T*>(a.work);
-  const int64_t Np1 = N + 1;
-  const Col<T> eus{w + bi, B};
-  const Col<T> pxs{w + Np1 * NU * B + bi, B};
-  const Col<T> rbs{w + Np1 * (NU + NX) * B + bi, B};
-  const Col<const T> rbc{rbs.p, B};
+  T* const sh = ln.pe;
 
-  auto load_ll = [&](int n, T (&Ll)[NZ][NU]) {
-#pragma unroll
-    for (int i = 0; i < NZ; ++i)
-#pragma unroll
-      for (int j = 0; j < NU; ++j)
-        Ll[i][j] = Llc((static_cast<int64_t>(n) * NZ + i) * NU + j);
-  };
-  auto load_lxx = [&](int n, T (&Lxx)[NX][NX]) {
-#pragma unroll
-    for (int i = 0; i < NX; ++i)
-#pragma unroll
-      for (int j = 0; j < NX; ++j)
-        Lxx[i][j] = j <= i ? Lxxc((static_cast<int64_t>(n) * NX + i) * NX + j)
-                           : T(0);
-  };
-
-  // ---- backward: residuals of stage k + substitution, k = N..0 ----------
-  T px_c[NX];
-#pragma unroll
-  for (int i = 0; i < NX; ++i) px_c[i] = T(0);
-  for (int k = N; k >= 0; --k) {
+  // ---- prologue: rq_k, rb_k and Pb_k of the warp's stages ---------------
+  auto prologue = [&](int k) {
+    const hp::Rows<T> st = ln.kp.at(static_cast<int64_t>(k) * RS::KS);
     const int64_t rz = static_cast<int64_t>(k) * NZ;
-    const int64_t f0 = static_cast<int64_t>(k < N ? k : N - 1) * NZ * NX;
-    T z[NZ], rq[NZ];
-    hp::load(z, zc, rz);
-#pragma unroll
-    for (int i = 0; i < NZ; ++i) rq[i] = gc(rz + i) + dvc(rz + i) * z[i];
-    hp::sym_mv_acc<T, NZ>(Hc, static_cast<int64_t>(k) * NT, z, rq);
-    T Pbpx[NX];
-    if (k < N) {
-      T piv[NX], rb[NX], Lxx[NX][NX], Pb[NX];
-      hp::load(piv, pic, static_cast<int64_t>(k) * NX);
-      hp::f_mv_acc<T, NZ, NX>(Fc, f0, piv, rq);
-      hp::load(rb, bc, static_cast<int64_t>(k) * NX);
-      hp::ft_mv_acc<T, NZ, NX>(Fc, f0, z, rb);
-#pragma unroll
-      for (int q = 0; q < NX; ++q)
-        rb[q] = rb[q] - zc(static_cast<int64_t>(k + 1) * NZ + NU + q);
-      hp::store(rbs, static_cast<int64_t>(k) * NX, rb);
-      load_lxx(k + 1, Lxx);
-      hp::pb_of<T, NX>(Lxx, rb, Pb);
-#pragma unroll
-      for (int q = 0; q < NX; ++q) Pbpx[q] = Pb[q] + px_c[q];
-    } else {
-#pragma unroll
-      for (int q = 0; q < NX; ++q) Pbpx[q] = T(0);
+    const int64_t f0 = static_cast<int64_t>(k) * NZ * NX;
+    ln.tsync();  // the team's last stage is done with the slab
+    RS::du_keep(ln, k, Llc);
+    {
+      T zb[RS::chunks(NZ)], pb[RS::chunks(NX)];
+      TM::fetch<NZ>(r, zb, [&](int e) { return zc(rz + e); });
+      if (k < N)
+        TM::fetch<NX>(r, pb, [&](int e) {
+          return pic(static_cast<int64_t>(k) * NX + e);
+        });
+      TM::put<NZ>(r, sh + RS::P_Z, zb);
+      if (k < N) TM::put<NX>(r, sh + RS::P_PI, pb);
     }
+    ln.tsync();
+    const T* const z = sh + RS::P_Z;
+    // branch-free row chunks (hp::Team::sym_mv_acc's rule): a chunk past
+    // the last row works on the last and stores nothing
+    T y[RS::chunks(NZ)];
+#pragma unroll
+    for (int c = 0; c < RS::chunks(NZ); ++c) {
+      const int i0 = r + c * TEAM, i = i0 < NZ ? i0 : NZ - 1;
+      y[c] = gc(rz + i) + dvc(rz + i) * z[i];
+    }
+    TM::sym_mv_acc<T, NZ>(
+        r, [&](int e) { return Hc(static_cast<int64_t>(k) * NT + e); }, z, y);
+    if (k < N)
+      TM::f_mv_acc<T, NZ, NX>(
+          r, [&](int e) { return Fc(f0 + e); }, sh + RS::P_PI, y);
     if (k >= 1) {
 #pragma unroll
-      for (int q = 0; q < NX; ++q)
-        rq[NU + q] = rq[NU + q] - pic(static_cast<int64_t>(k - 1) * NX + q);
+      for (int c = 0; c < RS::chunks(NZ); ++c) {
+        const int i0 = r + c * TEAM, i = i0 < NZ ? i0 : NZ - 1;
+        const T pv = pic(static_cast<int64_t>(k - 1) * NX +
+                         (i >= NU ? i - NU : 0));
+        if (i0 >= NU && i0 < NZ) y[c] = y[c] - pv;
+      }
     }
     if (HAS_NG) {
+      // the slots on stage k in slot order: qcz = qxg * C z, then rq += C'
+      // qcz, each sum as the one-thread loop rounded it
+      const Col<const T> Cc = in(a.C), qc = in(a.qxg);
       for (int jg = 0; jg < n_ng; ++jg) {
         if (ng_stage[jg] != k) continue;
-        const Col<const T> Cc = in(a.C), qc = in(a.qxg);
-        T qcz[NG];
-#pragma unroll
-        for (int gg = 0; gg < NG; ++gg) {
+        for (int gg = r; gg < NG; gg += TEAM) {
           const int64_t c0 = (static_cast<int64_t>(jg) * NG + gg) * NZ;
-          T cz = Cc(c0) * z[0];
-#pragma unroll
-          for (int i = 1; i < NZ; ++i) cz = cz + Cc(c0 + i) * z[i];
-          qcz[gg] = qc(static_cast<int64_t>(jg) * NG + gg) * cz;
+          const T cz = dot_chain<T>(0, NZ - 1, [&](int i, T& u, T& v) {
+            u = Cc(c0 + i);
+            v = z[i];
+          });
+          sh[RS::P_QCZ + gg] = qc(static_cast<int64_t>(jg) * NG + gg) * cz;
         }
+        ln.tsync();
 #pragma unroll
-        for (int i = 0; i < NZ; ++i) {
+        for (int c = 0; c < RS::chunks(NZ); ++c) {
+          const int i0 = r + c * TEAM, i = i0 < NZ ? i0 : NZ - 1;
           const int64_t c0 = static_cast<int64_t>(jg) * NG * NZ + i;
-          T acc = Cc(c0) * qcz[0];
+          T acc;
+          if constexpr (NG == 1) {
+            acc = hp::fma_rn(Cc(c0), sh[RS::P_QCZ], y[c]);
+          } else {
+            acc = y[c] + dot_chain<T>(0, NG - 1, [&](int gg, T& u, T& v) {
+                    u = Cc(c0 + gg * NZ);
+                    v = sh[RS::P_QCZ + gg];
+                  });
+          }
+          y[c] = i0 < NZ ? acc : y[c];
+        }
+        ln.tsync();  // the qcz rows' reads before the next slot's
+      }
+    }
 #pragma unroll
-          for (int gg = 1; gg < NG; ++gg) acc = acc + Cc(c0 + gg * NZ) * qcz[gg];
-          rq[i] = rq[i] + acc;
+    for (int c = 0; c < RS::chunks(NZ); ++c) {
+      const int i = r + c * TEAM;
+      if (i < NZ) st[RS::K_Q + i] = y[c];
+    }
+    if (k < N) {
+      T rb[RS::chunks(NX)];
+      TM::fetch<NX>(r, rb, [&](int e) {
+        return bc(static_cast<int64_t>(k) * NX + e);
+      });
+      TM::ft_mv_acc<T, NZ, NX>(r, [&](int e) { return Fc(f0 + e); }, z, rb);
+#pragma unroll
+      for (int c = 0; c < RS::chunks(NX); ++c) {
+        const int q0 = r + c * TEAM, q = q0 < NX ? q0 : NX - 1;
+        const T zn = zc(static_cast<int64_t>(k + 1) * NZ + NU + q);
+        if (q0 < NX) {
+          rb[c] = rb[c] - zn;
+          st[RS::K_RB + q] = rb[c];
+          sh[RS::P_B + q] = rb[c];
         }
       }
+      ln.tsync();  // the z rows' last reads: Lxx_{k+1} goes over them
+      RS::pb_keep(ln, k, Lxxc);
     }
-    T Ll[NZ][NU], Dinv_u[NU], eu[NU], px[NX];
-    load_ll(k, Ll);
-    hp::dinv_diag<T, NU>(Ll, Dinv_u);
-    hp::trs_stage<T, NU, NX>(Ll, Dinv_u, rq, Fc, f0, Pbpx, k == N, eu, px);
-#pragma unroll
-    for (int q = 0; q < NX; ++q) px_c[q] = px[q];
-    hp::store(eus, static_cast<int64_t>(k) * NU, eu);
-    hp::store(pxs, static_cast<int64_t>(k) * NX, px);
-  }
-
-  // ---- forward: correction, update, s = 0..N -----------------------------
-  T x[NX];
-  {
-    T Lxx[NX][NX], px0[NX];
-    load_lxx(0, Lxx);
-    hp::load(px0, pxs, 0);
-    hp::root_x0<T, NX>(Lxx, px0, x);
-  }
-  for (int s = 0; s <= N; ++s) {
-    T Ll[NZ][NU], eu[NU], Dinv_u[NU], u[NU], dz[NZ], zn[NZ];
-    load_ll(s, Ll);
-    hp::load(eu, eus, static_cast<int64_t>(s) * NU);
-    if (s >= 1) {
-      T Lxx[NX][NX], pxv[NX], dpi[NX];
-      load_lxx(s, Lxx);
-      hp::load(pxv, pxs, static_cast<int64_t>(s) * NX);
-      hp::pi_of_x<T, NX>(Lxx, pxv, x, dpi);
-#pragma unroll
-      for (int q = 0; q < NX; ++q) {
-        const int64_t r = static_cast<int64_t>(s - 1) * NX + q;
-        pio(r) = pic(r) + dpi[q];
-      }
-    }
-    hp::dinv_diag<T, NU>(Ll, Dinv_u);
-    hp::u_of_x<T, NU, NX>(Ll, Dinv_u, eu, x, u);
-#pragma unroll
-    for (int i = 0; i < NU; ++i) dz[i] = u[i];
-#pragma unroll
-    for (int i = 0; i < NX; ++i) dz[NU + i] = x[i];
-    hp::load(zn, zc, static_cast<int64_t>(s) * NZ);
-#pragma unroll
-    for (int i = 0; i < NZ; ++i) zn[i] = zn[i] + dz[i];
-    hp::store(zo, static_cast<int64_t>(s) * NZ, zn);
-    const int se = s < N - 1 ? s : N - 1;
-    hp::x_next_of<T, NZ, NX>(Fc, static_cast<int64_t>(se) * NZ * NX, rbc,
-                             static_cast<int64_t>(se) * NX, dz, x);
-  }
+  };
+  RS::run(ln, RS::progress<T>(geo, smem_raw), N, prologue, Llc, Fc, Lxxc, zc,
+          pic, out(a.z_new), out(a.pi_new));
 }
 
 template <typename T, bool HAS_NG>
 static int launch(const RefineArgs& a, cudaStream_t stream) {
-  const int64_t blocks = (a.B + BLOCK - 1) / BLOCK;
+  const RS::Geo g = RS::geo(a.N);
+  if (a.work == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t blocks = (a.B + RS::IPB - 1) / RS::IPB;
+  const int64_t smem = g.smem * static_cast<int64_t>(sizeof(T));
+  const int rc = hp::allow_smem(refine_flat_kernel<T, HAS_NG>, smem);
+  if (rc != 0) return rc;
   refine_flat_kernel<T, HAS_NG>
-      <<<static_cast<unsigned>(blocks), BLOCK, 0, stream>>>(a);
+      <<<static_cast<unsigned>(blocks), RS::THREADS,
+         static_cast<size_t>(smem), stream>>>(a, g);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -249,6 +272,22 @@ extern "C" int hp_refine_flat_fused(const RefineArgs* a, int dtype_code,
   if (dtype_code == 1) return dispatch<double>(*a, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
+
+// The launch layout at horizon N in dtype_code: out = {lanes a team,
+// instances a block, threads a block, the kept rows' device memory a block
+// (scalars), shared memory a block (bytes)}.  The wrapper sizes `work`
+// from it.
+extern "C" void hp_refine_flat_layout(int64_t N, int dtype_code,
+                                      int64_t* out) {
+  const int64_t sz = dtype_code == 1 ? 8 : 4;
+  const RS::Geo g = RS::geo(N);
+  out[0] = RS::TEAM;
+  out[1] = RS::IPB;
+  out[2] = RS::THREADS;
+  out[3] = RS::IPB * g.rows;
+  out[4] = g.smem * sz;
+}
+
 
 extern "C" const char* hp_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

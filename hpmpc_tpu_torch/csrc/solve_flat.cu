@@ -1,55 +1,55 @@
 // Retained-factor re-solve of a batch of OCP KKT systems in ONE kernel:
-// backward substitution + forward recovery with pi, one CUDA thread per
-// instance.  Three forms:
+// backward substitution + forward recovery with pi.  Three forms:
 //
-//   * hp_solve_flat reads the cached Pb of the factorization.  Replaces:
-//     hpmpc_tpu/ops/stage_kernel.py::solve_flat, two TPU calls: the
-//     backward substitution (_bwd_trs_kernel_ll) and the forward recovery
-//     (_forward_from_lanes -> _fwd_kernel_split).  Plain version:
-//     hpmpc_tpu_torch/ops/stage_kernel.py::solve_flat_ref.
-//   * hp_solve_flat_pb recomputes Pb_k = Lxx_{k+1} (Lxx_{k+1}' b_k) from
-//     the retained factor for a new right-hand side b (the reference's
-//     compute_Pb=1 path, d_back_ric_rec.c:564; the unfused iterative
-//     refinement re-solves against its residual rb) and reads no Pb
-//     stream.  Replaces: hpmpc_tpu/ops/stage_kernel.py::solve_flat_pb
-//     (_bwd_trs_pb_kernel + _forward_from_lanes).  Plain version:
-//     hpmpc_tpu_torch/ops/stage_kernel.py::solve_flat_pb_ref.
+//   * hp_solve_flat reads the cached Pb of the factorization, one CUDA
+//     thread per instance.  Replaces: hpmpc_tpu/ops/stage_kernel.py::
+//     solve_flat, two TPU calls: the backward substitution
+//     (_bwd_trs_kernel_ll) and the forward recovery (_forward_from_lanes ->
+//     _fwd_kernel_split).  Plain version: hpmpc_tpu_torch/ops/
+//     stage_kernel.py::solve_flat_ref.
 //   * hp_solve_flat_fused (solve_flat_fused_kernel) is hp_solve_flat with
 //     the eu/px slab in shared memory instead of global scratch.
 //     Replaces: hpmpc_tpu/ops/stage_kernel.py::solve_flat_fused
 //     (_trs_fwd_fused_kernel, one two-phase-grid call that keeps eu and px
 //     in VMEM slabs).  Plain version: solve_flat_ref (the same function).
+//   * hp_solve_flat_pb (solve_flat_pb_kernel, Queue 2 row 11) recomputes
+//     Pb_k = Lxx_{k+1} (Lxx_{k+1}' b_k) from the retained factor for a new
+//     right-hand side b (the reference's compute_Pb=1 path,
+//     d_back_ric_rec.c:564; the unfused iterative refinement re-solves
+//     against its residual rb) and reads no Pb stream, a team of lanes per
+//     instance with the carry-free stage work off the serial chain: the
+//     design of csrc/refine_flat.cu (row 13, whose re-solve this is), on
+//     the shared phases of csrc/team.cuh (hp::ReSolve), its workers keeping
+//     rq = g, the forward's b, Pb and the pivots.  Replaces:
+//     hpmpc_tpu/ops/stage_kernel.py::solve_flat_pb (_bwd_trs_pb_kernel +
+//     _forward_from_lanes).  Plain version: hpmpc_tpu_torch/ops/
+//     stage_kernel.py::solve_flat_pb_ref.
 //
-// What bounds it on the H100: per instance and stage it reads Ll twice, g,
-// F twice, Pb, b and Lxx, and writes z and pi -- ~330 scalars at the
-// flagship (N=30, NZ=11, NX=8, NU=3), ~1.3 KB in f32 -- against ~0.7k
-// flops (triangular solves and matrix-vector products): ~0.5 flop/byte,
-// memory bound in principle, latency bound with one thread per instance
-// (128 warps at B=4096).  The Pb form reads Lxx_{k+1} instead of Pb in
-// the backward loop (the lower triangle, 36 scalars a stage instead of 8)
-// and adds ~2 NX^2 flops a stage.  The global-scratch forms also write
-// and read back the eu/px slab, (N+1)(NU+NX) scalars an instance; the
+// What bounds the one-thread forms on the H100: per instance and stage
+// they read Ll twice, g, F twice, Pb, b and Lxx, and write z and pi --
+// ~330 scalars at the flagship (N=30, NZ=11, NX=8, NU=3), ~1.3 KB in f32
+// -- against ~0.7k flops (triangular solves and matrix-vector products):
+// ~0.5 flop/byte, memory bound in principle, latency bound with one thread
+// per instance (128 warps at B=4096).  The global-scratch form also writes
+// and reads back the eu/px slab, (N+1)(NU+NX) scalars an instance; the
 // fused form keeps it on the SM.
 //
-// Design: csrc/solve_mega.cu without the corrector prep and the alpha
-// epilogue: stages N..0 run hp::trs_stage on the gradient with the Pb + px
-// carry (px in registers) and put eu/px into the slab (the TPU's VMEM
-// slabs); stages 0..N recover x from the root solve, pi_{s-1} = Lxx_s
-// (Lxx_s' x_s) + px_s, u and z.  Pb has N rows and is read for k < N only;
-// F/b clip to N-1 at the terminal stage.  The Pb form loads Lxx_{k+1} from
-// the retained factor at stage k (the TPU kernel carries it in VMEM from
-// the step before; here registers are the scarce resource), as
-// csrc/refine_flat.cu does.  The slab is laid out [stage][k][instance]:
-// per-instance global scratch in batch-last layout (coalesced), or the
-// block's dynamic shared memory with the thread index last (a warp's
-// accesses hit 32 consecutive words: no bank conflict), (N+1)(NU+NX) x 32
-// scalars a block, set at launch from N; the three forms run the same
-// sweep code (solve_flat_sweeps), so the fused form rounds as
-// hp_solve_flat does.
+// Design of the one-thread forms: csrc/solve_mega.cu's first form without
+// the corrector prep and the alpha epilogue: stages N..0 run hp::trs_stage
+// on the gradient with the Pb + px carry (px in registers) and put eu/px
+// into the slab (the TPU's VMEM slabs); stages 0..N recover x from the root
+// solve, pi_{s-1} = Lxx_s (Lxx_s' x_s) + px_s, u and z.  Pb has N rows and
+// is read for k < N only; F/b clip to N-1 at the terminal stage.  The slab
+// is laid out [stage][k][instance]: per-instance global scratch in
+// batch-last layout (coalesced), or the block's dynamic shared memory with
+// the thread index last (a warp's accesses hit 32 consecutive words: no
+// bank conflict), (N+1)(NU+NX) x 32 scalars a block, set at launch from N;
+// the two forms run the same sweep code (solve_flat_sweeps), so the fused
+// form rounds as hp_solve_flat does.
 //
 // Specialisation: NU, NX compile-time (-D, one library per shape); N
 // runtime.
-#include "stage_math.cuh"
+#include "team.cuh"
 
 #if !defined(HP_NU) || !defined(HP_NX)
 #error "compile with -DHP_NU=.. -DHP_NX=.."
@@ -61,6 +61,8 @@ constexpr int NU = HP_NU;
 constexpr int NX = HP_NX;
 constexpr int NZ = NU + NX;
 constexpr int BLOCK = 32;
+// the Pb form's team geometry and phases (no general rows)
+using RS = hp::ReSolve<NU, NX, 0, false>;
 
 }  // namespace
 
@@ -75,14 +77,16 @@ struct SolveFlatArgs {
   const void* b;    // (N, NX, B)
   void* z;          // (N+1, NZ, B)
   void* pi;         // (N, NX, B)
-  void* work;       // ((N+1)(NU+NX), B): eu, px; NULL in the fused form
+  void* work;       // the one-thread form: ((N+1)(NU+NX), B): eu, px; the
+                    // Pb form: its kept rows (hp_solve_flat_pb_layout's
+                    // size); the fused form: NULL
   int64_t B;
   int64_t N;
 };
 
 // The two sweeps of instance bi; eus / pxs: its eu (N+1, NU) and px
 // (N+1, NX) slab.
-template <typename T, bool PB_FROM_LXX>
+template <typename T>
 __device__ __forceinline__ void solve_flat_sweeps(const SolveFlatArgs& a,
                                                   int64_t bi,
                                                   const hp::Col<T>& eus,
@@ -127,13 +131,6 @@ __device__ __forceinline__ void solve_flat_sweeps(const SolveFlatArgs& a,
     if (k == N) {
 #pragma unroll
       for (int i = 0; i < NX; ++i) Pbpx[i] = T(0);
-    } else if (PB_FROM_LXX) {
-      T Lxx[NX][NX], bb[NX], Pb[NX];
-      load_lxx(k + 1, Lxx);
-      hp::load(bb, bc, static_cast<int64_t>(k) * NX);
-      hp::pb_of<T, NX>(Lxx, bb, Pb);
-#pragma unroll
-      for (int i = 0; i < NX; ++i) Pbpx[i] = Pb[i] + px_c[i];
     } else {
 #pragma unroll
       for (int i = 0; i < NX; ++i)
@@ -181,16 +178,67 @@ __device__ __forceinline__ void solve_flat_sweeps(const SolveFlatArgs& a,
 }
 
 // eu/px in the per-instance global scratch a.work (batch-last)
-template <typename T, bool PB_FROM_LXX>
+template <typename T>
 __global__ void __launch_bounds__(BLOCK) solve_flat_kernel(SolveFlatArgs a) {
   const int64_t B = a.B;
   const int64_t bi = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                      threadIdx.x;
   if (bi >= B) return;
   T* w = static_cast<T*>(a.work);
-  solve_flat_sweeps<T, PB_FROM_LXX>(
-      a, bi, hp::Col<T>{w + bi, B},
-      hp::Col<T>{w + (a.N + 1) * NU * B + bi, B});
+  solve_flat_sweeps<T>(a, bi, hp::Col<T>{w + bi, B},
+                       hp::Col<T>{w + (a.N + 1) * NU * B + bi, B});
+}
+
+// The Pb form (row 11): the workers keep rq = g_k, the forward's
+// right-hand side b_k, Pb_k and the pivots of each stage, warp 0 runs the
+// chain, the workers the epilogue (z and pi out): hp::ReSolve::run.
+template <typename T>
+__global__ void __launch_bounds__(RS::THREADS, sizeof(T) == 4 ? RS::MIN_BLOCKS_F32 : RS::MIN_BLOCKS_F64)
+    solve_flat_pb_kernel(SolveFlatArgs a, RS::Geo geo) {
+  using hp::Col;
+  using TM = RS::TM;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const auto ln = RS::lane_of<T>(geo, a.B, a.work, smem_raw);
+  const int N = static_cast<int>(a.N), r = ln.r;
+  auto in = [&](const void* p) {
+    return Col<const T>{static_cast<const T*>(p) + ln.bl, a.B};
+  };
+  auto out = [&](void* p) { return Col<T>{static_cast<T*>(p) + ln.bl, a.B}; };
+  const Col<const T> Llc = in(a.Ll), Lxxc = in(a.Lxx), gc = in(a.g),
+                     Fc = in(a.F), bc = in(a.b);
+  T* const sh = ln.pe;
+  auto prologue = [&](int k) {
+    const hp::Rows<T> st = ln.kp.at(static_cast<int64_t>(k) * RS::KS);
+    ln.tsync();  // the team's last stage is done with the slab
+    RS::du_keep(ln, k, Llc);
+    T gb[RS::chunks(NZ)], bb[RS::chunks(NX)];
+    TM::fetch<NZ>(r, gb, [&](int e) {
+      return gc(static_cast<int64_t>(k) * NZ + e);
+    });
+    if (k < N)
+      TM::fetch<NX>(r, bb, [&](int e) {
+        return bc(static_cast<int64_t>(k) * NX + e);
+      });
+#pragma unroll
+    for (int c = 0; c < RS::chunks(NZ); ++c) {
+      const int i = r + c * RS::TEAM;
+      if (i < NZ) st[RS::K_Q + i] = gb[c];
+    }
+    if (k < N) {
+#pragma unroll
+      for (int c = 0; c < RS::chunks(NX); ++c) {
+        const int q = r + c * RS::TEAM;
+        if (q < NX) {
+          st[RS::K_RB + q] = bb[c];
+          sh[RS::P_B + q] = bb[c];
+        }
+      }
+      RS::pb_keep(ln, k, Lxxc);
+    }
+  };
+  const Col<T> zo = out(a.z), pio = out(a.pi);
+  RS::run(ln, RS::progress<T>(geo, smem_raw), N, prologue, Llc, Fc, Lxxc, gc,
+          Col<const T>{pio.p, a.B}, zo, pio);
 }
 
 // eu/px in the block's dynamic shared memory, [stage][k][thread]
@@ -202,16 +250,29 @@ __global__ void __launch_bounds__(BLOCK)
                      threadIdx.x;
   if (bi >= a.B) return;
   T* s = reinterpret_cast<T*>(slab_raw) + threadIdx.x;
-  solve_flat_sweeps<T, false>(
+  solve_flat_sweeps<T>(
       a, bi, hp::Col<T>{s, BLOCK},
       hp::Col<T>{s + (a.N + 1) * NU * BLOCK, BLOCK});
 }
 
-template <typename T, bool PB_FROM_LXX>
+template <typename T>
 static int launch(const SolveFlatArgs& a, cudaStream_t stream) {
   const int64_t blocks = (a.B + BLOCK - 1) / BLOCK;
-  solve_flat_kernel<T, PB_FROM_LXX>
+  solve_flat_kernel<T>
       <<<static_cast<unsigned>(blocks), BLOCK, 0, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+static int launch_pb(const SolveFlatArgs& a, cudaStream_t stream) {
+  const RS::Geo g = RS::geo(a.N);
+  if (a.work == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t blocks = (a.B + RS::IPB - 1) / RS::IPB;
+  const int64_t smem = g.smem * static_cast<int64_t>(sizeof(T));
+  const int rc = hp::allow_smem(solve_flat_pb_kernel<T>, smem);
+  if (rc != 0) return rc;
+  solve_flat_pb_kernel<T><<<static_cast<unsigned>(blocks), RS::THREADS,
+                            static_cast<size_t>(smem), stream>>>(a, g);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -231,23 +292,35 @@ static int check(const SolveFlatArgs* a) {
                                 : 0;
 }
 
-template <bool PB_FROM_LXX>
-static int dispatch(const SolveFlatArgs* a, int dtype_code,
-                    cudaStream_t stream) {
-  if (const int rc = check(a)) return rc;
-  if (dtype_code == 0) return launch<float, PB_FROM_LXX>(*a, stream);
-  if (dtype_code == 1) return launch<double, PB_FROM_LXX>(*a, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
 extern "C" int hp_solve_flat(const SolveFlatArgs* a, int dtype_code,
                              cudaStream_t stream) {
-  return dispatch<false>(a, dtype_code, stream);
+  if (const int rc = check(a)) return rc;
+  if (dtype_code == 0) return launch<float>(*a, stream);
+  if (dtype_code == 1) return launch<double>(*a, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" int hp_solve_flat_pb(const SolveFlatArgs* a, int dtype_code,
                                 cudaStream_t stream) {
-  return dispatch<true>(a, dtype_code, stream);
+  if (const int rc = check(a)) return rc;
+  if (dtype_code == 0) return launch_pb<float>(*a, stream);
+  if (dtype_code == 1) return launch_pb<double>(*a, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The Pb form's launch layout at horizon N in dtype_code: out = {lanes a
+// team, instances a block, threads a block, the kept rows' device memory a
+// block (scalars), shared memory a block (bytes)}.  The wrapper sizes
+// `work` from it.
+extern "C" void hp_solve_flat_pb_layout(int64_t N, int dtype_code,
+                                        int64_t* out) {
+  const int64_t sz = dtype_code == 1 ? 8 : 4;
+  const RS::Geo g = RS::geo(N);
+  out[0] = RS::TEAM;
+  out[1] = RS::IPB;
+  out[2] = RS::THREADS;
+  out[3] = RS::IPB * g.rows;
+  out[4] = g.smem * sz;
 }
 
 extern "C" int hp_solve_flat_fused(const SolveFlatArgs* a, int dtype_code,
@@ -257,6 +330,7 @@ extern "C" int hp_solve_flat_fused(const SolveFlatArgs* a, int dtype_code,
   if (dtype_code == 1) return launch_fused<double>(*a, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
+
 
 extern "C" const char* hp_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

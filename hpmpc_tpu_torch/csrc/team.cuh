@@ -1,7 +1,9 @@
 // The team helpers and team stage routines of the kernels that run one
 // instance on a team of TEAM lanes of one warp: csrc/ipm_resident.cu (rows
 // 1 and 1s), csrc/factor_solve_mega.cu and csrc/solve_mega.cu (rows 19 and
-// 20).
+// 20), csrc/tree_sweeps.cu (rows 26 and 27), and the refinement re-solve of
+// csrc/solve_flat.cu's Pb form and csrc/refine_flat.cu (rows 11 and 13,
+// struct ReSolve at the end).
 //
 // A team's lane r owns the rows r, r + TEAM, ... of every NZ-row object of
 // a stage (M, F / W, g, m, the Ll / Lxx rows, z), the x indices likewise,
@@ -16,6 +18,8 @@
 // sum over a lane's runtime range is written with explicit roundings
 // (mul_rn, fma_rn, dot_chain) as nvcc rounded the one-thread sum.
 #pragma once
+
+#include <cuda_pipeline_primitives.h>
 
 #include <utility>
 
@@ -131,7 +135,31 @@ __device__ __forceinline__ T gather(const T* z, int j) {
 }
 
 // u = -Luu^{-T} (eu + Lxu' x) (hp::u_of_x) from the slab rows Ll (NZ x NU)
-// and eu, in every lane
+// and eu, in every lane; Du: the reciprocal pivots 1 / max(Luu_ii, 1e-30)
+template <typename T, int NU, int NX, typename Ev, typename Xv>
+__device__ __forceinline__ void u_of_x(const T* Ll, const T (&Du)[NU],
+                                       const Ev& eu, const Xv& x,
+                                       T (&u)[NU]) {
+  T rhs[NU], y[NU];
+#pragma unroll
+  for (int i = 0; i < NU; ++i) {
+    T acc = eu[i];
+#pragma unroll
+    for (int q = 0; q < NX; ++q) acc = acc + Ll[(NU + q) * NU + i] * x[q];
+    rhs[i] = acc;
+  }
+#pragma unroll
+  for (int i = NU - 1; i >= 0; --i) {
+    T acc = rhs[i];
+#pragma unroll
+    for (int j = i + 1; j < NU; ++j) acc = acc - Ll[j * NU + i] * y[j];
+    y[i] = acc * Du[i];
+  }
+#pragma unroll
+  for (int i = 0; i < NU; ++i) u[i] = -y[i];
+}
+
+// the same with Du formed here, as rows 19, 20 and 26-27 call it
 template <typename T, int NU, int NX>
 __device__ __forceinline__ void u_of_x(const T* Ll, const T* eu, const T* x,
                                        T (&u)[NU]) {
@@ -212,9 +240,10 @@ __device__ __forceinline__ void root_x0(int r, const L& Lxx, const T* px,
 
 // pi = Lxx (Lxx' x) + px (hp::pi_of_x) on the packed lower triangle Lx:
 // the first half, t1 = Lxx' x, rows r, r + TEAM, ...; a team barrier; the
-// second half, pi_i = px_i + sum_q Lxx_iq t1_q, its rows to out(i, pi_i)
-template <int TEAM, typename T, int NX>
-__device__ __forceinline__ void pi_t1(int r, const T* Lx, const T* x,
+// second half, pi_i = px_i + sum_q Lxx_iq t1_q, its rows to out(i, pi_i).
+// x and px: slab or kept rows (x[q], px[i]).
+template <int TEAM, typename T, int NX, typename Xv>
+__device__ __forceinline__ void pi_t1(int r, const T* Lx, const Xv& x,
                                       T* t1) {
   for (int i = r; i < NX; i += TEAM)
     t1[i] = dot_chain<T>(i, NX - 1, [&](int q, T& u, T& v) {
@@ -223,8 +252,8 @@ __device__ __forceinline__ void pi_t1(int r, const T* Lx, const T* x,
     });
 }
 
-template <int TEAM, typename T, int NX, typename Out>
-__device__ __forceinline__ void pi_rows(int r, const T* Lx, const T* px,
+template <int TEAM, typename T, int NX, typename Out, typename Pv>
+__device__ __forceinline__ void pi_rows(int r, const T* Lx, const Pv& px,
                                         const T* t1, Out out) {
   for (int i = r; i < NX; i += TEAM) {
     T acc = px[i];
@@ -274,6 +303,71 @@ struct Team {
     T buf[team_chunks(COUNT, TEAM)];
     fetch<COUNT>(r, buf, src);
     put<COUNT>(r, dst, buf);
+  }
+
+  // The stage products of the Newton residual (hp::sym_mv_acc,
+  // hp::f_mv_acc, hp::ft_mv_acc) on the rows a lane owns, y[c] the row r +
+  // c TEAM's accumulator; the matrices read through H(e) (the packed lower
+  // triangle's entry e) and F(e) (entry e of the (NZ, NX) F), the vectors
+  // from slab rows.  y += H z and y += F' z add term by term; y += F v adds
+  // the dot product last, its sum rounded as nvcc rounded the unrolled
+  // one-thread sum (dot_chain; at NX = 1 the one product fused into y).
+  // Branch-free: a chunk past the last row works on the last row and
+  // keeps its accumulator, so the compiler may issue every chunk's loads
+  // at once.
+  template <typename T, int NZ, typename Hf>
+  static __device__ __forceinline__ void sym_mv_acc(
+      int r, const Hf& H, const T* z, T (&y)[team_chunks(NZ, TEAM)]) {
+#pragma unroll
+    for (int c = 0; c < team_chunks(NZ, TEAM); ++c) {
+      const int i0 = r + c * TEAM, i = i0 < NZ ? i0 : NZ - 1;
+      T h[NZ];
+#pragma unroll
+      for (int j = 0; j < NZ; ++j)
+        h[j] = H(i >= j ? sym_idx(i, j) : sym_idx(j, i));
+      T acc = y[c];
+#pragma unroll
+      for (int j = 0; j < NZ; ++j) acc = acc + h[j] * z[j];
+      y[c] = i0 < NZ ? acc : y[c];
+    }
+  }
+
+  template <typename T, int NZ, int NX, typename Ff>
+  static __device__ __forceinline__ void f_mv_acc(
+      int r, const Ff& F, const T* v, T (&y)[team_chunks(NZ, TEAM)]) {
+#pragma unroll
+    for (int c = 0; c < team_chunks(NZ, TEAM); ++c) {
+      const int i0 = r + c * TEAM, i = i0 < NZ ? i0 : NZ - 1;
+      T acc;
+      if constexpr (NX == 1) {
+        acc = fma_rn(F(i), v[0], y[c]);
+      } else {
+        T f[NX];
+#pragma unroll
+        for (int q = 0; q < NX; ++q) f[q] = F(i * NX + q);
+        acc = y[c] + dot_chain<T>(0, NX - 1, [&](int q, T& a, T& b) {
+                a = f[q];
+                b = v[q];
+              });
+      }
+      y[c] = i0 < NZ ? acc : y[c];
+    }
+  }
+
+  template <typename T, int NZ, int NX, typename Ff>
+  static __device__ __forceinline__ void ft_mv_acc(
+      int r, const Ff& F, const T* z, T (&y)[team_chunks(NX, TEAM)]) {
+#pragma unroll
+    for (int c = 0; c < team_chunks(NX, TEAM); ++c) {
+      const int q0 = r + c * TEAM, q = q0 < NX ? q0 : NX - 1;
+      T f[NZ];
+#pragma unroll
+      for (int i = 0; i < NZ; ++i) f[i] = F(i * NX + q);
+      T acc = y[c];
+#pragma unroll
+      for (int i = 0; i < NZ; ++i) acc = acc + f[i] * z[i];
+      y[c] = q0 < NX ? acc : y[c];
+    }
   }
 
   // The pending update of COUNT rows of a state stream from row r0, x += a
@@ -427,6 +521,500 @@ struct Team {
     for (int c = 0; c < team_chunks(NZ, TEAM); ++c)
       if (r + c * TEAM == NZ - 1) M[(NZ - 1) * NZ + NZ - 1] = pend[c];
     sync();
+  }
+};
+
+// ---------------------------------------------------------------------------
+// The refinement re-solve of rows 11 (csrc/solve_flat.cu, the Pb form) and
+// 13 (csrc/refine_flat.cu); the design is in csrc/refine_flat.cu's head
+// comment.
+// ---------------------------------------------------------------------------
+
+// An instance's kept rows in its block's interleaved store, in shared or
+// device memory: row e at p[e stride], stride the block's instances.
+template <typename T>
+struct Rows {
+  T* p;
+  int stride;
+  __device__ __forceinline__ T& operator[](int64_t e) const {
+    return p[e * stride];
+  }
+  __device__ __forceinline__ Rows at(int64_t e0) const {
+    return Rows{p + e0 * stride, stride};
+  }
+};
+
+// One scalar from device to shared memory without a register: an
+// asynchronous copy, complete after __pipeline_wait_prior.
+template <typename T>
+__device__ __forceinline__ void cp_async(T* dst, const T* src) {
+  __pipeline_memcpy_async(dst, src, sizeof(T));
+}
+
+// Entry e of the packed lower triangle of stage n's (NX, NX) block of a
+// batch-last stream (the upper triangle is not read).
+template <int NX, typename T>
+__device__ __forceinline__ const T& tril_packed(const Col<const T>& L, int n,
+                                                int e) {
+  int i = 0;
+#pragma unroll
+  for (int q = 1; q < NX; ++q) i += e >= q * (q + 1) / 2 ? 1 : 0;
+  return L((static_cast<int64_t>(n) * NX + i) * NX + (e - i * (i + 1) / 2));
+}
+
+__host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
+
+
+// The geometry and the shared phases of the two re-solve kernels: NG the
+// general rows a stage (row 13; 0 for row 11), REFINE row 13 (the iterate's
+// z and pi updated) or row 11 (z and pi out).
+template <int NU, int NX, int NG, bool REFINE>
+struct ReSolve {
+  static constexpr int NZ = NU + NX;
+  static constexpr int NTX = NX * (NX + 1) / 2;
+  // lanes an instance: about three NZ rows a lane to NZ=12, two past it
+  static constexpr int TEAM = NZ <= 12 ? 4 : NZ <= 24 ? 8 : 16;
+  static constexpr int IPB = 32 / TEAM;  // instances a block, one team a warp
+  static constexpr int WARPS = 4;  // warps a block: the chain's and the workers'
+  static constexpr int THREADS = 32 * WARPS;
+  // the blocks an SM the launch bound asks registers for, by dtype
+  static constexpr int MIN_BLOCKS_F32 = 4;
+  static constexpr int MIN_BLOCKS_F64 = 2;
+  static constexpr int RING = 2;   // the chain's slots (copies ahead + 1)
+  using TM = Team<TEAM>;
+  static __host__ __device__ constexpr int chunks(int n) {
+    return team_chunks(n, TEAM);
+  }
+  // a slab's stride: TEAM more than a multiple of 32 scalars, so that the
+  // IPB teams of a warp sit on distinct shared-memory banks
+  static __host__ __device__ constexpr int pad(int n) {
+    return TEAM == 32 ? n : (n - TEAM + 31) / 32 * 32 + TEAM;
+  }
+
+  // The kept rows of stage k, in scalars from the stage's first.  Q: rq_k
+  // (row 11: g_k), then the stage's z out; PB: Pb_k, row 0 as its factors
+  // Lxx_00 (at PB) and t1_0 (at PB + NX), then x_k; RB: rb_k (row 11: b_k);
+  // DU: the reciprocal pivots 1 / max(Luu_ii, 1e-30) of Ll_k; EU, PX: the
+  // backward sweep's eu_k and px_k.
+  static constexpr int K_Q = 0;
+  static constexpr int K_PB = K_Q + NZ;
+  static constexpr int K_RB = K_PB + NX + 1;
+  static constexpr int K_DU = K_RB + NX;
+  static constexpr int K_EU = K_DU + NU;
+  static constexpr int K_PX = K_EU + NU;
+  static constexpr int KS = K_PX + NX;
+  // The chain's slab (warp 0's teams): RING slots of F (NZ rows of NX,
+  // stride FS = NX + 1: a lane's row reads and its column reads both miss
+  // each other's banks), Ll (NZ x NU), with REFINE the iterate's z of a
+  // forward stage, and the stage's kept rows; the px
+  // carry and x, each double-buffered (a step reads one buffer and writes
+  // the other, so one team barrier a step suffices).
+  static constexpr int FS = NX + 1;
+  static constexpr int S_F = 0;
+  static constexpr int S_LL = S_F + NZ * FS;
+  static constexpr int S_Z = S_LL + NZ * NU;
+  static constexpr int S_K = S_Z + (REFINE ? NZ : 0);  // the stage's kept rows
+  static constexpr int SLOT = S_K + KS;
+  static constexpr int C_PXC = RING * SLOT;
+  static constexpr int C_X = C_PXC + 2 * NX;
+  static constexpr int C_END = C_X + 2 * NX;
+  // The prologue / epilogue slab of a team: the right-hand side of Pb (b or
+  // rb), then the stage's z, pi and ng products (row 13's residuals), or
+  // the packed Lxx of Pb or pi with its t1.
+  static constexpr int P_B = 0;
+  static constexpr int P_Z = P_B + NX;
+  static constexpr int P_PI = P_Z + NZ;
+  static constexpr int P_QCZ = P_PI + NX;
+  static constexpr int P_LX = P_B + NX;
+  static constexpr int P_T1 = P_LX + NTX;
+  static constexpr int P_END = cmax(P_QCZ + NG, P_T1 + NX);
+  static constexpr int PSLAB = P_END;
+  static constexpr int CSLAB = pad(C_END);
+  // The kept rows live in device memory (the wrapper's `work`), IPB (N+1)
+  // KS scalars a block, interleaved over its instances; the chain reads
+  // each step's through its ring slot.  Shared memory for them measured
+  // slower at the flagship and at NZ=19 (f32: 59 KB a block, three blocks
+  // an SM, a small L1 for the prologue's loads; PERF.md section 6, PR 17).
+
+  // The launch geometry at horizon N: an instance's kept rows, the block's
+  // shared memory in scalars.
+  struct Geo {
+    int64_t rows, smem;
+  };
+
+  static Geo geo(int64_t N) {
+    Geo g;
+    g.rows = (N + 1) * KS;
+    g.smem = static_cast<int64_t>(IPB) * CSLAB +
+             static_cast<int64_t>(WARPS - 1) * IPB * PSLAB + WARPS;
+    return g;
+  }
+
+  // The block's progress words, the last WARPS scalars of its shared
+  // memory: done[j], the last stage worker j (warp j + 1) has kept in its
+  // prologue (N + 1: none yet; each worker keeps its stages in descending
+  // order), and fwd = done[WARPS - 1], the stages the chain has recovered.
+  template <typename T>
+  static __device__ __forceinline__ volatile int* progress(
+      const Geo& g, unsigned char* smem) {
+    return reinterpret_cast<volatile int*>(reinterpret_cast<T*>(smem) +
+                                           g.smem - WARPS);
+  }
+
+  // Wait (every lane of the warp) until ready() holds, then order the
+  // warp's later reads after the writes it announces.
+  template <typename F>
+  static __device__ __forceinline__ void wait_for(const F& ready) {
+    while (!ready()) __nanosleep(32);
+    __threadfence_block();
+  }
+
+  // Announce (lane 0, after the warp's barrier) that the warp's writes so
+  // far are done: word = v.
+  static __device__ __forceinline__ void announce(volatile int* word, int v) {
+    __syncwarp();
+    if ((threadIdx.x & 31) == 0) {
+      __threadfence_block();
+      *word = v;
+    }
+  }
+
+  // Where a lane sits: its team's lane r and warp w, its instance clamped
+  // into the batch for loads (bl; valid: not past it, the lanes that
+  // store), its slabs and its instance's kept rows.  A block's IPB instances are consecutive in the batch and each
+  // warp holds one team of each, so a team lane's row load of a batch-last
+  // stream and its neighbours' cover IPB neighbouring scalars.  Every team
+  // of a warp runs the same stages in the same order, so the team barrier
+  // is the warp's (a barrier on one team's lanes alone splits the warp).
+  template <typename T>
+  struct Lane {
+    int r, w;
+    bool valid;
+    int64_t bl;
+    T* chain;
+    T* pe;
+    Rows<T> kp;
+    __device__ __forceinline__ void tsync() const { __syncwarp(); }
+  };
+
+  template <typename T>
+  static __device__ __forceinline__ Lane<T> lane_of(const Geo& g, int64_t B,
+                                                    void* work,
+                                                    unsigned char* smem) {
+    Lane<T> ln;
+    const int tid = static_cast<int>(threadIdx.x);
+    const int lane = tid & 31, s = lane / TEAM;
+    ln.w = tid >> 5;
+    ln.r = lane % TEAM;
+    const int64_t bi = static_cast<int64_t>(blockIdx.x) * IPB + s;
+    ln.valid = bi < B;
+    ln.bl = ln.valid ? bi : B - 1;
+    T* const sm = reinterpret_cast<T*>(smem);
+    ln.chain = sm + s * CSLAB;  // warp 0's
+    ln.pe = sm + IPB * CSLAB + ((ln.w > 0 ? ln.w - 1 : 0) * IPB + s) * PSLAB;
+    ln.kp = Rows<T>{static_cast<T*>(work) +
+                        static_cast<int64_t>(blockIdx.x) * IPB * g.rows + s,
+                    IPB};
+    return ln;
+  }
+
+  // The carry-free rows every prologue keeps: the reciprocal pivots of
+  // Ll_k (hp::dinv_diag's), in the owners of their rows.
+  template <typename T>
+  static __device__ __forceinline__ void du_keep(const Lane<T>& ln, int k,
+                                                 const Col<const T>& Llc) {
+    const Rows<T> st = ln.kp.at(static_cast<int64_t>(k) * KS);
+    for (int i = ln.r; i < NU; i += TEAM)
+      st[K_DU + i] = T(1) / nmax(Llc((static_cast<int64_t>(k) * NZ + i) * NU +
+                                     i),
+                                 T(1e-30));
+  }
+
+  // Pb_k = Lxx_{k+1} (Lxx_{k+1}' v) (hp::pb_of) for v in the slab's B rows,
+  // into the kept PB rows of stage k: row 0 as its factors (one product,
+  // which the one-thread kernels fused into Pb_0 + px), the others as
+  // values.  It first copies Lxx_{k+1} over the slab's residual rows: the
+  // caller's team barrier must follow their last read and B's stores.
+  template <typename T>
+  static __device__ __forceinline__ void pb_keep(const Lane<T>& ln, int k,
+                                                 const Col<const T>& Lxxc) {
+    T* const sh = ln.pe;
+    const int r = ln.r;
+    TM::template copy<NTX>(r, sh + P_LX, [&](int e) {
+      return tril_packed<NX>(Lxxc, k + 1, e);
+    });
+    ln.tsync();
+    const T* Lx = sh + P_LX;
+    for (int i = r; i < NX; i += TEAM)
+      sh[P_T1 + i] = dot_chain<T>(i, NX - 1, [&](int q, T& a, T& b) {
+        a = Lx[sym_idx(q, i)];
+        b = sh[P_B + q];
+      });
+    ln.tsync();
+    const Rows<T> pb = ln.kp.at(static_cast<int64_t>(k) * KS + K_PB);
+    for (int i = r; i < NX; i += TEAM) {
+      if (i == 0) {
+        pb[0] = Lx[0];
+        pb[NX] = sh[P_T1];
+      } else {
+        pb[i] = dot_chain<T>(0, i, [&](int q, T& a, T& b) {
+          a = Lx[sym_idx(i, q)];
+          b = sh[P_T1 + q];
+        });
+      }
+    }
+  }
+
+  // The serial chain, warp 0: the backward substitution, stages N..0, on
+  // the kept rq_k, Pb_k and reciprocal pivots (m = rq + F (Pb + px_c), eu =
+  // Luu^{-1} m_u, px = m_x - Lxu eu), then the forward recovery, stages
+  // 0..N (x_0 from the root solve, u_s, the stage's z out, x_{s+1} = rb_s +
+  // F_s' [u_s; x_s]).  A step is one team barrier: every lane forms Pb + px
+  // and m's u rows itself, so eu needs no exchange, and the owners of the
+  // x rows form px (backward) or x_{s+1} (forward) into the other buffer.
+  // Each step's F and Ll (with REFINE a forward stage's z) and kept rows
+  // (after the stage's announcement) come through a ring of RING slots,
+  // copied asynchronously RING - 1 steps ahead.  The kept rows the chain writes (eu, px, x, z) go where they
+  // live, and the forward reads eu there (eu_0 is the step before's).
+  template <typename T>
+  static __device__ __forceinline__ void chain(const Lane<T>& ln, int N,
+                                               volatile int* prog,
+                                               const Col<const T>& Llc,
+                                               const Col<const T>& Fc,
+                                               const Col<const T>& Lxxc,
+                                               const Col<const T>& zc) {
+    T* const sh = ln.chain;
+    const int r = ln.r;
+    const int steps = 2 * N + 2;
+    // the prologue worker's announcement of step t's stage (backward)
+    auto wait_kept = [&](int t) {
+      if (t > N) return;
+      volatile int* const done = prog + t % (WARPS - 1);
+      wait_for([&] { return *done <= N - t; });
+    };
+    auto issue = [&](int t) {
+      T* const slot = sh + (t % RING) * SLOT;
+      const bool bwd = t <= N;
+      const int k = bwd ? N - t : t - N - 1;
+      {
+        // the stage's kept rows, after its worker's announcement
+        wait_kept(t);
+        const Rows<T> st = ln.kp.at(static_cast<int64_t>(k) * KS);
+#pragma unroll
+        for (int c = 0; c < chunks(KS); ++c) {
+          const int e = r + c * TEAM;
+          if (e < KS) cp_async(slot + S_K + e, &st[e]);
+        }
+      }
+      const int64_t l0 = static_cast<int64_t>(k) * NZ * NU;
+#pragma unroll
+      for (int c = 0; c < chunks(NZ * NU); ++c) {
+        const int e = r + c * TEAM;
+        if (e < NZ * NU) cp_async(slot + S_LL + e, &Llc(l0 + e));
+      }
+      if (k < N) {
+        const int64_t f0 = static_cast<int64_t>(k) * NZ * NX;
+#pragma unroll
+        for (int c = 0; c < chunks(NZ * NX); ++c) {
+          const int e = r + c * TEAM;
+          if (e < NZ * NX)
+            cp_async(slot + S_F + e / NX * FS + e % NX, &Fc(f0 + e));
+        }
+      }
+      if (REFINE && !bwd) {
+        const int64_t z0 = static_cast<int64_t>(k) * NZ;
+#pragma unroll
+        for (int c = 0; c < chunks(NZ); ++c) {
+          const int e = r + c * TEAM;
+          if (e < NZ) cp_async(slot + S_Z + e, &zc(z0 + e));
+        }
+      }
+    };
+    for (int t = 0; t < RING - 1; ++t) {
+      issue(t);
+      __pipeline_commit();
+    }
+    __pipeline_wait_prior(RING - 2);
+    ln.tsync();
+    for (int t = 0; t < steps; ++t) {
+      // the slot of step t - 1 is free: every lane passed its barrier
+      if (t + RING - 1 < steps) issue(t + RING - 1);
+      __pipeline_commit();
+      const T* const sF = sh + (t % RING) * SLOT + S_F;
+      const T* const sLl = sh + (t % RING) * SLOT + S_LL;
+      // the stage's kept rows: read from the slot (st), written where they
+      // live (sw)
+      const int stage = t <= N ? N - t : t - N - 1;
+      const Rows<T> sw = ln.kp.at(static_cast<int64_t>(stage) * KS);
+      const Rows<T> st{sh + (t % RING) * SLOT + S_K, 1};
+      if (t <= N) {
+        const int k = N - t;
+        const T* const pxc = sh + C_PXC + (t & 1) * NX;
+        T Du[NU], pbx[NX], eu[NU];
+#pragma unroll
+        for (int i = 0; i < NU; ++i) Du[i] = st[K_DU + i];
+        if (k < N) {
+          // Pb + px_c (hp::trs_stage's Pbpx); row 0 as the one-thread
+          // kernels rounded it: the product Pb_0 fused into the sum
+          pbx[0] = fma_rn(st[K_PB], st[K_PB + NX], pxc[0]);
+#pragma unroll
+          for (int q = 1; q < NX; ++q) pbx[q] = st[K_PB + q] + pxc[q];
+        }
+        // m = rq + F (Pb + px_c) (hp::trs_stage), its u rows in every lane,
+        // then eu = Luu^{-1} m_u (hp::tril_solve)
+#pragma unroll
+        for (int i = 0; i < NU; ++i) {
+          T acc = st[K_Q + i];
+          if (k < N) {
+#pragma unroll
+            for (int q = 0; q < NX; ++q) acc = acc + sF[i * FS + q] * pbx[q];
+          }
+#pragma unroll
+          for (int j = 0; j < i; ++j) acc = acc - sLl[i * NU + j] * eu[j];
+          eu[i] = acc * Du[i];
+        }
+        // m's x rows and px = m_x - Lxu eu in the owners (branch-free: a
+        // chunk past the last row works on the last and stores nothing)
+        T* const pxn = sh + C_PXC + ((t + 1) & 1) * NX;
+#pragma unroll
+        for (int c = 0; c < chunks(NX); ++c) {
+          const int i0 = r + c * TEAM, i = i0 < NX ? i0 : NX - 1;
+          T acc = st[K_Q + NU + i];
+          if (k < N) {
+#pragma unroll
+            for (int q = 0; q < NX; ++q)
+              acc = acc + sF[(NU + i) * FS + q] * pbx[q];
+          }
+#pragma unroll
+          for (int q = 0; q < NU; ++q)
+            acc = acc - sLl[(NU + i) * NU + q] * eu[q];
+          if (i0 < NX) {
+            pxn[i] = acc;
+            sw[K_PX + i] = acc;
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < NU; ++j)
+          if (j % TEAM == r) sw[K_EU + j] = eu[j];
+      } else {
+        const int s = t - N - 1;
+        const T* const zs = sh + (t % RING) * SLOT + S_Z;
+        T* const xc = sh + C_X + (s & 1) * NX;
+        if (s == 0) {
+          // the carry buffer of the last backward step holds px_0
+          root_x0<TEAM, T, NX>(
+              r,
+              [&](int i, int j) {
+                return Lxxc(static_cast<int64_t>(i) * NX + j);
+              },
+              sh + C_PXC + ((N + 1) & 1) * NX, xc);
+          ln.tsync();
+        }
+        T x[NX], Du[NU], eu[NU], u[NU];
+#pragma unroll
+        for (int j = 0; j < NX; ++j) x[j] = xc[j];
+#pragma unroll
+        for (int i = 0; i < NU; ++i) {
+          Du[i] = st[K_DU + i];
+          // eu_0 is the last backward step's: read where it was written
+          eu[i] = sw[K_EU + i];
+        }
+        u_of_x<T, NU, NX>(sLl, Du, eu, x, u);
+#pragma unroll
+        for (int i = 0; i < NU; ++i)
+          if (i % TEAM == r) sw[K_Q + i] = REFINE ? zs[i] + u[i] : u[i];
+        T* const xn = sh + C_X + ((s + 1) & 1) * NX;
+#pragma unroll
+        for (int c = 0; c < chunks(NX); ++c) {
+          const int j0 = r + c * TEAM, j = j0 < NX ? j0 : NX - 1;
+          const T xj = xc[j];
+          T acc = T(0);
+          if (s < N) {
+            // x_{s+1} = rb_s + F_s' [u; x] (hp::x_next_of)
+            acc = st[K_RB + j];
+#pragma unroll
+            for (int i = 0; i < NU; ++i) acc = acc + sF[i * FS + j] * u[i];
+#pragma unroll
+            for (int i = 0; i < NX; ++i)
+              acc = acc + sF[(NU + i) * FS + j] * x[i];
+          }
+          if (j0 < NX) {
+            sw[K_PB + j] = xj;
+            sw[K_Q + NU + j] = REFINE ? zs[NU + j] + xj : xj;
+            if (s < N) xn[j] = acc;
+          }
+        }
+      }
+      // the slot of step t + 1 has landed, and every lane's carry rows
+      __pipeline_wait_prior(RING - 2);
+      ln.tsync();
+      if (t > N) announce(prog + WARPS - 1, t - N);
+    }
+  }
+
+  // The epilogue of stage s: the stage's z out, pi_{s-1} = Lxx_s (Lxx_s'
+  // x_s) + px_s (hp::pi_of_x; REFINE: the iterate's pi + it) out.
+  template <typename T>
+  static __device__ __forceinline__ void epilogue(const Lane<T>& ln, int s,
+                                                  const Col<const T>& Lxxc,
+                                                  const Col<const T>& pic,
+                                                  const Col<T>& zo,
+                                                  const Col<T>& pio) {
+    T* const sh = ln.pe;
+    const int r = ln.r;
+    const Rows<T> st = ln.kp.at(static_cast<int64_t>(s) * KS);
+    ln.tsync();  // the team's last stage is done with the slab
+    if (ln.valid)
+      for (int i = r; i < NZ; i += TEAM)
+        zo(static_cast<int64_t>(s) * NZ + i) = st[K_Q + i];
+    if (s == 0) return;
+    TM::template copy<NTX>(
+        r, sh + P_LX, [&](int e) { return tril_packed<NX>(Lxxc, s, e); });
+    ln.tsync();
+    pi_t1<TEAM, T, NX>(r, sh + P_LX, st.at(K_PB), sh + P_T1);
+    ln.tsync();
+    pi_rows<TEAM, T, NX>(r, sh + P_LX, st.at(K_PX), sh + P_T1,
+                         [&](int i, T v) {
+                           const int64_t e = static_cast<int64_t>(s - 1) * NX +
+                                             i;
+                           if (ln.valid) pio(e) = REFINE ? pic(e) + v : v;
+                         });
+  }
+
+  // A block's run, its three phases overlapped: warp 0 runs the chain;
+  // warps 1.. (the workers) keep the prologue's rows of their stages,
+  // worker j the stages N - j, N - j - (WARPS - 1), ... in that order,
+  // announcing each, then run the epilogue of the stages j, j + (WARPS -
+  // 1), ..., each once the chain has announced it.  The chain waits for a
+  // stage's announcement before it reads the stage's kept rows, so it
+  // starts as the first stages are kept, and the epilogue trails it.
+  // prologue(k) keeps stage k's rq, rb (or b), Pb and pivots; it begins
+  // with a team barrier.
+  template <typename T, typename Pro>
+  static __device__ __forceinline__ void run(
+      const Lane<T>& ln, volatile int* prog, int N, const Pro& prologue,
+      const Col<const T>& Llc, const Col<const T>& Fc,
+      const Col<const T>& Lxxc, const Col<const T>& zc,
+      const Col<const T>& pic, const Col<T>& zo, const Col<T>& pio) {
+    constexpr int NW = WARPS - 1;
+    if (threadIdx.x == 0) {
+      for (int j = 0; j < NW; ++j) prog[j] = N + 1;
+      prog[NW] = 0;
+    }
+    __syncthreads();
+    if (ln.w == 0) {
+      chain(ln, N, prog, Llc, Fc, Lxxc, zc);
+      return;
+    }
+    const int j = ln.w - 1;
+    for (int i = j; i <= N; i += NW) {
+      prologue(N - i);
+      announce(prog + j, N - i);
+    }
+    for (int s = j; s <= N; s += NW) {
+      wait_for([&] { return prog[NW] > s; });
+      epilogue(ln, s, Lxxc, pic, zo, pio);
+    }
   }
 };
 

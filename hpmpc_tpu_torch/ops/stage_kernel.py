@@ -71,6 +71,7 @@ kernels.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -106,6 +107,45 @@ def engine_fits(NX: int, NU: int) -> bool:
     (the twin of JAX's ``stage_kernel.engine_fits``, whose bound is the
     TPU's VMEM; here the card's measured envelope)."""
     return NX + NU <= ENGINE_MAX_NZ
+
+
+#: the keys of :func:`resolve_layout`
+LAYOUT_KEYS = ("team", "instances", "threads", "work_block", "smem_block")
+#: the re-solve kernels' library and layout entry, by wrapper
+_RESOLVE_LIBS = {"solve_flat_pb": ("solve_flat", "solve_flat_pb_layout"),
+                 "refine_flat_fused": ("refine_flat", "refine_flat_layout")}
+
+
+@functools.lru_cache(maxsize=None)
+def _layout(name, N, dt, dims) -> tuple:
+    lib, entry = _RESOLVE_LIBS[name]
+    fn = getattr(_build.load(lib, **dict(dims)), f"hp_{entry}")
+    fn.argtypes = [ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = None
+    out = (ctypes.c_int64 * len(LAYOUT_KEYS))()
+    fn(N, _build.dtype_code(dt), ctypes.addressof(out))
+    return tuple(out)
+
+
+def resolve_layout(name, N, dt, **dims) -> dict:
+    """The launch layout of the refinement re-solve kernels, row 11
+    (``name`` ``"solve_flat_pb"``, ``dims`` NU and NX) or row 13
+    (``"refine_flat_fused"``, NU, NX and the library's NG), at horizon
+    ``N`` in dtype ``dt``: lanes a team, instances and threads a block, a
+    block's device memory for the kept rows (scalars) and its shared
+    memory (bytes) (``hp_<kernel>_layout``; the library is built on first
+    use)."""
+    return dict(zip(LAYOUT_KEYS, _layout(name, int(N), dt,
+                                         tuple(sorted(dims.items())))))
+
+
+def _resolve_work(name, N, x, B, **dims):
+    """Device memory for a re-solve kernel's kept rows (one slab a block of
+    instances)."""
+    lay = resolve_layout(name, N, x.dtype, **dims)
+    blocks = -(-B // lay["instances"])
+    return torch.empty(blocks * lay["work_block"], dtype=x.dtype,
+                       device=x.device)
 
 
 class _FactorArgs(ctypes.Structure):
@@ -349,8 +389,9 @@ def solve_flat(Ll, Lxx, Pb, g, F, b, *, NU, NZ, NX):
 
 def _launch_solve_flat(name, Ll, Lxx, Pb, g, F, b, *, NU, NZ, NX):
     """Check and launch one form of ``csrc/solve_flat.cu``: the cached-Pb
-    one, the Pb form (``Pb`` None) or (``name`` ending in ``_fused``) the
-    cached-Pb one with the eu/px slab in shared memory."""
+    one, the Pb form (``Pb`` None: the team kernel, its kept rows in
+    device memory) or (``name`` ending in ``_fused``) the cached-Pb one
+    with the eu/px slab in shared memory."""
     fused = name.endswith("_fused")
     Np1, B = g.shape[0], g.shape[-1]
     N = Np1 - 1
@@ -362,7 +403,10 @@ def _launch_solve_flat(name, Ll, Lxx, Pb, g, F, b, *, NU, NZ, NX):
         _slab_fits(name, g.device, g.dtype, Np1, NU, NX)
     new = lambda *s: torch.empty(*s, dtype=g.dtype, device=g.device)  # noqa: E731
     z, pi = new(Np1, NZ, B), new(N, NX, B)
-    work = None if fused else new(Np1 * (NU + NX), B)
+    if Pb is None:
+        work = _resolve_work(name, N, g, B, NU=NU, NX=NX)
+    else:
+        work = None if fused else new(Np1 * (NU + NX), B)
     a = _SolveArgs(*[_build.ptr(x) for x in (Ll, Lxx, Pb, g, F, b, z, pi,
                                              work)], B, N)
     _build.launch("solve_flat", name, a, g.device, g.dtype, NU=NU, NX=NX)
@@ -428,7 +472,8 @@ def refine_flat_fused(H, dvec, C, qxg, ng_stage_ids, g, F, b, z, pi, Ll, Lxx,
     for the residual ``rb``.
 
     CPU tensors run :func:`refine_flat_fused_ref`; CUDA tensors launch
-    ``csrc/refine_flat.cu`` (no sync)."""
+    ``csrc/refine_flat.cu`` (no sync): a team of lanes an instance, the
+    layout :func:`resolve_layout`."""
     name = "refine_flat_fused"
     if z.device.type == "cpu":
         PLAIN_CALLS[name] += 1
@@ -447,7 +492,7 @@ def refine_flat_fused(H, dvec, C, qxg, ng_stage_ids, g, F, b, z, pi, Ll, Lxx,
     _cuda_check(name, z, ng_stage_ids, named, shapes)
     new = lambda *s: torch.empty(*s, dtype=z.dtype, device=z.device)  # noqa: E731
     z_new, pi_new = new(Np1, NZ, B), new(N, NX, B)
-    work = new(Np1 * (NU + 2 * NX), B)
+    work = _resolve_work(name, N, z, B, NU=NU, NX=NX, NG=max(NG, 1))
     ptrs = (H, dvec, C, qxg, _build.int_table(ng_stage_ids, z.device), g, F, b,
             z, pi, Ll, Lxx, z_new, pi_new, work)
     a = _RefineArgs(*[_build.ptr(x) for x in ptrs], B, N, n_ng)
@@ -517,13 +562,37 @@ def solve_flat_pb(Ll, Lxx, g, F, b, *, NU, NZ, NX):
     Returns ``(z, pi)``.
 
     CPU tensors run :func:`solve_flat_pb_ref`; CUDA tensors launch the Pb
-    form of ``csrc/solve_flat.cu`` (no sync)."""
+    form of ``csrc/solve_flat.cu`` (no sync): a team of lanes an instance,
+    the layout :func:`resolve_layout`."""
     name = "solve_flat_pb"
     if g.device.type == "cpu":
         PLAIN_CALLS[name] += 1
         return solve_flat_pb_ref(Ll, Lxx, g, F, b, NU=NU, NZ=NZ, NX=NX)
     return _launch_solve_flat(name, Ll, Lxx, None, g, F, b, NU=NU, NZ=NZ,
                               NX=NX)
+
+
+def refine_flat_unfused(H, dvec, C, qxg, ng_stage_ids, g, F, b, z, pi, Ll,
+                        Lxx, *, NU, NZ, NX):
+    """The unfused refinement pass on :func:`refine_flat_fused`'s inputs,
+    with its outputs ``(z_new, pi_new)``: the stage products
+    (:func:`resid_terms_flat`), the residuals assembled elementwise in the
+    fused pass's order as the lanes engine's flat form assembles them (g +
+    dvec z as one multiply-add, + H z, + F pi, - the pi shift, + the ng
+    slots), the re-solve :func:`solve_flat_pb` and the update.  The same
+    function as the fused pass, summed in another order: the
+    fused-vs-unfused check holds one against the other."""
+    N = F.shape[0]
+    hz, fz, fpi = resid_terms_flat(H, F, z, pi, NZ=NZ, NX=NX)
+    rq = torch.addcmul(g, dvec, z) + hz
+    rq[:N] += fpi[:N]
+    rq[1:, NU:] -= pi
+    for j, n in enumerate(ng_stage_ids):
+        cz = torch.einsum("gzb,zb->gb", C[j], z[n])
+        rq[n] += torch.einsum("gb,gzb->zb", qxg[j] * cz, C[j])
+    rb = b + fz[:N] - z[1:, NU:]
+    dz, dpi = solve_flat_pb(Ll, Lxx, rq, F, rb, NU=NU, NZ=NZ, NX=NX)
+    return z + dz, pi + dpi
 
 
 # ---------------------------------------------------------------------------

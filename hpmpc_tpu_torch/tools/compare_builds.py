@@ -88,6 +88,29 @@ It reports:
     call of each (device busy ms, idle share, rows 26 and 27's summed ms
     and launches).
 
+  * the refinement re-solve kernels (``solve_flat_pb``,
+    ``refine_flat_fused``, Queue 2 rows 11 and 13) on this checkout's
+    inputs of the first and the last call of each phase: row 13 in
+    bench.py's parity route (float32) and in the float64 lanes engine with
+    the same refinement (``IPMConfig(k_max=30, iter_ref=1,
+    iter_ref_mu_thr=1e-3, use_pallas=True)``), row 11 in route D (float32,
+    ``IPMConfig(k_max=8, mu_tol=0, alpha_min=1e-8, iter_ref=1,
+    use_pallas=True)``: the ``"flat"`` engine) and route E (float64,
+    ``IPMConfig(iter_ref=1, use_pallas=True)``), on the flagship, the
+    flagship without its ngN=8 block and the NZ=19 shape (nx=16, no ng
+    block); a phase a route does not reach is taken from the lanes engine
+    run in it alone (``mu_switch=1e9``, two iterations).  Handed to both
+    builds' wrappers: equal bit for bit (else the largest difference and
+    the first output and stage apart), each build's ms a call in turns
+    (the first phase-1 call; flagship and NZ=19, float32 and float64), both
+    builds' ptxas lines and this build's launch layout; the fused pass
+    against the unfused one (``stage_kernel.refine_flat_unfused``) on the
+    float64 flagship's first row-13 inputs, as captured and with the
+    iterate moved by 0.1 N(0,1); then the parity route and route D of both
+    checkouts in float32: the solution equal bit for bit or not, ms a batch
+    in turns, one profiled call of each (device busy ms, idle share, rows
+    11 and 13's summed ms and launches).
+
 Imports no JAX.  ``--other`` is a directory holding the other checkout's
 ``hpmpc_tpu_torch/`` (for the parent commit: ``git archive HEAD~1
 hpmpc_tpu_torch | tar -x -C <dir>``, into a git-ignored directory).
@@ -101,11 +124,13 @@ Runs on the card unless asked for the CPU (plain versions; keep
         --sections mega                   # rows 19 and 20 and their routes
     python3 -m hpmpc_tpu_torch.tools.compare_builds --other _archive/parent \\
         --sections tree                   # rows 26 and 27 and their route
+    python3 -m hpmpc_tpu_torch.tools.compare_builds --other _archive/parent \\
+        --sections refine                 # rows 11 and 13 and their routes
     python3 -m hpmpc_tpu_torch.tools.compare_builds --other DIR \\
         --device cpu --batch 16 --band-batch 8
 
 ``--sections`` picks any of ``resident``, ``routes``, ``mega``, ``parity``,
-``flat``, ``band``, ``tree`` (default: all). The resident section also
+``flat``, ``band``, ``tree``, ``refine`` (default: all). The resident section also
 runs rows 1 and 1s at the NZ=19 shape (nx=16, nu=3; float32: the hard
 problem with ngN=8 and the soft one, N=30), bits and ms.
 
@@ -119,6 +144,7 @@ import contextlib
 import dataclasses
 import importlib
 import importlib.util
+import itertools
 import json
 import os
 import pathlib
@@ -139,6 +165,12 @@ TREE = ("tree_factor_solve_flat", "tree_solve_flat")
 #: the trees, (md, Nr, Nh): 31, 71 (the reference's tree benchmark) and 255
 #: nodes, as chip_smoke.py's section T
 TREE_TOPOS = ((2, 2, 8), (2, 3, 10), (2, 7, 7))
+#: rows 11 and 13, the refinement re-solve kernels
+REFINE = ("solve_flat_pb", "refine_flat_fused")
+#: row 11's and row 13's kernels as the profiler names them, both builds
+REFINE_PROFILE = {"row 11": r"solve_flat_kernel<\w+, true>|"
+                            r"\bsolve_flat_pb_kernel\b",
+                  "row 13": r"\brefine_flat_kernel\b"}
 
 
 def _load_other(root: pathlib.Path):
@@ -161,7 +193,8 @@ def _mods(name: str):
                 rk=m("ops.resident_kernel"), res=m("models.ipm_resident"),
                 sres=m("models.ipm_soft_resident"), ocp=m("ocp"),
                 bc=m("ops.batch_chol"), mk=m("ops.mega_kernel"),
-                tree=m("models.tree"), tk=m("ops.tree_kernel"))
+                tree=m("models.tree"), tk=m("ops.tree_kernel"),
+                stk=m("ops.step_kernel"))
 
 
 def _clone(x):
@@ -194,7 +227,8 @@ def _diff(a, b):
     return a == b, 0.0
 
 
-SECTIONS = ("resident", "routes", "mega", "parity", "flat", "band", "tree")
+SECTIONS = ("resident", "routes", "mega", "parity", "flat", "band", "tree",
+            "refine")
 #: the state width of rows 1 and 1s's second shape: NZ = 19 (nu = 3), the
 #: largest inside stage_kernel.engine_fits
 NX19 = 16
@@ -288,6 +322,17 @@ def main() -> int:
                       ("ipm_resident", dict(NU=d19s.NU, NX=d19s.NX,
                                             NB=d19s.NB, NG=d19s.NG,
                                             NS=soft19.ns_mask.shape[-1]))]
+        if "refine" in sections:
+            # the NZ=19 shape's flat engine and two-stage route (nx=16)
+            d19, _ = flagship(trees["this"], torch.float32, nx=NX19, ngN=0)
+            e19 = dict(NU=d19.NU, NX=d19.NX)
+            specs += [("step_flat", dict(NZ=d19.NZ, NB=d19.NB)),
+                      ("factor_solve_flat", e19), ("solve_flat", e19),
+                      ("refine_flat", dict(e19, NG=1)),
+                      ("resid_terms_flat", e19),
+                      ("resid_full", dict(e19, NB=d19.NB)),
+                      ("ipm_resident", dict(e19, NB=d19.NB, NG=d19.NG)),
+                      ("refine_flat", dict(d2, NG=1))]
         if "tree" in sections:
             # nx=4 nu=2: NZ=6, two input boxes
             specs += [("tree_sweeps", dict(NU=2, NX=4)),
@@ -329,6 +374,8 @@ def main() -> int:
         out["band"] = _band(trees, dev, band_B)
     if "tree" in sections:
         out["tree"] = _tree(trees, dev, B)
+    if "refine" in sections:
+        out["refine"] = _refine(trees, dev, flagship)
     print(json.dumps(out), flush=True)
     return 0
 
@@ -1073,6 +1120,174 @@ def _tree(trees, dev, B):
               f"{p['kern_ms']:.3f} ms in {p['kern_n']:.0f}, row 27 "
               f"{p['parts']['row 27'][0]:.3f} ms in "
               f"{p['parts']['row 27'][1]:.0f}", flush=True)
+    return out
+
+
+def _refine_inputs(m, dims, qpb, cfg, run, flat):
+    """The first and the last call of each phase of rows 11 and 13 in
+    ``run(dims, qpb, cfg)`` on the checkout ``m``: {(name, phase, "first" /
+    "last"): (args, kwargs)}, the phase from the lanes engine's prep pass;
+    a phase the run does not reach is taken from the lanes engine (its
+    flat form with ``flat``) run in it alone (``mu_switch=1e9``, two
+    iterations)."""
+    sk, stk = m["sk"], m["stk"]
+    calls, phase = {}, [1]
+    saved = [(sk, k, getattr(sk, k)) for k in REFINE] + [
+        (stk, "prep_flat", stk.prep_flat)]
+
+    def spy(name, fn):
+        def call(*a, **k):
+            if name == "prep_flat":
+                phase[0] = 2 if k.get("phase2") else 1
+            else:
+                calls.setdefault((name, phase[0], "first"), (_clone(a),
+                                                              dict(k)))
+                calls[(name, phase[0], "last")] = (_clone(a), dict(k))
+            return fn(*a, **k)
+        return call
+
+    for mod, k, fn in saved:
+        setattr(mod, k, spy(k, fn))
+    try:
+        run(dims, qpb, cfg)
+        if not any(ph == 2 for _, ph, _ in calls):
+            m["lanes"].solve_batched_lanes(
+                dims, qpb, dataclasses.replace(cfg, k_max=2, mu_switch=1e9),
+                flat=flat)
+    finally:
+        for mod, k, fn in saved:
+            setattr(mod, k, fn)
+    return calls
+
+
+def _refine(trees, dev, flagship):
+    """Rows 11 and 13: both builds on this checkout's inputs of their
+    routes, bits, ms in turns, ptxas, the launch layout and the
+    fused-vs-unfused check; the parity route and route D of both
+    checkouts: bits, ms a batch in turns, one profile each."""
+    import torch
+
+    this = trees["this"]
+    IPMConfig = this["ipm"].IPMConfig
+    out = {"bitwise_equal": {}, "max_abs_diff": {}, "ms": {}, "layout": {}}
+    cfg_par = IPMConfig(k_max=8, mu_tol=0.0, alpha_min=1e-8, iter_ref=1,
+                        iter_ref_mu_thr=1e-3, use_pallas=True)
+    cfg_ref64 = IPMConfig(k_max=30, iter_ref=1, iter_ref_mu_thr=1e-3,
+                          use_pallas=True)
+    cfg_d = IPMConfig(k_max=8, mu_tol=0.0, alpha_min=1e-8, iter_ref=1,
+                      use_pallas=True)
+    cfg_e = IPMConfig(iter_ref=1, use_pallas=True)
+    solve = this["batch"].solve_batched
+    lanes = this["lanes"].solve_batched_lanes
+    runs = (("refine_flat_fused", torch.float32, cfg_par, solve, False),
+            ("refine_flat_fused", torch.float64, cfg_ref64, lanes, False),
+            ("solve_flat_pb", torch.float32, cfg_d, solve, True),
+            ("solve_flat_pb", torch.float64, cfg_e, solve, True))
+    problems = (("flagship", {}), ("box-only", dict(ngN=0)),
+                ("NZ=19", dict(nx=NX19, ngN=0)))
+    fused_inputs = None
+    for (what, kw), (row, dt, cfg, run, flat) in itertools.product(
+            problems, runs):
+        dn = str(dt).split(".")[-1]
+        dims, qpb = flagship(this, dt, **kw)
+        calls = _refine_inputs(this, dims, qpb, cfg, run, flat)
+        for (name, ph, when), (a, k) in sorted(calls.items()):
+            if name != row:
+                continue
+            if (name, what, dn, ph, when) == (
+                    "refine_flat_fused", "flagship", "float64", 1, "first"):
+                fused_inputs = (a, k)
+            key = f"{name} {what} {dn} phase {ph} {when} call"
+            got = [getattr(m["sk"], name)(*_clone(a), **k)
+                   for m in trees.values()]
+            same, d = _diff(*got)
+            out["bitwise_equal"][key] = same
+            out["max_abs_diff"][key] = d
+            line = (f"{key}, this vs other build on the same inputs: "
+                    f"bitwise equal {same} (max |diff| {d:.3e})")
+            if not same:
+                line += f"; first apart: {_first_apart(*got)}"
+            if (dev.type == "cuda" and what != "box-only" and ph == 1
+                    and when == "first"):
+                fns = {lbl: (lambda m=m: getattr(m["sk"], name)(*a, **k))
+                       for lbl, m in trees.items()}
+                ms = _turns(torch, fns, reps=20)
+                out["ms"][key] = ms
+                line += "; ms a call (other, this, this, other): " + (
+                    ", ".join(f"{v:.4f}" for v in (ms["other"][0],
+                                                   *ms["this"],
+                                                   ms["other"][1])))
+            print(line, flush=True)
+        if dev.type == "cuda" and what != "box-only":
+            dims_ = dict(NU=dims.NU, NX=dims.NX)
+            if row == "refine_flat_fused":
+                dims_["NG"] = max(dims.NG, 1)
+            lay = this["sk"].resolve_layout(row, dims.N, dt, **dims_)
+            out["layout"][f"{row} {what} {dn}"] = lay
+            print(f"{row} {what} {dn}: this build's layout {lay}",
+                  flush=True)
+    # the fused pass against the unfused one, float64, the kernels
+    sk = this["sk"]
+    a, k = fused_inputs
+    out["fused_vs_unfused"] = {}
+    for moved in (False, True):
+        a_ = list(_clone(a))
+        if moved:
+            gen = torch.Generator().manual_seed(1)
+            for i in (8, 9):
+                a_[i] = a_[i] + 0.1 * torch.randn(
+                    a_[i].shape, generator=gen, dtype=a_[i].dtype).to(dev)
+        f = sk.refine_flat_fused(*a_, **k)
+        u = sk.refine_flat_unfused(*a_, **k)
+        rel = [float((x - y).abs().max()) / max(1.0, float(y.abs().max()))
+               for x, y in zip(f, u)]
+        key = "moved" if moved else "as captured"
+        out["fused_vs_unfused"][key] = rel
+        print(f"fused vs unfused refinement pass, flagship float64 first "
+              f"call {key}: max |diff| / scale z {rel[0]:.3e}, pi "
+              f"{rel[1]:.3e}", flush=True)
+    if dev.type != "cuda":
+        return out
+    out["ptxas"] = {lbl: _ptxas(m, "", "refine_flat")
+                    + [x for x in _ptxas(m, "", "solve_flat")
+                       if "pb" in x or "Lb1E" in x]
+                    for lbl, m in trees.items()}
+    for lbl, lines in out["ptxas"].items():
+        for line in lines:
+            print(f"ptxas {lbl}: {line}", flush=True)
+    # the routes: the parity line and route D, float32
+    out["route_bitwise_equal"], out["route_ms"] = {}, {}
+    out["route_profile"] = {}
+    for key, cfg in (("parity f32", cfg_par), ("route D f32", cfg_d)):
+        sols, fns = {}, {}
+        for lbl, m in trees.items():
+            d, q = flagship(m, torch.float32)
+            c = dataclasses.replace(cfg)
+            fn = m["batch"].solve_batched
+            sols[lbl] = fn(d, q, c)
+            fns[lbl] = (lambda fn=fn, d=d, q=q, c=c: fn(d, q, c))
+        t, o = sols["this"], sols["other"]
+        fields = {f: _diff(getattr(t, f), getattr(o, f))[0]
+                  for f in t._fields}
+        out["route_bitwise_equal"][key] = all(fields.values())
+        print(f"{key} route, this vs other: bitwise equal per field "
+              f"{fields}", flush=True)
+        ms = _turns(torch, fns, reps=3)
+        out["route_ms"][key] = ms
+        print(f"{key} ms a batch (other, this, this, other): " + ", ".join(
+            f"{v:.3f}" for v in (ms["other"][0], *ms["this"],
+                                 ms["other"][1])), flush=True)
+        prof = {lbl: _profile(torch, fn, REFINE_PROFILE["row 13"],
+                              parts={"row 11": REFINE_PROFILE["row 11"]})
+                for lbl, fn in fns.items()}
+        out["route_profile"][key] = prof
+        for lbl in ("other", "this"):
+            p = prof[lbl]
+            print(f"{key} profile, {lbl}: wall {p['wall']:.3f} ms, device "
+                  f"busy {p['busy']:.3f} ms (idle share {p['idle']:.1%}), "
+                  f"row 13 {p['kern_ms']:.3f} ms in {p['kern_n']:.0f}, row "
+                  f"11 {p['parts']['row 11'][0]:.3f} ms in "
+                  f"{p['parts']['row 11'][1]:.0f}", flush=True)
     return out
 
 

@@ -280,15 +280,20 @@ def _launches(mod, name):
     return sum(n) if isinstance(n, list) else n
 
 
+# Row 13 runs a team of lanes an instance, several instances a block (8 at
+# NZ=11, 4 at NZ=19): B=1 and B=33 leave blocks part empty; nx=16 is the
+# NZ=19 shape.
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("ngN", [0, 4])
 @pytest.mark.parametrize("phase2", [False, True])
-def test_six_kernels_match_plain(cuda, monkeypatch, dtype, ngN, phase2):
+@pytest.mark.parametrize("nx,B", [(8, 37), (16, 37), (8, 1), (16, 33)])
+def test_six_kernels_match_plain(cuda, monkeypatch, dtype, ngN, phase2, nx,
+                                 B):
     """Each kernel of the 6-kernel loop (rows 3-5, 9, 10 and 13) on the
     arguments of the engine's first call of it in one iteration with
-    ungated refinement (phase 2 alone with mu_switch=1e9), B=37; one call,
-    so the tolerance of the mega kernels' check."""
-    dims, qpb = _batch(cuda, dtype, 4, ngN, 37)
+    ungated refinement (phase 2 alone with mu_switch=1e9); one call, so the
+    tolerance of the mega kernels' check."""
+    dims, qpb = _batch(cuda, dtype, 4, ngN, B, nx=nx)
     kw = dict(mu_switch=1e9) if phase2 else {}
     calls = _capture(monkeypatch, dims, qpb,
                      IPMConfig(k_max=1, iter_ref=1, use_pallas=True, **kw),
@@ -768,13 +773,16 @@ _UNFUSED = [(sk, "resid_terms_flat"), (sk, "solve_flat_pb")]
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("ngN", [0, 4])
 @pytest.mark.parametrize("phase2", [False, True])
+@pytest.mark.parametrize("nx,B", [(8, 37), (16, 37), (8, 1), (16, 33)])
 def test_unfused_refine_kernels_match_plain(cuda, monkeypatch, dtype, ngN,
-                                            phase2):
+                                            phase2, nx, B):
     """Rows 12 and 11 (the unfused refinement pass) on the arguments of the
     flat form's first refinement of one phase (phase 2 alone with
-    mu_switch=1e9), B=37 so the last warp and block are ragged; one call
-    each, so the tolerance of the mega kernels' check."""
-    dims, qpb = _batch(cuda, dtype, 4, ngN, 37)
+    mu_switch=1e9); B=37 and 33 leave the last warp and block ragged, B=1
+    one instance in a block (row 11 runs 8 instances a block at NZ=11, 4
+    at NZ=19, the nx=16 shape); one call each, so the tolerance of the mega
+    kernels' check."""
+    dims, qpb = _batch(cuda, dtype, 4, ngN, B, nx=nx)
     kw = dict(mu_switch=1e9) if phase2 else {}
     calls = _capture(monkeypatch, dims, qpb,
                      IPMConfig(k_max=1, iter_ref=1, use_pallas=True, **kw),
@@ -794,6 +802,72 @@ def test_unfused_refine_kernels_match_plain(cuda, monkeypatch, dtype, ngN,
             scale = max(1.0, float(y.abs().max()))
             assert float((x - y).abs().max()) <= _MEGA_TOL[dtype] * scale, (
                 name, i)
+
+
+def test_resolve_kernels_long_horizon(cuda, monkeypatch):
+    """Rows 11 and 13 at a long horizon (N=100: 202 chain steps, 34 stages
+    a worker, 253 KB of kept rows a block in device memory) against their
+    plain versions on the first refinement of a float64 run, the ngN=4
+    block, B=9 (two blocks, the second ragged)."""
+    dims, qpb = _batch(cuda, torch.float64, 100, 4, 9)
+    for name, dims_ in (("solve_flat_pb", dict(NU=3, NX=8)),
+                        ("refine_flat_fused", dict(NU=3, NX=8, NG=4))):
+        lay = sk.resolve_layout(name, 100, torch.float64, **dims_)
+        assert lay["work_block"] == lay["instances"] * 101 * 42, (name, lay)
+    for flat in (True, False):
+        targets = _UNFUSED[1:] if flat else [(sk, "refine_flat_fused")]
+        calls = _capture(monkeypatch, dims, qpb,
+                         IPMConfig(k_max=1, iter_ref=1, use_pallas=True),
+                         targets, flat=flat)
+        assert len(calls) == 1, sorted(calls)
+        ((name, _, _), (a, k)), = calls.items()
+        out_k = getattr(sk, name)(*a, **k)
+        out_p = getattr(sk, name + "_ref")(*a, **k)
+        for i, (x, y) in enumerate(zip(out_k, out_p)):
+            assert bool(torch.isfinite(x).all()), (name, i)
+            scale = max(1.0, float(y.abs().max()))
+            assert float((x - y).abs().max()) <= (
+                _MEGA_TOL[torch.float64] * scale), (name, i)
+
+
+@pytest.mark.parametrize("moved", [False, True])
+def test_fused_refine_matches_unfused_on_card(cuda, monkeypatch, moved):
+    """ROADMAP Queue 3's check: one fused pass (row 13) against one
+    unfused pass (rows 12 + the elementwise assembly + row 11, ``stage_
+    kernel.refine_flat_unfused``) on the same captured inputs, the
+    kernels on the card: the flagship shape (N=30, the ngN=8 block), B=37,
+    float64, the first refinement of a lanes run.  As captured the
+    correction is ~1e-15 of the iterate; ``moved`` adds 0.1 N(0,1) to z
+    and pi, so the correction is of the iterate's order and the check
+    holds the two re-solves, whose pi the terminal block's conditioning
+    moves more (the plain versions on these inputs: 1.6e-16 as captured,
+    1.6e-11 moved, of pi's scale).  Tolerance 1e-12 (as captured) and 1e-9
+    (moved) of each output's scale (the card's measure: PERF.md section
+    6, PR 17)."""
+    dims, qpb = _batch(cuda, torch.float64, 30, 8, 37)
+    calls = _capture(monkeypatch, dims, qpb,
+                     IPMConfig(k_max=1, iter_ref=1, use_pallas=True),
+                     [(sk, "refine_flat_fused")])
+    ((_, (a, k)),) = calls.items()
+    a = list(a)
+    if moved:
+        gen = torch.Generator().manual_seed(1)
+        for i in (8, 9):
+            a[i] = a[i] + 0.1 * torch.randn(a[i].shape, generator=gen,
+                                            dtype=a[i].dtype).to(cuda)
+    n0 = {n: sk.LAUNCHES[n] for n in ("refine_flat_fused",
+                                      "resid_terms_flat", "solve_flat_pb")}
+    fused = sk.refine_flat_fused(*a, **k)
+    unfused = sk.refine_flat_unfused(*a, **k)
+    torch.cuda.synchronize()
+    assert {n: sk.LAUNCHES[n] - v for n, v in n0.items()} == dict(
+        refine_flat_fused=1, resid_terms_flat=1, solve_flat_pb=1)
+    tol = 1e-9 if moved else 1e-12
+    for x, y, x0 in zip(fused, unfused, a[8:10]):
+        scale = max(1.0, float(y.abs().max()))
+        assert float((x - y).abs().max()) <= tol * scale
+        if moved:
+            assert float((x - x0).abs().max()) > 0.1
 
 
 def test_flat_engine_on_card_matches_cpu(cuda):

@@ -17,6 +17,10 @@
       ``HPMPC_STAGE2_LANES=0``) is held against ``jax.vmap(ipm.solve)`` in
       tests/test_torch_ipm_structured.py (``test_flat_form_matches_jax``),
       which reuses that file's JAX compilations.
+  (c) the fused refinement pass (row 13) against the unfused one (rows 12
+      + the elementwise assembly + row 11, ``stage_kernel.
+      refine_flat_unfused``) on the same captured inputs: the plain
+      versions, float64, N=4; tests/test_torch_cuda.py holds the kernels.
   The float64 soft batch through ``solve_batched_soft`` (``"soft_flat"``)
   is held against ``jax.vmap(ipm_soft.solve)`` in
   tests/test_torch_ipm_soft.py (``test_soft_flat_matches_jax``).
@@ -37,6 +41,7 @@ import jax.numpy as jnp  # noqa: E402
 from jax.experimental import pallas as pl  # noqa: E402
 
 from hpmpc_tpu.ops import stage_kernel as jsk  # noqa: E402
+from hpmpc_tpu_torch.models import ipm_lanes  # noqa: E402
 from hpmpc_tpu_torch.models.ipm import IPMConfig  # noqa: E402
 from hpmpc_tpu_torch.ops import mega_kernel as mk  # noqa: E402
 from hpmpc_tpu_torch.ops import stage_kernel as sk  # noqa: E402
@@ -135,8 +140,8 @@ _ROWS = ("resid_terms_flat", "solve_flat_pb", "refine_flat_fused",
          "factor_solve_folded_flat", "solve_flat")
 
 
-def _batch(dtype, N=5, B=8):
-    dims, qp = mass_spring_qp(8, 3, N, dtype=dtype, device="cpu")
+def _batch(dtype, N=5, B=8, ngN=0):
+    dims, qp = mass_spring_qp(8, 3, N, ngN=ngN, dtype=dtype, device="cpu")
     qpb = tbatch.broadcast_qp(qp, B)
     rng = np.random.default_rng(0)
     sc = torch.as_tensor(1 + 0.02 * rng.standard_normal(B), dtype=dtype)
@@ -178,3 +183,59 @@ def test_flat_dispatch_f32_runs(monkeypatch, env):
     assert int(sol.kk.max()) <= 8
     assert all(bool(torch.isfinite(x).all()) for x in sol
                if x.is_floating_point())
+
+
+# ---------------------------------------------------------------------------
+# (c) the fused refinement pass against the unfused one
+# ---------------------------------------------------------------------------
+
+
+def _first_refine(dims, qpb):
+    """The arguments of the first fused refinement pass of a float64 lanes
+    run with ``iter_ref=1`` (the initial iterate's affine direction)."""
+    calls, orig = [], sk.refine_flat_fused
+
+    def spy(*a, **k):
+        calls.append((a, k))
+        return orig(*a, **k)
+
+    sk.refine_flat_fused = spy
+    try:
+        ipm_lanes.solve_batched_lanes(
+            dims, qpb, IPMConfig(k_max=1, iter_ref=1, use_pallas=True))
+    finally:
+        sk.refine_flat_fused = orig
+    return calls[0]
+
+
+@pytest.mark.parametrize("moved", [False, True])
+def test_fused_refine_matches_unfused(moved):
+    """One fused pass against one unfused pass on the same captured
+    inputs (N=4, the ngN=4 block, 6 instances, float64; ROADMAP Queue 3's
+    check, which the route-level comparison of chip_smoke.py's section F
+    cannot make: it sits at its noise floor).  As captured the correction
+    is ~1e-15 of the iterate; ``moved`` adds 0.1 N(0,1) to z and pi, so the
+    correction is of the iterate's order and the check holds the two
+    re-solves, not the update's rounding.  Measured on these plain
+    versions: 0 in both; on the card the kernels (test_torch_cuda.py).
+    Tolerance 1e-12 of each output's scale."""
+    dims, qpb = _batch(torch.float64, N=4, B=6, ngN=4)
+    a, k = _first_refine(dims, qpb)
+    a = list(a)
+    if moved:
+        gen = torch.Generator().manual_seed(1)
+        for i in (8, 9):
+            a[i] = a[i] + 0.1 * torch.randn(a[i].shape, generator=gen,
+                                            dtype=a[i].dtype)
+    n0 = {n: sk.PLAIN_CALLS[n] for n in _ROWS}
+    fused = sk.refine_flat_fused(*a, **k)
+    unfused = sk.refine_flat_unfused(*a, **k)
+    ran = {n: sk.PLAIN_CALLS[n] - n0[n] for n in _ROWS}
+    assert ran == dict(refine_flat_fused=1, resid_terms_flat=1,
+                       solve_flat_pb=1, factor_solve_folded_flat=0,
+                       solve_flat=0), ran
+    for x, y, x0 in zip(fused, unfused, a[8:10]):
+        scale = max(1.0, float(y.abs().max()))
+        assert float((x - y).abs().max()) <= 1e-12 * scale
+        if moved:
+            assert float((x - x0).abs().max()) > 0.1
