@@ -389,6 +389,8 @@ PROFILED = ("ipm_resident", "resid_full", "factor_solve_mega", "solve_mega",
                 "tree_factor_solve_flat", "tree_solve_flat",
                 "tree_resid_terms_flat", "cholesky", "panel")
 _PATTERNS = {k: rf"\b{k}_kernel\b" for k in PROFILED}
+# row 9's two forms (csrc/factor_solve_flat.cu)
+_PATTERNS["factor_solve_flat"] = r"\bfactor_solve_flat(_smem)?_kernel\b"
 #: rows 11 and 13 as the profiler names them
 REFINE_PROFILED = ("solve_flat_pb", "refine_flat")
 
@@ -438,10 +440,12 @@ def _profile_line(label, card, pr) -> str:
 
 
 def _resolve_layouts(sk, dims, dt) -> dict:
-    """The launch layouts of rows 11 and 13 (the refinement re-solve
-    kernels, a team of lanes an instance) at ``dims`` in ``dt``."""
+    """The launch layouts of rows 10, 11 and 13 (the retained-factor
+    re-solve kernels, a team of lanes an instance) at ``dims`` in
+    ``dt``."""
     d2 = dict(NU=dims.NU, NX=dims.NX)
-    return {"row 11": sk.resolve_layout("solve_flat_pb", dims.N, dt, **d2),
+    return {"row 10": sk.resolve_layout("solve_flat", dims.N, dt, **d2),
+            "row 11": sk.resolve_layout("solve_flat_pb", dims.N, dt, **d2),
             "row 13": sk.resolve_layout("refine_flat_fused", dims.N, dt,
                                         **d2, NG=max(dims.NG, 1))}
 
@@ -3555,22 +3559,43 @@ def main() -> int:
         print(f"{name}: team {row['team']} lanes an instance, "
               f"{row['block']} threads a block, {row['share']:.2%} of "
               f"bound; ptxas {row['ptxas']}", flush=True)
-    # rows 11 and 13: a team of lanes an instance (hp::ReSolve)
+    # row 9: a team of lanes an instance, one warp a block
+    d2 = dict(NU=dims.NU, NX=dims.NX)
+    row = next(k for k in kernels if k["name"] == "factor_solve_folded_flat")
+    lay = sk.factor_flat_layout(dims.NU, dims.NX, dims.N, torch.float32)
+    log = _build.PTXAS_LOG.get(
+        f"lib{_build._key('factor_solve_flat', d2)}.so", "")
+    row.update(share=row["bound_ms"] / row["ms"], team=lay["team"],
+               block=lay["threads"], instances=lay["instances"],
+               scratch_rows=lay["scratch_rows"],
+               ptxas=[x for x in _ptxas_lines(log)
+                      if "factor_solve_flat_kernelI" in x
+                      or "factor_solve_flat_smem_kernelI" in x])
+    print(f"factor_solve_folded_flat: team {row['team']} lanes an instance, "
+          f"{lay['instances']} instances and {row['block']} threads a block, "
+          f"{lay['smem_block']} B of shared memory a block, "
+          f"{row['scratch_rows']} scratch rows an instance, Cholesky in "
+          f"{'registers' if lay['registers'] else 'shared memory'}, "
+          f"{row['share']:.2%} of bound; ptxas {row['ptxas']}", flush=True)
+    # rows 10, 11 and 13: a team of lanes an instance (hp::ReSolve)
     lays = _resolve_layouts(sk, dims, torch.float32)
-    for name, lib, dims_, lay in (
-            ("solve_flat_pb", "solve_flat", dict(NU=dims.NU, NX=dims.NX),
-             lays["row 11"]),
+    for name, lib, dims_, lay, entry in (
+            ("solve_flat", "solve_flat", d2, lays["row 10"],
+             "solve_flat_kernel"),
+            ("solve_flat_pb", "solve_flat", d2, lays["row 11"], "pb_kernel"),
             ("refine_flat_fused", "refine_flat",
-             dict(NU=dims.NU, NX=dims.NX, NG=dims.NG), lays["row 13"])):
+             dict(d2, NG=dims.NG), lays["row 13"], "refine_flat_kernel")):
         row = next(k for k in kernels if k["name"] == name)
         log = _build.PTXAS_LOG.get(f"lib{_build._key(lib, dims_)}.so", "")
         row.update(share=row["bound_ms"] / row["ms"], team=lay["team"],
-                   block=lay["threads"],
+                   block=lay["threads"], instances=lay["instances"],
+                   scratch_rows=lay["work_block"] // lay["instances"],
                    ptxas=[x for x in _ptxas_lines(log)
-                          if lib == "refine_flat" or "pb_kernel" in x])
+                          if f"{entry}I" in x or entry + "<" in x])
         print(f"{name}: team {row['team']} lanes an instance, "
               f"{lay['instances']} instances and {row['block']} threads a "
               f"block, {lay['smem_block']} B of shared memory a block, "
+              f"{row['scratch_rows']} kept rows an instance, "
               f"{row['share']:.2%} of bound; ptxas {row['ptxas']}",
               flush=True)
     kernels.append(soft_res_row)

@@ -1,51 +1,58 @@
 // Retained-factor re-solve of a batch of OCP KKT systems in ONE kernel:
 // backward substitution + forward recovery with pi.  Three forms:
 //
-//   * hp_solve_flat reads the cached Pb of the factorization, one CUDA
-//     thread per instance.  Replaces: hpmpc_tpu/ops/stage_kernel.py::
+//   * hp_solve_flat (solve_flat_kernel, Queue 2 row 10) reads the cached Pb
+//     of the factorization.  Replaces: hpmpc_tpu/ops/stage_kernel.py::
 //     solve_flat, two TPU calls: the backward substitution
 //     (_bwd_trs_kernel_ll) and the forward recovery (_forward_from_lanes ->
 //     _fwd_kernel_split).  Plain version: hpmpc_tpu_torch/ops/
 //     stage_kernel.py::solve_flat_ref.
-//   * hp_solve_flat_fused (solve_flat_fused_kernel) is hp_solve_flat with
-//     the eu/px slab in shared memory instead of global scratch.
-//     Replaces: hpmpc_tpu/ops/stage_kernel.py::solve_flat_fused
-//     (_trs_fwd_fused_kernel, one two-phase-grid call that keeps eu and px
-//     in VMEM slabs).  Plain version: solve_flat_ref (the same function).
 //   * hp_solve_flat_pb (solve_flat_pb_kernel, Queue 2 row 11) recomputes
 //     Pb_k = Lxx_{k+1} (Lxx_{k+1}' b_k) from the retained factor for a new
 //     right-hand side b (the reference's compute_Pb=1 path,
 //     d_back_ric_rec.c:564; the unfused iterative refinement re-solves
-//     against its residual rb) and reads no Pb stream, a team of lanes per
-//     instance with the carry-free stage work off the serial chain: the
-//     design of csrc/refine_flat.cu (row 13, whose re-solve this is), on
-//     the shared phases of csrc/team.cuh (hp::ReSolve), its workers keeping
-//     rq = g, the forward's b, Pb and the pivots.  Replaces:
+//     against its residual rb) and reads no Pb stream.  Replaces:
 //     hpmpc_tpu/ops/stage_kernel.py::solve_flat_pb (_bwd_trs_pb_kernel +
 //     _forward_from_lanes).  Plain version: hpmpc_tpu_torch/ops/
 //     stage_kernel.py::solve_flat_pb_ref.
+//   * hp_solve_flat_fused (solve_flat_fused_kernel, Queue 2 row 17) is
+//     row 10 in one thread an instance with the eu/px slab in shared
+//     memory.  Replaces: hpmpc_tpu/ops/stage_kernel.py::solve_flat_fused
+//     (_trs_fwd_fused_kernel, one two-phase-grid call that keeps eu and px
+//     in VMEM slabs).  Plain version: solve_flat_ref (the same function).
 //
-// What bounds the one-thread forms on the H100: per instance and stage
-// they read Ll twice, g, F twice, Pb, b and Lxx, and write z and pi --
-// ~330 scalars at the flagship (N=30, NZ=11, NX=8, NU=3), ~1.3 KB in f32
-// -- against ~0.7k flops (triangular solves and matrix-vector products):
-// ~0.5 flop/byte, memory bound in principle, latency bound with one thread
-// per instance (128 warps at B=4096).  The global-scratch form also writes
-// and reads back the eu/px slab, (N+1)(NU+NX) scalars an instance; the
-// fused form keeps it on the SM.
+// What bounds rows 10 and 11 on the H100: per instance and stage they read
+// Ll, g, F, Pb (row 11: Lxx twice and b), b and Lxx, and write z and pi
+// -- ~330 scalars at the flagship (N=30, NZ=11, NX=8, NU=3), ~1.3 KB in
+// f32 -- against ~0.7k flops (triangular solves and matrix-vector
+// products): ~0.5 flop/byte, memory bound in principle.  In practice the
+// backward substitution and the forward recovery are chains of small
+// dependent steps 31 stages deep: at one thread an instance (the first
+// version of both rows, 128 warps at B=4096, one an SM) each warp waited
+// alone on every load of its chain (row 10 at ~11% of its bound).
 //
-// Design of the one-thread forms: csrc/solve_mega.cu's first form without
-// the corrector prep and the alpha epilogue: stages N..0 run hp::trs_stage
-// on the gradient with the Pb + px carry (px in registers) and put eu/px
-// into the slab (the TPU's VMEM slabs); stages 0..N recover x from the root
-// solve, pi_{s-1} = Lxx_s (Lxx_s' x_s) + px_s, u and z.  Pb has N rows and
-// is read for k < N only; F/b clip to N-1 at the terminal stage.  The slab
-// is laid out [stage][k][instance]: per-instance global scratch in
-// batch-last layout (coalesced), or the block's dynamic shared memory with
-// the thread index last (a warp's accesses hit 32 consecutive words: no
-// bank conflict), (N+1)(NU+NX) x 32 scalars a block, set at launch from N;
-// the two forms run the same sweep code (solve_flat_sweeps), so the fused
-// form rounds as hp_solve_flat does.
+// Design of rows 10 and 11: a team of lanes an instance with the
+// carry-free stage work off the serial chain, the design of
+// csrc/refine_flat.cu (row 13), on the shared phases of csrc/team.cuh
+// (hp::ReSolve): warp 0 runs the chain, the worker warps keep the
+// carry-free rows of every stage (rq = g, the forward's b, Pb and the
+// pivots' reciprocals) in device memory ahead of it and then run the
+// epilogue (pi, the stores).  The two differ in Pb alone: row 10's
+// workers copy the cached Pb_k stream (ReSolve's CACHED_PB mode; the chain
+// adds Pb_0 + px_0 as the one-thread kernel added it), row 11's form it
+// from Lxx_{k+1} and b_k (pb_keep; Pb_0 kept as its two factors, whose
+// product the one-thread kernel fused into the sum).  Both give the
+// one-thread kernels' outputs bit for bit.  Pb has N rows, read for k < N
+// only; F/b clip to N-1 at the terminal stage.
+//
+// Design of the fused form (one thread an instance): csrc/solve_mega.cu's
+// first form without the corrector prep and the alpha epilogue: stages
+// N..0 run hp::trs_stage on the gradient with the Pb + px carry (px in
+// registers) and put eu/px into the block's dynamic shared memory (the
+// TPU's VMEM slabs), laid out [stage][k][thread] (a warp's accesses hit 32
+// consecutive words: no bank conflict), (N+1)(NU+NX) x 32 scalars a block,
+// set at launch from N; stages 0..N recover x from the root solve,
+// pi_{s-1} = Lxx_s (Lxx_s' x_s) + px_s, u and z (solve_flat_sweeps).
 //
 // Specialisation: NU, NX compile-time (-D, one library per shape); N
 // runtime.
@@ -61,7 +68,9 @@ constexpr int NU = HP_NU;
 constexpr int NX = HP_NX;
 constexpr int NZ = NU + NX;
 constexpr int BLOCK = 32;
-// the Pb form's team geometry and phases (no general rows)
+// the team geometry and phases of the cached-Pb form (row 10) and the Pb
+// form (row 11): no general rows
+using RC = hp::ReSolve<NU, NX, 0, false, true>;
 using RS = hp::ReSolve<NU, NX, 0, false>;
 
 }  // namespace
@@ -77,15 +86,15 @@ struct SolveFlatArgs {
   const void* b;    // (N, NX, B)
   void* z;          // (N+1, NZ, B)
   void* pi;         // (N, NX, B)
-  void* work;       // the one-thread form: ((N+1)(NU+NX), B): eu, px; the
-                    // Pb form: its kept rows (hp_solve_flat_pb_layout's
-                    // size); the fused form: NULL
+  void* work;       // rows 10 and 11: the kept rows (hp_solve_flat_layout's
+                    // / hp_solve_flat_pb_layout's size); the fused form:
+                    // NULL
   int64_t B;
   int64_t N;
 };
 
-// The two sweeps of instance bi; eus / pxs: its eu (N+1, NU) and px
-// (N+1, NX) slab.
+// The two sweeps of the fused form's instance bi; eus / pxs: its eu (N+1,
+// NU) and px (N+1, NX) slab.
 template <typename T>
 __device__ __forceinline__ void solve_flat_sweeps(const SolveFlatArgs& a,
                                                   int64_t bi,
@@ -177,16 +186,58 @@ __device__ __forceinline__ void solve_flat_sweeps(const SolveFlatArgs& a,
   }
 }
 
-// eu/px in the per-instance global scratch a.work (batch-last)
+// The cached-Pb form (row 10): the workers keep rq = g_k, the forward's
+// right-hand side b_k, the cached Pb_k and the pivots of each stage, warp
+// 0 runs the chain, the workers the epilogue (z and pi out):
+// hp::ReSolve::run.
 template <typename T>
-__global__ void __launch_bounds__(BLOCK) solve_flat_kernel(SolveFlatArgs a) {
-  const int64_t B = a.B;
-  const int64_t bi = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-  if (bi >= B) return;
-  T* w = static_cast<T*>(a.work);
-  solve_flat_sweeps<T>(a, bi, hp::Col<T>{w + bi, B},
-                       hp::Col<T>{w + (a.N + 1) * NU * B + bi, B});
+__global__ void __launch_bounds__(RC::THREADS, sizeof(T) == 4 ? RC::MIN_BLOCKS_F32 : RC::MIN_BLOCKS_F64)
+    solve_flat_kernel(SolveFlatArgs a, RC::Geo geo) {
+  using hp::Col;
+  using TM = RC::TM;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const auto ln = RC::lane_of<T>(geo, a.B, a.work, smem_raw);
+  const int N = static_cast<int>(a.N), r = ln.r;
+  auto in = [&](const void* p) {
+    return Col<const T>{static_cast<const T*>(p) + ln.bl, a.B};
+  };
+  auto out = [&](void* p) { return Col<T>{static_cast<T*>(p) + ln.bl, a.B}; };
+  const Col<const T> Llc = in(a.Ll), Lxxc = in(a.Lxx), Pbc = in(a.Pb),
+                     gc = in(a.g), Fc = in(a.F), bc = in(a.b);
+  auto prologue = [&](int k) {
+    const hp::Rows<T> st = ln.kp.at(static_cast<int64_t>(k) * RC::KS);
+    RC::du_keep(ln, k, Llc);
+    T gb[RC::chunks(NZ)], bb[RC::chunks(NX)], pb[RC::chunks(NX)];
+    TM::fetch<NZ>(r, gb, [&](int e) {
+      return gc(static_cast<int64_t>(k) * NZ + e);
+    });
+    if (k < N) {
+      TM::fetch<NX>(r, bb, [&](int e) {
+        return bc(static_cast<int64_t>(k) * NX + e);
+      });
+      TM::fetch<NX>(r, pb, [&](int e) {
+        return Pbc(static_cast<int64_t>(k) * NX + e);
+      });
+    }
+#pragma unroll
+    for (int c = 0; c < RC::chunks(NZ); ++c) {
+      const int i = r + c * RC::TEAM;
+      if (i < NZ) st[RC::K_Q + i] = gb[c];
+    }
+    if (k < N) {
+#pragma unroll
+      for (int c = 0; c < RC::chunks(NX); ++c) {
+        const int q = r + c * RC::TEAM;
+        if (q < NX) {
+          st[RC::K_RB + q] = bb[c];
+          st[RC::K_PB + q] = pb[c];
+        }
+      }
+    }
+  };
+  const Col<T> zo = out(a.z), pio = out(a.pi);
+  RC::run(ln, RC::progress<T>(geo, smem_raw), N, prologue, Llc, Fc, Lxxc, gc,
+          Col<const T>{pio.p, a.B}, zo, pio);
 }
 
 // The Pb form (row 11): the workers keep rq = g_k, the forward's
@@ -257,9 +308,15 @@ __global__ void __launch_bounds__(BLOCK)
 
 template <typename T>
 static int launch(const SolveFlatArgs& a, cudaStream_t stream) {
-  const int64_t blocks = (a.B + BLOCK - 1) / BLOCK;
-  solve_flat_kernel<T>
-      <<<static_cast<unsigned>(blocks), BLOCK, 0, stream>>>(a);
+  const RC::Geo g = RC::geo(a.N);
+  if (a.work == nullptr || a.Pb == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t blocks = (a.B + RC::IPB - 1) / RC::IPB;
+  const int64_t smem = g.smem * static_cast<int64_t>(sizeof(T));
+  const int rc = hp::allow_smem(solve_flat_kernel<T>, smem);
+  if (rc != 0) return rc;
+  solve_flat_kernel<T><<<static_cast<unsigned>(blocks), RC::THREADS,
+                         static_cast<size_t>(smem), stream>>>(a, g);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -308,19 +365,29 @@ extern "C" int hp_solve_flat_pb(const SolveFlatArgs* a, int dtype_code,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The Pb form's launch layout at horizon N in dtype_code: out = {lanes a
-// team, instances a block, threads a block, the kept rows' device memory a
-// block (scalars), shared memory a block (bytes)}.  The wrapper sizes
-// `work` from it.
+// The launch layout of row 10 (RC) or row 11 (RS) at horizon N in
+// dtype_code: out = {lanes a team, instances a block, threads a block, the
+// kept rows' device memory a block (scalars), shared memory a block
+// (bytes)}.  The wrapper sizes `work` from it.
+template <typename R>
+static void layout(int64_t N, int dtype_code, int64_t* out) {
+  const int64_t sz = dtype_code == 1 ? 8 : 4;
+  const typename R::Geo g = R::geo(N);
+  out[0] = R::TEAM;
+  out[1] = R::IPB;
+  out[2] = R::THREADS;
+  out[3] = R::IPB * g.rows;
+  out[4] = g.smem * sz;
+}
+
+extern "C" void hp_solve_flat_layout(int64_t N, int dtype_code,
+                                     int64_t* out) {
+  layout<RC>(N, dtype_code, out);
+}
+
 extern "C" void hp_solve_flat_pb_layout(int64_t N, int dtype_code,
                                         int64_t* out) {
-  const int64_t sz = dtype_code == 1 ? 8 : 4;
-  const RS::Geo g = RS::geo(N);
-  out[0] = RS::TEAM;
-  out[1] = RS::IPB;
-  out[2] = RS::THREADS;
-  out[3] = RS::IPB * g.rows;
-  out[4] = g.smem * sz;
+  layout<RS>(N, dtype_code, out);
 }
 
 extern "C" int hp_solve_flat_fused(const SolveFlatArgs* a, int dtype_code,

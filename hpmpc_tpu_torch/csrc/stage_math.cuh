@@ -297,6 +297,34 @@ __device__ __forceinline__ void trs_stage(const T (&Ll)[NU + NX][NU],
   }
 }
 
+// The end of a folded backward stage on its factor M (lower triangle;
+// Dinv its reciprocal pivots) and m: eu = Luu^{-1} m_u, px = m_x - Lxu eu,
+// and the Riccati carry (the factor's Lxx block, px).
+template <typename T, int NU, int NX>
+__device__ __forceinline__ void folded_tail(const T (&M)[NU + NX][NU + NX],
+                                            const T (&Dinv)[NU + NX],
+                                            const T (&m)[NU + NX],
+                                            T (&eu)[NU], T (&Lxx_c)[NX][NX],
+                                            T (&px_c)[NX]) {
+  T Dinv_u[NU], mu_[NU];
+#pragma unroll
+  for (int i = 0; i < NU; ++i) {
+    Dinv_u[i] = Dinv[i];
+    mu_[i] = m[i];
+  }
+  tril_solve<T, NU>(M, Dinv_u, mu_, eu);
+#pragma unroll
+  for (int i = 0; i < NX; ++i) {
+    T acc = m[NU + i];
+#pragma unroll
+    for (int k = 0; k < NU; ++k) acc = acc - M[NU + i][k] * eu[k];
+    px_c[i] = acc;
+#pragma unroll
+    for (int j = 0; j < NX; ++j)
+      Lxx_c[i][j] = (j <= i) ? M[NU + i][NU + j] : T(0);
+  }
+}
+
 // Folded backward Riccati stage (stage_kernel._folded_bwd_core_fb) on an
 // assembled effective Hessian M (lower triangle filled) and gradient g:
 //   W = F Lxx_c, Pb = Lxx_c (Lxx_c' b), m = g + F (Pb + px_c),
@@ -341,27 +369,9 @@ __device__ __forceinline__ void folded_bwd_core(
   }
   T Dinv[NZ];
   chol<T, NZ>(M, Dinv);
-  T Dinv_u[NU], mu_[NU];
+  folded_tail<T, NU, NX>(M, Dinv, m, eu, Lxx_c, px_c);
 #pragma unroll
-  for (int i = 0; i < NU; ++i) {
-    Dinv_u[i] = Dinv[i];
-    mu_[i] = m[i];
-  }
-  tril_solve<T, NU>(M, Dinv_u, mu_, eu);
-#pragma unroll
-  for (int i = 0; i < NX; ++i) {
-    T acc = m[NU + i];
-#pragma unroll
-    for (int k = 0; k < NU; ++k) acc = acc - M[NU + i][k] * eu[k];
-    px[i] = acc;
-  }
-#pragma unroll
-  for (int i = 0; i < NX; ++i) {
-    px_c[i] = px[i];
-#pragma unroll
-    for (int j = 0; j < NX; ++j)
-      Lxx_c[i][j] = (j <= i) ? M[NU + i][NU + j] : T(0);
-  }
+  for (int i = 0; i < NX; ++i) px[i] = px_c[i];
 }
 
 // ---------------------------------------------------------------------------

@@ -1,9 +1,9 @@
 // The team helpers and team stage routines of the kernels that run one
 // instance on a team of TEAM lanes of one warp: csrc/ipm_resident.cu (rows
 // 1 and 1s), csrc/factor_solve_mega.cu and csrc/solve_mega.cu (rows 19 and
-// 20), csrc/tree_sweeps.cu (rows 26 and 27), and the refinement re-solve of
-// csrc/solve_flat.cu's Pb form and csrc/refine_flat.cu (rows 11 and 13,
-// struct ReSolve at the end).
+// 20), csrc/factor_solve_flat.cu (row 9), csrc/tree_sweeps.cu (rows 26 and
+// 27), and the retained-factor re-solves of csrc/solve_flat.cu (rows 10
+// and 11) and csrc/refine_flat.cu (row 13), struct ReSolve at the end.
 //
 // A team's lane r owns the rows r, r + TEAM, ... of every NZ-row object of
 // a stage (M, F / W, g, m, the Ll / Lxx rows, z), the x indices likewise,
@@ -45,8 +45,9 @@ __device__ __forceinline__ double fma_rn(double a, double b, double c) {
 // runtime range, rounded as nvcc rounded the unrolled sum in one thread
 // (hp::pb_of, hp::pi_of_x): the first product fused with the rounded
 // second, each later product into the running sum; one term is a rounded
-// product.
-template <typename T, typename Term>
+// product.  QN > 0: q1 < QN, the loop unrolls over it, so a term may index
+// a register array with q (row 9's register form).
+template <typename T, int QN = 0, typename Term>
 __device__ __forceinline__ T dot_chain(int q0, int q1, Term term) {
   T a0, b0;
   term(q0, a0, b0);
@@ -54,10 +55,20 @@ __device__ __forceinline__ T dot_chain(int q0, int q1, Term term) {
   T a1, b1;
   term(q0 + 1, a1, b1);
   T acc = fma_rn(a0, b0, mul_rn(a1, b1));
-  for (int q = q0 + 2; q <= q1; ++q) {
-    T a, b;
-    term(q, a, b);
-    acc = fma_rn(a, b, acc);
+  if constexpr (QN > 0) {
+#pragma unroll
+    for (int q = q0 + 2; q < QN; ++q) {
+      if (q > q1) break;
+      T a, b;
+      term(q, a, b);
+      acc = fma_rn(a, b, acc);
+    }
+  } else {
+    for (int q = q0 + 2; q <= q1; ++q) {
+      T a, b;
+      term(q, a, b);
+      acc = fma_rn(a, b, acc);
+    }
   }
   return acc;
 }
@@ -525,9 +536,9 @@ struct Team {
 };
 
 // ---------------------------------------------------------------------------
-// The refinement re-solve of rows 11 (csrc/solve_flat.cu, the Pb form) and
-// 13 (csrc/refine_flat.cu); the design is in csrc/refine_flat.cu's head
-// comment.
+// The retained-factor re-solve of rows 10 and 11 (csrc/solve_flat.cu: the
+// cached-Pb and the Pb form) and 13 (csrc/refine_flat.cu); the design is in
+// csrc/refine_flat.cu's head comment.
 // ---------------------------------------------------------------------------
 
 // An instance's kept rows in its block's interleaved store, in shared or
@@ -564,16 +575,25 @@ __device__ __forceinline__ const T& tril_packed(const Col<const T>& L, int n,
 
 __host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
 
+// Lanes an instance of the re-solves and of row 9 (csrc/factor_solve_flat.cu):
+// about three NZ rows a lane to NZ=12, two past it.  8 instances' teams a
+// warp at the flagship, so a row load of a batch-last stream is one
+// 32-byte sector in f32 (PERF.md section 7).
+__host__ __device__ constexpr int narrow_team(int nz) {
+  return nz <= 12 ? 4 : nz <= 24 ? 8 : 16;
+}
 
-// The geometry and the shared phases of the two re-solve kernels: NG the
-// general rows a stage (row 13; 0 for row 11), REFINE row 13 (the iterate's
-// z and pi updated) or row 11 (z and pi out).
-template <int NU, int NX, int NG, bool REFINE>
+
+// The geometry and the shared phases of the three re-solve kernels: NG the
+// general rows a stage (row 13; 0 for rows 10 and 11), REFINE row 13 (the
+// iterate's z and pi updated) or rows 10 and 11 (z and pi out), CACHED_PB
+// row 10 (the prologue keeps the factorization's cached Pb_k as values)
+// or rows 11 and 13 (pb_keep forms Pb_k, row 0 as its two factors).
+template <int NU, int NX, int NG, bool REFINE, bool CACHED_PB = false>
 struct ReSolve {
   static constexpr int NZ = NU + NX;
   static constexpr int NTX = NX * (NX + 1) / 2;
-  // lanes an instance: about three NZ rows a lane to NZ=12, two past it
-  static constexpr int TEAM = NZ <= 12 ? 4 : NZ <= 24 ? 8 : 16;
+  static constexpr int TEAM = narrow_team(NZ);  // lanes an instance
   static constexpr int IPB = 32 / TEAM;  // instances a block, one team a warp
   static constexpr int WARPS = 4;  // warps a block: the chain's and the workers'
   static constexpr int THREADS = 32 * WARPS;
@@ -592,8 +612,9 @@ struct ReSolve {
   }
 
   // The kept rows of stage k, in scalars from the stage's first.  Q: rq_k
-  // (row 11: g_k), then the stage's z out; PB: Pb_k, row 0 as its factors
-  // Lxx_00 (at PB) and t1_0 (at PB + NX), then x_k; RB: rb_k (row 11: b_k);
+  // (rows 10, 11: g_k), then the stage's z out; PB: Pb_k, row 0 as its
+  // factors Lxx_00 (at PB) and t1_0 (at PB + NX; row 10: Pb_0 a value),
+  // then x_k; RB: rb_k (rows 10, 11: b_k);
   // DU: the reciprocal pivots 1 / max(Luu_ii, 1e-30) of Ll_k; EU, PX: the
   // backward sweep's eu_k and px_k.
   static constexpr int K_Q = 0;
@@ -855,8 +876,12 @@ struct ReSolve {
         for (int i = 0; i < NU; ++i) Du[i] = st[K_DU + i];
         if (k < N) {
           // Pb + px_c (hp::trs_stage's Pbpx); row 0 as the one-thread
-          // kernels rounded it: the product Pb_0 fused into the sum
-          pbx[0] = fma_rn(st[K_PB], st[K_PB + NX], pxc[0]);
+          // kernels rounded it: the cached value added (row 10), or the
+          // product Pb_0 fused into the sum (rows 11 and 13)
+          if constexpr (CACHED_PB)
+            pbx[0] = st[K_PB] + pxc[0];
+          else
+            pbx[0] = fma_rn(st[K_PB], st[K_PB + NX], pxc[0]);
 #pragma unroll
           for (int q = 1; q < NX; ++q) pbx[q] = st[K_PB + q] + pxc[q];
         }

@@ -112,31 +112,51 @@ def engine_fits(NX: int, NU: int) -> bool:
 #: the keys of :func:`resolve_layout`
 LAYOUT_KEYS = ("team", "instances", "threads", "work_block", "smem_block")
 #: the re-solve kernels' library and layout entry, by wrapper
-_RESOLVE_LIBS = {"solve_flat_pb": ("solve_flat", "solve_flat_pb_layout"),
+_RESOLVE_LIBS = {"solve_flat": ("solve_flat", "solve_flat_layout"),
+                 "solve_flat_pb": ("solve_flat", "solve_flat_pb_layout"),
                  "refine_flat_fused": ("refine_flat", "refine_flat_layout")}
 
 
 @functools.lru_cache(maxsize=None)
-def _layout(name, N, dt, dims) -> tuple:
-    lib, entry = _RESOLVE_LIBS[name]
+def _layout(lib, entry, n, N, dt, dims) -> tuple:
+    """The ``n`` numbers ``hp_<entry>(N, dtype, out)`` of ``lib`` built for
+    ``dims`` writes."""
     fn = getattr(_build.load(lib, **dict(dims)), f"hp_{entry}")
     fn.argtypes = [ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
     fn.restype = None
-    out = (ctypes.c_int64 * len(LAYOUT_KEYS))()
+    out = (ctypes.c_int64 * n)()
     fn(N, _build.dtype_code(dt), ctypes.addressof(out))
     return tuple(out)
 
 
 def resolve_layout(name, N, dt, **dims) -> dict:
-    """The launch layout of the refinement re-solve kernels, row 11
-    (``name`` ``"solve_flat_pb"``, ``dims`` NU and NX) or row 13
-    (``"refine_flat_fused"``, NU, NX and the library's NG), at horizon
-    ``N`` in dtype ``dt``: lanes a team, instances and threads a block, a
-    block's device memory for the kept rows (scalars) and its shared
-    memory (bytes) (``hp_<kernel>_layout``; the library is built on first
-    use)."""
-    return dict(zip(LAYOUT_KEYS, _layout(name, int(N), dt,
+    """The launch layout of the retained-factor re-solve kernels, row 10
+    (``name`` ``"solve_flat"``, ``dims`` NU and NX), row 11
+    (``"solve_flat_pb"``, NU and NX) or row 13 (``"refine_flat_fused"``,
+    NU, NX and the library's NG), at horizon ``N`` in dtype ``dt``: lanes
+    a team, instances and threads a block, a block's device memory for the
+    kept rows (scalars) and its shared memory (bytes)
+    (``hp_<kernel>_layout``; the library is built on first use)."""
+    return dict(zip(LAYOUT_KEYS, _layout(*_RESOLVE_LIBS[name],
+                                         len(LAYOUT_KEYS), int(N), dt,
                                          tuple(sorted(dims.items())))))
+
+
+#: the keys of :func:`factor_flat_layout`
+FACTOR_LAYOUT_KEYS = ("team", "instances", "threads", "scratch_rows",
+                      "smem_block", "registers")
+
+
+def factor_flat_layout(NU, NX, N, dt) -> dict:
+    """Row 9's launch layout for stage dims ``NU``, ``NX`` at horizon
+    ``N`` in dtype ``dt``: lanes a team, instances and threads a block
+    (one warp), scratch rows an instance, shared memory a block (bytes)
+    and its form (``registers`` 1: the stage's Cholesky in registers, 0:
+    in shared memory); the library is built on first use."""
+    return dict(zip(FACTOR_LAYOUT_KEYS, _layout(
+        "factor_solve_flat", "factor_solve_flat_layout",
+        len(FACTOR_LAYOUT_KEYS), int(N), dt,
+        (("NU", int(NU)), ("NX", int(NX))))))
 
 
 def _resolve_work(name, N, x, B, **dims):
@@ -330,8 +350,9 @@ def factor_solve_folded_flat(H, dvec, ngl, ng_stage_ids, g, F, b, *, NU, NZ,
     ``want_pi``, and the factor state.
 
     CPU tensors run :func:`factor_solve_folded_flat_ref`; CUDA tensors
-    launch ``csrc/factor_solve_flat.cu`` on the current stream (no
-    sync)."""
+    launch ``csrc/factor_solve_flat.cu`` on the current stream (no sync):
+    a team of lanes an instance, the layout :func:`factor_flat_layout`.
+    The stages of ``ng_stage_ids`` must be distinct."""
     name = "factor_solve_folded_flat"
     kw = dict(NU=NU, NZ=NZ, NX=NX, want_pi=bool(want_pi))
     if H.device.type == "cpu":
@@ -344,9 +365,10 @@ def factor_solve_folded_flat(H, dvec, ngl, ng_stage_ids, g, F, b, *, NU, NZ,
 
 def _launch_factor_flat(name, H, dvec, ngl, ng_stage_ids, g, F, b, *, NU, NZ,
                         NX, want_pi):
-    """Check and launch one form of ``csrc/factor_solve_flat.cu``: the
-    global-scratch one or (``name`` ending in ``_fused``, no pi) the one
-    with the eu/px slab in shared memory."""
+    """Check and launch one form of ``csrc/factor_solve_flat.cu``: the team
+    kernel (row 9, its eu/px scratch instance-major in device memory) or
+    (``name`` ending in ``_fused``, no pi) the one-thread form with the
+    eu/px slab in shared memory."""
     fused = name.endswith("_fused")
     Np1, B = H.shape[0], H.shape[-1]
     N, n_ng = Np1 - 1, len(ng_stage_ids)
@@ -355,13 +377,17 @@ def _launch_factor_flat(name, H, dvec, ngl, ng_stage_ids, g, F, b, *, NU, NZ,
                   ngl=(n_ng, sym_nt(NZ), B), g=(Np1, NZ, B),
                   F=(N, NZ, NX, B), b=(N, NX, B))
     _cuda_check(name, H, ng_stage_ids, named, shapes)
+    if len(set(ng_stage_ids)) != n_ng:
+        raise ValueError(f"{name}: ng stages must be distinct, got "
+                         f"{tuple(ng_stage_ids)}")
     if fused:
         _slab_fits(name, H.device, H.dtype, Np1, NU, NX)
     new = lambda *s: torch.empty(*s, dtype=H.dtype, device=H.device)  # noqa: E731
     Ll, Lxx, Pb = new(Np1, NZ, NU, B), new(Np1, NX, NX, B), new(N, NX, B)
     z = new(Np1, NZ, B)
     pi = new(N, NX, B) if want_pi else None
-    work = None if fused else new(Np1 * (NU + NX), B)
+    work = None if fused else new(
+        B, factor_flat_layout(NU, NX, N, H.dtype)["scratch_rows"])
     ptrs = (H, dvec, ngl, _build.int_table(ng_stage_ids, H.device), g, F, b,
             Ll, Lxx, Pb, z, pi, work)
     a = _FactorArgs(*[_build.ptr(x) for x in ptrs], B, N, n_ng,
@@ -379,7 +405,8 @@ def solve_flat(Ll, Lxx, Pb, g, F, b, *, NU, NZ, NX):
     pi)``.
 
     CPU tensors run :func:`solve_flat_ref`; CUDA tensors launch
-    ``csrc/solve_flat.cu`` (no sync)."""
+    ``csrc/solve_flat.cu`` (no sync): a team of lanes an instance, the
+    layout :func:`resolve_layout`."""
     name = "solve_flat"
     if g.device.type == "cpu":
         PLAIN_CALLS[name] += 1
@@ -389,9 +416,10 @@ def solve_flat(Ll, Lxx, Pb, g, F, b, *, NU, NZ, NX):
 
 def _launch_solve_flat(name, Ll, Lxx, Pb, g, F, b, *, NU, NZ, NX):
     """Check and launch one form of ``csrc/solve_flat.cu``: the cached-Pb
-    one, the Pb form (``Pb`` None: the team kernel, its kept rows in
-    device memory) or (``name`` ending in ``_fused``) the cached-Pb one
-    with the eu/px slab in shared memory."""
+    one (row 10) or the Pb form (``Pb`` None, row 11), both team kernels
+    with their kept rows in device memory, or (``name`` ending in
+    ``_fused``) the cached-Pb one in one thread an instance with the eu/px
+    slab in shared memory."""
     fused = name.endswith("_fused")
     Np1, B = g.shape[0], g.shape[-1]
     N = Np1 - 1
@@ -403,10 +431,7 @@ def _launch_solve_flat(name, Ll, Lxx, Pb, g, F, b, *, NU, NZ, NX):
         _slab_fits(name, g.device, g.dtype, Np1, NU, NX)
     new = lambda *s: torch.empty(*s, dtype=g.dtype, device=g.device)  # noqa: E731
     z, pi = new(Np1, NZ, B), new(N, NX, B)
-    if Pb is None:
-        work = _resolve_work(name, N, g, B, NU=NU, NX=NX)
-    else:
-        work = None if fused else new(Np1 * (NU + NX), B)
+    work = None if fused else _resolve_work(name, N, g, B, NU=NU, NX=NX)
     a = _SolveArgs(*[_build.ptr(x) for x in (Ll, Lxx, Pb, g, F, b, z, pi,
                                              work)], B, N)
     _build.launch("solve_flat", name, a, g.device, g.dtype, NU=NU, NX=NX)

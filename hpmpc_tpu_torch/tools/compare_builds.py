@@ -110,6 +110,31 @@ It reports:
     checkouts in float32: the solution equal bit for bit or not, ms a batch
     in turns, one profiled call of each (device busy ms, idle share, rows
     11 and 13's summed ms and launches).
+  * the 6-kernel loop's sweeps (``factor_solve_folded_flat``,
+    ``solve_flat``, Queue 2 rows 9 and 10) and their fused forms
+    (``factor_solve_folded_flat_fused`` on row 9's call without pi,
+    ``solve_flat_fused``, rows 18 and 17) on this checkout's inputs of
+    the first and the last call of rows 9 and 10 in the default routes of
+    the loop: the parity line and route D (float32, configs as above),
+    route E (float64, ``IPMConfig(iter_ref=1, use_pallas=True)``: the
+    ``"flat"`` engine) on the flagship, the box-only flagship and the
+    NZ=19 shape (nx=16, no ng block), and the soft 6-kernel loop
+    (``HPMPC_RESIDENT=0``, ``HPMPC_MEGA_SWEEPS=0``) in float32 and float64
+    on the soft flagship, the small soft problem with general rows and
+    the soft NZ=19 shape.  Handed to both builds' wrappers: equal bit for
+    bit (else the largest difference and the first output and stage
+    apart), each build's ms a call of rows 9 and 10 in turns (the first
+    call; not on the box-only problem), both builds' ptxas lines and this
+    build's launch layout; then the five routes of both checkouts on their
+    flagship: the solution equal bit for bit or not, ms a batch in turns,
+    one profiled call of each (device busy ms, idle share, rows 9 and
+    10's ms and launches).
+  * row 9's two forms: ``factor_solve_folded_flat`` in float32 and
+    float64 at NZ 6 to 19 (``FORM_CASES``) on the flat engine's first
+    call, captured through the plain versions on the CPU, handed to both
+    builds: bits, ms a call in turns, each build's form and ptxas lines.
+    Against a copy of this checkout whose ``Row9::REG`` is negated it
+    times the register form against the shared-memory form at each size.
 
 Imports no JAX.  ``--other`` is a directory holding the other checkout's
 ``hpmpc_tpu_torch/`` (for the parent commit: ``git archive HEAD~1
@@ -126,11 +151,20 @@ Runs on the card unless asked for the CPU (plain versions; keep
         --sections tree                   # rows 26 and 27 and their route
     python3 -m hpmpc_tpu_torch.tools.compare_builds --other _archive/parent \\
         --sections refine                 # rows 11 and 13 and their routes
+    python3 -m hpmpc_tpu_torch.tools.compare_builds --other _archive/parent \\
+        --sections sweeps                 # rows 9 and 10 and their routes
+    python3 -m hpmpc_tpu_torch.tools.compare_builds --other _archive/swap \\
+        --sections forms                  # row 9's two forms
     python3 -m hpmpc_tpu_torch.tools.compare_builds --other DIR \\
         --device cpu --batch 16 --band-batch 8
 
+(``_archive/swap``: ``git archive HEAD hpmpc_tpu_torch`` unpacked there,
+its ``csrc/factor_solve_flat.cu`` edited so that ``Row9::REG`` is the
+negation of its expression: ``static constexpr bool REG = !(...);``.)
+
 ``--sections`` picks any of ``resident``, ``routes``, ``mega``, ``parity``,
-``flat``, ``band``, ``tree``, ``refine`` (default: all). The resident section also
+``flat``, ``band``, ``tree``, ``refine``, ``sweeps``, ``forms`` (default:
+all). The resident section also
 runs rows 1 and 1s at the NZ=19 shape (nx=16, nu=3; float32: the hard
 problem with ngN=8 and the soft one, N=30), bits and ms.
 
@@ -171,6 +205,14 @@ REFINE = ("solve_flat_pb", "refine_flat_fused")
 REFINE_PROFILE = {"row 11": r"solve_flat_kernel<\w+, true>|"
                             r"\bsolve_flat_pb_kernel\b",
                   "row 13": r"\brefine_flat_kernel\b"}
+#: rows 9 and 10, the 6-kernel loop's sweeps, with their fused forms (rows
+#: 18 and 17: the pi-less factorization and the re-solve, one thread an
+#: instance)
+SWEEPS = {"factor_solve_folded_flat": "factor_solve_folded_flat_fused",
+          "solve_flat": "solve_flat_fused"}
+#: rows 9 and 10's kernels as the profiler names them (both builds)
+SWEEP_PROFILE = {"row 9": r"\bfactor_solve_flat(_smem)?_kernel\b",
+                 "row 10": r"\bsolve_flat_kernel\b"}
 
 
 def _load_other(root: pathlib.Path):
@@ -228,7 +270,14 @@ def _diff(a, b):
 
 
 SECTIONS = ("resident", "routes", "mega", "parity", "flat", "band", "tree",
-            "refine")
+            "refine", "sweeps", "forms")
+#: row 9's two forms (``struct Row9`` in csrc/factor_solve_flat.cu): the
+#: (dtype, nu, nx) of NZ 6, 11 (the flagship), 12-14 and 19 (the engine
+#: envelope's last)
+FORM_CASES = (("float32", 2, 4), ("float32", 3, 8), ("float32", 3, 10),
+              ("float32", 3, 16), ("float64", 2, 4), ("float64", 3, 8),
+              ("float64", 2, 10), ("float64", 3, 10), ("float64", 4, 10),
+              ("float64", 3, 16))
 #: the state width of rows 1 and 1s's second shape: NZ = 19 (nu = 3), the
 #: largest inside stage_kernel.engine_fits
 NX19 = 16
@@ -333,6 +382,24 @@ def main() -> int:
                       ("resid_full", dict(e19, NB=d19.NB)),
                       ("ipm_resident", dict(e19, NB=d19.NB, NG=d19.NG)),
                       ("refine_flat", dict(d2, NG=1))]
+        if "sweeps" in sections:
+            # the NZ=19 shape's routes, hard and soft (nx=16)
+            d19, _ = flagship(trees["this"], torch.float32, nx=NX19, ngN=0)
+            d19s, _, soft19, _ = soft_flagship(trees["this"], torch.float32,
+                                               nx=NX19)
+            e19 = dict(NU=d19.NU, NX=d19.NX)
+            specs += [("step_flat", dict(NZ=d19.NZ, NB=d19.NB)),
+                      ("factor_solve_flat", e19), ("solve_flat", e19),
+                      ("refine_flat", dict(e19, NG=1)),
+                      ("resid_terms_flat", e19),
+                      ("resid_full", dict(e19, NB=d19.NB)),
+                      ("ipm_resident", dict(e19, NB=d19.NB, NG=d19.NG)),
+                      ("refine_flat", dict(d2, NG=1)),
+                      ("soft_step_flat", dict(NZ=d19s.NZ, NB=d19s.NB,
+                                              NS=soft19.ns_mask.shape[-1]))]
+        if "forms" in sections:
+            specs += [("factor_solve_flat", dict(NU=nu, NX=nx))
+                      for nu, nx in sorted({c[1:] for c in FORM_CASES})]
         if "tree" in sections:
             # nx=4 nu=2: NZ=6, two input boxes
             specs += [("tree_sweeps", dict(NU=2, NX=4)),
@@ -376,6 +443,10 @@ def main() -> int:
         out["tree"] = _tree(trees, dev, B)
     if "refine" in sections:
         out["refine"] = _refine(trees, dev, flagship)
+    if "sweeps" in sections:
+        out["sweeps"] = _sweeps(trees, dev, flagship, soft_flagship)
+    if "forms" in sections:
+        out["forms"] = _forms(trees, dev, scales)
     print(json.dumps(out), flush=True)
     return 0
 
@@ -1288,6 +1359,222 @@ def _refine(trees, dev, flagship):
                   f"row 13 {p['kern_ms']:.3f} ms in {p['kern_n']:.0f}, row "
                   f"11 {p['parts']['row 11'][0]:.3f} ms in "
                   f"{p['parts']['row 11'][1]:.0f}", flush=True)
+    return out
+
+
+def _sweep_inputs(m, run):
+    """The first and the last call of rows 9 and 10 in ``run()`` on the
+    checkout ``m``: {(name, "first" / "last"): (args, kwargs)}."""
+    sk = m["sk"]
+    calls = {}
+    saved = {k: getattr(sk, k) for k in SWEEPS}
+
+    def spy(name, fn):
+        def call(*a, **k):
+            calls.setdefault((name, "first"), (_clone(a), dict(k)))
+            calls[(name, "last")] = (_clone(a), dict(k))
+            return fn(*a, **k)
+        return call
+
+    for k, fn in saved.items():
+        setattr(sk, k, spy(k, fn))
+    try:
+        run()
+    finally:
+        for k, fn in saved.items():
+            setattr(sk, k, fn)
+    return calls
+
+
+def _sweeps(trees, dev, flagship, soft_flagship):
+    """Rows 9 and 10 (and their fused forms, rows 18 and 17): both builds
+    on this checkout's inputs of the first and the last call in each
+    default route of the 6-kernel loop, bits, ms in turns, ptxas and the
+    launch layout; then the routes of both checkouts: bits, ms a batch in
+    turns, one profile each (busy ms, idle share, rows 9 and 10's ms and
+    launches)."""
+    import torch
+
+    this = trees["this"]
+    out = {"bitwise_equal": {}, "max_abs_diff": {}, "ms": {}, "layout": {},
+           "route_bitwise_equal": {}, "route_ms": {}, "route_profile": {}}
+
+    def route(m, key, dt, **kw):
+        """(solve(), the route's solution fields) of route ``key`` on the
+        checkout ``m``: the parity line, route D, route E or a soft 6-kernel
+        loop, on the flagship (``kw``: its changes) in ``dt``."""
+        IPMConfig = m["ipm"].IPMConfig
+        if key.startswith("soft"):
+            d, q, sb, idxbs = soft_flagship(m, dt, **kw)
+            c = IPMConfig(k_max=8, mu0=100.0, mu_tol=0.0, use_pallas=True)
+
+            def run():
+                with _env(HPMPC_RESIDENT="0", HPMPC_MEGA_SWEEPS="0"):
+                    return m["batch"].solve_batched_soft(d, q, sb, c,
+                                                         idxbs=idxbs)
+            return run
+        d, q = flagship(m, dt, **kw)
+        c = {"parity": IPMConfig(k_max=8, mu_tol=0.0, alpha_min=1e-8,
+                                 iter_ref=1, iter_ref_mu_thr=1e-3,
+                                 use_pallas=True),
+             "route D": IPMConfig(k_max=8, mu_tol=0.0, alpha_min=1e-8,
+                                  iter_ref=1, use_pallas=True),
+             "route E": IPMConfig(iter_ref=1, use_pallas=True)}[
+                 key.rsplit(" ", 1)[0]]
+        return lambda: m["batch"].solve_batched(d, q, c)
+
+    routes = (("parity f32", torch.float32), ("route D f32", torch.float32),
+              ("route E f64", torch.float64),
+              ("soft six f32", torch.float32), ("soft six f64", torch.float64))
+    problems = {"hard": (("flagship", {}), ("box-only", dict(ngN=0)),
+                         ("NZ=19", dict(nx=NX19, ngN=0))),
+                "soft": (("flagship", {}),
+                         ("ng", dict(N=SOFT_NG_N, ng=True)),
+                         ("NZ=19", dict(nx=NX19)))}
+    for key, dt in routes:
+        for what, kw in problems["soft" if key.startswith("soft") else
+                                 "hard"]:
+            calls = _sweep_inputs(this, route(this, key, dt, **kw))
+            for (name, when), (a, k) in sorted(calls.items()):
+                # the fused form takes the call without pi (row 18)
+                fused_k = {x: v for x, v in k.items() if x != "want_pi"}
+                for fname, fk in ((name, k), (SWEEPS[name], fused_k)):
+                    label = f"{fname} {key} {what} {when} call"
+                    got = [getattr(m["sk"], fname)(*_clone(a), **fk)
+                           for m in trees.values()]
+                    same, dmax = _diff(*got)
+                    out["bitwise_equal"][label] = same
+                    out["max_abs_diff"][label] = dmax
+                    line = (f"{label}, this vs other build on the same "
+                            f"inputs: bitwise equal {same} (max |diff| "
+                            f"{dmax:.3e})")
+                    if not same:
+                        line += f"; first apart: {_first_apart(*got)}"
+                    if (dev.type == "cuda" and fname == name
+                            and when == "first" and what != "box-only"):
+                        fns = {lbl: (lambda m=m: getattr(m["sk"], name)(
+                            *a, **k)) for lbl, m in trees.items()}
+                        ms = _turns(torch, fns, reps=20)
+                        out["ms"][label] = ms
+                        line += "; ms a call (other, this, this, other): " + (
+                            ", ".join(f"{v:.4f}" for v in (
+                                ms["other"][0], *ms["this"],
+                                ms["other"][1])))
+                    print(line, flush=True)
+            if dev.type == "cuda" and what != "box-only" and calls:
+                a, k = calls[("solve_flat", "first")]
+                NU, NX = k["NU"], k["NX"]
+                N_ = a[3].shape[0] - 1
+                lay = dict(row9=this["sk"].factor_flat_layout(NU, NX, N_, dt),
+                           row10=this["sk"].resolve_layout(
+                               "solve_flat", N_, dt, NU=NU, NX=NX))
+                out["layout"][f"{key} {what}"] = lay
+                print(f"{key} {what}: this build's layout {lay}", flush=True)
+    if dev.type != "cuda":
+        return out
+    out["ptxas"] = {lbl: _ptxas(m, "", "factor_solve_flat")
+                    + _ptxas(m, "", "solve_flat")
+                    for lbl, m in trees.items()}
+    for lbl, lines in out["ptxas"].items():
+        for line in lines:
+            print(f"ptxas {lbl}: {line}", flush=True)
+    # the routes of both checkouts on the flagship
+    for key, dt in routes:
+        fns = {lbl: route(m, key, dt) for lbl, m in trees.items()}
+        sols = {lbl: fn() for lbl, fn in fns.items()}
+        t, o = sols["this"], sols["other"]
+        fields = {f: _diff(getattr(t, f), getattr(o, f))[0]
+                  for f in t._fields}
+        out["route_bitwise_equal"][key] = all(fields.values())
+        print(f"{key} route, this vs other: bitwise equal per field "
+              f"{fields}", flush=True)
+        ms = _turns(torch, fns, reps=3)
+        out["route_ms"][key] = ms
+        print(f"{key} ms a batch (other, this, this, other): " + ", ".join(
+            f"{v:.3f}" for v in (ms["other"][0], *ms["this"],
+                                 ms["other"][1])), flush=True)
+        prof = {lbl: _profile(torch, fn, SWEEP_PROFILE["row 9"],
+                              parts={"row 10": SWEEP_PROFILE["row 10"]})
+                for lbl, fn in fns.items()}
+        out["route_profile"][key] = prof
+        for lbl in ("other", "this"):
+            p = prof[lbl]
+            print(f"{key} profile, {lbl}: wall {p['wall']:.3f} ms, device "
+                  f"busy {p['busy']:.3f} ms (idle share {p['idle']:.1%}), "
+                  f"row 9 {p['kern_ms']:.3f} ms in {p['kern_n']:.0f}, row "
+                  f"10 {p['parts']['row 10'][0]:.3f} ms in "
+                  f"{p['parts']['row 10'][1]:.0f}", flush=True)
+    return out
+
+
+
+def _to(x, dev):
+    """``x`` (tensors, nested in tuples and lists) on ``dev``."""
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x.to(dev)
+    if isinstance(x, (tuple, list)):
+        return type(x)(_to(v, dev) for v in x)
+    return x
+
+
+def _forms(trees, dev, scales):
+    """Row 9 at the ``FORM_CASES`` (N=30, box-only mass-spring chains,
+    ``b`` scaled as the flagship's) on the first call of the ``"flat"``
+    engine (``IPMConfig(iter_ref=1, use_pallas=True)``: route E in
+    float64), captured through the plain versions on the CPU and moved to
+    ``dev``:
+    both builds on the same inputs, bits, ms a call in turns, each build's
+    form (the layout's ``registers``) and ptxas lines.  With ``--other`` a
+    copy of this checkout whose ``Row9::REG`` is negated, each shape runs
+    both forms of row 9."""
+    import torch
+
+    this = trees["this"]
+    out = {"bitwise_equal": {}, "ms": {}, "registers": {}, "ptxas": {}}
+    for dname, nu, nx in FORM_CASES:
+        dt = getattr(torch, dname)
+        dims, qp = this["ms"].mass_spring_qp(nx, nu, 30, dtype=dt,
+                                             device="cpu")
+        qpb = this["batch"].broadcast_qp(qp, len(scales))
+        sc = torch.as_tensor(scales, dtype=dt)
+        qpb = dataclasses.replace(qpb, b=qpb.b * sc[:, None, None])
+        cfg = this["ipm"].IPMConfig(k_max=1, iter_ref=1, use_pallas=True)
+        calls = _sweep_inputs(
+            this, lambda: this["batch"].solve_batched(dims, qpb, cfg))
+        a, k = calls[("factor_solve_folded_flat", "first")]
+        a = _to(a, dev)
+        label = f"row 9 {dname} NZ={nu + nx} (nu={nu}, nx={nx})"
+        got = [m["sk"].factor_solve_folded_flat(*_clone(a), **k)
+               for m in trees.values()]
+        same, dmax = _diff(*got)
+        out["bitwise_equal"][label] = same
+        line = (f"{label}, the flat engine's first call, this vs other "
+                f"build: "
+                f"bitwise equal {same} (max |diff| {dmax:.3e})")
+        if dev.type == "cuda":
+            regs = {lbl: m["sk"].factor_flat_layout(nu, nx, 30, dt)[
+                "registers"] for lbl, m in trees.items()}
+            out["registers"][label] = regs
+            line += f"; register form (1) or shared-memory form (0): {regs}"
+            fns = {lbl: (lambda m=m: m["sk"].factor_solve_folded_flat(
+                *a, **k)) for lbl, m in trees.items()}
+            ms = _turns(torch, fns, reps=20)
+            out["ms"][label] = ms
+            line += "; ms a call (other, this, this, other): " + ", ".join(
+                f"{v:.4f}" for v in (ms["other"][0], *ms["this"],
+                                     ms["other"][1]))
+        print(line, flush=True)
+        if dev.type == "cuda":
+            for lbl, m in trees.items():
+                lines = [x for x in _ptxas(m, f"NU{nu}_NX{nx}_",
+                                           "factor_solve_flat")
+                         if "fused" not in x
+                         and ("Id" if dname == "float64" else "If") in x]
+                out["ptxas"][f"{label} {lbl}"] = lines
+                for x in lines:
+                    print(f"ptxas {lbl}: {x}", flush=True)
     return out
 
 

@@ -49,8 +49,8 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-def _batch(dev, dtype, N, ngN, B, nx=8, spread=0.02, seed=0):
-    dims, qp = mass_spring_qp(nx, 3, N, ngN=ngN, dtype=dtype, device=dev)
+def _batch(dev, dtype, N, ngN, B, nx=8, spread=0.02, seed=0, nu=3):
+    dims, qp = mass_spring_qp(nx, nu, N, ngN=ngN, dtype=dtype, device=dev)
     qpb = pbatch.broadcast_qp(qp, B)
     rng = np.random.default_rng(seed)
     sc = torch.as_tensor(1 + spread * rng.standard_normal(B), dtype=dtype,
@@ -315,6 +315,101 @@ def test_six_kernels_match_plain(cuda, monkeypatch, dtype, ngN, phase2, nx,
             scale = max(1.0, float(y.abs().max()))
             assert float((x - y).abs().max()) <= _MEGA_TOL[dtype] * scale, (
                 name, i)
+
+
+_SWEEPS = [(sk, "factor_solve_folded_flat"), (sk, "solve_flat")]
+
+
+def _sweeps_vs_plain(calls, dtype):
+    """Rows 9 (with and without pi) and 10 on captured arguments against
+    their plain versions: one launch each, finite, within the mega
+    kernels' tolerance of each field's scale."""
+    for (name, _, _), (a, k) in sorted(calls.items()):
+        forms = [k] if name == "solve_flat" else [
+            dict(k, want_pi=w) for w in (True, False)]
+        for kw in forms:
+            n0 = sk.LAUNCHES[name]
+            out_k = [x for x in _flat(getattr(sk, name)(*a, **kw))
+                     if x is not None]
+            torch.cuda.synchronize()
+            assert sk.LAUNCHES[name] == n0 + 1, name
+            out_p = [x for x in _flat(getattr(sk, name + "_ref")(*a, **kw))
+                     if x is not None]
+            assert len(out_k) == len(out_p), (name, kw)
+            for i, (x, y) in enumerate(zip(out_k, out_p)):
+                assert x.shape == y.shape, (name, kw, i)
+                assert bool(torch.isfinite(x).all()), (name, kw, i)
+                scale = max(1.0, float(y.abs().max()))
+                assert float((x - y).abs().max()) <= (
+                    _MEGA_TOL[dtype] * scale), (name, kw, i)
+
+
+# Rows 9 and 10 run a team of lanes an instance, 4 lanes at NZ <= 12 and 8
+# past it.  Row 9, 32 / team instances a one-warp block: f32 and f64 at 4
+# lanes at NZ=6 (nx=4 nu=2) and NZ=11, the register form; 8 lanes at NZ=19
+# (nx=16), the register form in f32 and the shared-memory form in f64.
+# Row 10: 8 or 4 instances a block.  B=1: one instance in a block; B=37:
+# the last block ragged.
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("nx,nu", [(4, 2), (8, 3), (16, 3)])
+@pytest.mark.parametrize("ngN", [0, 4])
+@pytest.mark.parametrize("B", [1, 37])
+def test_sweep_kernels_match_plain(cuda, monkeypatch, dtype, nx, nu, ngN,
+                                   B):
+    """Rows 9 and 10 at every team width on the arguments of the lanes
+    engine's first call of them (ungated refinement: row 9 with pi, and
+    the same call without pi)."""
+    dims, qpb = _batch(cuda, dtype, 4, ngN, B, nx=nx, nu=nu)
+    calls = _capture(monkeypatch, dims, qpb,
+                     IPMConfig(k_max=1, iter_ref=1, use_pallas=True),
+                     _SWEEPS)
+    assert len(calls) == 2, sorted(calls)
+    _sweeps_vs_plain(calls, dtype)
+
+
+def test_sweep_kernels_long_horizon(cuda, monkeypatch):
+    """Rows 9 and 10 at a long horizon (N=100: 101 stages a team; row 10's
+    202 chain steps, 34 stages a worker, its kept rows in device memory)
+    against their plain versions on the first call of a float64 run of
+    the flat form, the ngN=4 block, B=9 (two blocks each, the second
+    ragged)."""
+    dims, qpb = _batch(cuda, torch.float64, 100, 4, 9)
+    lay = sk.resolve_layout("solve_flat", 100, torch.float64, NU=3, NX=8)
+    assert lay["work_block"] == lay["instances"] * 101 * 42, lay
+    lay9 = sk.factor_flat_layout(3, 8, 100, torch.float64)
+    assert lay9["scratch_rows"] == 101 * 11, lay9
+    assert lay9["team"] * lay9["instances"] == lay9["threads"] == 32, lay9
+    calls = _capture(monkeypatch, dims, qpb,
+                     IPMConfig(k_max=1, iter_ref=1, use_pallas=True),
+                     _SWEEPS, flat=True)
+    assert len(calls) == 2, sorted(calls)
+    _sweeps_vs_plain(calls, torch.float64)
+
+
+@pytest.mark.parametrize("ng", [False, True])
+def test_soft_sweep_kernels_match_plain(cuda, monkeypatch, ng):
+    """Rows 9 (no pi) and 10 on the arguments of their first call in the
+    soft float64 route (``solve_batched_soft``: the ``"soft_flat"``
+    6-kernel loop), B=37."""
+    dims, qpb, sb, idxbs = _soft_batch(cuda, torch.float64, 5, ng, 37)
+    cfg = IPMConfig(k_max=1, mu0=100.0, use_pallas=True)
+    monkeypatch.delenv("HPMPC_RESIDENT", raising=False)
+    monkeypatch.setenv("HPMPC_MEGA_SWEEPS", "0")
+    assert pbatch.select_soft_engine(
+        dims, cfg, torch.float64, sb.ns_mask.shape[-1], idxbs) == "soft_flat"
+    calls = {}
+    for _, name in _SWEEPS:
+        def spy(*a, _name=name, _fn=getattr(sk, name), **k):
+            calls.setdefault((_name, None, False), (a, k))
+            return _fn(*a, **k)
+
+        monkeypatch.setattr(sk, name, spy)
+    pbatch.solve_batched_soft(dims, qpb, sb, cfg, idxbs=idxbs)
+    monkeypatch.undo()
+    assert len(calls) == 2, sorted(calls)
+    assert calls[("factor_solve_folded_flat", None, False)][1][
+        "want_pi"] is False
+    _sweeps_vs_plain(calls, torch.float64)
 
 
 def test_six_kernel_engine_on_card_matches_cpu(cuda):
