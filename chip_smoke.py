@@ -389,8 +389,10 @@ PROFILED = ("ipm_resident", "resid_full", "factor_solve_mega", "solve_mega",
                 "tree_factor_solve_flat", "tree_solve_flat",
                 "tree_resid_terms_flat", "cholesky", "panel")
 _PATTERNS = {k: rf"\b{k}_kernel\b" for k in PROFILED}
-# row 9's two forms (csrc/factor_solve_flat.cu)
+# the two forms of row 9 (csrc/factor_solve_flat.cu) and of rows 16 / 14
+# (csrc/factor_solve_folded.cu), csrc/folded_team.cuh's bodies
 _PATTERNS["factor_solve_flat"] = r"\bfactor_solve_flat(_smem)?_kernel\b"
+_PATTERNS["factor_solve_folded"] = r"\bfactor_solve_folded(_smem)?_kernel\b"
 #: rows 11 and 13 as the profiler names them
 REFINE_PROFILED = ("solve_flat_pb", "refine_flat")
 
@@ -3577,14 +3579,35 @@ def main() -> int:
           f"{row['scratch_rows']} scratch rows an instance, Cholesky in "
           f"{'registers' if lay['registers'] else 'shared memory'}, "
           f"{row['share']:.2%} of bound; ptxas {row['ptxas']}", flush=True)
-    # rows 10, 11 and 13: a team of lanes an instance (hp::ReSolve)
+    # rows 16 and 14: row 9's team on the full factor (folded_team.cuh)
+    lay = sk.folded_layout(dims.NU, dims.NX, dims.N, torch.float32)
+    log = _build.PTXAS_LOG.get(
+        f"lib{_build._key('factor_solve_folded', d2)}.so", "")
+    for name in ("factor_solve_folded", "factor_solve_batched"):
+        row = next(k for k in kernels if k["name"] == name)
+        row.update(share=row["bound_ms"] / row["ms"], team=lay["team"],
+                   block=lay["threads"], instances=lay["instances"],
+                   ptxas=[x for x in _ptxas_lines(log)
+                          if "factor_solve_folded_kernelI" in x
+                          or "factor_solve_folded_smem_kernelI" in x])
+        print(f"{name}: team {row['team']} lanes an instance, "
+              f"{lay['instances']} instances and {row['block']} threads a "
+              f"block, {lay['smem_block']} B of shared memory a block, "
+              f"Cholesky in "
+              f"{'registers' if lay['registers'] else 'shared memory'}, "
+              f"{row['share']:.2%} of bound; ptxas {row['ptxas']}",
+              flush=True)
+    # rows 10, 11, 13 and 15: a team of lanes an instance (hp::ReSolve)
     lays = _resolve_layouts(sk, dims, torch.float32)
     for name, lib, dims_, lay, entry in (
             ("solve_flat", "solve_flat", d2, lays["row 10"],
              "solve_flat_kernel"),
             ("solve_flat_pb", "solve_flat", d2, lays["row 11"], "pb_kernel"),
             ("refine_flat_fused", "refine_flat",
-             dict(d2, NG=dims.NG), lays["row 13"], "refine_flat_kernel")):
+             dict(d2, NG=dims.NG), lays["row 13"], "refine_flat_kernel"),
+            ("solve_batched", "solve_batched", d2,
+             sk.resolve_layout("solve_batched", dims.N, torch.float32, **d2),
+             "solve_batched_kernel")):
         row = next(k for k in kernels if k["name"] == name)
         log = _build.PTXAS_LOG.get(f"lib{_build._key(lib, dims_)}.so", "")
         row.update(share=row["bound_ms"] / row["ms"], team=lay["team"],

@@ -247,16 +247,8 @@ __global__ void __launch_bounds__(RS::THREADS, sizeof(T) == 4 ? RS::MIN_BLOCKS_F
 
 template <typename T, bool HAS_NG>
 static int launch(const RefineArgs& a, cudaStream_t stream) {
-  const RS::Geo g = RS::geo(a.N);
   if (a.work == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t blocks = (a.B + RS::IPB - 1) / RS::IPB;
-  const int64_t smem = g.smem * static_cast<int64_t>(sizeof(T));
-  const int rc = hp::allow_smem(refine_flat_kernel<T, HAS_NG>, smem);
-  if (rc != 0) return rc;
-  refine_flat_kernel<T, HAS_NG>
-      <<<static_cast<unsigned>(blocks), RS::THREADS,
-         static_cast<size_t>(smem), stream>>>(a, g);
-  return static_cast<int>(cudaGetLastError());
+  return RS::start<T>(refine_flat_kernel<T, HAS_NG>, a, a.B, a.N, stream);
 }
 
 template <typename T>
@@ -273,21 +265,11 @@ extern "C" int hp_refine_flat_fused(const RefineArgs* a, int dtype_code,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The launch layout at horizon N in dtype_code: out = {lanes a team,
-// instances a block, threads a block, the kept rows' device memory a block
-// (scalars), shared memory a block (bytes)}.  The wrapper sizes `work`
-// from it.
+// The launch layout at horizon N in dtype_code (hp::ReSolve::layout).
 extern "C" void hp_refine_flat_layout(int64_t N, int dtype_code,
                                       int64_t* out) {
-  const int64_t sz = dtype_code == 1 ? 8 : 4;
-  const RS::Geo g = RS::geo(N);
-  out[0] = RS::TEAM;
-  out[1] = RS::IPB;
-  out[2] = RS::THREADS;
-  out[3] = RS::IPB * g.rows;
-  out[4] = g.smem * sz;
+  RS::layout(N, dtype_code, out);
 }
-
 
 extern "C" const char* hp_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -186,58 +186,14 @@ __device__ __forceinline__ void solve_flat_sweeps(const SolveFlatArgs& a,
   }
 }
 
-// The cached-Pb form (row 10): the workers keep rq = g_k, the forward's
-// right-hand side b_k, the cached Pb_k and the pivots of each stage, warp
-// 0 runs the chain, the workers the epilogue (z and pi out):
-// hp::ReSolve::run.
+// The cached-Pb form (row 10): hp::ReSolve::run_cached_pb on the split
+// factor.
 template <typename T>
 __global__ void __launch_bounds__(RC::THREADS, sizeof(T) == 4 ? RC::MIN_BLOCKS_F32 : RC::MIN_BLOCKS_F64)
     solve_flat_kernel(SolveFlatArgs a, RC::Geo geo) {
-  using hp::Col;
-  using TM = RC::TM;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const auto ln = RC::lane_of<T>(geo, a.B, a.work, smem_raw);
-  const int N = static_cast<int>(a.N), r = ln.r;
-  auto in = [&](const void* p) {
-    return Col<const T>{static_cast<const T*>(p) + ln.bl, a.B};
-  };
-  auto out = [&](void* p) { return Col<T>{static_cast<T*>(p) + ln.bl, a.B}; };
-  const Col<const T> Llc = in(a.Ll), Lxxc = in(a.Lxx), Pbc = in(a.Pb),
-                     gc = in(a.g), Fc = in(a.F), bc = in(a.b);
-  auto prologue = [&](int k) {
-    const hp::Rows<T> st = ln.kp.at(static_cast<int64_t>(k) * RC::KS);
-    RC::du_keep(ln, k, Llc);
-    T gb[RC::chunks(NZ)], bb[RC::chunks(NX)], pb[RC::chunks(NX)];
-    TM::fetch<NZ>(r, gb, [&](int e) {
-      return gc(static_cast<int64_t>(k) * NZ + e);
-    });
-    if (k < N) {
-      TM::fetch<NX>(r, bb, [&](int e) {
-        return bc(static_cast<int64_t>(k) * NX + e);
-      });
-      TM::fetch<NX>(r, pb, [&](int e) {
-        return Pbc(static_cast<int64_t>(k) * NX + e);
-      });
-    }
-#pragma unroll
-    for (int c = 0; c < RC::chunks(NZ); ++c) {
-      const int i = r + c * RC::TEAM;
-      if (i < NZ) st[RC::K_Q + i] = gb[c];
-    }
-    if (k < N) {
-#pragma unroll
-      for (int c = 0; c < RC::chunks(NX); ++c) {
-        const int q = r + c * RC::TEAM;
-        if (q < NX) {
-          st[RC::K_RB + q] = bb[c];
-          st[RC::K_PB + q] = pb[c];
-        }
-      }
-    }
-  };
-  const Col<T> zo = out(a.z), pio = out(a.pi);
-  RC::run(ln, RC::progress<T>(geo, smem_raw), N, prologue, Llc, Fc, Lxxc, gc,
-          Col<const T>{pio.p, a.B}, zo, pio);
+  RC::run_cached_pb<T>(geo, smem_raw, a.B, static_cast<int>(a.N), a.work,
+                       a.Ll, a.Lxx, a.Pb, a.g, a.F, a.b, a.z, a.pi);
 }
 
 // The Pb form (row 11): the workers keep rq = g_k, the forward's
@@ -308,29 +264,15 @@ __global__ void __launch_bounds__(BLOCK)
 
 template <typename T>
 static int launch(const SolveFlatArgs& a, cudaStream_t stream) {
-  const RC::Geo g = RC::geo(a.N);
   if (a.work == nullptr || a.Pb == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t blocks = (a.B + RC::IPB - 1) / RC::IPB;
-  const int64_t smem = g.smem * static_cast<int64_t>(sizeof(T));
-  const int rc = hp::allow_smem(solve_flat_kernel<T>, smem);
-  if (rc != 0) return rc;
-  solve_flat_kernel<T><<<static_cast<unsigned>(blocks), RC::THREADS,
-                         static_cast<size_t>(smem), stream>>>(a, g);
-  return static_cast<int>(cudaGetLastError());
+  return RC::start<T>(solve_flat_kernel<T>, a, a.B, a.N, stream);
 }
 
 template <typename T>
 static int launch_pb(const SolveFlatArgs& a, cudaStream_t stream) {
-  const RS::Geo g = RS::geo(a.N);
   if (a.work == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t blocks = (a.B + RS::IPB - 1) / RS::IPB;
-  const int64_t smem = g.smem * static_cast<int64_t>(sizeof(T));
-  const int rc = hp::allow_smem(solve_flat_pb_kernel<T>, smem);
-  if (rc != 0) return rc;
-  solve_flat_pb_kernel<T><<<static_cast<unsigned>(blocks), RS::THREADS,
-                            static_cast<size_t>(smem), stream>>>(a, g);
-  return static_cast<int>(cudaGetLastError());
+  return RS::start<T>(solve_flat_pb_kernel<T>, a, a.B, a.N, stream);
 }
 
 template <typename T>
@@ -365,29 +307,15 @@ extern "C" int hp_solve_flat_pb(const SolveFlatArgs* a, int dtype_code,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The launch layout of row 10 (RC) or row 11 (RS) at horizon N in
-// dtype_code: out = {lanes a team, instances a block, threads a block, the
-// kept rows' device memory a block (scalars), shared memory a block
-// (bytes)}.  The wrapper sizes `work` from it.
-template <typename R>
-static void layout(int64_t N, int dtype_code, int64_t* out) {
-  const int64_t sz = dtype_code == 1 ? 8 : 4;
-  const typename R::Geo g = R::geo(N);
-  out[0] = R::TEAM;
-  out[1] = R::IPB;
-  out[2] = R::THREADS;
-  out[3] = R::IPB * g.rows;
-  out[4] = g.smem * sz;
-}
-
+// The launch layouts of row 10 (RC) and row 11 (RS): hp::ReSolve::layout.
 extern "C" void hp_solve_flat_layout(int64_t N, int dtype_code,
                                      int64_t* out) {
-  layout<RC>(N, dtype_code, out);
+  RC::layout(N, dtype_code, out);
 }
 
 extern "C" void hp_solve_flat_pb_layout(int64_t N, int dtype_code,
                                         int64_t* out) {
-  layout<RS>(N, dtype_code, out);
+  RS::layout(N, dtype_code, out);
 }
 
 extern "C" int hp_solve_flat_fused(const SolveFlatArgs* a, int dtype_code,

@@ -3,7 +3,8 @@
 // 1 and 1s), csrc/factor_solve_mega.cu and csrc/solve_mega.cu (rows 19 and
 // 20), csrc/factor_solve_flat.cu (row 9), csrc/tree_sweeps.cu (rows 26 and
 // 27), and the retained-factor re-solves of csrc/solve_flat.cu (rows 10
-// and 11) and csrc/refine_flat.cu (row 13), struct ReSolve at the end.
+// and 11) and csrc/refine_flat.cu (row 13), struct ReSolve at the end,
+// which csrc/solve_batched.cu (row 15) runs on the full factor.
 //
 // A team's lane r owns the rows r, r + TEAM, ... of every NZ-row object of
 // a stage (M, F / W, g, m, the Ll / Lxx rows, z), the x indices likewise,
@@ -537,8 +538,9 @@ struct Team {
 
 // ---------------------------------------------------------------------------
 // The retained-factor re-solve of rows 10 and 11 (csrc/solve_flat.cu: the
-// cached-Pb and the Pb form) and 13 (csrc/refine_flat.cu); the design is in
-// csrc/refine_flat.cu's head comment.
+// cached-Pb and the Pb form), 13 (csrc/refine_flat.cu) and 15
+// (csrc/solve_batched.cu: the cached-Pb form on the full factor); the
+// design is in csrc/refine_flat.cu's head comment.
 // ---------------------------------------------------------------------------
 
 // An instance's kept rows in its block's interleaved store, in shared or
@@ -562,14 +564,22 @@ __device__ __forceinline__ void cp_async(T* dst, const T* src) {
   __pipeline_memcpy_async(dst, src, sizeof(T));
 }
 
+// The row i of entry e = sym_idx(i, j) of a packed lower triangle of n
+// rows.
+template <int n>
+__device__ __forceinline__ int tril_row(int e) {
+  int i = 0;
+#pragma unroll
+  for (int q = 1; q < n; ++q) i += e >= q * (q + 1) / 2 ? 1 : 0;
+  return i;
+}
+
 // Entry e of the packed lower triangle of stage n's (NX, NX) block of a
 // batch-last stream (the upper triangle is not read).
 template <int NX, typename T>
 __device__ __forceinline__ const T& tril_packed(const Col<const T>& L, int n,
                                                 int e) {
-  int i = 0;
-#pragma unroll
-  for (int q = 1; q < NX; ++q) i += e >= q * (q + 1) / 2 ? 1 : 0;
+  const int i = tril_row<NX>(e);
   return L((static_cast<int64_t>(n) * NX + i) * NX + (e - i * (i + 1) / 2));
 }
 
@@ -584,12 +594,18 @@ __host__ __device__ constexpr int narrow_team(int nz) {
 }
 
 
-// The geometry and the shared phases of the three re-solve kernels: NG the
-// general rows a stage (row 13; 0 for rows 10 and 11), REFINE row 13 (the
-// iterate's z and pi updated) or rows 10 and 11 (z and pi out), CACHED_PB
-// row 10 (the prologue keeps the factorization's cached Pb_k as values)
-// or rows 11 and 13 (pb_keep forms Pb_k, row 0 as its two factors).
-template <int NU, int NX, int NG, bool REFINE, bool CACHED_PB = false>
+// The geometry and the shared phases of the four re-solve kernels: NG the
+// general rows a stage (row 13; 0 for rows 10, 11 and 15), REFINE row 13
+// (the iterate's z and pi updated) or rows 10, 11 and 15 (z and pi out),
+// CACHED_PB rows 10 and 15 (the prologue keeps the factorization's cached
+// Pb_k as values) or rows 11 and 13 (pb_keep forms Pb_k, row 0 as its two
+// factors), FULL row 15 (the factor read from the full (N+1, NZ, NZ) stream:
+// Ll as the columns 0..NU-1 of a stage's block, Lxx as its (NU:, NU:)
+// block, both at row stride NZ) or rows 10, 11 and 13 (the split (N+1, NZ,
+// NU) and (N+1, NX, NX) streams; Llc and Lxxc below are then the two
+// streams, with FULL both the one factor stream).
+template <int NU, int NX, int NG, bool REFINE, bool CACHED_PB = false,
+          bool FULL = false>
 struct ReSolve {
   static constexpr int NZ = NU + NX;
   static constexpr int NTX = NX * (NX + 1) / 2;
@@ -657,6 +673,49 @@ struct ReSolve {
   // slower at the flagship and at NZ=19 (f32: 59 KB a block, three blocks
   // an SM, a small L1 for the prologue's loads; PERF.md section 6, PR 17).
 
+  // Where entry (i, j) of stage k's Ll and, j <= i, of its Lxx lie in
+  // their streams.
+  static __host__ __device__ constexpr int64_t ll_at(int64_t k, int i,
+                                                     int j) {
+    return FULL ? (k * NZ + i) * NZ + j : (k * NZ + i) * NU + j;
+  }
+  static __host__ __device__ constexpr int64_t lxx_at(int64_t k, int i,
+                                                      int j) {
+    return FULL ? (k * NZ + NU + i) * NZ + NU + j : (k * NX + i) * NX + j;
+  }
+
+  // Stage k's packed lower triangle of Lxx into the team's slab rows dst,
+  // loads first: element by element from the split stream, or with FULL
+  // the owners' rows of the (NU:, NU:) block (the packed index of an
+  // element of the full factor is no linear map of its stream row).
+  template <typename T>
+  static __device__ __forceinline__ void lxx_copy(int r,
+                                                  const Col<const T>& L,
+                                                  int k, T* dst) {
+    if constexpr (FULL) {
+      T buf[chunks(NX)][NX];
+#pragma unroll
+      for (int c = 0; c < chunks(NX); ++c) {
+        const int i0 = r + c * TEAM, i = i0 < NX ? i0 : NX - 1;
+#pragma unroll
+        for (int j = 0; j < NX; ++j)
+          if (j <= i) buf[c][j] = L(lxx_at(k, i, j));
+      }
+#pragma unroll
+      for (int c = 0; c < chunks(NX); ++c) {
+        const int i = r + c * TEAM;
+        if (i < NX) {
+#pragma unroll
+          for (int j = 0; j < NX; ++j)
+            if (j <= i) dst[sym_idx(i, j)] = buf[c][j];
+        }
+      }
+    } else {
+      TM::template copy<NTX>(
+          r, dst, [&](int e) { return tril_packed<NX>(L, k, e); });
+    }
+  }
+
   // The launch geometry at horizon N: an instance's kept rows, the block's
   // shared memory in scalars.
   struct Geo {
@@ -669,6 +728,34 @@ struct ReSolve {
     g.smem = static_cast<int64_t>(IPB) * CSLAB +
              static_cast<int64_t>(WARPS - 1) * IPB * PSLAB + WARPS;
     return g;
+  }
+
+  // The launch layout at horizon N in dtype_code: out = {lanes a team,
+  // instances a block, threads a block, the kept rows' device memory a
+  // block (scalars), shared memory a block (bytes)}.  A wrapper sizes its
+  // `work` from it.
+  static void layout(int64_t N, int dtype_code, int64_t* out) {
+    const Geo g = geo(N);
+    out[0] = TEAM;
+    out[1] = IPB;
+    out[2] = THREADS;
+    out[3] = IPB * g.rows;
+    out[4] = g.smem * (dtype_code == 1 ? 8 : 4);
+  }
+
+  // Launch kernel(a, geo) of element type T over B instances at horizon N:
+  // IPB instances a block, geo's shared memory.
+  template <typename T, typename K, typename A>
+  static int start(K kernel, const A& a, int64_t B, int64_t N,
+                   cudaStream_t stream) {
+    const Geo g = geo(N);
+    const int64_t blocks = (B + IPB - 1) / IPB;
+    const int64_t smem = g.smem * static_cast<int64_t>(sizeof(T));
+    const int rc = allow_smem(kernel, smem);
+    if (rc != 0) return rc;
+    kernel<<<static_cast<unsigned>(blocks), THREADS,
+             static_cast<size_t>(smem), stream>>>(a, g);
+    return static_cast<int>(cudaGetLastError());
   }
 
   // The block's progress words, the last WARPS scalars of its shared
@@ -746,9 +833,7 @@ struct ReSolve {
                                                  const Col<const T>& Llc) {
     const Rows<T> st = ln.kp.at(static_cast<int64_t>(k) * KS);
     for (int i = ln.r; i < NU; i += TEAM)
-      st[K_DU + i] = T(1) / nmax(Llc((static_cast<int64_t>(k) * NZ + i) * NU +
-                                     i),
-                                 T(1e-30));
+      st[K_DU + i] = T(1) / nmax(Llc(ll_at(k, i, i)), T(1e-30));
   }
 
   // Pb_k = Lxx_{k+1} (Lxx_{k+1}' v) (hp::pb_of) for v in the slab's B rows,
@@ -761,9 +846,7 @@ struct ReSolve {
                                                  const Col<const T>& Lxxc) {
     T* const sh = ln.pe;
     const int r = ln.r;
-    TM::template copy<NTX>(r, sh + P_LX, [&](int e) {
-      return tril_packed<NX>(Lxxc, k + 1, e);
-    });
+    lxx_copy(r, Lxxc, k + 1, sh + P_LX);
     ln.tsync();
     const T* Lx = sh + P_LX;
     for (int i = r; i < NX; i += TEAM)
@@ -827,11 +910,24 @@ struct ReSolve {
           if (e < KS) cp_async(slot + S_K + e, &st[e]);
         }
       }
-      const int64_t l0 = static_cast<int64_t>(k) * NZ * NU;
+      if constexpr (FULL) {
+        // the owners' rows of Ll: NU entries each, at row stride NZ
 #pragma unroll
-      for (int c = 0; c < chunks(NZ * NU); ++c) {
-        const int e = r + c * TEAM;
-        if (e < NZ * NU) cp_async(slot + S_LL + e, &Llc(l0 + e));
+        for (int c = 0; c < chunks(NZ); ++c) {
+          const int i = r + c * TEAM;
+          if (i < NZ) {
+#pragma unroll
+            for (int j = 0; j < NU; ++j)
+              cp_async(slot + S_LL + i * NU + j, &Llc(ll_at(k, i, j)));
+          }
+        }
+      } else {
+        const int64_t l0 = static_cast<int64_t>(k) * NZ * NU;
+#pragma unroll
+        for (int c = 0; c < chunks(NZ * NU); ++c) {
+          const int e = r + c * TEAM;
+          if (e < NZ * NU) cp_async(slot + S_LL + e, &Llc(l0 + e));
+        }
       }
       if (k < N) {
         const int64_t f0 = static_cast<int64_t>(k) * NZ * NX;
@@ -929,9 +1025,7 @@ struct ReSolve {
           // the carry buffer of the last backward step holds px_0
           root_x0<TEAM, T, NX>(
               r,
-              [&](int i, int j) {
-                return Lxxc(static_cast<int64_t>(i) * NX + j);
-              },
+              [&](int i, int j) { return Lxxc(lxx_at(0, i, j)); },
               sh + C_PXC + ((N + 1) & 1) * NX, xc);
           ln.tsync();
         }
@@ -993,8 +1087,7 @@ struct ReSolve {
       for (int i = r; i < NZ; i += TEAM)
         zo(static_cast<int64_t>(s) * NZ + i) = st[K_Q + i];
     if (s == 0) return;
-    TM::template copy<NTX>(
-        r, sh + P_LX, [&](int e) { return tril_packed<NX>(Lxxc, s, e); });
+    lxx_copy(r, Lxxc, s, sh + P_LX);
     ln.tsync();
     pi_t1<TEAM, T, NX>(r, sh + P_LX, st.at(K_PB), sh + P_T1);
     ln.tsync();
@@ -1040,6 +1133,62 @@ struct ReSolve {
       wait_for([&] { return prog[NW] > s; });
       epilogue(ln, s, Lxxc, pic, zo, pio);
     }
+  }
+
+  // The cached-Pb re-solve of rows 10 and 15, a block's whole run: the
+  // workers keep rq = g_k, the forward's right-hand side b_k, the cached
+  // Pb_k and the pivots of each stage, warp 0 runs the chain, the workers
+  // the epilogue (z and pi out).  Ll, Lxx: the factor's streams (FULL: the
+  // one full factor twice); Pb, g: (N, NX, B), (N+1, NZ, B); F, b; z, pi
+  // out; work: the kept rows (geo's size a block).
+  template <typename T>
+  static __device__ __forceinline__ void run_cached_pb(
+      const Geo& geo, unsigned char* smem, int64_t B, int N, void* work,
+      const void* Ll, const void* Lxx, const void* Pb, const void* g,
+      const void* F, const void* b, void* z, void* pi) {
+    static_assert(CACHED_PB && !REFINE, "the cached-Pb re-solve");
+    const auto ln = lane_of<T>(geo, B, work, smem);
+    const int r = ln.r;
+    auto in = [&](const void* p) {
+      return Col<const T>{static_cast<const T*>(p) + ln.bl, B};
+    };
+    auto out = [&](void* p) { return Col<T>{static_cast<T*>(p) + ln.bl, B}; };
+    const Col<const T> Llc = in(Ll), Lxxc = in(Lxx), Pbc = in(Pb), gc = in(g),
+                       Fc = in(F), bc = in(b);
+    auto prologue = [&](int k) {
+      const Rows<T> st = ln.kp.at(static_cast<int64_t>(k) * KS);
+      du_keep(ln, k, Llc);
+      T gb[chunks(NZ)], bb[chunks(NX)], pb[chunks(NX)];
+      TM::template fetch<NZ>(r, gb, [&](int e) {
+        return gc(static_cast<int64_t>(k) * NZ + e);
+      });
+      if (k < N) {
+        TM::template fetch<NX>(r, bb, [&](int e) {
+          return bc(static_cast<int64_t>(k) * NX + e);
+        });
+        TM::template fetch<NX>(r, pb, [&](int e) {
+          return Pbc(static_cast<int64_t>(k) * NX + e);
+        });
+      }
+#pragma unroll
+      for (int c = 0; c < chunks(NZ); ++c) {
+        const int i = r + c * TEAM;
+        if (i < NZ) st[K_Q + i] = gb[c];
+      }
+      if (k < N) {
+#pragma unroll
+        for (int c = 0; c < chunks(NX); ++c) {
+          const int q = r + c * TEAM;
+          if (q < NX) {
+            st[K_RB + q] = bb[c];
+            st[K_PB + q] = pb[c];
+          }
+        }
+      }
+    };
+    const Col<T> zo = out(z), pio = out(pi);
+    run(ln, progress<T>(geo, smem), N, prologue, Llc, Fc, Lxxc, gc,
+        Col<const T>{pio.p, B}, zo, pio);
   }
 };
 

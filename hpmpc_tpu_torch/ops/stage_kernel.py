@@ -114,7 +114,8 @@ LAYOUT_KEYS = ("team", "instances", "threads", "work_block", "smem_block")
 #: the re-solve kernels' library and layout entry, by wrapper
 _RESOLVE_LIBS = {"solve_flat": ("solve_flat", "solve_flat_layout"),
                  "solve_flat_pb": ("solve_flat", "solve_flat_pb_layout"),
-                 "refine_flat_fused": ("refine_flat", "refine_flat_layout")}
+                 "refine_flat_fused": ("refine_flat", "refine_flat_layout"),
+                 "solve_batched": ("solve_batched", "solve_batched_layout")}
 
 
 @functools.lru_cache(maxsize=None)
@@ -132,8 +133,9 @@ def _layout(lib, entry, n, N, dt, dims) -> tuple:
 def resolve_layout(name, N, dt, **dims) -> dict:
     """The launch layout of the retained-factor re-solve kernels, row 10
     (``name`` ``"solve_flat"``, ``dims`` NU and NX), row 11
-    (``"solve_flat_pb"``, NU and NX) or row 13 (``"refine_flat_fused"``,
-    NU, NX and the library's NG), at horizon ``N`` in dtype ``dt``: lanes
+    (``"solve_flat_pb"``, NU and NX), row 13 (``"refine_flat_fused"``,
+    NU, NX and the library's NG) or row 15 (``"solve_batched"``, NU and
+    NX), at horizon ``N`` in dtype ``dt``: lanes
     a team, instances and threads a block, a block's device memory for the
     kept rows (scalars) and its shared memory (bytes)
     (``hp_<kernel>_layout``; the library is built on first use)."""
@@ -153,9 +155,19 @@ def factor_flat_layout(NU, NX, N, dt) -> dict:
     (one warp), scratch rows an instance, shared memory a block (bytes)
     and its form (``registers`` 1: the stage's Cholesky in registers, 0:
     in shared memory); the library is built on first use."""
+    return _factor_layout("factor_solve_flat", NU, NX, N, dt)
+
+
+def folded_layout(NU, NX, N, dt) -> dict:
+    """Rows 16 and 14's launch layout (row 9's team on the full factor,
+    ``csrc/folded_team.cuh``), with :func:`factor_flat_layout`'s keys; no
+    scratch rows (eu and px are outputs)."""
+    return _factor_layout("factor_solve_folded", NU, NX, N, dt)
+
+
+def _factor_layout(lib, NU, NX, N, dt) -> dict:
     return dict(zip(FACTOR_LAYOUT_KEYS, _layout(
-        "factor_solve_flat", "factor_solve_flat_layout",
-        len(FACTOR_LAYOUT_KEYS), int(N), dt,
+        lib, f"{lib}_layout", len(FACTOR_LAYOUT_KEYS), int(N), dt,
         (("NU", int(NU)), ("NX", int(NX))))))
 
 
@@ -377,9 +389,7 @@ def _launch_factor_flat(name, H, dvec, ngl, ng_stage_ids, g, F, b, *, NU, NZ,
                   ngl=(n_ng, sym_nt(NZ), B), g=(Np1, NZ, B),
                   F=(N, NZ, NX, B), b=(N, NX, B))
     _cuda_check(name, H, ng_stage_ids, named, shapes)
-    if len(set(ng_stage_ids)) != n_ng:
-        raise ValueError(f"{name}: ng stages must be distinct, got "
-                         f"{tuple(ng_stage_ids)}")
+    _distinct(name, ng_stage_ids)
     if fused:
         _slab_fits(name, H.device, H.dtype, Np1, NU, NX)
     new = lambda *s: torch.empty(*s, dtype=H.dtype, device=H.device)  # noqa: E731
@@ -396,6 +406,14 @@ def _launch_factor_flat(name, H, dvec, ngl, ng_stage_ids, g, F, b, *, NU, NZ,
                   NX=NX)
     LAUNCHES[name] += 1
     return z, pi, (Ll, Lxx, Pb)
+
+
+def _distinct(name, ng_stage_ids):
+    """Raise unless the ng table's stages are distinct (one slot a stage,
+    as the team kernels of ``csrc/folded_team.cuh`` read it)."""
+    if len(set(ng_stage_ids)) != len(ng_stage_ids):
+        raise ValueError(f"{name}: ng stages must be distinct, got "
+                         f"{tuple(ng_stage_ids)}")
 
 
 def solve_flat(Ll, Lxx, Pb, g, F, b, *, NU, NZ, NX):
@@ -689,7 +707,8 @@ def solve_batched_ref(L, g_eff, F, b, Pb, NU):
 
 def _launch_folded(name, H, dvec, ngl, ng_stage_ids, g, F, b, NU):
     """Check and launch one form of ``csrc/factor_solve_folded.cu``: the
-    folded one (``dvec`` given, packed H) or the whole-Hessian one."""
+    folded one (``dvec`` given, packed H) or the whole-Hessian one; a team
+    of lanes an instance, the layout :func:`folded_layout`."""
     Np1, NZ, B = g.shape
     N, NX, n_ng = Np1 - 1, F.shape[2], len(ng_stage_ids)
     if NZ != NU + NX:
@@ -703,6 +722,7 @@ def _launch_folded(name, H, dvec, ngl, ng_stage_ids, g, F, b, NU):
     shapes = dict(H=hshape, dvec=(Np1, NZ, B), ngl=(n_ng, sym_nt(NZ), B),
                   g=(Np1, NZ, B), F=(N, NZ, NX, B), b=(N, NX, B))
     _cuda_check(name, g, ng_stage_ids, named, shapes)
+    _distinct(name, ng_stage_ids)
     new = lambda *s: torch.empty(*s, dtype=g.dtype, device=g.device)  # noqa: E731
     L, eu, px, Pb = new(Np1, NZ, NZ, B), new(Np1, NZ, B), new(Np1, NX, B), \
         new(N, NX, B)
@@ -728,7 +748,9 @@ def factor_solve_folded(H, dvec, ngterm, ng_stage_ids, g_eff, F, b, NU):
     doc).
 
     CPU tensors run :func:`factor_solve_folded_ref`; CUDA tensors launch
-    ``csrc/factor_solve_folded.cu`` on the current stream (no sync)."""
+    ``csrc/factor_solve_folded.cu`` on the current stream (no sync): row
+    9's team on the full factor, the layout :func:`folded_layout`.  The
+    stages of ``ng_stage_ids`` must be distinct."""
     name = "factor_solve_folded"
     if H.device.type == "cpu":
         PLAIN_CALLS[name] += 1
@@ -761,7 +783,8 @@ def solve_batched(L, g_eff, F, b, Pb, NU):
     :func:`factor_solve_folded`.  Returns ``(z, pi)``.
 
     CPU tensors run :func:`solve_batched_ref`; CUDA tensors launch
-    ``csrc/solve_batched.cu`` (no sync)."""
+    ``csrc/solve_batched.cu`` (no sync): row 10's team on the full
+    factor, the layout :func:`resolve_layout`."""
     name = "solve_batched"
     if g_eff.device.type == "cpu":
         PLAIN_CALLS[name] += 1
@@ -775,7 +798,8 @@ def solve_batched(L, g_eff, F, b, Pb, NU):
                   b=(N, NX, B), Pb=(N, NX, B))
     _cuda_check(name, g_eff, (), named, shapes)
     new = lambda *s: torch.empty(*s, dtype=L.dtype, device=L.device)  # noqa: E731
-    z, pi, work = new(Np1, NZ, B), new(N, NX, B), new(Np1 * NZ, B)
+    z, pi = new(Np1, NZ, B), new(N, NX, B)
+    work = _resolve_work(name, N, L, B, NU=NU, NX=NX)
     a = _TrsArgs(*[_build.ptr(x) for x in (L, g_eff, F, b, Pb, z, pi,
                                            work)], B, N)
     _build.launch(name, name, a, L.device, L.dtype, NU=NU, NX=NX)

@@ -129,12 +129,25 @@ It reports:
     flagship: the solution equal bit for bit or not, ms a batch in turns,
     one profiled call of each (device busy ms, idle share, rows 9 and
     10's ms and launches).
-  * row 9's two forms: ``factor_solve_folded_flat`` in float32 and
-    float64 at NZ 6 to 19 (``FORM_CASES``) on the flat engine's first
-    call, captured through the plain versions on the CPU, handed to both
-    builds: bits, ms a call in turns, each build's form and ptxas lines.
-    Against a copy of this checkout whose ``Row9::REG`` is negated it
-    times the register form against the shared-memory form at each size.
+  * rows 16, 15 and 14, the structured route's kernels: both builds on
+    this checkout's inputs of route B's first calls of rows 16 and 15
+    (``solve_batched`` with ``IPMConfig(use_pallas=True)`` on the
+    flagship's dims without a static ``idxb``; row 14 on the effective
+    Hessian row 16 assembles there) in float32 and float64 at NZ 11 (the
+    flagship), 12 (nu=4) and 19 (nx=16): bits, ms a call in turns, ptxas
+    and the launch layout; then route B (float32, float64) and the
+    structured soft IPM's kernel backend (``solve_batched_soft`` at
+    ``IPMConfig(k_max=8, mu0=100, mu_tol=0, use_pallas=True)`` without
+    ``idxbs``, float32 and float64) of both checkouts: bits per field, ms
+    a batch in turns, one profiled call each (device busy ms, idle share,
+    rows 16 + 15's summed ms and launches).
+  * the two forms of rows 9 and 16: ``factor_solve_folded_flat`` on the
+    flat engine's first call and ``factor_solve_folded`` on route B's, in
+    float32 and float64 at NZ 6 to 19 (``FORM_CASES``), captured through
+    the plain versions on the CPU, handed to both builds: bits, ms a call
+    in turns, each build's form and ptxas lines.  Against a copy of this
+    checkout whose ``Row9::REG`` is negated it times the register form
+    against the shared-memory form at each size.
 
 Imports no JAX.  ``--other`` is a directory holding the other checkout's
 ``hpmpc_tpu_torch/`` (for the parent commit: ``git archive HEAD~1
@@ -153,18 +166,20 @@ Runs on the card unless asked for the CPU (plain versions; keep
         --sections refine                 # rows 11 and 13 and their routes
     python3 -m hpmpc_tpu_torch.tools.compare_builds --other _archive/parent \\
         --sections sweeps                 # rows 9 and 10 and their routes
+    python3 -m hpmpc_tpu_torch.tools.compare_builds --other _archive/parent \\
+        --sections structured             # rows 16, 15, 14 and their routes
     python3 -m hpmpc_tpu_torch.tools.compare_builds --other _archive/swap \\
-        --sections forms                  # row 9's two forms
+        --sections forms                  # rows 9 and 16: both forms
     python3 -m hpmpc_tpu_torch.tools.compare_builds --other DIR \\
         --device cpu --batch 16 --band-batch 8
 
 (``_archive/swap``: ``git archive HEAD hpmpc_tpu_torch`` unpacked there,
-its ``csrc/factor_solve_flat.cu`` edited so that ``Row9::REG`` is the
-negation of its expression: ``static constexpr bool REG = !(...);``.)
+its ``csrc/folded_team.cuh`` edited so that ``Row9::REG`` is the negation
+of its expression: ``static constexpr bool REG = !(...);``.)
 
 ``--sections`` picks any of ``resident``, ``routes``, ``mega``, ``parity``,
-``flat``, ``band``, ``tree``, ``refine``, ``sweeps``, ``forms`` (default:
-all). The resident section also
+``flat``, ``band``, ``tree``, ``refine``, ``sweeps``, ``structured``,
+``forms`` (default: all). The resident section also
 runs rows 1 and 1s at the NZ=19 shape (nx=16, nu=3; float32: the hard
 problem with ngN=8 and the soft one, N=30), bits and ms.
 
@@ -213,6 +228,14 @@ SWEEPS = {"factor_solve_folded_flat": "factor_solve_folded_flat_fused",
 #: rows 9 and 10's kernels as the profiler names them (both builds)
 SWEEP_PROFILE = {"row 9": r"\bfactor_solve_flat(_smem)?_kernel\b",
                  "row 10": r"\bsolve_flat_kernel\b"}
+#: rows 16 and 15, the structured route's kernel backend
+STRUCT = ("factor_solve_folded", "solve_batched")
+#: the structured route's stage shapes, (nu, nx): NZ 11 (the flagship), 12
+#: and 19 (the engine envelope's last)
+STRUCT_SHAPES = ((3, 8), (4, 8), (3, 16))
+#: rows 16 (both forms) and 15 as the profiler names them (both builds)
+STRUCT_PROFILE = {"row 16": r"\bfactor_solve_folded(_smem)?_kernel\b",
+                  "row 15": r"\bsolve_batched_kernel\b"}
 
 
 def _load_other(root: pathlib.Path):
@@ -270,8 +293,8 @@ def _diff(a, b):
 
 
 SECTIONS = ("resident", "routes", "mega", "parity", "flat", "band", "tree",
-            "refine", "sweeps", "forms")
-#: row 9's two forms (``struct Row9`` in csrc/factor_solve_flat.cu): the
+            "refine", "sweeps", "structured", "forms")
+#: row 9's two forms (``struct Row9`` in csrc/folded_team.cuh): the
 #: (dtype, nu, nx) of NZ 6, 11 (the flagship), 12-14 and 19 (the engine
 #: envelope's last)
 FORM_CASES = (("float32", 2, 4), ("float32", 3, 8), ("float32", 3, 10),
@@ -308,8 +331,8 @@ def main() -> int:
     scales = 1.0 + 0.05 * rng.standard_normal(B)
     soft_scales = 1.0 + 0.02 * np.random.default_rng(0).standard_normal(B)
 
-    def flagship(m, dt, nx=8, ngN=8):
-        dims, qp = m["ms"].mass_spring_qp(nx, 3, 30, ngN=ngN, dtype=dt,
+    def flagship(m, dt, nx=8, ngN=8, nu=3):
+        dims, qp = m["ms"].mass_spring_qp(nx, nu, 30, ngN=ngN, dtype=dt,
                                           device=dev)
         qpb = m["batch"].broadcast_qp(qp, B)
         sc = torch.as_tensor(scales, dtype=dt, device=dev)
@@ -397,9 +420,14 @@ def main() -> int:
                       ("refine_flat", dict(d2, NG=1)),
                       ("soft_step_flat", dict(NZ=d19s.NZ, NB=d19s.NB,
                                               NS=soft19.ns_mask.shape[-1]))]
+        if "structured" in sections:
+            # rows 9 and 10 too: timed on the same inputs, the factor split
+            specs += [(k, dict(NU=nu, NX=nx)) for nu, nx in STRUCT_SHAPES
+                      for k in STRUCT + ("factor_solve_flat", "solve_flat")]
         if "forms" in sections:
-            specs += [("factor_solve_flat", dict(NU=nu, NX=nx))
-                      for nu, nx in sorted({c[1:] for c in FORM_CASES})]
+            specs += [(k, dict(NU=nu, NX=nx))
+                      for nu, nx in sorted({c[1:] for c in FORM_CASES})
+                      for k in ("factor_solve_flat", "factor_solve_folded")]
         if "tree" in sections:
             # nx=4 nu=2: NZ=6, two input boxes
             specs += [("tree_sweeps", dict(NU=2, NX=4)),
@@ -445,6 +473,8 @@ def main() -> int:
         out["refine"] = _refine(trees, dev, flagship)
     if "sweeps" in sections:
         out["sweeps"] = _sweeps(trees, dev, flagship, soft_flagship)
+    if "structured" in sections:
+        out["structured"] = _structured(trees, dev, flagship, soft_flagship)
     if "forms" in sections:
         out["forms"] = _forms(trees, dev, scales)
     print(json.dumps(out), flush=True)
@@ -880,6 +910,20 @@ def _turns(torch, fns: dict, reps: int) -> dict:
         torch.cuda.synchronize()
         times[k].append(start.elapsed_time(end) / reps)
     return times
+
+
+def _time(torch, fn, reps: int = 20) -> float:
+    """ms a call of ``fn``, CUDA events after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def _profile(torch, fn, kernel=r"\bcholesky_kernel\b", parts=None) -> dict:
@@ -1362,12 +1406,13 @@ def _refine(trees, dev, flagship):
     return out
 
 
-def _sweep_inputs(m, run):
-    """The first and the last call of rows 9 and 10 in ``run()`` on the
-    checkout ``m``: {(name, "first" / "last"): (args, kwargs)}."""
+def _sweep_inputs(m, run, names=tuple(SWEEPS)):
+    """The first and the last call of the wrappers ``names`` (rows 9 and
+    10) in ``run()`` on the checkout ``m``: {(name, "first" / "last"):
+    (args, kwargs)}."""
     sk = m["sk"]
     calls = {}
-    saved = {k: getattr(sk, k) for k in SWEEPS}
+    saved = {k: getattr(sk, k) for k in names}
 
     def spy(name, fn):
         def call(*a, **k):
@@ -1508,6 +1553,129 @@ def _sweeps(trees, dev, flagship, soft_flagship):
 
 
 
+def _structured(trees, dev, flagship, soft_flagship):
+    """Rows 16, 15 and 14: both builds on this checkout's inputs of route
+    B's first calls at ``STRUCT_SHAPES`` in float32 and float64, bits, ms
+    a call in turns, ptxas and the launch layout; then route B and the
+    structured soft kernel backend of both checkouts on the flagship: bits
+    per field, ms a batch in turns, one profile each (busy ms, idle share,
+    rows 16 + 15's ms and launches)."""
+    import torch
+
+    this = trees["this"]
+    out = {"bitwise_equal": {}, "max_abs_diff": {}, "ms": {}, "layout": {},
+           "route_bitwise_equal": {}, "route_ms": {}, "route_profile": {}}
+
+    def route(m, key, dt, **kw):
+        """solve() of route ``key`` on the checkout ``m``: route B (the
+        flagship's dims without a static idxb) or the structured soft IPM's
+        kernel backend (the soft flagship, no idxbs)."""
+        IPMConfig = m["ipm"].IPMConfig
+        if key.startswith("soft"):
+            d, q, sb, _ = soft_flagship(m, dt, **kw)
+            c = IPMConfig(k_max=8, mu0=100.0, mu_tol=0.0, use_pallas=True)
+            return lambda: m["batch"].solve_batched_soft(d, q, sb, c,
+                                                         idxbs=None)
+        d, q = flagship(m, dt, **kw)
+        d = dataclasses.replace(d, idxb=None)
+        c = IPMConfig(use_pallas=True)
+        return lambda: m["batch"].solve_batched(d, q, c)
+
+    for dt in (torch.float32, torch.float64):
+        for nu, nx in STRUCT_SHAPES:
+            what = f"route B {str(dt)[6:]} NZ={nu + nx} (nu={nu}, nx={nx})"
+            calls = _sweep_inputs(this, route(this, "B", dt, nu=nu, nx=nx),
+                                  STRUCT)
+            a16, k16 = calls[("factor_solve_folded", "first")]
+            H, dvec, ngl, ids, g, F, b, NU = a16
+            cases = [("factor_solve_folded", a16, k16),
+                     ("solve_batched",) + calls[("solve_batched", "first")],
+                     ("factor_solve_batched",
+                      (this["sk"].whole_hessian(H, dvec, ngl, ids, nu + nx),
+                       g, F, b, NU), {})]
+            for name, a, k in cases:
+                label = f"{name} {what} first call"
+                got = [getattr(m["sk"], name)(*_clone(a), **k)
+                       for m in trees.values()]
+                same, dmax = _diff(*got)
+                out["bitwise_equal"][label] = same
+                out["max_abs_diff"][label] = dmax
+                line = (f"{label}, this vs other build on the same inputs: "
+                        f"bitwise equal {same} (max |diff| {dmax:.3e})")
+                if not same:
+                    line += f"; first apart: {_first_apart(*got)}"
+                if dev.type == "cuda":
+                    fns = {lbl: (lambda m=m, name=name, a=a, k=k: getattr(
+                        m["sk"], name)(*a, **k)) for lbl, m in trees.items()}
+                    ms = _turns(torch, fns, reps=20)
+                    out["ms"][label] = ms
+                    line += "; ms a call (other, this, this, other): " + (
+                        ", ".join(f"{v:.4f}" for v in (
+                            ms["other"][0], *ms["this"], ms["other"][1])))
+                print(line, flush=True)
+            if dev.type == "cuda":
+                # the same functions on the split factor in this build: row
+                # 9 on row 16's inputs, row 10 on row 15's with the factor
+                # split into Ll and Lxx
+                sk_ = this["sk"]
+                L, g2, F2, b2, Pb, _ = calls[("solve_batched", "first")][0]
+                split = (L[:, :, :NU].contiguous(),
+                         L[:, NU:, NU:].contiguous())
+                kw = dict(NU=NU, NZ=nu + nx, NX=nx)
+                ms9 = _time(torch, lambda: sk_.factor_solve_folded_flat(
+                    H, dvec, ngl, ids, g, F, b, **kw, want_pi=True))
+                ms10 = _time(torch, lambda: sk_.solve_flat(
+                    *split, Pb, g2, F2, b2, **kw))
+                out["ms"][f"row 9 {what}"] = ms9
+                out["ms"][f"row 10 {what}"] = ms10
+                print(f"{what}, this build on the same inputs with the split "
+                      f"factor: row 9 (want_pi) {ms9:.4f} ms, row 10 "
+                      f"{ms10:.4f} ms a call", flush=True)
+                lay = dict(row16=this["sk"].folded_layout(nu, nx, 30, dt),
+                           row15=this["sk"].resolve_layout(
+                               "solve_batched", 30, dt, NU=nu, NX=nx))
+                out["layout"][what] = lay
+                print(f"{what}: this build's layout {lay}", flush=True)
+    if dev.type != "cuda":
+        return out
+    out["ptxas"] = {lbl: _ptxas(m, "", "factor_solve_folded")
+                    + _ptxas(m, "", "solve_batched")
+                    for lbl, m in trees.items()}
+    for lbl, lines in out["ptxas"].items():
+        for line in lines:
+            print(f"ptxas {lbl}: {line}", flush=True)
+    for key, dt in (("B f32", torch.float32), ("B f64", torch.float64),
+                    ("soft kernel backend f32", torch.float32),
+                    ("soft kernel backend f64", torch.float64)):
+        fns = {lbl: route(m, key, dt) for lbl, m in trees.items()}
+        sols = {lbl: fn() for lbl, fn in fns.items()}
+        t, o = sols["this"], sols["other"]
+        fields = {f: _diff(getattr(t, f), getattr(o, f))[0]
+                  for f in t._fields}
+        out["route_bitwise_equal"][key] = all(fields.values())
+        print(f"route {key}, this vs other: bitwise equal per field "
+              f"{fields}", flush=True)
+        ms = _turns(torch, fns, reps=3)
+        out["route_ms"][key] = ms
+        print(f"route {key} ms a batch (other, this, this, other): "
+              + ", ".join(f"{v:.3f}" for v in (
+                  ms["other"][0], *ms["this"], ms["other"][1])), flush=True)
+        prof = {lbl: _profile(torch, fn, STRUCT_PROFILE["row 16"],
+                              parts={"row 15": STRUCT_PROFILE["row 15"]})
+                for lbl, fn in fns.items()}
+        out["route_profile"][key] = prof
+        for lbl in ("other", "this"):
+            p = prof[lbl]
+            print(f"route {key} profile, {lbl}: wall {p['wall']:.3f} ms, "
+                  f"device busy {p['busy']:.3f} ms (idle share "
+                  f"{p['idle']:.1%}), rows 16 + 15 "
+                  f"{p['kern_ms'] + p['parts']['row 15'][0]:.3f} ms (row 16 "
+                  f"{p['kern_ms']:.3f} in {p['kern_n']:.0f}, row 15 "
+                  f"{p['parts']['row 15'][0]:.3f} in "
+                  f"{p['parts']['row 15'][1]:.0f})", flush=True)
+    return out
+
+
 def _to(x, dev):
     """``x`` (tensors, nested in tuples and lists) on ``dev``."""
     import torch
@@ -1520,19 +1688,26 @@ def _to(x, dev):
 
 
 def _forms(trees, dev, scales):
-    """Row 9 at the ``FORM_CASES`` (N=30, box-only mass-spring chains,
-    ``b`` scaled as the flagship's) on the first call of the ``"flat"``
-    engine (``IPMConfig(iter_ref=1, use_pallas=True)``: route E in
-    float64), captured through the plain versions on the CPU and moved to
-    ``dev``:
+    """Rows 9 and 16 at the ``FORM_CASES`` (N=30, box-only mass-spring
+    chains, ``b`` scaled as the flagship's): row 9 on the first call of
+    the ``"flat"`` engine (``IPMConfig(iter_ref=1, use_pallas=True)``:
+    route E in float64), row 16 on route B's (``IPMConfig(k_max=1,
+    use_pallas=True)`` on the dims without a static ``idxb``), each
+    captured through the plain versions on the CPU and moved to ``dev``:
     both builds on the same inputs, bits, ms a call in turns, each build's
     form (the layout's ``registers``) and ptxas lines.  With ``--other`` a
     copy of this checkout whose ``Row9::REG`` is negated, each shape runs
-    both forms of row 9."""
+    both forms of rows 9 and 16."""
     import torch
 
     this = trees["this"]
     out = {"bitwise_equal": {}, "ms": {}, "registers": {}, "ptxas": {}}
+    rows = (("row 9", "factor_solve_folded_flat", "factor_flat_layout",
+             "factor_solve_flat", "the flat engine's",
+             dict(k_max=1, iter_ref=1, use_pallas=True), True),
+            ("row 16", "factor_solve_folded", "folded_layout",
+             "factor_solve_folded", "route B's",
+             dict(k_max=1, use_pallas=True), False))
     for dname, nu, nx in FORM_CASES:
         dt = getattr(torch, dname)
         dims, qp = this["ms"].mass_spring_qp(nx, nu, 30, dtype=dt,
@@ -1540,41 +1715,43 @@ def _forms(trees, dev, scales):
         qpb = this["batch"].broadcast_qp(qp, len(scales))
         sc = torch.as_tensor(scales, dtype=dt)
         qpb = dataclasses.replace(qpb, b=qpb.b * sc[:, None, None])
-        cfg = this["ipm"].IPMConfig(k_max=1, iter_ref=1, use_pallas=True)
-        calls = _sweep_inputs(
-            this, lambda: this["batch"].solve_batched(dims, qpb, cfg))
-        a, k = calls[("factor_solve_folded_flat", "first")]
-        a = _to(a, dev)
-        label = f"row 9 {dname} NZ={nu + nx} (nu={nu}, nx={nx})"
-        got = [m["sk"].factor_solve_folded_flat(*_clone(a), **k)
-               for m in trees.values()]
-        same, dmax = _diff(*got)
-        out["bitwise_equal"][label] = same
-        line = (f"{label}, the flat engine's first call, this vs other "
-                f"build: "
-                f"bitwise equal {same} (max |diff| {dmax:.3e})")
-        if dev.type == "cuda":
-            regs = {lbl: m["sk"].factor_flat_layout(nu, nx, 30, dt)[
-                "registers"] for lbl, m in trees.items()}
-            out["registers"][label] = regs
-            line += f"; register form (1) or shared-memory form (0): {regs}"
-            fns = {lbl: (lambda m=m: m["sk"].factor_solve_folded_flat(
-                *a, **k)) for lbl, m in trees.items()}
-            ms = _turns(torch, fns, reps=20)
-            out["ms"][label] = ms
-            line += "; ms a call (other, this, this, other): " + ", ".join(
-                f"{v:.4f}" for v in (ms["other"][0], *ms["this"],
-                                     ms["other"][1]))
-        print(line, flush=True)
-        if dev.type == "cuda":
-            for lbl, m in trees.items():
-                lines = [x for x in _ptxas(m, f"NU{nu}_NX{nx}_",
-                                           "factor_solve_flat")
-                         if "fused" not in x
-                         and ("Id" if dname == "float64" else "If") in x]
-                out["ptxas"][f"{label} {lbl}"] = lines
-                for x in lines:
-                    print(f"ptxas {lbl}: {x}", flush=True)
+        for row, name, layout, lib, which, cfg_kw, idxb in rows:
+            cfg = this["ipm"].IPMConfig(**cfg_kw)
+            d = dims if idxb else dataclasses.replace(dims, idxb=None)
+            calls = _sweep_inputs(
+                this, lambda: this["batch"].solve_batched(d, qpb, cfg),
+                (name,))
+            a, k = calls[(name, "first")]
+            a = _to(a, dev)
+            label = f"{row} {dname} NZ={nu + nx} (nu={nu}, nx={nx})"
+            got = [getattr(m["sk"], name)(*_clone(a), **k)
+                   for m in trees.values()]
+            same, dmax = _diff(*got)
+            out["bitwise_equal"][label] = same
+            line = (f"{label}, {which} first call, this vs other "
+                    f"build: bitwise equal {same} (max |diff| {dmax:.3e})")
+            if dev.type == "cuda":
+                regs = {lbl: getattr(m["sk"], layout)(nu, nx, 30, dt)[
+                    "registers"] for lbl, m in trees.items()}
+                out["registers"][label] = regs
+                line += (f"; register form (1) or shared-memory form (0): "
+                         f"{regs}")
+                fns = {lbl: (lambda m=m: getattr(m["sk"], name)(*a, **k))
+                       for lbl, m in trees.items()}
+                ms = _turns(torch, fns, reps=20)
+                out["ms"][label] = ms
+                line += "; ms a call (other, this, this, other): " + (
+                    ", ".join(f"{v:.4f}" for v in (
+                        ms["other"][0], *ms["this"], ms["other"][1])))
+            print(line, flush=True)
+            if dev.type == "cuda":
+                for lbl, m in trees.items():
+                    lines = [x for x in _ptxas(m, f"NU{nu}_NX{nx}_", lib)
+                             if "fused" not in x
+                             and ("Id" if dname == "float64" else "If") in x]
+                    out["ptxas"][f"{label} {lbl}"] = lines
+                    for x in lines:
+                        print(f"ptxas {lbl}: {x}", flush=True)
     return out
 
 

@@ -770,20 +770,45 @@ def _struct_capture(monkeypatch, dims, qpb, cfg):
     return calls
 
 
-@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("ngN", [0, 4])
-def test_structured_kernels_match_plain(cuda, monkeypatch, dtype, ngN):
+# Rows 16 and 14 run row 9's team (4 lanes an instance to NZ=12, 8 past it,
+# 32 / team instances a one-warp block) in the register form (f32; f64 to
+# NZ=11) or the shared-memory form (f64 past NZ=11); row 15 row 10's
+# (hp::ReSolve, the cached-Pb mode on the full factor).  Cases (dtype, nx,
+# nu, N, ng, ngN, B): the flagship's stage (NZ=11) in both dtypes with no ng
+# stage and with the ng block at N; f64 NZ=12 (nu=4) and NZ=19 (nx=16), the
+# shared-memory form, and f32 NZ=19, the register form at 8 lanes; N=1 and
+# N=2; ng rows on the interior stage 1 and at N=2 (mass_spring_qp's ng=1
+# bounds x_0 on stages 1..N-1: n_ng = 2); B=37 leaves the last block
+# ragged (a team past the batch), B=1 one instance in a block.
+_STRUCT_CASES = [
+    (torch.float64, 8, 3, 4, 0, 0, 37), (torch.float64, 8, 3, 4, 0, 4, 37),
+    (torch.float32, 8, 3, 4, 0, 0, 37), (torch.float32, 8, 3, 4, 0, 4, 37),
+    (torch.float64, 8, 4, 4, 0, 4, 37), (torch.float64, 16, 3, 4, 0, 4, 37),
+    (torch.float64, 16, 3, 4, 0, 0, 1), (torch.float32, 16, 3, 4, 0, 4, 37),
+    (torch.float64, 8, 3, 1, 0, 0, 37), (torch.float32, 8, 3, 1, 0, 0, 37),
+    (torch.float64, 8, 3, 2, 1, 1, 37), (torch.float32, 8, 3, 2, 1, 1, 37)]
+
+
+@pytest.mark.parametrize("dtype,nx,nu,N,ng,ngN,B", _STRUCT_CASES)
+def test_structured_kernels_match_plain(cuda, monkeypatch, dtype, nx, nu, N,
+                                        ng, ngN, B):
     """Rows 16 and 15 on the arguments of the structured solve's first
     calls (the initial iterate), row 14 on the effective Hessian row 16
-    assembles, B=37 so the last warp is ragged; one call each, so the
-    tolerance of the mega kernels' check.  Row 14 and row 16 also agree
-    with each other."""
-    dims, qpb = _batch(cuda, dtype, 4, ngN, 37)
+    assembles; one call each, so the tolerance of the mega kernels'
+    check.  Row 14 and row 16 also agree with each other."""
+    dims, qp = mass_spring_qp(nx, nu, N, ng=ng, ngN=ngN, dtype=dtype,
+                              device=cuda)
+    qpb = pbatch.broadcast_qp(qp, B)
+    rng = np.random.default_rng(0)
+    sc = torch.as_tensor(1 + 0.02 * rng.standard_normal(B), dtype=dtype,
+                         device=cuda)
+    qpb = dataclasses.replace(qpb, b=qpb.b * sc[:, None, None])
     calls = _struct_capture(monkeypatch, dims, qpb,
                             IPMConfig(k_max=1, use_pallas=True))
     assert sorted(calls) == ["factor_solve_folded", "solve_batched"]
     a16, k16 = calls["factor_solve_folded"]
     H, dvec, ngl, ids, g, F, b, NU = a16
+    assert len(ids) == (N - 1) * (ng > 0) + (ngN > 0), ids
     cases = [("factor_solve_folded", a16, k16),
              ("solve_batched",) + calls["solve_batched"],
              ("factor_solve_batched",
@@ -807,14 +832,26 @@ def test_structured_kernels_match_plain(cuda, monkeypatch, dtype, ngN):
                                    outs["factor_solve_folded"])):
         scale = max(1.0, float(y.abs().max()))
         assert float((x - y).abs().max()) <= _MEGA_TOL[dtype] * scale, i
+    # the factor's strictly upper part and eu past NU are written as 0
+    L, eu = outs["factor_solve_folded"][2], outs["factor_solve_folded"][3]
+    upper = torch.triu(torch.ones(dims.NZ, dims.NZ, dtype=torch.bool,
+                                  device=cuda), 1)
+    assert not bool(L[:, upper].any())
+    assert not bool(eu[:, NU:].any())
+    lay = sk.folded_layout(NU, dims.NX, N, dtype)
+    assert lay["team"] * lay["instances"] == lay["threads"] == 32, lay
+    assert lay["registers"] == int(dtype == torch.float32 or dims.NZ <= 11)
 
 
-def test_structured_route_on_card_matches_cpu(cuda):
+@pytest.mark.parametrize("nx", [8, 16])
+def test_structured_route_on_card_matches_cpu(cuda, nx):
     """The structured IPM's kernel backend on the card vs the same call on
     the CPU (plain versions): float64, both phases, the ngN=4 block at
-    N=16, 40 instances; ~9 iterations amplify the two summation orders,
-    so 1e-6 of a field's scale, as the lanes engine's check."""
-    dims, qpb = _batch(cuda, torch.float64, 16, 4, 40)
+    N=16 (a feasible horizon), 40 instances, at NZ=11 (the register form
+    of rows 16/14) and NZ=19 (nx=16: their shared-memory form, 8 lanes
+    an instance); ~9 iterations amplify the two summation orders, so 1e-6
+    of a field's scale, as the lanes engine's check."""
+    dims, qpb = _batch(cuda, torch.float64, 16, 4, 40, nx=nx)
     cfg = IPMConfig(k_max=12, mu_tol=1e-10, use_pallas=True)
     n0 = {n: sk.LAUNCHES[n] for _, n in _STRUCT}
     p0 = {n: sk.PLAIN_CALLS[n] for _, n in _STRUCT}
